@@ -1,0 +1,34 @@
+"""PyTorch + CUDA port of the MRA-2 serving stack (reference: ``repro``).
+
+The JAX package ``repro`` is the reference implementation; this package
+mirrors its layout module by module (``repro_torch/core/mra_decode.py`` is
+the port of ``repro/core/mra_decode.py``, and so on) and never imports it.
+The serving path runs on an NVIDIA Hopper card: chunk/decode MRA-2
+attention goes through the hand-written CUDA kernel in
+``csrc/chunk_attn.cu`` (built at first use by ``kernels/build.py``).
+
+Entry points (``serve.Engine``, ``serve.cache.RingPagedKVCache``,
+``models.params.init_params``) run on ``cuda`` unless the caller passes
+``device="cpu"``; without a card and without that request they raise.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["resolve_device"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless asked otherwise.
+
+    ``None`` means the card; there is no silent fallback to the CPU, so a
+    run that expects the GPU fails loudly instead of measuring the wrong
+    device. Pass ``device="cpu"`` to run the plain PyTorch versions.
+    """
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch runs on CUDA by default and no CUDA device is "
+                "available; pass device='cpu' to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)

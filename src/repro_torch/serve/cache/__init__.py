@@ -1,0 +1,7 @@
+"""serve/cache: the cache protocol and the ring-paged KV backend (H = 2)."""
+from __future__ import annotations
+
+from .paged import RingPagedKVCache
+from .protocol import CacheBackend
+
+__all__ = ["CacheBackend", "RingPagedKVCache"]
