@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` (into
-``build/repro_torch/``) and drives the port's serving path on the card:
+``build/repro_torch/``, one nvcc per source, all at once) and drives the
+port's serving path and its training path on the card:
 
   1. device and build — the card's name and power limit, build seconds;
   2. kernel vs plain version — every CUDA kernel against its plain PyTorch
@@ -20,7 +21,22 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` (into
      torch.profiler breakdown of its decode and prefill dispatches;
   5. engine parity — the same engine with the plain version substituted for
      the kernel (in this script only): identical greedy streams at the smoke
-     size, identical first tokens at full width (4 layers, fp32).
+     size, identical first tokens at full width (4 layers, fp32);
+  6. block-sparse kernels vs plain — bsa_fwd, bsa_bwd_dq and bsa_bwd_dkv
+     against their plain twins on the same CUDA tensors, at the training
+     path's shapes and the smoke config's, bf16 and fp32, G in {1, 2}, pairs
+     from a real causal MRA-2 selection, and with padded keys, invalid pairs
+     and an unvisited query tile; every kernel run twice, bit-identical;
+  7. their timing at the main shapes beside the bounds, the plain versions
+     and, as a yardstick of exact attention (not the same function), causal
+     scaled_dot_product_attention forward + backward;
+  8. training at full width — qwen3-1.7b, 28 layers, remat="full", seq 4096,
+     batch 2, three steps of ``train()`` from random weights — with the
+     kernels' launches counted over exactly that run, then a torch.profiler
+     breakdown of one step;
+  9. training parity — the plain versions substituted for the kernels (in
+     this script only): losses over 3 steps at the smoke size, loss and
+     grad norm of one step at full width (4 layers), all fp32.
 
 One JSON line per phase; then the card line from nvidia-smi, the kernels
 line and, last, ``{"ok": true, "device": {...}}``. Any failed phase raises,
@@ -29,6 +45,8 @@ exits 2 before doing anything.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import itertools
 import json
 import subprocess
@@ -44,10 +62,19 @@ DEVICE = "cuda"
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOP_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
 ATOL, RTOL, TIE = 2e-5, 1e-5, 1e-4
 MAIN = dict(B=4, Hkv=8, G=2, D=128, b=128, nb=32, m=16)  # qwen3-1.7b serving
 SMOKE = dict(B=4, Hkv=2, G=2, D=16, b=16, nb=4, m=2)     # its smoke config
 WIDTHS = ((1, "latency"), (128, "throughput"), (5, "throughput"))
+# block-sparse attention of qwen3-1.7b train_4k (batch cut to 2) and of its
+# smoke config; Hq query heads, G per KV head
+BSA_MAIN = dict(B=2, Hq=16, n=4096, d=128, b=128, bpr=4)
+BSA_SMOKE = dict(B=2, Hq=4, n=256, d=16, b=16, bpr=2)
+# fp32 sums in another order and FMA contraction: normalized numerator and
+# max-scaled gradients at rtol/atol 1e-4, the stabilizer mt at abs 1e-5
+BSA_TOL, MT_TOL = 1e-4, 1e-5
+TRAIN = dict(seq=4096, batch=2, steps=3)  # train_4k with the batch cut to 2
 
 
 def emit(obj) -> None:
@@ -299,9 +326,10 @@ def phase_engine_full_width(torch, chunk_attn):
     return launches, eng
 
 
-def _profile(torch, fn, steps):
+def _profile(torch, fn, steps, kernels=("chunk_attn",)):
     """Wall ms per call without the profiler, then torch.profiler over the
-    same calls: device ms per call, busy share, and the top kernels."""
+    same calls: device ms per call, busy share, the named kernels' ms and
+    the top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -329,7 +357,8 @@ def _profile(torch, fn, steps):
     return {"wall_ms": wall_ms, "profiled_wall_ms": prof_wall_ms,
             "device_ms": device_ms,
             "busy_share": device_ms / wall_ms if wall_ms else None,
-            "chunk_attn_ms": sum(ms for k, ms in rows if "chunk_attn" in k),
+            **{f"{name}_ms": sum(ms for k, ms in rows if name in k)
+               for name in kernels},
             "top": [[k[:100], ms] for k, ms in rows[:10]]}
 
 
@@ -412,6 +441,339 @@ def phase_engine_parity(torch, chunk_attn):
         raise AssertionError("full-width first tokens differ kernel vs plain")
 
 
+# --------------------------------------------------------------------------- #
+# training path: block-sparse attention kernels and the train loop
+# --------------------------------------------------------------------------- #
+BSA_KERNELS = ("bsa_fwd", "bsa_bwd_dq", "bsa_bwd_dkv")
+
+
+def _reset_bsa(bsa):
+    for name in BSA_KERNELS:
+        getattr(bsa, name).launches = 0
+
+
+def _bsa_launches(bsa):
+    return {name: getattr(bsa, name).launches for name in BSA_KERNELS}
+
+
+def bsa_case(torch, sh, G, dtype, seed, edited):
+    """(q, k, v, c, x, y, flags, km, scale) for one comparison, numpy from
+    ``seed``; pairs from a real causal MRA-2 selection (``select_blocks``).
+    ``edited`` pads the keys of batch row 1, invalidates every 7th pair and
+    leaves query block 1 of BHG row 0 without pairs."""
+    from repro_torch.core.mra import MraConfig, kernel_pairs, select_blocks
+
+    r = np.random.default_rng(seed)
+    B, Hq, n, d, b = (sh[k] for k in ("B", "Hq", "n", "d", "b"))
+    Hkv = Hq // G
+    q = r.standard_normal((B, Hkv, G, n, d), np.float32)
+    k = r.standard_normal((B, Hkv, n, d), np.float32)
+    v = r.standard_normal((B, Hkv, n, d), np.float32)
+    lengths = np.array([n, n - (3 * b) // 2 if edited else n])
+    key_mask = torch.as_tensor(np.arange(n)[None] < lengths[:, None],
+                               device=DEVICE)
+    q, k, v = (torch.from_numpy(a).to(DEVICE, dtype) for a in (q, k, v))
+    cfg = MraConfig(block_size=b, blocks_per_row=sh["bpr"], causal=True)
+    scale = d ** -0.5
+    sel = select_blocks(q, k, v, key_mask, cfg, scale)
+    c, x, y, flags = kernel_pairs(sel, causal=True)
+    if edited:
+        flags[:, ::7] &= ~1
+        x[0] = torch.where(x[0] == 1, 0, x[0])
+    km = key_mask[:, None].expand(B, Hkv, n).reshape(B * Hkv, n)
+    return (q.reshape(B * Hkv * G, n, d), k.reshape(B * Hkv, n, d),
+            v.reshape(B * Hkv, n, d), c, x.contiguous(), y, flags.contiguous(),
+            km.to(torch.int32).contiguous(), scale)
+
+
+def _scaled_close(torch, got, want, tol):
+    """(max |err|, ok) of got vs want, both divided by max |want|."""
+    s = float(want.abs().max()) or 1.0
+    ok = torch.isclose(got / s, want / s, rtol=tol, atol=tol).all()
+    return float((got - want).abs().max()), bool(ok)
+
+
+def phase_bsa_vs_plain(torch, bsa):
+    worst = dict.fromkeys(BSA_KERNELS, 0.0)
+    worst_mt, n, unvisited = 0.0, 0, 0
+    for (name, sh), dtype, G, edited in itertools.product(
+            (("main", BSA_MAIN), ("smoke", BSA_SMOKE)),
+            (torch.bfloat16, torch.float32), (1, 2), (False, True)):
+        n += 1
+        q, k, v, c, x, y, fl, km, scale = bsa_case(torch, sh, G, dtype,
+                                                   SEED + n, edited)
+        b, nb = sh["b"], sh["n"] // sh["b"]
+        pq = bsa.group_by_query(x, y, fl, nb)
+        pk = bsa.group_by_key(x, y, fl, G, nb)
+        kw = dict(scale=scale, block_size=b)
+        runs = [bsa.bsa_fwd(q, k, v, c, pq, km, **kw) for _ in range(2)]
+        ref = bsa.block_sparse_attention_ref(q, k, v, x, y, fl, c, km, **kw)
+        r = np.random.default_rng(SEED + 100 + n)
+        do = torch.from_numpy(r.standard_normal(tuple(q.shape), np.float32)).to(DEVICE)
+        dr = torch.from_numpy(r.standard_normal(tuple(q.shape[:2]), np.float32)).to(DEVICE)
+        mt = runs[0][2]
+        grads = [(bsa.bsa_bwd_dq(q, k, v, mt, do, dr, pq, km, **kw),
+                  *bsa.bsa_bwd_dkv(q, k, v, mt, do, dr, pk, km, **kw))
+                 for _ in range(2)]
+        gref = bsa.block_sparse_attention_bwd_ref(q, k, v, c, x, y, fl, km,
+                                                  do, dr, **kw)
+        torch.cuda.synchronize()
+        label = f"{name} {dtype} G={G} edited={edited}"
+        for a, bb in zip(runs[0] + grads[0], runs[1] + grads[1]):
+            if not torch.equal(a, bb):
+                raise AssertionError(f"bsa kernels not bit-identical: {label}")
+        out, rs, mt = runs[0]
+        alive_k, alive_p = rs > 0, ref[1] > 0
+        if not torch.equal(alive_k, alive_p):
+            raise AssertionError(f"bsa_fwd live rows differ: {label}")
+        dead = ~alive_k
+        if bool(out[dead].any()) or bool(rs[dead].any()):
+            raise AssertionError(f"bsa_fwd dead rows not zero: {label}")
+        unvisited += int(dead.sum())
+        norm_k = torch.where(alive_k[..., None], out, 0.0) / torch.where(
+            alive_k, rs, 1.0)[..., None]
+        norm_p = torch.where(alive_p[..., None], ref[0], 0.0) / torch.where(
+            alive_p, ref[1], 1.0)[..., None]
+        err = float((norm_k - norm_p).abs().max())
+        mt_err = float((mt - ref[2]).abs().max())
+        ok = (bool(torch.isclose(norm_k, norm_p, rtol=BSA_TOL, atol=BSA_TOL).all())
+              and bool(torch.isclose(rs, ref[1], rtol=BSA_TOL, atol=BSA_TOL).all())
+              and mt_err <= MT_TOL)
+        if not ok or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"bsa_fwd != plain: {label}: normalized "
+                                 f"{err}, mt {mt_err}")
+        worst["bsa_fwd"] = max(worst["bsa_fwd"], err)
+        worst_mt = max(worst_mt, mt_err)
+        for kname, got, want in (("bsa_bwd_dq", grads[0][0], gref[0]),
+                                 ("bsa_bwd_dkv", grads[0][1], gref[1]),
+                                 ("bsa_bwd_dkv", grads[0][2], gref[2])):
+            gerr, gok = _scaled_close(torch, got, want, BSA_TOL)
+            if not gok:
+                raise AssertionError(f"{kname} != plain: {label}: {gerr}")
+            worst[kname] = max(worst[kname], gerr)
+    emit({"phase": "bsa_vs_plain", "cases": n, "rtol": BSA_TOL,
+          "atol": BSA_TOL, "mt_atol": MT_TOL, "max_abs_err": worst,
+          "max_mt_err": worst_mt, "unvisited_rows": unvisited,
+          "bit_identical_reruns": True})
+    return worst
+
+
+def _bsa_bounds(q, k, flags, nb, outputs, products):
+    """Least time for one block-sparse call: bytes (q, k, v, the pair lists
+    and their per-token inputs read once, outputs written once) over HBM vs
+    2·products·d operations per score entry the pairs need (b² for a valid
+    pair, b(b+1)/2 for a diagonal one: flags bit0 and bit1) over the bf16
+    tensor-core rate and the fp32 CUDA-core rate."""
+    BHG, n, d = q.shape
+    BHKV = k.shape[0]
+    b = n // nb
+    valid = (flags & 1) == 1
+    diag = int((valid & ((flags & 2) == 2)).sum())
+    full = int(valid.sum()) - diag
+    entries = full * b * b + diag * b * (b + 1) // 2
+    nbytes = (q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
+              + BHKV * n * 4 + outputs)
+    flops = 2 * products * entries * d
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    out = {"bytes": nbytes, "flops": flops, "full_pairs": full,
+           "diagonal_pairs": diag}
+    for label, rate in (("bf16", BF16_FLOP_PER_S), ("fp32", FP32_FLOP_PER_S)):
+        t_ops = flops / rate
+        out[f"bound_ms_{label}"] = 1e3 * max(t_bytes, t_ops)
+        out[f"bound_by_{label}"] = "bytes" if t_bytes >= t_ops else "operations"
+    return out
+
+
+def phase_bsa_timing(torch, bsa):
+    import torch.nn.functional as F
+
+    sh = BSA_MAIN
+    q, k, v, c, x, y, fl, km, scale = bsa_case(torch, sh, 2, torch.bfloat16,
+                                               SEED, False)
+    BHG, n, d = q.shape
+    BHKV = k.shape[0]
+    b, nb = sh["b"], n // sh["b"]
+    m = x.shape[1]
+    pairs = int((fl & 1).sum())
+    pq = bsa.group_by_query(x, y, fl, nb)
+    pk = bsa.group_by_key(x, y, fl, 2, nb)
+    kw = dict(scale=scale, block_size=b)
+    out, rs, mt = bsa.bsa_fwd(q, k, v, c, pq, km, **kw)
+    r = np.random.default_rng(SEED)
+    do = torch.from_numpy(r.standard_normal(tuple(q.shape), np.float32)).to(DEVICE)
+    dr = torch.from_numpy(r.standard_normal(tuple(q.shape[:2]), np.float32)).to(DEVICE)
+    lists = 3 * BHG * m * 4 + BHG * (nb + 1) * 4
+    res = {"fwd": {"ms": time_ms(torch, lambda: bsa.bsa_fwd(
+               q, k, v, c, pq, km, **kw), 20),
+               "plain_ms": time_ms(torch, lambda: bsa.block_sparse_attention_ref(
+                   q, k, v, x, y, fl, c, km, **kw), 5),
+               **_bsa_bounds(q, k, fl, nb, BHG * nb * 4 + lists
+                             + BHG * n * (d + 2) * 4, 2)}}
+    bwd_in = lists + BHG * n * (d + 2) * 4  # pair lists, do, dr, mt
+    plain_args = (q, k, v, c, x, y, fl, km, do, dr)
+    res["dq"] = {"ms": time_ms(torch, lambda: bsa.bsa_bwd_dq(
+        q, k, v, mt, do, dr, pq, km, **kw), 10),
+        "plain_ms": time_ms(torch, lambda: bsa.block_sparse_attention_bwd_dq_ref(
+            *plain_args, **kw), 5),
+        **_bsa_bounds(q, k, fl, nb, bwd_in + BHG * n * d * 4, 3)}
+    res["dkv"] = {"ms": time_ms(torch, lambda: bsa.bsa_bwd_dkv(
+        q, k, v, mt, do, dr, pk, km, **kw), 10),
+        "plain_ms": time_ms(torch, lambda: bsa.block_sparse_attention_bwd_dkv_ref(
+            *plain_args, **kw), 5),
+        **_bsa_bounds(q, k, fl, nb, bwd_in + 2 * BHKV * n * d * 4, 4)}
+
+    def both():
+        bsa.bsa_bwd_dq(q, k, v, mt, do, dr, pq, km, **kw)
+        bsa.bsa_bwd_dkv(q, k, v, mt, do, dr, pk, km, **kw)
+
+    plain_bwd = time_ms(torch, lambda: bsa.block_sparse_attention_bwd_ref(
+        *plain_args, **kw), 5)
+    res["bwd_pair"] = {"ms": time_ms(torch, both, 10), "plain_ms": plain_bwd,
+                       **_bsa_bounds(q, k, fl, nb, bwd_in + (
+                           BHG + 2 * BHKV) * n * d * 4, 5)}
+    # exact causal attention on the same q/k/v (KV heads repeated): a
+    # yardstick, not the same function; the port never calls it
+    B = sh["B"]
+    qs = q.reshape(B, -1, n, d).detach().requires_grad_(True)
+    ks, vs = (t.reshape(B, -1, n, d).repeat_interleave(2, dim=1)
+              .detach().requires_grad_(True) for t in (k, v))
+    go = torch.randn_like(qs)
+
+    def sdpa():
+        F.scaled_dot_product_attention(qs, ks, vs, is_causal=True).backward(go)
+
+    dense = time_ms(torch, sdpa, 10)
+    emit({"phase": "bsa_timing", "shape": BSA_MAIN, "dtype": "bfloat16",
+          "G": 2, "pairs": pairs, "pairs_per_row": m, "dense_sdpa_ms": dense,
+          "note": "plain_ms: dq and dkv time the plain backward's dq part "
+                  "and (dk, dv) part alone, bwd_pair the whole plain "
+                  "backward", **res})
+    return res, dense
+
+
+def phase_train_full_width(torch, bsa):
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.train import TrainConfig, train
+
+    cfg = get_config("qwen3-1.7b")
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=TRAIN["seq"],
+                                global_batch=TRAIN["batch"])
+    tc = TrainConfig(steps=TRAIN["steps"], seed=SEED)
+    steps = []
+
+    def on_metrics(step, m):
+        steps.append({"step": step, "loss": m["loss"],
+                      "grad_norm": m["grad_norm"], "lr": m["lr"],
+                      "seconds": m["step_time_s"],
+                      "tokens_per_s": shape.seq_len * shape.global_batch
+                      / m["step_time_s"]})
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_bsa(bsa)
+    t0 = time.perf_counter()
+    params, opt_state, _ = train(cfg, shape, tc, device=DEVICE,
+                                 on_metrics=on_metrics)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _bsa_launches(bsa)
+    emit({"phase": "train_full_width", "arch": cfg.name,
+          "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "param_dtype": cfg.param_dtype, "activ_dtype": cfg.activ_dtype,
+          "remat": cfg.remat, "attention": dataclasses.asdict(cfg.attention),
+          "seq_len": shape.seq_len, "batch": shape.global_batch,
+          "steps": steps, "wall_s": wall,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "kernel_launches": launches})
+    want = {"bsa_fwd": cfg.num_layers * tc.steps * 2,  # forward + remat
+            "bsa_bwd_dq": cfg.num_layers * tc.steps,
+            "bsa_bwd_dkv": cfg.num_layers * tc.steps}
+    if launches != want:
+        raise AssertionError(f"bsa launches {launches} != {want}")
+    if not all(np.isfinite([s["loss"], s["grad_norm"]]).all() for s in steps):
+        raise AssertionError(f"non-finite loss or grad norm: {steps}")
+    return launches, (cfg, tc, shape, params, opt_state)
+
+
+def phase_train_profile(torch, state):
+    """Where one full-width training step's time goes (kernel rows only)."""
+    from repro_torch.data import make_batch
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.train import make_train_step
+
+    cfg, tc, shape, params, opt_state = state
+    step_fn = make_train_step(cfg, tc, AdamW(), cosine_schedule(
+        tc.lr, tc.warmup, tc.steps))
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in
+             make_batch(cfg, shape, step=tc.steps, seed=tc.seed).items()}
+
+    def step():
+        nonlocal params, opt_state
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        float(metrics["loss"])
+
+    emit({"phase": "train_profile", "note": "ms per training step; "
+          "device_ms = summed kernel time from torch.profiler",
+          "train_step": _profile(torch, step, 1, kernels=BSA_KERNELS)})
+
+
+def _train_run(torch, bsa, cfg, shape, steps, plain):
+    """[(loss, grad_norm)] of ``train()``; ``plain`` substitutes the plain
+    versions for the kernels (here only)."""
+    from repro_torch.train import TrainConfig, train
+
+    def fwd(q, k, v, c, x, y, fl, km, scale, block_size):
+        return (*bsa.block_sparse_attention_ref(
+            q, k, v, x, y, fl, c, km, scale=scale, block_size=block_size), None)
+
+    def bwd(q, k, v, c, mt, pairs, x, y, fl, km, do, dr, scale, block_size):
+        return bsa.block_sparse_attention_bwd_ref(
+            q, k, v, c, x, y, fl, km, do, dr, scale=scale, block_size=block_size)
+
+    out = []
+    _reset_bsa(bsa)
+    with contextlib.ExitStack() as stack:
+        if plain:
+            stack.enter_context(mock.patch.object(bsa, "_forward", fwd))
+            stack.enter_context(mock.patch.object(bsa, "_backward", bwd))
+        train(cfg, shape, TrainConfig(steps=steps, seed=SEED, log_every=10**9),
+              device=DEVICE,
+              on_metrics=lambda s, m: out.append((m["loss"], m["grad_norm"])))
+    launches = sum(_bsa_launches(bsa).values())
+    if (launches == 0) != plain:
+        raise AssertionError(f"plain={plain} training made {launches} launches")
+    return np.array(out)
+
+
+def phase_train_parity(torch, bsa):
+    from repro_torch.configs import SHAPES, get_config, get_smoke_config
+
+    def rel(a, b):
+        return float(np.max(np.abs(a - b) / np.abs(b)))
+
+    small = get_smoke_config("qwen3-1.7b", activ_dtype="float32")
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=256, global_batch=2)
+    k, p = (_train_run(torch, bsa, small, shape, 3, plain) for plain in (False, True))
+    result = {"smoke": {"steps": 3, "loss_kernel": k[:, 0].tolist(),
+                        "loss_plain": p[:, 0].tolist(),
+                        "loss_rel": rel(k[:, 0], p[:, 0]),
+                        "grad_norm_rel": rel(k[:, 1], p[:, 1])}}
+    if result["smoke"]["loss_rel"] > 1e-5:
+        raise AssertionError(f"smoke training losses differ: {result}")
+    full4 = get_config("qwen3-1.7b", num_layers=4, activ_dtype="float32")
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=TRAIN["seq"],
+                                global_batch=TRAIN["batch"])
+    k, p = (_train_run(torch, bsa, full4, shape, 1, plain) for plain in (False, True))
+    result["full_width_4_layers"] = {
+        "loss_kernel": float(k[0, 0]), "loss_plain": float(p[0, 0]),
+        "grad_norm_kernel": float(k[0, 1]), "grad_norm_plain": float(p[0, 1]),
+        "loss_rel": rel(k[:, 0], p[:, 0]), "grad_norm_rel": rel(k[:, 1], p[:, 1])}
+    emit({"phase": "train_parity", "dtype": "float32", **result})
+    f = result["full_width_4_layers"]
+    if f["loss_rel"] > 1e-4 or f["grad_norm_rel"] > 1e-4:
+        raise AssertionError(f"full-width training differs: {f}")
+
+
 def main() -> int:
     import torch
 
@@ -421,6 +783,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import mra_decode as tmd
+    from repro_torch.kernels import block_sparse_attn as bsa
     from repro_torch.kernels import chunk_attn
 
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 products in fp32
@@ -432,8 +795,31 @@ def main() -> int:
     phase_profile(torch, eng)
     del eng
     phase_engine_parity(torch, chunk_attn)
+    bsa_err = phase_bsa_vs_plain(torch, bsa)
+    bsa_time, dense_ms = phase_bsa_timing(torch, bsa)
+    bsa_launches, state = phase_train_full_width(torch, bsa)
+    phase_train_profile(torch, state)
+    del state
+    torch.cuda.empty_cache()
+    phase_train_parity(torch, bsa)
     dec = timing["decode"]
     print(smi, flush=True)
+    train_kernels = []
+    for name, key, line in (("bsa_fwd", "fwd", 92), ("bsa_bwd_dq", "dq", 196),
+                            ("bsa_bwd_dkv", "dkv", 232)):
+        t = bsa_time[key]
+        train_kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/block_sparse_attn.cu",
+            "replaces": f"src/repro/kernels/block_sparse_attn.py:{line}",
+            "launches": bsa_launches[name], "max_abs_err": bsa_err[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms_bf16"], "bound_by": t["bound_by_bf16"],
+            "library_ms": None,
+            "bound_ms_fp32_rate": t["bound_ms_fp32"],
+            "bound_by_fp32_rate": t["bound_by_fp32"],
+            "dense_sdpa_ms": dense_ms,
+            "shape": "qwen3-1.7b train_4k, B=2, bf16, G=2"})
     emit({"kernels": [{
         "name": "chunk_attn", "route": "cuda",
         "source": "src/repro_torch/csrc/chunk_attn.cu",
@@ -443,7 +829,8 @@ def main() -> int:
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
         "library_ms": None, "shape": "decode C=1 (latency); chunk128 below",
         "chunk128": {k: timing["chunk128"][k] for k in
-                     ("ms", "plain_ms", "bound_ms", "bound_by")}}]})
+                     ("ms", "plain_ms", "bound_ms", "bound_by")}},
+        *train_kernels]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

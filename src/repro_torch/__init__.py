@@ -1,15 +1,22 @@
-"""PyTorch + CUDA port of the MRA-2 serving stack (reference: ``repro``).
+"""PyTorch + CUDA port of the MRA-2 serving and training stack
+(reference: ``repro``).
 
 The JAX package ``repro`` is the reference implementation; this package
 mirrors its layout module by module (``repro_torch/core/mra_decode.py`` is
 the port of ``repro/core/mra_decode.py``, and so on) and never imports it.
-The serving path runs on an NVIDIA Hopper card: chunk/decode MRA-2
-attention goes through the hand-written CUDA kernel in
-``csrc/chunk_attn.cu`` (built at first use by ``kernels/build.py``).
+Both paths of the dense decoder run on an NVIDIA Hopper card through
+hand-written CUDA kernels, built at first use by ``kernels/build.py``:
+
+  * serving — chunk/decode MRA-2 attention over the ring-paged cache,
+    ``csrc/chunk_attn.cu``;
+  * training — full-sequence MRA-2 attention, whose high-resolution term
+    runs the block-sparse forward, dq and dk/dv kernels of
+    ``csrc/block_sparse_attn.cu``.
 
 Entry points (``serve.Engine``, ``serve.cache.RingPagedKVCache``,
-``models.params.init_params``) run on ``cuda`` unless the caller passes
-``device="cpu"``; without a card and without that request they raise.
+``train.train``, ``models.params.init_params``) run on ``cuda`` unless the
+caller passes ``device="cpu"``; without a card and without that request
+they raise.
 """
 from __future__ import annotations
 

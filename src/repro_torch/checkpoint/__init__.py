@@ -1,0 +1,4 @@
+"""Checkpointing of the port (port of repro/checkpoint)."""
+from .ckpt import latest_step, restore, save
+
+__all__ = ["latest_step", "restore", "save"]

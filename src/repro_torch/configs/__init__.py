@@ -1,9 +1,9 @@
-"""Architecture registry of the port: the dense archs served so far."""
+"""Architecture registry of the port: the dense archs ported so far."""
 from __future__ import annotations
 
 import importlib
 
-from .base import ModelConfig
+from .base import SHAPES, ModelConfig, ShapeCfg
 
 _ARCH_MODULES = {
     "llama3.2-3b": "llama3_2_3b",
@@ -12,7 +12,8 @@ _ARCH_MODULES = {
 
 ARCHS = tuple(_ARCH_MODULES)
 
-__all__ = ["ARCHS", "ModelConfig", "get_config", "get_smoke_config"]
+__all__ = ["ARCHS", "SHAPES", "ModelConfig", "ShapeCfg", "get_config",
+           "get_smoke_config"]
 
 
 def _module(name: str):

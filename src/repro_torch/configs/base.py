@@ -1,8 +1,8 @@
-"""Model configuration schema for the dense family.
+"""Model and input-shape configuration schema for the dense family.
 
 Port of ``repro/configs/base.py``: the ``ModelConfig`` fields the dense
-decoder reads. MoE, recurrent, encoder and vision fields come with their
-families.
+decoder reads, and the ``ShapeCfg`` training input shape. MoE, recurrent,
+encoder and vision fields come with their families.
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ from repro_torch.core.attention import AttentionSpec
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense (the only family served yet)
+    family: str  # dense (the only family ported yet)
     num_layers: int
     d_model: int
     num_heads: int
@@ -24,6 +24,7 @@ class ModelConfig:
     d_ff: int
     vocab: int
     head_dim: int = 0  # 0 -> d_model // num_heads
+    causal: bool = True
     qkv_bias: bool = False
     qk_norm: bool = False
     norm: str = "rmsnorm"
@@ -41,6 +42,10 @@ class ModelConfig:
     # the reference keeps this config's layers stacked as (L, ...) arrays;
     # params_from_jax reads that layout (the port always holds a layer list)
     scan_layers: bool = False
+    # activation recomputation in training: "none" | "full" (each layer's
+    # forward runs again in the backward); the reference's "dots" policy
+    # has no port yet
+    remat: str = "none"
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
 
@@ -70,6 +75,15 @@ class ModelConfig:
         return -(-self.num_heads // t) * t
 
     @property
+    def kv_slots(self) -> int:
+        """KV slot count used by full-sequence attention (expanded for TP)."""
+        t = self.pad_attn_heads_to
+        if t <= 0 or (self.num_heads % t == 0
+                      and self.kv_heads % min(t, self.num_heads) == 0):
+            return self.kv_heads
+        return min(t, self.padded_heads)
+
+    @property
     def pdt(self) -> torch.dtype:
         return getattr(torch, self.param_dtype)
 
@@ -79,3 +93,14 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCfg:
+    """One input shape: the fields the data pipeline reads."""
+
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {"train_4k": ShapeCfg(4096, 256)}

@@ -21,6 +21,7 @@ CONFIG = ModelConfig(
     rope_theta=1e6,
     attention=AttentionSpec(kind="mra2", block_size=128, blocks_per_row=4,
                             decode_blocks=16),
+    remat="full",
     scan_layers=True,
 )
 
@@ -31,5 +32,6 @@ def smoke():
         d_ff=128, vocab=512,
         attention=AttentionSpec(kind="mra2", block_size=16, blocks_per_row=2,
                                 decode_blocks=2),
+        remat="none",
         scan_layers=False,
     )

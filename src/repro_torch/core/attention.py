@@ -1,9 +1,9 @@
-"""Attention dispatch for the serving path.
+"""Attention dispatch.
 
 Port of ``repro/core/attention.py``: models declare an ``AttentionSpec``;
-``decode_attention`` / ``chunk_attention`` route the kinds ``mra2``,
-``mra2_s`` (MRA-2 over the ring-paged cache) and ``full`` (exact softmax).
-Full-sequence ``self_attention`` comes with the training slice; the
+``self_attention`` (training, full sequence), ``decode_attention`` and
+``chunk_attention`` (serving, over the ring-paged cache) route the kinds
+``mra2``, ``mra2_s`` (MRA-2 / MRA-2-s) and ``full`` (exact softmax). The
 ``local`` kind and the baselines come with their families.
 """
 from __future__ import annotations
@@ -11,7 +11,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-from .mra import MraConfig
+from .mra import MraConfig, full_attention, mra2_attention
 from .mra_decode import (
     full_chunk_attention,
     full_decode_attention,
@@ -54,10 +54,12 @@ class AttentionSpec:
         """Decode-time selection budget (1 when coarse-only: own block)."""
         return 1 if self.coarse_only else self.decode_blocks
 
-    def mra_config(self) -> MraConfig:
+    def mra_config(self, causal: bool) -> MraConfig:
         return MraConfig(
             block_size=self.block_size,
+            blocks_per_row=1 if self.coarse_only else self.blocks_per_row,
             variant="sparse" if self.kind == "mra2_s" else "full",
+            causal=causal,
             softmax_scale=self.softmax_scale,
             kernel_mode=self.kernel_mode,
             draft_level=self.draft_level,
@@ -79,10 +81,15 @@ def _unported(kind: str) -> NotImplementedError:
 
 def self_attention(q, k, v, spec: AttentionSpec, *, causal=False,
                    key_mask=None):
-    """Full-sequence attention (training / whole-prompt prefill)."""
-    raise NotImplementedError(
-        "full-sequence self_attention (mra2_attention and the block-sparse "
-        "kernels) comes with the training slice")
+    """Sequence self-attention (training). q (B,Hq,N,D), k/v (B,Hkv,N,D)."""
+    if spec.kind in MRA_KINDS:
+        return mra2_attention(q, k, v, spec.mra_config(causal),
+                              key_mask=key_mask)
+    if spec.kind == "full":
+        return full_attention(q, k, v, causal=causal,
+                              softmax_scale=spec.softmax_scale,
+                              key_mask=key_mask)
+    raise _unported(spec.kind)
 
 
 def decode_attention(q, k_cache, v_cache, lengths, spec: AttentionSpec, *,
@@ -91,7 +98,7 @@ def decode_attention(q, k_cache, v_cache, lengths, spec: AttentionSpec, *,
     """Single-token decode attention against a KV cache."""
     if spec.kind in MRA_KINDS:
         return mra2_decode_attention(
-            q, k_cache, v_cache, lengths, spec.mra_config(),
+            q, k_cache, v_cache, lengths, spec.mra_config(causal=True),
             decode_blocks=spec.budget_blocks, pyramid=pyramid,
             page_blocks=page_blocks, k_scale=k_scale, v_scale=v_scale)
     if spec.kind == "full":
@@ -108,7 +115,7 @@ def chunk_attention(q, k_cache, v_cache, lengths, q_pos, spec: AttentionSpec,
     """
     if spec.kind in MRA_KINDS:
         return mra2_chunk_attention(
-            q, k_cache, v_cache, lengths, q_pos, spec.mra_config(),
+            q, k_cache, v_cache, lengths, q_pos, spec.mra_config(causal=True),
             decode_blocks=spec.budget_blocks, pyramid=pyramid,
             page_blocks=page_blocks, k_scale=k_scale, v_scale=v_scale)
     if spec.kind == "full":

@@ -1,0 +1,505 @@
+"""Block-sparse attention for training: the CUDA kernels and their plain twins.
+
+Port of ``repro/kernels/{block_sparse_attn,ops,ref}.py`` (DESIGN.md §3).
+``block_sparse_attention`` is a ``torch.autograd.Function`` with the
+reference's I/O contract: for each selected (query block, key block) pair
+of a BHG row it computes the masked scores q·kᵀ·scale and returns the
+*unnormalized* numerator, the row sums and the per-token stabilizer ``mt``
+(the floor ``c`` raised to the exact masked score max, so every weight is
+≤ 1). ``mt`` is gradient-transparent and dc ≡ 0: the stabilizer cancels in
+the caller's normalization. The backward recomputes the weights from
+``mt`` (flash-style, nothing of size O(m·b²) is saved).
+
+Two implementations of each pass, chosen by the tensors' device:
+
+  * ``csrc/block_sparse_attn.cu`` — hand-written CUDA C++ for Hopper
+    (``sm_90a``): ``bsa_fwd``, ``bsa_bwd_dq`` and ``bsa_bwd_dkv`` launch the
+    forward, dq and dk/dv kernels for tensors on the card. Each output tile
+    has one owning thread block that walks that tile's CSR list of pairs
+    (``group_by_query`` / ``group_by_key`` below), so results are bitwise
+    deterministic; the note at the top of the source says what bounds them.
+  * ``block_sparse_attention_ref`` / ``block_sparse_attention_bwd_ref`` —
+    the plain PyTorch versions of the reference's ``kernels/ref.py``, taken
+    for tensors on the CPU and held against the kernels on the card
+    (``block_sparse_attention_bwd_dq_ref`` / ``..._dkv_ref`` are the
+    backward's two halves alone, each the twin of one backward kernel).
+
+There is no other route: a CUDA tensor never takes the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.core.mra import NEG_INF
+
+MAX_BLOCK = 128  # largest block size b the kernels take
+MAX_HEAD_DIM = 128  # largest head dim d the kernels take
+_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+
+
+# --------------------------------------------------------------------------- #
+# plain versions (reference kernels/ref.py)
+# --------------------------------------------------------------------------- #
+def _gather_blocks(x, idx, b: int):
+    """x (R, n, d), idx (R, m) block ids -> (R, m, b, d)."""
+    R, n, d = x.shape
+    return x.reshape(R, n // b, b, d)[torch.arange(R, device=x.device)[:, None],
+                                      idx.long()]
+
+
+def _expand_kv(x, G: int):
+    """(BHKV, n, ...) -> (BHG, n, ...) by repeating each KV head G times."""
+    return x[:, None].expand(x.shape[0], G, *x.shape[1:]).reshape(
+        x.shape[0] * G, *x.shape[1:])
+
+
+def _block_mask(flags, km_blk, b: int):
+    """(BHG, m) flags (+ (BHG, m, b) key mask) -> (BHG, m, b, b) bool.
+
+    flags bit0: pair valid; bit1: causal triangle (diagonal blocks)."""
+    valid = (flags & 1) == 1
+    diag = (flags & 2) == 2
+    r = torch.arange(b, device=flags.device)
+    tri = r[:, None] >= r[None, :]
+    mask = torch.where(diag[..., None, None], tri, True)
+    mask = mask & valid[..., None, None]
+    if km_blk is not None:
+        mask = mask & (km_blk > 0)[..., None, :]
+    return mask
+
+
+def _recompute(q, k, c, x_idx, y_idx, flags, key_mask, *, scale, block_size):
+    """Masked scores, per-token stabilizer and weights (reference ref.py).
+
+    Returns (a, q_blk, k_blk, mt): a (BHG, m, b, b) = mask·exp(s − mt),
+    mt (BHG, nb, b) = max(c floor, masked score row maxima), detached.
+    """
+    b = block_size
+    BHG, n, _ = q.shape
+    nb = n // b
+    G = BHG // k.shape[0]
+    x = x_idx.long()
+    q_blk = _gather_blocks(q.to(torch.float32), x, b)
+    k_blk = _gather_blocks(_expand_kv(k, G).to(torch.float32), y_idx, b)
+    s = torch.einsum("rmid,rmjd->rmij", q_blk, k_blk) * scale
+    km_blk = None
+    if key_mask is not None:
+        kmx = _expand_kv(key_mask.to(torch.float32), G).reshape(BHG, nb, b)
+        km_blk = kmx[torch.arange(BHG, device=q.device)[:, None], y_idx.long()]
+    mask = _block_mask(flags, km_blk, b)
+
+    row_max = torch.where(mask, s, NEG_INF).amax(-1)  # (BHG, m, b)
+    base = c[..., None].expand(BHG, nb, b).to(torch.float32)
+    xi = x[..., None].expand(-1, -1, b)
+    mt = base.scatter_reduce(1, xi, row_max, "amax", include_self=True).detach()
+
+    mt_sel = torch.gather(mt, 1, xi)  # (BHG, m, b)
+    # valid entries satisfy s <= mt by construction; masked lanes are
+    # sanitized before exp (the where-grad 0·inf guard)
+    arg = torch.where(mask, s - mt_sel[..., None], 0.0)
+    a = torch.where(mask, torch.exp(arg), 0.0)
+    return a, q_blk, k_blk, mt
+
+
+def _segment_add(values, idx, nb: int):
+    """Sum (R, m, ...) block values into (R, nb, ...) by block id."""
+    R, m = idx.shape
+    out = values.new_zeros((R, nb) + tuple(values.shape[2:]))
+    index = idx.long().reshape(R, m, *([1] * (values.ndim - 2))).expand_as(values)
+    return out.scatter_add(1, index, values)
+
+
+def block_sparse_attention_ref(q, k, v, x_idx, y_idx, flags, c,
+                               key_mask=None, *, scale: float,
+                               block_size: int):
+    """Plain forward: (out (BHG,n,d), rowsum (BHG,n), mt (BHG,n)), fp32.
+
+    A query tile that no pair visits comes out as 0 / 0 / c.
+    """
+    BHG, n, d = q.shape
+    G = BHG // k.shape[0]
+    b = block_size
+    nb = n // b
+    a, _, _, mt = _recompute(q, k, c, x_idx, y_idx, flags, key_mask,
+                             scale=scale, block_size=b)
+    v_blk = _gather_blocks(_expand_kv(v, G).to(torch.float32), y_idx, b)
+    o_blk = torch.einsum("rmij,rmjd->rmid", a, v_blk)
+    out = _segment_add(o_blk, x_idx, nb).reshape(BHG, n, d)
+    rowsum = _segment_add(a.sum(-1), x_idx, nb).reshape(BHG, n)
+    return out, rowsum, mt.reshape(BHG, n)
+
+
+class _BwdTerms(NamedTuple):
+    """What the plain dq and dk/dv passes share: per pair, the weights
+    a = mask·exp(s − mt_x), ds = a ⊙ (do_x v_yᵀ + dr_x) and the gathered
+    q / k / do blocks, all fp32."""
+
+    a: torch.Tensor
+    ds: torch.Tensor
+    q_blk: torch.Tensor
+    k_blk: torch.Tensor
+    do_blk: torch.Tensor
+
+
+def _bwd_terms(q, k, v, c, x_idx, y_idx, flags, key_mask, do, dr, *,
+               scale: float, block_size: int) -> _BwdTerms:
+    BHG, n, _ = q.shape
+    G = BHG // k.shape[0]
+    b = block_size
+    a, q_blk, k_blk, _ = _recompute(q, k, c, x_idx, y_idx, flags, key_mask,
+                                    scale=scale, block_size=b)
+    v_blk = _gather_blocks(_expand_kv(v, G).to(torch.float32), y_idx, b)
+    do_blk = _gather_blocks(do.to(torch.float32), x_idx, b)
+    dr_blk = dr.to(torch.float32).reshape(BHG, n // b, b)[
+        torch.arange(BHG, device=q.device)[:, None], x_idx.long()]
+    ds = a * (torch.einsum("rmid,rmjd->rmij", do_blk, v_blk) + dr_blk[..., None])
+    return _BwdTerms(a, ds, q_blk, k_blk, do_blk)
+
+
+def _dq_of(t: _BwdTerms, x_idx, shape, scale: float):
+    """dq_x += ds k_y·scale, summed into (BHG, n, d)."""
+    BHG, n, d = shape
+    dq_blk = torch.einsum("rmij,rmjd->rmid", t.ds, t.k_blk) * scale
+    return _segment_add(dq_blk, x_idx, n // t.a.shape[-1]).reshape(BHG, n, d)
+
+
+def _dkv_of(t: _BwdTerms, y_idx, shape, BHKV: int, scale: float):
+    """dk_y += dsᵀ q_x·scale and dv_y += aᵀ do_x, G-group reduced into
+    (BHKV, n, d) each."""
+    BHG, n, d = shape
+    nb = n // t.a.shape[-1]
+    dk_blk = torch.einsum("rmij,rmid->rmjd", t.ds, t.q_blk) * scale
+    dv_blk = torch.einsum("rmij,rmid->rmjd", t.a, t.do_blk)
+    return tuple(_segment_add(blk, y_idx, nb).reshape(
+        BHKV, BHG // BHKV, n, d).sum(1) for blk in (dk_blk, dv_blk))
+
+
+def block_sparse_attention_bwd_ref(q, k, v, c, x_idx, y_idx, flags, key_mask,
+                                   do, dr, *, scale: float, block_size: int):
+    """Plain recompute backward: (dq, dk, dv), all fp32.
+
+    Per pair: a = mask·exp(s − mt_x), ds = a ⊙ (do_x v_yᵀ + dr_x), then
+    dq_x += ds k_y·scale, dk_y += dsᵀ q_x·scale (G-group reduced),
+    dv_y += aᵀ do_x.
+    """
+    t = _bwd_terms(q, k, v, c, x_idx, y_idx, flags, key_mask, do, dr,
+                   scale=scale, block_size=block_size)
+    return (_dq_of(t, x_idx, q.shape, scale),
+            *_dkv_of(t, y_idx, q.shape, k.shape[0], scale))
+
+
+def block_sparse_attention_bwd_dq_ref(q, k, v, c, x_idx, y_idx, flags,
+                                      key_mask, do, dr, *, scale: float,
+                                      block_size: int):
+    """The dq part of the plain backward alone (the dq kernel's twin)."""
+    t = _bwd_terms(q, k, v, c, x_idx, y_idx, flags, key_mask, do, dr,
+                   scale=scale, block_size=block_size)
+    return _dq_of(t, x_idx, q.shape, scale)
+
+
+def block_sparse_attention_bwd_dkv_ref(q, k, v, c, x_idx, y_idx, flags,
+                                       key_mask, do, dr, *, scale: float,
+                                       block_size: int):
+    """The (dk, dv) part of the plain backward alone (the dk/dv kernel's
+    twin)."""
+    t = _bwd_terms(q, k, v, c, x_idx, y_idx, flags, key_mask, do, dr,
+                   scale=scale, block_size=block_size)
+    return _dkv_of(t, y_idx, q.shape, k.shape[0], scale)
+
+
+# --------------------------------------------------------------------------- #
+# CSR pair lists: one list per output tile
+# --------------------------------------------------------------------------- #
+class QueryPairs(NamedTuple):
+    """Pairs of each BHG row stably sorted by query block (the reference's
+    ``ops._prepare`` order); tile (r, x) owns ``[ptr[r, x], ptr[r, x+1])``.
+    All (BHG, m) int32, ``ptr`` (BHG, nb + 1)."""
+
+    x: torch.Tensor
+    y: torch.Tensor
+    flags: torch.Tensor
+    ptr: torch.Tensor
+
+
+class KeyPairs(NamedTuple):
+    """Pairs of each KV head's G groups flattened and stably sorted by key
+    block (``ops._prepare_kv`` order); ``rows`` is the owning BHG row. All
+    (BHKV, G·m) int32, ``ptr`` (BHKV, nb + 1)."""
+
+    rows: torch.Tensor
+    x: torch.Tensor
+    y: torch.Tensor
+    flags: torch.Tensor
+    ptr: torch.Tensor
+
+
+def _row_ptr(sorted_ids, nb: int):
+    """Per-row CSR offsets of sorted block ids: bincount + cumsum."""
+    R = sorted_ids.shape[0]
+    counts = torch.zeros((R, nb), dtype=torch.int32, device=sorted_ids.device)
+    counts.scatter_add_(1, sorted_ids.long(), torch.ones_like(sorted_ids,
+                                                              dtype=torch.int32))
+    zero = torch.zeros((R, 1), dtype=torch.int32, device=sorted_ids.device)
+    return torch.cat([zero, torch.cumsum(counts, 1, dtype=torch.int32)], 1)
+
+
+def group_by_query(x_idx, y_idx, flags, nb: int) -> QueryPairs:
+    order = torch.argsort(x_idx, dim=-1, stable=True)
+    xs, ys, fl = (torch.gather(t, 1, order).to(torch.int32).contiguous()
+                  for t in (x_idx, y_idx, flags))
+    return QueryPairs(xs, ys, fl, _row_ptr(xs, nb))
+
+
+def group_by_key(x_idx, y_idx, flags, G: int, nb: int) -> KeyPairs:
+    BHG, m = x_idx.shape
+    BHKV = BHG // G
+    rows = torch.arange(BHG, dtype=torch.int32, device=x_idx.device)[:, None]
+    rows = rows.expand(BHG, m).reshape(BHKV, G * m)
+    x2, y2, f2 = (t.reshape(BHKV, G * m) for t in (x_idx, y_idx, flags))
+    order = torch.argsort(y2, dim=-1, stable=True)
+    rows, x2, y2, f2 = (torch.gather(t, 1, order).to(torch.int32).contiguous()
+                        for t in (rows, x2, y2, f2))
+    return KeyPairs(rows, x2, y2, f2, _row_ptr(y2, nb))
+
+
+# --------------------------------------------------------------------------- #
+# CUDA launches
+# --------------------------------------------------------------------------- #
+def _library() -> ctypes.CDLL:
+    """The built kernel library with its C signatures declared."""
+    from .build import load_library
+
+    lib = load_library("block_sparse_attn")
+    if lib.bsa_fwd_launch.argtypes is None:
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.bsa_fwd_launch.argtypes = [ptr] * 11 + [i32] * 6 + [f32, i32, ptr]
+        lib.bsa_bwd_dq_launch.argtypes = [ptr] * 11 + [i32] * 6 + [f32, i32, ptr]
+        lib.bsa_bwd_dkv_launch.argtypes = [ptr] * 13 + [i32] * 5 + [f32, i32, ptr]
+        for fn in (lib.bsa_fwd_launch, lib.bsa_bwd_dq_launch,
+                   lib.bsa_bwd_dkv_launch):
+            fn.restype = i32
+        lib.bsa_error_string.argtypes = [i32]
+        lib.bsa_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(t, name, shape, dtypes, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name} dtype {t.dtype} not in {dtypes}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_qkv(q, k, v, block_size):
+    """(BHG, BHKV, n, d, device) after checking the shared inputs."""
+    if q.ndim != 3 or k.ndim != 3:
+        raise ValueError(f"q {tuple(q.shape)} / k {tuple(k.shape)} must be "
+                         "(rows, n, d)")
+    BHG, n, d = q.shape
+    BHKV = k.shape[0]
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernels take tensors on the card, got {dev}")
+    if BHKV == 0 or BHG % BHKV:
+        raise ValueError(f"q rows {BHG} are not a multiple of k rows {BHKV}")
+    if not (0 < block_size <= MAX_BLOCK) or n % block_size:
+        raise ValueError(f"block size {block_size} must be in (0, {MAX_BLOCK}] "
+                         f"and divide n = {n}")
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} must be in (0, {MAX_HEAD_DIM}]")
+    _check(q, "q", (BHG, n, d), tuple(_DTYPES), dev)
+    _check(k, "k", (BHKV, n, d), (q.dtype,), dev)
+    _check(v, "v", (BHKV, n, d), (q.dtype,), dev)
+    return BHG, BHKV, n, d, dev
+
+
+def _raise_on(rc: int, lib, name: str):
+    if rc != 0:
+        msg = lib.bsa_error_string(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} ({rc})")
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def bsa_fwd(q, k, v, c, pairs: QueryPairs, key_mask, *, scale: float,
+            block_size: int):
+    """Launch the forward kernel: (out (BHG,n,d), rowsum, mt (BHG,n)) fp32."""
+    BHG, BHKV, n, d, dev = _check_qkv(q, k, v, block_size)
+    nb, m = n // block_size, pairs.y.shape[1]
+    i32 = (torch.int32,)
+    _check(c, "c", (BHG, nb), (torch.float32,), dev)
+    _check(pairs.ptr, "row_ptr", (BHG, nb + 1), i32, dev)
+    _check(pairs.y, "y_idx", (BHG, m), i32, dev)
+    _check(pairs.flags, "flags", (BHG, m), i32, dev)
+    _check(key_mask, "key_mask", (BHKV, n), i32, dev)
+    out = torch.empty((BHG, n, d), dtype=torch.float32, device=dev)
+    rowsum = torch.empty((BHG, n), dtype=torch.float32, device=dev)
+    mt = torch.empty((BHG, n), dtype=torch.float32, device=dev)
+    lib = _library()
+    rc = lib.bsa_fwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), c.data_ptr(),
+        pairs.ptr.data_ptr(), pairs.y.data_ptr(), pairs.flags.data_ptr(),
+        key_mask.data_ptr(), out.data_ptr(), rowsum.data_ptr(), mt.data_ptr(),
+        BHG, BHG // BHKV, n, d, block_size, m, float(scale), _DTYPES[q.dtype],
+        _stream(dev))
+    _raise_on(rc, lib, "bsa_fwd")
+    bsa_fwd.launches += 1
+    return out, rowsum, mt
+
+
+def bsa_bwd_dq(q, k, v, mt, do, dr, pairs: QueryPairs, key_mask, *,
+               scale: float, block_size: int):
+    """Launch the dq kernel: dq (BHG, n, d) fp32."""
+    BHG, BHKV, n, d, dev = _check_qkv(q, k, v, block_size)
+    nb, m = n // block_size, pairs.y.shape[1]
+    i32, f32 = (torch.int32,), (torch.float32,)
+    _check(mt, "mt", (BHG, n), f32, dev)
+    _check(do, "do", (BHG, n, d), f32, dev)
+    _check(dr, "dr", (BHG, n), f32, dev)
+    _check(pairs.ptr, "row_ptr", (BHG, nb + 1), i32, dev)
+    _check(pairs.y, "y_idx", (BHG, m), i32, dev)
+    _check(pairs.flags, "flags", (BHG, m), i32, dev)
+    _check(key_mask, "key_mask", (BHKV, n), i32, dev)
+    dq = torch.empty((BHG, n, d), dtype=torch.float32, device=dev)
+    lib = _library()
+    rc = lib.bsa_bwd_dq_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mt.data_ptr(), do.data_ptr(),
+        dr.data_ptr(), pairs.ptr.data_ptr(), pairs.y.data_ptr(),
+        pairs.flags.data_ptr(), key_mask.data_ptr(), dq.data_ptr(),
+        BHG, BHG // BHKV, n, d, block_size, m, float(scale), _DTYPES[q.dtype],
+        _stream(dev))
+    _raise_on(rc, lib, "bsa_bwd_dq")
+    bsa_bwd_dq.launches += 1
+    return dq
+
+
+def bsa_bwd_dkv(q, k, v, mt, do, dr, pairs: KeyPairs, key_mask, *,
+                scale: float, block_size: int):
+    """Launch the dk/dv kernel: (dk, dv) (BHKV, n, d) fp32."""
+    BHG, BHKV, n, d, dev = _check_qkv(q, k, v, block_size)
+    nb, m2 = n // block_size, pairs.y.shape[1]
+    i32, f32 = (torch.int32,), (torch.float32,)
+    _check(mt, "mt", (BHG, n), f32, dev)
+    _check(do, "do", (BHG, n, d), f32, dev)
+    _check(dr, "dr", (BHG, n), f32, dev)
+    _check(pairs.ptr, "row_ptr", (BHKV, nb + 1), i32, dev)
+    for name in ("rows", "x", "flags"):
+        _check(getattr(pairs, name), name, (BHKV, m2), i32, dev)
+    _check(key_mask, "key_mask", (BHKV, n), i32, dev)
+    dk = torch.empty((BHKV, n, d), dtype=torch.float32, device=dev)
+    dv = torch.empty((BHKV, n, d), dtype=torch.float32, device=dev)
+    lib = _library()
+    rc = lib.bsa_bwd_dkv_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mt.data_ptr(), do.data_ptr(),
+        dr.data_ptr(), pairs.ptr.data_ptr(), pairs.rows.data_ptr(),
+        pairs.x.data_ptr(), pairs.flags.data_ptr(), key_mask.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), BHKV, n, d, block_size, m2, float(scale),
+        _DTYPES[q.dtype], _stream(dev))
+    _raise_on(rc, lib, "bsa_bwd_dkv")
+    bsa_bwd_dkv.launches += 1
+    return dk, dv
+
+
+bsa_fwd.launches = 0  # launches of each CUDA kernel, never reset here
+bsa_bwd_dq.launches = 0
+bsa_bwd_dkv.launches = 0
+
+
+# --------------------------------------------------------------------------- #
+# the autograd.Function
+# --------------------------------------------------------------------------- #
+def _forward(q, k, v, c, x_idx, y_idx, flags, key_mask, scale, block_size):
+    """(out, rowsum, mt, pairs): the kernel for CUDA tensors, the plain
+    version for CPU tensors. ``pairs`` is the ``QueryPairs`` the kernel
+    walked, kept for the dq kernel (None on the CPU)."""
+    if not q.is_cuda:
+        return (*block_sparse_attention_ref(q, k, v, x_idx, y_idx, flags, c,
+                                            key_mask, scale=scale,
+                                            block_size=block_size), None)
+    pairs = group_by_query(x_idx, y_idx, flags, q.shape[1] // block_size)
+    return (*bsa_fwd(q, k, v, c, pairs, key_mask, scale=scale,
+                     block_size=block_size), pairs)
+
+
+def _backward(q, k, v, c, mt, pairs, x_idx, y_idx, flags, key_mask, do, dr,
+              scale, block_size):
+    """(dq, dk, dv) fp32: the kernels for CUDA tensors, the plain version
+    (which recomputes mt from c) for CPU tensors."""
+    if not q.is_cuda:
+        return block_sparse_attention_bwd_ref(
+            q, k, v, c, x_idx, y_idx, flags, key_mask, do, dr, scale=scale,
+            block_size=block_size)
+    nb = q.shape[1] // block_size
+    G = q.shape[0] // k.shape[0]
+    do = do.to(torch.float32).contiguous()
+    dr = dr.to(torch.float32).contiguous()
+    dq = bsa_bwd_dq(q, k, v, mt, do, dr, pairs, key_mask, scale=scale,
+                    block_size=block_size)
+    dk, dv = bsa_bwd_dkv(q, k, v, mt, do, dr,
+                         group_by_key(x_idx, y_idx, flags, G, nb), key_mask,
+                         scale=scale, block_size=block_size)
+    return dq, dk, dv
+
+
+class _BlockSparseAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, c, x_idx, y_idx, flags, key_mask, scale,
+                block_size):
+        out, rowsum, mt, pairs = _forward(q, k, v, c, x_idx, y_idx, flags,
+                                          key_mask, scale, block_size)
+        # saved tensors, so remat drops and recomputes the pair lists too
+        ctx.save_for_backward(q, k, v, c, mt, x_idx, y_idx, flags, key_mask,
+                              *(pairs if pairs is not None else (None,) * 4))
+        ctx.scale, ctx.block_size = scale, block_size
+        ctx.mark_non_differentiable(mt)
+        return out, rowsum, mt
+
+    @staticmethod
+    def backward(ctx, do, dr, _dmt):  # mt's cotangent is dropped
+        q, k, v, c, mt, x_idx, y_idx, flags, key_mask, *pq = ctx.saved_tensors
+        pairs = None if pq[0] is None else QueryPairs(*pq)
+        dq, dk, dv = _backward(q, k, v, c, mt, pairs, x_idx, y_idx, flags,
+                               key_mask, do, dr, ctx.scale, ctx.block_size)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                torch.zeros_like(c),  # dc ≡ 0: the stabilizer is transparent
+                None, None, None, None, None, None)
+
+
+def block_sparse_attention(q, k, v, c, x_idx, y_idx, flags,
+                           key_mask: Optional[torch.Tensor] = None, *,
+                           scale: float = 1.0, block_size: int = 32):
+    """Unnormalized block-sparse attention numerator, row sums, stabilizer.
+
+    Args:
+      q: (BHG, n, d); k/v: (BHKV, n, d) with BHG % BHKV == 0 (GQA groups);
+        bf16 or fp32, all three alike.
+      c: (BHG, nb) fp32 stabilizer floor per query block (the MRA-2 coarse
+        background max, clamped above NEG_INF/2); dc ≡ 0 by contract.
+      x_idx / y_idx: (BHG, m) int32 selected (query-block, key-block) pairs.
+      flags: (BHG, m) int32 — bit0: pair is valid; bit1: causal triangular
+        mask inside the block (diagonal blocks).
+      key_mask: optional (BHKV, n) key validity (>0 = valid).
+      scale: softmax scale; block_size: b.
+
+    Returns:
+      out (BHG, n, d), rowsum (BHG, n), mt (BHG, n), all fp32 — stabilized
+      by exp(−mt); mt is not differentiable. Backward returns dq, dk, dv in
+      the input dtypes and dc ≡ 0.
+    """
+    if key_mask is None:
+        key_mask = torch.ones((k.shape[0], k.shape[1]), dtype=torch.int32,
+                              device=k.device)
+    return _BlockSparseAttention.apply(
+        q.contiguous(), k.contiguous(), v.contiguous(),
+        c.to(torch.float32).contiguous(), x_idx.to(torch.int32),
+        y_idx.to(torch.int32), flags.to(torch.int32),
+        key_mask.to(torch.int32).contiguous(), float(scale), int(block_size))

@@ -1,16 +1,21 @@
 """Layers of the dense decoder (plain functions on tensors).
 
 Port of ``repro/models/layers.py`` for the dense family: RMSNorm, RoPE, the
-GQA projection with optional qkv-bias / qk-norm, the SwiGLU MLP, and the
-token embedding / LM head. Weights are cast to the activation dtype at use
+GQA projection with optional qkv-bias / qk-norm, the full-sequence
+attention block, the SwiGLU MLP, the token embedding / LM head, the LM
+loss and the remat wrapper. Weights are cast to the activation dtype at use
 and norm weights to fp32, as in the reference.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.attention import AttentionSpec, self_attention
 
 
 def rms_norm(x, w, eps=1e-6):
@@ -69,6 +74,30 @@ def qkv_project(x, p, cfg: ModelConfig, positions):
     return q, k, v
 
 
+def expand_kv_slots(k, v, cfg: ModelConfig):
+    """Expand the KV head axis to cfg.kv_slots (TP padding; weights shared)."""
+    rep = cfg.kv_slots // cfg.kv_heads
+    if rep == 1:
+        return k, v
+    return (torch.repeat_interleave(k, rep, dim=1),
+            torch.repeat_interleave(v, rep, dim=1))
+
+
+def attn_block(x, p, cfg: ModelConfig, *, spec: Optional[AttentionSpec] = None,
+               key_mask=None, positions=None):
+    """Full-sequence attention block (training). x (B, S, d) -> (B, S, d)."""
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    spec = spec or cfg.attn_spec
+    q, k, v = qkv_project(x, p, cfg, positions)
+    k, v = expand_kv_slots(k, v, cfg)
+    o = self_attention(q, k, v, spec, causal=cfg.causal, key_mask=key_mask)
+    if cfg.padded_heads != cfg.num_heads:
+        o = o * head_mask(cfg, o.device)[None, :, None, None].to(o.dtype)
+    return torch.einsum("bhsk,hkd->bsd", o, p["wo"].to(x.dtype))
+
+
 def mlp_block(x, p, cfg: ModelConfig):
     if cfg.act != "swiglu":
         raise NotImplementedError(f"act={cfg.act!r}: only swiglu is ported")
@@ -85,3 +114,29 @@ def embed(tokens, p, cfg: ModelConfig):
 def unembed(x, p, cfg: ModelConfig):
     w = p["tok"].T if cfg.tie_embeddings else p["head"]
     return torch.einsum("bsd,dv->bsv", x, w.to(x.dtype))
+
+
+def lm_nll(logits, targets, cfg: ModelConfig):
+    """Per-position NLL with padded-vocab masking, in fp32.
+    logits (..., padded_vocab), targets (...) int."""
+    lf = logits.to(torch.float32)
+    if cfg.padded_vocab != cfg.vocab:
+        pad_ok = torch.arange(cfg.padded_vocab, device=lf.device) < cfg.vocab
+        lf = torch.where(pad_ok, lf, -1e9)
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, targets[..., None].long())[..., 0]
+    return lse - ll
+
+
+def remat_wrap(fn, cfg: ModelConfig):
+    """``fn`` under the config's remat policy: "full" recomputes its forward
+    in the backward (non-reentrant activation checkpointing)."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        def wrapped(*args, **kw):
+            return checkpoint(fn, *args, use_reentrant=False, **kw)
+        return wrapped
+    raise NotImplementedError(
+        f"remat={cfg.remat!r}: only 'none' and 'full' are ported (the "
+        "reference's 'dots' policy has no port yet)")

@@ -112,13 +112,56 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _is_namedtuple(t) -> bool:
+    return isinstance(t, tuple) and hasattr(t, "_fields")
+
+
+def tree_paths(tree, path=()):
+    """(path, leaf) pairs of a nested dict / list / NamedTuple tree, in
+    ``jax.tree`` order (dict keys sorted); a path is a tuple of str."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_paths(tree[k], path + (str(k),))
+    elif _is_namedtuple(tree):
+        for k in tree._fields:
+            yield from tree_paths(getattr(tree, k), path + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from tree_paths(v, path + (str(i),))
+    else:
+        yield path, tree
+
+
+def tree_leaves(tree) -> list:
+    """Leaves of a tree in ``tree_paths`` order."""
+    return [leaf for _, leaf in tree_paths(tree)]
+
+
+def tree_unflatten(like, leaves):
+    """The tree of ``like``'s structure holding ``leaves`` (``tree_leaves``
+    order)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if _is_namedtuple(t):
+            return type(t)(*(build(getattr(t, k)) for k in t._fields))
+        if isinstance(t, list):
+            return [build(v) for v in t]
+        return next(it)
+
+    return build(like)
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     """Random parameters from ``seed``, made on ``device`` (default: cuda).
 
     One ``torch.Generator`` on the target device draws every leaf in tree
     order, so a seed gives the same weights on every run on that device
     (not the reference's bits: the tests carry JAX weights over with
-    ``params_from_jax`` instead).
+    ``params_from_jax`` instead). Every leaf is a leaf tensor that takes
+    ``requires_grad_()`` for training.
     """
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)

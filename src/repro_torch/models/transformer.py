@@ -1,10 +1,12 @@
-"""Dense GQA decoder: serving cache layout, chunked prefill and decode.
+"""Dense GQA decoder: training forward and loss, serving cache and steps.
 
-Port of the dense-family serving half of ``repro/models/transformer.py``
-(DESIGN.md §9): ``cache_specs`` (two-level ring-paged layout, with or
-without the int8 KV cache), ``layer_cache_kinds``, ``prefill_chunk`` and
-``decode_step``. Full-sequence ``forward`` / ``prefill`` come with the
-training slice.
+Port of the dense family of ``repro/models/transformer.py`` (DESIGN.md §9):
+the full-sequence ``forward`` / ``loss_fn`` that training runs (the layers
+are a list here, so the reference's ``scan`` is a loop, each layer under
+the config's remat policy), and the serving half — ``cache_specs``
+(two-level ring-paged layout, with or without the int8 KV cache),
+``layer_cache_kinds``, ``prefill_chunk`` and ``decode_step``. The
+whole-prompt ``prefill`` has no port yet.
 
 Unlike the reference, ``prefill_chunk`` and ``decode_step`` update the
 cache tensors **in place** (and return the same dict): a slot that is
@@ -30,6 +32,40 @@ from repro_torch.core.mra_decode import (
 
 from . import layers as L
 from .params import TensorSpec
+
+
+def _layer_fwd(x, p, cfg: ModelConfig, key_mask):
+    h = L.apply_norm(x, p["ln1"], cfg)
+    x = x + L.attn_block(h, p["attn"], cfg, key_mask=key_mask)
+    h = L.apply_norm(x, p["ln2"], cfg)
+    return x + L.mlp_block(h, p["mlp"], cfg)
+
+
+def forward(params, cfg: ModelConfig, batch, *, key_mask=None):
+    """Full-sequence forward of the dense decoder.
+
+    batch: {"tokens": (B, S) int}; key_mask: optional (B, S) bool.
+    Returns (logits (B, S, padded_vocab) in the activation dtype, aux loss
+    (a zero fp32 scalar: the dense family has none)).
+    """
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported; only the dense decoder is")
+    x = L.embed(batch["tokens"], params["embed"], cfg)
+    body = L.remat_wrap(_layer_fwd, cfg)
+    for p in params["layers"]:
+        x = body(x, p, cfg, key_mask)
+    x = L.apply_norm(x, params["ln_f"], cfg)
+    logits = L.unembed(x, params["embed"], cfg)
+    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+
+def loss_fn(params, cfg: ModelConfig, batch, *, key_mask=None):
+    """Mean next-token NLL. Returns (loss + aux, {"loss", "aux_loss", "nll"})."""
+    logits, aux = forward(params, cfg, batch, key_mask=key_mask)
+    loss = L.lm_nll(logits, batch["targets"], cfg).mean()
+    metrics = {"loss": loss, "aux_loss": aux, "nll": loss}
+    return loss + aux, metrics
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:

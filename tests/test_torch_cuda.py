@@ -6,12 +6,18 @@ port's dependencies:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Inputs are made with numpy from a seed. The kernel and its plain twin
-(``chunk_attention_ref``) run on the same CUDA tensors; outputs must agree
-at atol 2e-5 / rtol 1e-5 (fp32 sums in another order) on every row whose
-top-m selection is not a near tie (gap between the m-th and (m+1)-th
-allowed coarse score >= 1e-4), and near ties must stay under 1% of rows —
-the kernel's fused multiply-adds may break such a tie the other way.
+Inputs are made with numpy from a seed, and each kernel and its plain twin
+run on the same CUDA tensors.
+
+  * ``chunk_attn`` against ``chunk_attention_ref``: atol 2e-5 / rtol 1e-5
+    (fp32 sums in another order) on every row whose top-m selection is not
+    a near tie (gap between the m-th and (m+1)-th allowed coarse score
+    >= 1e-4), and near ties under 1% of rows — the kernel's fused
+    multiply-adds may break such a tie the other way.
+  * ``bsa_fwd`` / ``bsa_bwd_dq`` / ``bsa_bwd_dkv`` against
+    ``block_sparse_attention_ref`` / ``_bwd_ref``: the normalized numerator
+    and the max-scaled gradients at rtol/atol 1e-4, mt at abs 1e-5 (fp32
+    sums in another order, FMA contraction); reruns bit-identical.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import torch
 
 from repro_torch.core import mra_decode as tmd
 from repro_torch.core.mra import MraConfig
+from repro_torch.kernels import block_sparse_attn as bsa
 from repro_torch.kernels import chunk_attn
 
 ATOL, RTOL, TIE = 2e-5, 1e-5, 1e-4
@@ -155,3 +162,127 @@ def test_chunk_attn_kernel_counts_launches_and_rejects_bad_input(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         chunk_attn.chunk_attention_kernel(
             pre, k.transpose(2, 3).contiguous().transpose(2, 3), v, q_pos, m=2)
+
+
+def bsa_inputs(seed, *, BHKV, G, n, d, b, m, dtype, device, masked=True):
+    """Random q/k/v, floor c and m pairs per row: one invalid pair per row,
+    causal flags on diagonal pairs, query block 0 of row 0 unvisited."""
+    r = np.random.default_rng(seed)
+    BHG, nb = BHKV * G, n // b
+
+    def dev(x, dt):
+        return torch.as_tensor(x, dtype=dt, device=device)
+
+    x = r.integers(0, nb, (BHG, m))
+    x[0] = np.where(x[0] == 0, 1 % nb, x[0])
+    y = r.integers(0, nb, (BHG, m))
+    flags = np.ones((BHG, m), np.int32)
+    flags[:, -1] = 0
+    flags |= 2 * (x == y)
+    km = r.integers(0, 2, (BHKV, n)) if masked else np.ones((BHKV, n))
+    return (dev(r.standard_normal((BHG, n, d)), dtype),
+            dev(r.standard_normal((BHKV, n, d)), dtype),
+            dev(r.standard_normal((BHKV, n, d)), dtype),
+            dev(r.standard_normal((BHG, nb)), torch.float32),
+            dev(x, torch.int32), dev(y, torch.int32), dev(flags, torch.int32),
+            dev(km, torch.int32))
+
+
+def _normalized(out, rs):
+    alive = rs > 0
+    return torch.where(alive[..., None], out, 0.0) / torch.where(
+        alive, rs, 1.0)[..., None]
+
+
+def _scaled_close(got, want, tol=1e-4):
+    s = float(want.abs().max()) or 1.0
+    return bool(torch.isclose(got / s, want / s, rtol=tol, atol=tol).all())
+
+
+BSA_SHAPES = [dict(BHKV=2, G=2, n=64, d=16, b=16, m=6),
+              dict(BHKV=2, G=1, n=96, d=12, b=16, m=7),
+              dict(BHKV=3, G=2, n=320, d=64, b=64, m=9),
+              dict(BHKV=2, G=2, n=512, d=128, b=128, m=8),
+              dict(BHKV=4, G=2, n=1024, d=128, b=128, m=24)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", BSA_SHAPES,
+                         ids=lambda s: "n{n}-d{d}-b{b}-g{G}".format(**s))
+def test_bsa_kernels_match_plain(cuda, shape, dtype):
+    q, k, v, c, x, y, fl, km = bsa_inputs(0, dtype=dtype, device=cuda, **shape)
+    b, G, nb = shape["b"], shape["G"], shape["n"] // shape["b"]
+    kw = dict(scale=0.3, block_size=b)
+    pq = bsa.group_by_query(x, y, fl, nb)
+    pk = bsa.group_by_key(x, y, fl, G, nb)
+    out, rs, mt = bsa.bsa_fwd(q, k, v, c, pq, km, **kw)
+    ref = bsa.block_sparse_attention_ref(q, k, v, x, y, fl, c, km, **kw)
+    r = np.random.default_rng(1)
+    do = torch.as_tensor(r.standard_normal(tuple(q.shape)), dtype=torch.float32,
+                         device=cuda)
+    dr = torch.as_tensor(r.standard_normal(tuple(q.shape[:2])),
+                         dtype=torch.float32, device=cuda)
+    dq = bsa.bsa_bwd_dq(q, k, v, mt, do, dr, pq, km, **kw)
+    dk, dv = bsa.bsa_bwd_dkv(q, k, v, mt, do, dr, pk, km, **kw)
+    gref = bsa.block_sparse_attention_bwd_ref(q, k, v, c, x, y, fl, km, do, dr,
+                                              **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(rs > 0, ref[1] > 0)
+    assert bool(torch.isclose(_normalized(out, rs), _normalized(*ref[:2]),
+                              rtol=1e-4, atol=1e-4).all())
+    assert bool(torch.isclose(rs, ref[1], rtol=1e-4, atol=1e-4).all())
+    assert float((mt - ref[2]).abs().max()) <= 1e-5
+    # the unvisited tile: 0 / 0 / c
+    assert float(out[0, :b].abs().max()) == 0.0 == float(rs[0, :b].abs().max())
+    assert torch.equal(mt[0, :b], c[0, :1].expand(b))
+    for got, want in zip((dq, dk, dv), gref):
+        assert _scaled_close(got, want)
+    again = (bsa.bsa_fwd(q, k, v, c, pq, km, **kw),
+             bsa.bsa_bwd_dq(q, k, v, mt, do, dr, pq, km, **kw),
+             bsa.bsa_bwd_dkv(q, k, v, mt, do, dr, pk, km, **kw))
+    assert all(torch.equal(a, e) for a, e in zip(again[0], (out, rs, mt)))
+    assert torch.equal(again[1], dq)
+    assert torch.equal(again[2][0], dk) and torch.equal(again[2][1], dv)
+
+
+@pytest.mark.cuda
+def test_bsa_autograd_function_launches_each_kernel(cuda):
+    shape = BSA_SHAPES[0]
+    q, k, v, c, x, y, fl, km = bsa_inputs(2, dtype=torch.bfloat16,
+                                          device=cuda, **shape)
+    before = {n: getattr(bsa, n).launches
+              for n in ("bsa_fwd", "bsa_bwd_dq", "bsa_bwd_dkv")}
+    q.requires_grad_(True)
+    k.requires_grad_(True)
+    out, rs, mt = bsa.block_sparse_attention(q, k, v, c, x, y, fl, km,
+                                             scale=0.3, block_size=shape["b"])
+    assert not mt.requires_grad
+    (out.sum() + rs.sum()).backward()
+    assert q.grad.dtype == torch.bfloat16 and v.grad is None
+    after = {n: getattr(bsa, n).launches for n in before}
+    assert all(after[n] == before[n] + 1 for n in before)
+
+
+@pytest.mark.cuda
+def test_bsa_kernels_reject_bad_input(cuda):
+    shape = BSA_SHAPES[0]
+    q, k, v, c, x, y, fl, km = bsa_inputs(3, dtype=torch.float32, device=cuda,
+                                          **shape)
+    nb = shape["n"] // shape["b"]
+    pq = bsa.group_by_query(x, y, fl, nb)
+    kw = dict(scale=0.3, block_size=shape["b"])
+    with pytest.raises(ValueError, match="card"):
+        bsa.bsa_fwd(q.cpu(), k.cpu(), v.cpu(), c.cpu(), pq, km.cpu(), **kw)
+    with pytest.raises(ValueError, match="dtype"):
+        bsa.bsa_fwd(q.half(), k.half(), v.half(), c, pq, km, **kw)
+    with pytest.raises(ValueError, match="dtype"):
+        bsa.bsa_fwd(q, k.bfloat16(), v, c, pq, km, **kw)
+    with pytest.raises(ValueError, match="shape"):
+        bsa.bsa_fwd(q, k, v, c[:, :-1].contiguous(), pq, km, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        bsa.bsa_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, c,
+                    pq, km, **kw)
+    with pytest.raises(ValueError, match="block size"):
+        bsa.bsa_fwd(q, k, v, c, pq, km, scale=0.3, block_size=256)

@@ -2,8 +2,8 @@
 
 An AST scan of every module of ``src/repro_torch`` and of ``chip_smoke.py``
 finds no import of ``jax`` or of the reference package ``repro``; and a
-fresh interpreter with both blocked in ``sys.modules`` imports the port and
-serves a request on the CPU.
+fresh interpreter with both blocked in ``sys.modules`` imports the port,
+serves a request and trains (with a checkpoint) on the CPU.
 """
 from __future__ import annotations
 
@@ -47,7 +47,8 @@ def test_no_jax_or_reference_imports(path):
 def test_scan_sees_the_whole_port():
     names = {p.name for p in _sources()}
     assert {"chunk_attn.py", "engine.py", "transformer.py", "mra_decode.py",
-            "chip_smoke.py"} <= names
+            "block_sparse_attn.py", "mra.py", "adamw.py", "pipeline.py",
+            "ckpt.py", "loop.py", "chip_smoke.py"} <= names
 
 
 _SERVE_WITHOUT_JAX = r"""
@@ -75,6 +76,33 @@ def test_port_serves_with_jax_blocked():
                          capture_output=True, text=True, timeout=240)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "served" in res.stdout
+
+
+_TRAIN_WITHOUT_JAX = r"""
+import dataclasses, math, sys, tempfile
+for name in ("jax", "jaxlib", "repro"):
+    sys.modules[name] = None
+from repro_torch.configs import SHAPES, get_smoke_config
+from repro_torch.train import TrainConfig, train
+cfg = get_smoke_config("qwen3-1.7b", activ_dtype="float32")
+shape = dataclasses.replace(SHAPES["train_4k"], seq_len=64, global_batch=2)
+losses = []
+with tempfile.TemporaryDirectory() as d:
+    train(cfg, shape, TrainConfig(steps=2, ckpt_dir=d, ckpt_every=1),
+          device="cpu", on_metrics=lambda s, m: losses.append(m["loss"]))
+assert len(losses) == 2 and all(math.isfinite(x) for x in losses)
+assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules
+               if sys.modules[m] is not None)
+print("trained", losses)
+"""
+
+
+def test_port_trains_with_jax_blocked():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", _TRAIN_WITHOUT_JAX], env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "trained" in res.stdout
 
 
 def test_chip_smoke_fails_without_a_card():
