@@ -36,7 +36,28 @@ port's serving path and its training path on the card:
      breakdown of one step;
   9. training parity — the plain versions substituted for the kernels (in
      this script only): losses over 3 steps at the smoke size, loss and
-     grad norm of one step at full width (4 layers), all fp32.
+     grad norm of one step at full width (4 layers), all fp32;
+ 10. the chunk kernel's H-level program (``levels >= 3``: collapsed levels +
+     tail folded into the background) against its plain twin on the same
+     CUDA tensors: NU = 33 (H = 3) and 65 (H = 4) at the long-context
+     slice's shapes, NU = 5 and 40 (two entry tiles) at the smoke shapes;
+     C = 1, 512 and 5; bf16 / int8 caches; entries all live, some dead,
+     all dead, tail only; ring windows and an empty one (slot 0: no live
+     window key, live entries: not zero); MRA-2-s, where the view must not
+     change the output (same tolerance and near-tie rule as phase 2);
+ 11. its timing at the slice's shapes (decode and C = 512) beside the
+     two-level program on the same window, the bound and the plain version;
+ 12. long-context serving at full width — qwen3-1.7b at ``levels=3``, 28
+     layers, bf16 activations, ``EngineConfig(slots=2, max_len=4096,
+     chunk=512)``, a 65536-token and a 6000-token greedy prompt — with
+     the H-level program's launches counted over exactly that run (and
+     none of the two-level one), the occupancy gauges and exact per-slot
+     token conservation, then a torch.profiler breakdown of its prefill
+     and decode dispatches;
+ 13. H = 3 engine parity — the plain version substituted for the kernel (in
+     this script only): identical greedy streams at the smoke size with
+     prompts far past the window, identical tokens at full width (4
+     layers, fp32) with a prompt over 4x the window.
 
 One JSON line per phase; then the card line from nvidia-smi, the kernels
 line and, last, ``{"ok": true, "device": {...}}``. Any failed phase raises,
@@ -67,6 +88,16 @@ ATOL, RTOL, TIE = 2e-5, 1e-5, 1e-4
 MAIN = dict(B=4, Hkv=8, G=2, D=128, b=128, nb=32, m=16)  # qwen3-1.7b serving
 SMOKE = dict(B=4, Hkv=2, G=2, D=16, b=16, nb=4, m=2)     # its smoke config
 WIDTHS = ((1, "latency"), (128, "throughput"), (5, "throughput"))
+# the long-context slice (levels=3): 2 slots of 4096-token windows; NU
+# collapsed entries per (batch, kv-head) row: 32 per level + the tail
+UP_MAIN = dict(B=2, Hkv=8, G=2, D=128, b=128, nb=32, m=16)
+UP_CASES = (("main", UP_MAIN, 33), ("main", UP_MAIN, 65),
+            ("smoke", SMOKE, 5), ("smoke", SMOKE, 40))
+UP_WIDTHS = ((1, "latency"), (512, "throughput"), (5, "throughput"))
+UP_PATTERNS = ("all_live", "some_dead", "all_dead", "tail_only")
+L2_COPIES = 4  # cache copies cycled by the H-level timing (> 50 MB L2)
+LONG = dict(slots=2, max_len=4096, chunk=512, prompts=(65536, 6000),
+            new_tokens=(8, 64))
 # block-sparse attention of qwen3-1.7b train_4k (batch cut to 2) and of its
 # smoke config; Hq query heads, G per KV head
 BSA_MAIN = dict(B=2, Hq=16, n=4096, d=128, b=128, bpr=4)
@@ -153,10 +184,12 @@ def selection_stats(torch, tmd, pre, q_pos, m):
     return margin, union, pairs
 
 
-def bound(pre, k, q_pos, ks, union, pairs):
+def bound(pre, k, q_pos, ks, union, pairs, nu=0):
     """Least time for this call: bytes it must move (each input read once,
     the output written once) over HBM bandwidth vs fp32 operations over
-    the fp32 rate; returns (ms, "bytes" | "operations", bytes, flops)."""
+    the fp32 rate; ``nu`` collapsed entries (the H-level program) add their
+    fp32 means and counts and 2·rows·NU·D·2 operations (scores + fold).
+    Returns (ms, "bytes" | "operations", bytes, flops)."""
     B, Hkv, G, C, D = pre.qg.shape
     b, nb = pre.block_size, pre.pb.shape[1]
     page = b * D * k.element_size() + (b * 4 if ks is not None else 0)
@@ -165,9 +198,11 @@ def bound(pre, k, q_pos, ks, union, pairs):
               + 2 * B * Hkv * nb * D * 4           # page means k_ds, v_ds
               + 2 * B * nb * 4                     # counts, page table
               + rows * D * 4 + B * C * 4           # queries, positions
-              + rows * D * 4)                      # output
+              + rows * D * 4                       # output
+              + 2 * B * Hkv * nu * D * 4 + B * nu * 4)  # hk, hv, hcnt
     flops = (2 * 2 * rows * nb * D                 # coarse scores + background
-             + 2 * 2 * pairs * D)                  # exact scores + P.V
+             + 2 * 2 * pairs * D                   # exact scores + P.V
+             + 2 * 2 * rows * nu * D)              # upper scores + fold
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
     return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations", nbytes, flops)
@@ -292,12 +327,12 @@ def phase_engine_full_width(torch, chunk_attn):
     torch.cuda.reset_peak_memory_stats()
     with mock.patch.object(transformer, "prefill_chunk", finite(orig[0])), \
             mock.patch.object(transformer, "decode_step", finite(orig[1])):
-        chunk_attn.chunk_attention_kernel.launches = 0
+        _reset_chunk(chunk_attn)
         t0 = time.perf_counter()
         done = eng.run(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = chunk_attn.chunk_attention_kernel.launches
+        launches, upper = _chunk_launches(chunk_attn)
     st = eng.stats
     dispatches = st["prefill_dispatches"] + st["decode_dispatches"]
     outs = [r.out for r in done]
@@ -315,15 +350,27 @@ def phase_engine_full_width(torch, chunk_attn):
           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
           "kernel_launches": launches,
           "evicted_tokens": float(eng.kv.occupancy()["tokens_evicted"])})
-    if launches != cfg.num_layers * dispatches:
-        raise AssertionError(f"{launches} kernel launches != {cfg.num_layers} "
-                             f"x {dispatches} dispatches")
+    if launches != cfg.num_layers * dispatches or upper != 0:
+        raise AssertionError(f"{launches} kernel launches (+{upper} of the "
+                             f"H-level program) != {cfg.num_layers} x "
+                             f"{dispatches} dispatches")
     if int(bad) != 0:
         raise AssertionError(f"{int(bad)} non-finite logits")
     if any(len(o) != 192 or int(o.min()) < 0 or int(o.max()) >= cfg.vocab
            for o in outs):
         raise AssertionError("a stream is short or holds an out-of-vocab token")
     return launches, eng
+
+
+def _reset_chunk(chunk_attn):
+    fn = chunk_attn.chunk_attention_kernel
+    fn.launches = fn.upper_launches = 0
+
+
+def _chunk_launches(chunk_attn):
+    """(two-level launches, H-level launches) of the chunk kernel."""
+    fn = chunk_attn.chunk_attention_kernel
+    return fn.launches, fn.upper_launches
 
 
 def _profile(torch, fn, steps, kernels=("chunk_attn",)):
@@ -362,18 +409,18 @@ def _profile(torch, fn, steps, kernels=("chunk_attn",)):
             "top": [[k[:100], ms] for k, ms in rows[:10]]}
 
 
-def phase_profile(torch, eng):
+def phase_profile(torch, eng, C=128, phase="profile"):
     """Where a full-width dispatch's time goes, on the engine's own cache
-    after its run: decode waves of 4 slots, and C = 128 prefill chunks."""
+    after its run: decode waves of every slot, and C-token prefill chunks."""
     from repro_torch.models import transformer
     from repro_torch.serve.sampling import greedy_batch
 
     B = eng.slots
     toks = torch.arange(1, B + 1, device=DEVICE)
     active = torch.ones(B, dtype=torch.bool, device=DEVICE)
-    chunk = (torch.arange(1, B * 128 + 1, device=DEVICE)
-             % eng.cfg.vocab).reshape(B, 128)
-    nv = torch.full((B,), 128, dtype=torch.int32, device=DEVICE)
+    chunk = (torch.arange(1, B * C + 1, device=DEVICE)
+             % eng.cfg.vocab).reshape(B, C)
+    nv = torch.full((B,), C, dtype=torch.int32, device=DEVICE)
 
     def decode():
         logits, _ = transformer.decode_step(eng.params, eng.cfg, eng.kv.tree,
@@ -383,27 +430,32 @@ def phase_profile(torch, eng):
     def prefill():
         transformer.prefill_chunk(eng.params, eng.cfg, eng.kv.tree, chunk, nv)
 
-    emit({"phase": "profile", "note": "ms per dispatch; device_ms = summed "
+    emit({"phase": phase, "note": "ms per dispatch; device_ms = summed "
           "kernel time from torch.profiler; busy_share = device_ms / wall_ms",
-          "decode_step": _profile(torch, decode, 10),
-          "prefill_chunk_128": _profile(torch, prefill, 3)})
+          "slots": B, "decode_step": _profile(torch, decode, 10),
+          f"prefill_chunk_{C}": _profile(torch, prefill, 3)})
 
 
 def _streams(torch, chunk_attn, cfg, params, ecfg, reqs, plain):
+    """{prompt length: greedy tokens}; ``plain`` substitutes the plain
+    version for the kernel (here only). The kernel run must launch only the
+    program of the config's depth (H-level at ``levels >= 3``)."""
     from repro_torch.serve import Engine
 
     def ref(pre, k_cache, v_cache, q_pos, **kw):
         return chunk_attn.chunk_attention_ref(pre, k_cache, v_cache, q_pos, **kw)
 
-    chunk_attn.chunk_attention_kernel.launches = 0
+    _reset_chunk(chunk_attn)
     if plain:
         with mock.patch.object(chunk_attn, "chunk_attention_kernel", ref):
             done = Engine(cfg, params, ecfg, device=DEVICE).run(reqs)
     else:
         done = Engine(cfg, params, ecfg, device=DEVICE).run(reqs)
-    launches = chunk_attn.chunk_attention_kernel.launches
-    if (launches == 0) != plain:
-        raise AssertionError(f"plain={plain} run made {launches} launches")
+    two, upper = _chunk_launches(chunk_attn)
+    hier = cfg.attention.levels >= 3
+    if (two + upper == 0) != plain or (upper if not hier else two) != 0:
+        raise AssertionError(f"plain={plain} levels={cfg.attention.levels} "
+                             f"run made {two} + {upper} (H-level) launches")
     return {len(r.prompt): np.asarray(r.out) for r in done}
 
 
@@ -774,6 +826,262 @@ def phase_train_parity(torch, bsa):
         raise AssertionError(f"full-width training differs: {f}")
 
 
+# --------------------------------------------------------------------------- #
+# long-context serving: the H-level program of the chunk kernel (levels >= 3)
+# --------------------------------------------------------------------------- #
+def upper_view(torch, seed, B, Hkv, D, nu, pattern):
+    """A random H-level view (core.hier.HierUpper) of ``nu`` entries made on
+    the card from ``seed``; pattern: all_live | some_dead | all_dead |
+    tail_only. Entries 1-2 carry 3x keys so that their scores can lead the
+    row stabilizer."""
+    from repro_torch.core.hier import HierUpper
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    km = torch.randn((B, Hkv, nu, D), generator=g, device=DEVICE)
+    km[:, :, 1:3] *= 3.0
+    vm = torch.randn((B, Hkv, nu, D), generator=g, device=DEVICE)
+    cnt = torch.randint(1, 257, (B, nu), generator=g, device=DEVICE).float()
+    if pattern == "some_dead":
+        cnt[:, ::2] = 0.0
+    elif pattern == "all_dead":
+        cnt.zero_()
+    elif pattern == "tail_only":
+        cnt[:, :-1] = 0.0
+    return HierUpper(km, vm, cnt)
+
+
+def phase_upper_vs_plain(torch, tmd, chunk_attn):
+    fn = chunk_attn.chunk_attention_kernel
+    worst, ties, rows, n, calls = 0.0, 0, 0, 0, 0
+    empty_rows = 0
+    upper0 = fn.upper_launches
+    for (name, sh, nu), (C, mode), layout, dtype in itertools.product(
+            UP_CASES, UP_WIDTHS, ("ring", "ragged"), ("bf16", "int8")):
+        n += 1
+        pre2, k, v, q_pos, ks, vs = kernel_case(torch, tmd, SEED + 500 + n, sh,
+                                                C, layout, dtype)
+        margin, _, _ = selection_stats(torch, tmd, pre2, q_pos, sh["m"])
+        tie = (margin < TIE).reshape(pre2.qg.shape[0], -1, C)[..., None]
+        label = f"{name} NU={nu} C={C} {mode} {layout} {dtype}"
+        kw = dict(m=sh["m"], k_scale=ks, v_scale=vs, mode=mode)
+        for i, pattern in enumerate(UP_PATTERNS):
+            up = upper_view(torch, SEED + 1000 * n + i, sh["B"], sh["Hkv"],
+                            sh["D"], nu, pattern)
+            pre = pre2._replace(upper=up)
+            got = fn(pre, k, v, q_pos, include_bg=True, **kw)
+            ref = chunk_attn.chunk_attention_ref(pre, k, v, q_pos,
+                                                 include_bg=True, **kw)
+            calls += 1
+            torch.cuda.synchronize()
+            close = torch.isclose(got, ref, atol=ATOL, rtol=RTOL) | tie
+            err = float(torch.where(tie, 0.0, (got - ref).abs()).max())
+            if not bool(close.all()) or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"chunk_attn H-level program != plain: "
+                                     f"{label} {pattern}: max |err| {err}")
+            if layout == "ragged" and pattern != "all_dead":
+                # slot 0 holds no live window key; its live entries answer
+                if not bool((got[0].abs().amax(-1) > 0).all()):
+                    raise AssertionError(f"empty-window rows are zero: {label}")
+                empty_rows += got[0].shape[0] * got[0].shape[1]
+            worst = max(worst, err)
+            ties += int(tie.sum())
+            rows += tie.numel()
+        # MRA-2-s ignores the hierarchy: the two-level program, same output
+        kw_s = dict(kw, include_bg=False)
+        a = fn(pre, k, v, q_pos, **kw_s)
+        b = fn(pre2, k, v, q_pos, **kw_s)
+        ref = chunk_attn.chunk_attention_ref(pre2, k, v, q_pos, **kw_s)
+        torch.cuda.synchronize()
+        close = torch.isclose(a, ref, atol=ATOL, rtol=RTOL) | tie
+        if not torch.equal(a, b) or not bool(close.all()):
+            raise AssertionError(f"MRA-2-s output changed by the view: {label}")
+    if fn.upper_launches - upper0 != calls:
+        raise AssertionError(f"{fn.upper_launches - upper0} H-level launches "
+                             f"!= {calls} calls")
+    emit({"phase": "upper_vs_plain", "kernel": "chunk_attn_upper",
+          "cases": n * len(UP_PATTERNS), "mra2_s_cases": n, "atol": ATOL,
+          "rtol": RTOL, "max_abs_err": worst, "near_tie_rows": ties,
+          "rows": rows, "tie_margin": TIE, "empty_window_rows": empty_rows,
+          "nu": sorted({nu for _, _, nu in UP_CASES})})
+    if ties > 0.01 * rows:
+        raise AssertionError(f"{ties} near-tie rows of {rows} exceed 1%")
+    return worst
+
+
+def phase_upper_timing(torch, tmd, chunk_attn):
+    """The H-level program (NU = 33) and the two-level one on the same
+    4096-token bf16 windows of the long-context slice, beside the bound and
+    the plain version. The two slots' K/V (33.5 MB) would stay in the 50 MB
+    L2 across repeated calls, while the engine reads each layer's cache
+    once per dispatch: every call here takes the next of ``L2_COPIES``
+    copies of the cache (134 MB in all), so each finds its pages cold. The
+    programs are timed in the order two-level, H-level, H-level, two-level
+    and each keeps the mean of its two runs."""
+    fn = chunk_attn.chunk_attention_kernel
+    out = {}
+    nu = 33
+    for label, C, mode in (("decode", 1, "latency"),
+                           ("chunk512", 512, "throughput")):
+        pre2, k, v, q_pos, ks, vs = kernel_case(torch, tmd, SEED, UP_MAIN, C,
+                                                "dense", "bf16")
+        pre = pre2._replace(upper=upper_view(torch, SEED, UP_MAIN["B"],
+                                             UP_MAIN["Hkv"], UP_MAIN["D"], nu,
+                                             "all_live"))
+        caches = [(k, v)] + [(k.clone(), v.clone())
+                             for _ in range(L2_COPIES - 1)]
+        turn = itertools.count()
+
+        def cold(f, p):
+            def call():
+                kc, vc = caches[next(turn) % L2_COPIES]
+                return f(p, kc, vc, q_pos, **kw)
+            return call
+
+        kw = dict(m=UP_MAIN["m"], include_bg=True, mode=mode)
+        iters = 200 if C == 1 else 20
+        runs = [time_ms(torch, cold(fn, p), iters)
+                for p in (pre2, pre, pre, pre2)]
+        ms, two_ms = (runs[1] + runs[2]) / 2, (runs[0] + runs[3]) / 2
+        plain_ms = time_ms(torch, cold(chunk_attn.chunk_attention_ref, pre),
+                           10)
+        del caches
+        _, union, pairs = selection_stats(torch, tmd, pre, q_pos, UP_MAIN["m"])
+        bound_ms, by, nbytes, flops = bound(pre, k, q_pos, ks, union, pairs,
+                                            nu=nu)
+        two_bound = bound(pre, k, q_pos, ks, union, pairs)[0]
+        out[label] = {"C": C, "mode": mode, "ms": ms, "two_level_ms": two_ms,
+                      "runs_ms": runs, "l2_copies": L2_COPIES,
+                      "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": by, "two_level_bound_ms": two_bound,
+                      "bytes": nbytes, "flops": flops,
+                      "union_pages": int(union.sum())}
+    emit({"phase": "upper_timing", "kernel": "chunk_attn_upper",
+          "shape": UP_MAIN, "nu": nu, "cache": "bf16",
+          "layout": "dense 4096-token slots, L2-cold", **out})
+    return out
+
+
+def phase_long_context(torch, chunk_attn):
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.models.params import init_params
+    from repro_torch.serve import Engine, EngineConfig, Request
+
+    cfg = get_config("qwen3-1.7b")
+    cfg = cfg.replace(attention=cfg.attention.replace(levels=3))
+    params = init_params(cfg, seed=SEED, device=DEVICE)
+    eng = Engine(cfg, params, EngineConfig(
+        slots=LONG["slots"], max_len=LONG["max_len"], chunk=LONG["chunk"]),
+        device=DEVICE)
+    r = np.random.default_rng(SEED)
+    reqs = [Request(prompt=r.integers(0, cfg.vocab, n), max_new_tokens=t)
+            for n, t in zip(LONG["prompts"], LONG["new_tokens"])]
+    bad = torch.zeros((), dtype=torch.int64, device=DEVICE)
+    orig = (transformer.prefill_chunk, transformer.decode_step)
+
+    def finite(f):  # counts non-finite logits on the device, no sync
+        def wrapped(*a, **kw):
+            logits, cache = f(*a, **kw)
+            bad.add_((~torch.isfinite(logits)).sum())
+            return logits, cache
+        return wrapped
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(transformer, "prefill_chunk", finite(orig[0])), \
+            mock.patch.object(transformer, "decode_step", finite(orig[1])):
+        _reset_chunk(chunk_attn)
+        t0 = time.perf_counter()
+        done = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        two, upper = _chunk_launches(chunk_attn)
+    st = eng.stats
+    dispatches = st["prefill_dispatches"] + st["decode_dispatches"]
+    kv, tree = eng.kv, eng.kv.tree
+    lengths = kv.lengths.astype(np.int64)
+    live = lengths - kv.window_start()
+    level = {lv: tree[f"hier_cnt{lv}"].sum(-1).cpu().numpy().astype(np.int64)
+             for lv in kv.hier_lids}
+    tail = tree["tail_cnt"].cpu().numpy().astype(np.int64)
+    held = live + sum(level.values()) + tail
+    occ = kv.occupancy()
+    emit({"phase": "long_context", "arch": cfg.name, "levels": 3,
+          "layers": cfg.num_layers, "activ_dtype": cfg.activ_dtype,
+          "param_dtype": cfg.param_dtype, **LONG, "chunk_used": eng.chunk,
+          "wall_s": wall, "prefill_tokens": st["prefill_tokens"],
+          "prefill_dispatches": st["prefill_dispatches"],
+          "prefill_s": st["prefill_seconds"],
+          "context_tok_per_s": st["prefill_tokens"] / st["prefill_seconds"],
+          "decode_dispatches": st["decode_dispatches"],
+          "decode_s": st["decode_seconds"],
+          "generated_tokens": st["generated_tokens"],
+          "generated_tok_per_s": st["generated_tokens"] / wall,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "upper_launches": upper, "two_level_launches": two,
+          "occupancy": occ, "slot_lengths": lengths.tolist(),
+          "slot_tokens_live": live.tolist(),
+          "slot_level_tokens": {str(k): v.tolist() for k, v in level.items()},
+          "slot_tail_tokens": tail.tolist()})
+    outs = {len(q.prompt): q.out for q in done}
+    if upper != cfg.num_layers * dispatches or two != 0:
+        raise AssertionError(f"{upper} H-level launches (+{two} two-level) != "
+                             f"{cfg.num_layers} x {dispatches} dispatches")
+    if int(bad) != 0:
+        raise AssertionError(f"{int(bad)} non-finite logits")
+    for n, t in zip(LONG["prompts"], LONG["new_tokens"]):
+        o = outs[n]
+        if len(o) != t or int(o.min()) < 0 or int(o.max()) >= cfg.vocab:
+            raise AssertionError(f"stream of prompt {n} is short or out of vocab")
+    if not (live <= LONG["max_len"]).all():
+        raise AssertionError(f"live tokens {live} exceed the window")
+    if occ["level2_entries"] <= 0 or occ["tail_tokens"] <= 0:
+        raise AssertionError(f"the hierarchy stayed empty: {occ}")
+    if not np.array_equal(held, lengths):
+        raise AssertionError(f"tokens not conserved: live + levels + tail "
+                             f"{held} != lengths {lengths}")
+    return upper, eng
+
+
+def phase_hier_parity(torch, chunk_attn):
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models.params import init_params
+    from repro_torch.serve import EngineConfig, Request
+
+    def h3(cfg):
+        return cfg.replace(attention=cfg.attention.replace(levels=3))
+
+    result = {}
+    small = h3(get_smoke_config("qwen3-1.7b", activ_dtype="float32"))
+    params = init_params(small, seed=SEED, device=DEVICE)
+    ecfg = EngineConfig(slots=2, max_len=64, chunk=32)
+    streams = [_streams(torch, chunk_attn, small, params, ecfg, _requests(
+        Request, (200, 37, 150, 90), 24, small.vocab), plain)
+        for plain in (False, True)]
+    same = all(np.array_equal(streams[0][n], streams[1][n]) for n in streams[0])
+    result["smoke"] = {"identical_streams": same, "requests": len(streams[0]),
+                       "window": 64}
+    if not same:
+        raise AssertionError("H=3 smoke-size greedy streams differ kernel vs plain")
+    del params
+
+    full4 = h3(get_config("qwen3-1.7b", num_layers=4, activ_dtype="float32"))
+    params = init_params(full4, seed=SEED, device=DEVICE)
+    ecfg = EngineConfig(slots=2, max_len=4096, chunk=512)
+    prompts = (16896, 3000)  # the first over 4x the window
+    streams = [_streams(torch, chunk_attn, full4, params, ecfg, _requests(
+        Request, prompts, 16, full4.vocab), plain) for plain in (False, True)]
+    same = all(np.array_equal(streams[0][n], streams[1][n]) for n in streams[0])
+    agree = np.mean([np.mean(streams[0][n] == streams[1][n])
+                     for n in streams[0]])
+    result["full_width_4_layers"] = {"prompts": list(prompts), "window": 4096,
+                                     "identical_tokens": bool(same),
+                                     "token_agreement": float(agree)}
+    emit({"phase": "hier_parity", **result})
+    if not same:
+        raise AssertionError("H=3 full-width tokens differ kernel vs plain")
+
+
 def main() -> int:
     import torch
 
@@ -802,6 +1110,14 @@ def main() -> int:
     del state
     torch.cuda.empty_cache()
     phase_train_parity(torch, bsa)
+    torch.cuda.empty_cache()
+    up_err = phase_upper_vs_plain(torch, tmd, chunk_attn)
+    up_time = phase_upper_timing(torch, tmd, chunk_attn)
+    up_launches, eng = phase_long_context(torch, chunk_attn)
+    phase_profile(torch, eng, C=LONG["chunk"], phase="long_context_profile")
+    del eng
+    torch.cuda.empty_cache()
+    phase_hier_parity(torch, chunk_attn)
     dec = timing["decode"]
     print(smi, flush=True)
     train_kernels = []
@@ -829,7 +1145,19 @@ def main() -> int:
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
         "library_ms": None, "shape": "decode C=1 (latency); chunk128 below",
         "chunk128": {k: timing["chunk128"][k] for k in
-                     ("ms", "plain_ms", "bound_ms", "bound_by")}},
+                     ("ms", "plain_ms", "bound_ms", "bound_by")}}, {
+        "name": "chunk_attn_upper", "route": "cuda",
+        "source": "src/repro_torch/csrc/chunk_attn.cu",
+        "replaces": "src/repro/kernels/chunk_attn.py:93 (with_upper=True)",
+        "launches": up_launches, "max_abs_err": up_err,
+        "ms": up_time["decode"]["ms"], "plain_ms": up_time["decode"]["plain_ms"],
+        "bound_ms": up_time["decode"]["bound_ms"],
+        "bound_by": up_time["decode"]["bound_by"], "library_ms": None,
+        "shape": "decode C=1 (latency), B=2, NU=33; chunk512 below",
+        "two_level_ms": up_time["decode"]["two_level_ms"],
+        "chunk512": {k: up_time["chunk512"][k] for k in
+                     ("ms", "two_level_ms", "plain_ms", "bound_ms",
+                      "bound_by")}},
         *train_kernels]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,9 @@ Both paths of the dense decoder run on an NVIDIA Hopper card through
 hand-written CUDA kernels, built at first use by ``kernels/build.py``:
 
   * serving — chunk/decode MRA-2 attention over the ring-paged cache,
-    ``csrc/chunk_attn.cu``;
+    ``csrc/chunk_attn.cu``; at ``levels >= 3`` evicted pages collapse up
+    the hierarchy of ``core/hier.py`` and the same kernel's H-level program
+    folds it into every layer's background;
   * training — full-sequence MRA-2 attention, whose high-resolution term
     runs the block-sparse forward, dq and dk/dv kernels of
     ``csrc/block_sparse_attn.cu``.

@@ -34,7 +34,10 @@ class AttentionSpec:
     kernel_mode: serving-kernel tile shape: "latency" | "throughput" |
       "auto" (decode -> latency, chunks -> throughput).
     kv_quant: int8 KV cache with per-token-per-head scales.
-    levels: H-level pyramid; only levels == 2 is served yet.
+    levels: H-level pyramid (``core/hier.py``, DESIGN.md §14): 2 is the
+      two-level ring; >= 3 collapses evicted pages into coarser rings and
+      an fp32 tail, so a slot serves contexts past its fine window.
+    hier_pages: entries per collapsed level (0 = the fine page count).
     draft_level: background resolution of coarse drafts; only 1 yet.
     """
 
@@ -47,6 +50,7 @@ class AttentionSpec:
     kernel_mode: str = "auto"
     kv_quant: bool = False
     levels: int = 2
+    hier_pages: int = 0
     draft_level: int = 1
 
     @property

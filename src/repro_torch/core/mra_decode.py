@@ -14,6 +14,11 @@ identity table. Every ``//`` and ``%`` on positions here is floor division
 on tensors (Python semantics), so a position of -1 — an idle slot — maps to
 block -1 and page ``nb - 1`` exactly as in the reference.
 
+H-level hierarchy (``levels >= 3``, DESIGN.md §14): ``PyramidState.upper``
+carries the collapsed levels + tail (``core.hier.HierUpper``) into the
+prelude; under ``variant="full"`` their live means join the background
+softmax (``variant="sparse"`` ignores them).
+
 Only the page-statistics prelude and the jnp-oracle selection live here:
 everything after them runs in ``kernels/chunk_attn.py`` — the hand-written
 CUDA kernel on a card, its plain PyTorch twin on the CPU.
@@ -31,7 +36,8 @@ class PyramidState(NamedTuple):
     """Incremental block-sum pyramid over the KV cache.
 
     k_sum / v_sum: (B, Hkv, nb, D) running sums of keys/values per page.
-    upper: the H-level hierarchy view; always None until that slice.
+    upper: the collapsed levels + tail (``core.hier.HierUpper``) of an
+      H >= 3 cache; None at H = 2.
     """
 
     k_sum: torch.Tensor
@@ -163,7 +169,7 @@ class ChunkPrelude(NamedTuple):
     v_ds: torch.Tensor    # (B, Hkv, nb, D) per-page V means
     scale: float
     block_size: int
-    upper: Optional[NamedTuple] = None  # H-level hierarchy (later slice)
+    upper: Optional[NamedTuple] = None  # core.hier.HierUpper at H >= 3
 
 
 class PageSelection(NamedTuple):
@@ -211,16 +217,14 @@ def _chunk_prelude(q, k_cache, v_cache, lengths, q_pos, cfg: MraConfig,
         v_sum = torch.sum((v_cache * mask[:, None, :, None]).reshape(
             B, Hkv, nb, b, D), dim=3, dtype=cdt)
     else:
-        if pyramid.upper is not None:
-            raise NotImplementedError(
-                "the H-level hierarchy (levels >= 3) is not ported yet")
         k_sum, v_sum = pyramid.k_sum.to(cdt), pyramid.v_sum.to(cdt)
     denom = torch.clamp(counts, min=1.0)[:, None, :, None]
     k_ds = (k_sum / denom).contiguous()  # (B, Hkv, nb, D)
     v_ds = (v_sum / denom).contiguous()
     qg = q.reshape(B, Hkv, G, C, D).to(cdt).contiguous()
+    upper = pyramid.upper if pyramid is not None else None
     return ChunkPrelude(qg, pb.to(torch.int32).contiguous(), counts, k_ds,
-                        v_ds, scale, b, None)
+                        v_ds, scale, b, upper)
 
 
 def _select_pages(pre: ChunkPrelude, q_pos, m: int) -> PageSelection:
@@ -259,8 +263,10 @@ def mra2_chunk_attention(q, k_cache, v_cache, lengths, q_pos, cfg: MraConfig,
     Per query at global position ``p``: the coarse page scores pick the
     top-``m`` live pages among blocks up to ``p // b`` for exact attention,
     the own (partial) block is force-selected and masked to ``pos_k <= p``,
-    and the remaining live past pages form the coarse background. With
-    C == 1 and ``q_pos == lengths - 1`` this is the decode path.
+    and the remaining live past pages form the coarse background — joined,
+    at H >= 3 under ``variant="full"``, by the live collapsed entries of
+    ``pyramid.upper``. With C == 1 and ``q_pos == lengths - 1`` this is the
+    decode path.
 
     Only the page-stats prelude runs here; selection, gather, two-level
     softmax, background and normalization run in

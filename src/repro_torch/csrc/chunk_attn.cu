@@ -1,8 +1,10 @@
 // chunk_attn.cu — MRA-2 chunk/decode serving attention for Hopper (sm_90a).
 //
 // Replaces the TPU kernel repro/kernels/chunk_attn.py::_chunk_kernel (the
-// pallas_call in _chunk_attention_call, two-level program with_upper=False).
-// It computes, for one (batch·kv-head row, query tile) per thread block:
+// pallas_call in _chunk_attention_call), both of its programs: the two-level
+// one (with_upper=False) and the H-level fold (with_upper=True, compile-time
+// UPPER here). It computes, for one (batch·kv-head row, query tile) per
+// thread block:
 //   1. coarse scores q · k̄_y · scale against every page mean, the causal
 //      block mask (live ∧ pb <= q_pos // b, floor division: padded rows have
 //      q_pos = -1 and see no page) and FORCE_BONUS on the own live block;
@@ -19,6 +21,17 @@
 //      unselected, non-own pages on the two-level stabilizer
 //      c_tok = max(c, running max), then normalization; rows with no live
 //      key come out as exact zeros.
+//   UPPER (levels >= 3, DESIGN.md §14) adds the collapsed levels + tail:
+//   NU per-entry fp32 means hk / hv per (batch·kv-head) row and counts hcnt
+//   per batch row. Pass 1 takes the live entries' scores hmu = q·hk·scale
+//   into c before any exp (c = max(c_coarse, max_live hmu), then
+//   c_tok = max(c, running max)); after the live-page background, pass 2
+//   adds adj·Σ exp(hmu − c)·hcnt·hv and the matching row sum. The entries
+//   are strictly older than every query, so liveness (hcnt > 0) is the only
+//   gate, and a row with no live window key but live entries is not zero.
+//   Both passes stream the entries through the K/V page and score buffers
+//   (free after the page loop) in tiles of at most b entries, so the fold
+//   needs no shared memory of its own for any NU.
 //
 // What bounds it on this card: bytes. A block must read the K/V pages in the
 // union of its rows' selections plus the page means, counts and page table;
@@ -27,7 +40,8 @@
 // each selected page is read from device memory once per tile and reused by
 // every row of the tile that picked it; the coarse-score tensor, the
 // selection and the gathered pages never reach device memory; one block owns
-// each output tile, so there are no atomics and no second pass. This first
+// each output tile, so there are no atomics and no second pass. The H-level
+// fold reads 2·NU·D more fp32 per block (33 KB at NU = 33, D = 128). This first
 // version uses CUDA cores in fp32 and one block per SM (a block takes 135,568
 // bytes of shared memory at b = D = 128 in latency mode, 163,232 with 16 rows);
 // tensor cores, TMA and overlapped page loads are left for later work.
@@ -122,7 +136,43 @@ __device__ __forceinline__ Smem smem_layout(unsigned char* raw, int rows,
   return m;
 }
 
-template <typename T, bool QUANT, bool BG>
+// One tile of ne <= b collapsed entries starting at e0: hk rows staged into
+// kp (and hv rows into vp when WEIGHTS), then per (row, entry) into s either
+// the live score hmu (-inf for a dead entry; pass 1) or, with WEIGHTS, the
+// background weight exp(hmu - c)·count (0 for a dead entry; pass 2).
+template <bool WEIGHTS>
+__device__ __forceinline__ void upper_tile(const Smem& sm,
+                                           const float* __restrict__ hk_r,
+                                           const float* __restrict__ hv_r,
+                                           const float* __restrict__ hc_r,
+                                           int e0, int ne, int rows, int D,
+                                           int b, float scale) {
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  __syncthreads();  // earlier readers of kp / vp / s are done
+  for (int i = tid; i < ne * D; i += nthreads) {
+    const int t = i / D, d = i - t * D;
+    sm.kp[t * (D + 1) + d] = hk_r[(size_t)(e0 + t) * D + d];
+    if (WEIGHTS) sm.vp[i] = hv_r[(size_t)e0 * D + i];
+  }
+  __syncthreads();
+  for (int i = tid; i < rows * ne; i += nthreads) {
+    const int rr = i / ne, t = i - rr * ne;
+    const float cnt = hc_r[e0 + t];
+    float sv = WEIGHTS ? 0.f : -INFINITY;
+    if (cnt > 0.f) {
+      const float* qr = sm.q + rr * D;
+      const float* kr = sm.kp + t * (D + 1);
+      float dot = 0.f;
+      for (int d = 0; d < D; ++d) dot += qr[d] * kr[d];
+      sv = dot * scale;
+      if (WEIGHTS) sv = expf(sv - sm.c[rr]) * cnt;
+    }
+    sm.s[rr * b + t] = sv;
+  }
+  __syncthreads();
+}
+
+template <typename T, bool QUANT, bool BG, bool UPPER>
 __global__ void __launch_bounds__(CHUNK_ATTN_THREADS)
 chunk_attn_kernel(const float* __restrict__ q,       // (BKV, G, C, D)
                   const int* __restrict__ qpos,      // (B, C)
@@ -134,9 +184,12 @@ chunk_attn_kernel(const float* __restrict__ q,       // (BKV, G, C, D)
                   const T* __restrict__ vc,          // (BKV, nb * b, D)
                   const float* __restrict__ ks,      // (BKV, nb * b) or null
                   const float* __restrict__ vs,      // (BKV, nb * b) or null
+                  const float* __restrict__ hk,      // (BKV, NU, D) or null
+                  const float* __restrict__ hv,      // (BKV, NU, D) or null
+                  const float* __restrict__ hcnt,    // (B, NU) or null
                   float* __restrict__ out,           // (BKV, G, C, D)
                   int Hkv, int G, int C, int D, int nb, int b, int m,
-                  int c_tile, float scale) {
+                  int c_tile, int NU, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int r = blockIdx.x;  // batch·kv-head row
   const int tile = blockIdx.y;
@@ -290,6 +343,24 @@ chunk_attn_kernel(const float* __restrict__ q,       // (BKV, G, C, D)
   }
   __syncthreads();
 
+  // ---- H-level fold, pass 1: live collapsed maxima join c -----------------
+  const float* hk_r = UPPER ? hk + (size_t)r * NU * D : nullptr;
+  const float* hv_r = UPPER ? hv + (size_t)r * NU * D : nullptr;
+  const float* hc_r = UPPER ? hcnt + (size_t)bi * NU : nullptr;
+  if (UPPER) {
+    for (int e0 = 0; e0 < NU; e0 += b) {
+      const int ne = min(b, NU - e0);
+      upper_tile<false>(sm, hk_r, hv_r, hc_r, e0, ne, rows, D, b, scale);
+      for (int rr = warp; rr < rows; rr += nwarps) {
+        float mx = -INFINITY;
+        for (int t = lane; t < ne; t += 32) mx = fmaxf(mx, sm.s[rr * b + t]);
+        mx = warp_max(mx);
+        if (lane == 0) sm.c[rr] = fmaxf(sm.c[rr], mx);
+      }
+    }
+    __syncthreads();
+  }
+
   // ---- background + two-level stabilizer + normalize -----------------------
   for (int rr = warp; rr < rows; rr += nwarps) {
     const float c = sm.c[rr];
@@ -320,11 +391,34 @@ chunk_attn_kernel(const float* __restrict__ q,       // (BKV, G, C, D)
     }
   }
   __syncthreads();
+  if (UPPER) {
+    // ---- H-level fold, pass 2: adj · Σ exp(hmu − c)·count·v̄ into acc, rs --
+    // acc is brought onto c_tok first; element i stays with thread i below
+    for (int i = tid; i < rows * D; i += nthreads) sm.acc[i] *= sm.al[i / D];
+    for (int e0 = 0; e0 < NU; e0 += b) {
+      const int ne = min(b, NU - e0);
+      upper_tile<true>(sm, hk_r, hv_r, hc_r, e0, ne, rows, D, b, scale);
+      for (int rr = warp; rr < rows; rr += nwarps) {
+        float sum = 0.f;
+        for (int t = lane; t < ne; t += 32) sum += sm.s[rr * b + t];
+        sum = warp_sum(sum);
+        if (lane == 0) sm.rs[rr] += sm.adj[rr] * sum;
+      }
+      for (int i = tid; i < rows * D; i += nthreads) {
+        const int rr = i / D, d = i - rr * D;
+        const float* wr = sm.s + rr * b;
+        float pv = 0.f;
+        for (int t = 0; t < ne; ++t) pv += wr[t] * sm.vp[t * D + d];
+        sm.acc[i] += sm.adj[rr] * pv;
+      }
+    }
+    __syncthreads();
+  }
   for (int i = tid; i < rows * D; i += nthreads) {
     const int rr = i / D, d = i - rr * D;
     const int g = rr / c_tile, c = tile * c_tile + rr % c_tile;
     if (c >= C) continue;  // padded row of a ragged last tile
-    float o = sm.acc[i] * sm.al[rr];
+    float o = UPPER ? sm.acc[i] : sm.acc[i] * sm.al[rr];
     if (BG) {
       const float* wr = sm.w + rr * nb;
       float bgv = 0.f;
@@ -336,14 +430,15 @@ chunk_attn_kernel(const float* __restrict__ q,       // (BKV, G, C, D)
   }
 }
 
-template <typename T, bool QUANT, bool BG>
+template <typename T, bool QUANT, bool BG, bool UPPER>
 cudaError_t launch(const void* q, const void* qpos, const void* kds,
                    const void* vds, const void* counts, const void* pb,
                    const void* k, const void* v, const void* ks,
-                   const void* vs, void* out, int B, int Hkv, int G, int C,
-                   int D, int nb, int b, int m, int c_tile, float scale,
-                   int smem, cudaStream_t stream) {
-  auto kernel = chunk_attn_kernel<T, QUANT, BG>;
+                   const void* vs, const void* hk, const void* hv,
+                   const void* hcnt, void* out, int B, int Hkv, int G, int C,
+                   int D, int nb, int b, int m, int c_tile, int NU,
+                   float scale, int smem, cudaStream_t stream) {
+  auto kernel = chunk_attn_kernel<T, QUANT, BG, UPPER>;
   static int configured = 0;  // dynamic shared memory already allowed
   if (smem > configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -358,36 +453,47 @@ cudaError_t launch(const void* q, const void* qpos, const void* kds,
       static_cast<const float*>(counts), static_cast<const int*>(pb),
       static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(ks), static_cast<const float*>(vs),
-      static_cast<float*>(out), Hkv, G, C, D, nb, b, m, c_tile, scale);
+      static_cast<const float*>(hk), static_cast<const float*>(hv),
+      static_cast<const float*>(hcnt), static_cast<float*>(out), Hkv, G, C,
+      D, nb, b, m, c_tile, NU, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = bf16, 1 = fp32, 2 = int8 (with per-token scales ks/vs).
+// NU > 0 launches the H-level program over hk / hv / hcnt (background on
+// only); NU = 0 the two-level one (the three pointers unused).
 // Returns cudaGetLastError() after the launch (0 = success).
 extern "C" int chunk_attn_launch(const void* q, const void* qpos,
                                  const void* kds, const void* vds,
                                  const void* counts, const void* pb,
                                  const void* k, const void* v, const void* ks,
-                                 const void* vs, void* out, int B, int Hkv,
-                                 int G, int C, int D, int nb, int b, int m,
-                                 int c_tile, float scale, int dtype,
-                                 int include_bg, int smem, void* stream) {
+                                 const void* vs, const void* hk,
+                                 const void* hv, const void* hcnt, void* out,
+                                 int B, int Hkv, int G, int C, int D, int nb,
+                                 int b, int m, int c_tile, int NU,
+                                 float scale, int dtype, int include_bg,
+                                 int smem, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define CHUNK_ATTN_ARGS                                                    \
-  q, qpos, kds, vds, counts, pb, k, v, ks, vs, out, B, Hkv, G, C, D, nb, b, \
-      m, c_tile, scale, smem, st
+#define CHUNK_ATTN_ARGS                                                     \
+  q, qpos, kds, vds, counts, pb, k, v, ks, vs, hk, hv, hcnt, out, B, Hkv, G, \
+      C, D, nb, b, m, c_tile, NU, scale, smem, st
   cudaError_t err;
-  if (dtype == 0) {
-    err = include_bg ? launch<__nv_bfloat16, false, true>(CHUNK_ATTN_ARGS)
-                     : launch<__nv_bfloat16, false, false>(CHUNK_ATTN_ARGS);
+  if (NU < 0 || (NU > 0 && !include_bg)) {
+    err = cudaErrorInvalidValue;
+  } else if (dtype == 0) {
+    err = NU > 0       ? launch<__nv_bfloat16, false, true, true>(CHUNK_ATTN_ARGS)
+          : include_bg ? launch<__nv_bfloat16, false, true, false>(CHUNK_ATTN_ARGS)
+                       : launch<__nv_bfloat16, false, false, false>(CHUNK_ATTN_ARGS);
   } else if (dtype == 1) {
-    err = include_bg ? launch<float, false, true>(CHUNK_ATTN_ARGS)
-                     : launch<float, false, false>(CHUNK_ATTN_ARGS);
+    err = NU > 0       ? launch<float, false, true, true>(CHUNK_ATTN_ARGS)
+          : include_bg ? launch<float, false, true, false>(CHUNK_ATTN_ARGS)
+                       : launch<float, false, false, false>(CHUNK_ATTN_ARGS);
   } else if (dtype == 2) {
-    err = include_bg ? launch<int8_t, true, true>(CHUNK_ATTN_ARGS)
-                     : launch<int8_t, true, false>(CHUNK_ATTN_ARGS);
+    err = NU > 0       ? launch<int8_t, true, true, true>(CHUNK_ATTN_ARGS)
+          : include_bg ? launch<int8_t, true, true, false>(CHUNK_ATTN_ARGS)
+                       : launch<int8_t, true, false, false>(CHUNK_ATTN_ARGS);
   } else {
     err = cudaErrorInvalidValue;
   }

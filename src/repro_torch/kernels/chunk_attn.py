@@ -15,6 +15,13 @@ is one function with two implementations:
     which the wrapper takes for tensors on the CPU and which ``chip_smoke.py``
     holds the kernel against on the card.
 
+H-level fold (``levels >= 3``, DESIGN.md §14): when the prelude carries
+the collapsed levels + tail (``pre.upper``) and the background is on, a
+second program of the same kernel (compile-time ``UPPER``) folds them in:
+the live entries' scores join the row stabilizer ``c`` before any exp, and
+``Σ exp(hmu − c)·count·v̄`` joins the background. The wrapper counts its
+launches apart from the two-level program's (``upper_launches``).
+
 Dual mode: the kernel runs at two query-tile widths — ``latency``
 (C_tile = 1, decode) and ``throughput`` (C_tile = min(C, 8), chunked
 prefill) — with ``auto`` resolving from C. Every row's arithmetic is the
@@ -69,6 +76,15 @@ def chunk_attention_ref(pre, k_cache, v_cache, q_pos, *, m: int, k_scale=None,
                            device=coarse_m.device).scatter_(-1, sel.y_idx,
                                                             sel.sel_ok)
     c = torch.clamp(coarse_m.amax(-1), min=NEG_INF * 0.5)  # (B,Hkv,G,C)
+    up = pre.upper if include_bg else None  # MRA-2-s ignores the hierarchy
+    if up is not None:
+        # collapsed levels + tail: strictly past tokens, so liveness is the
+        # only gate; their maxima join the stabilizer before any exp
+        hlive = (up.counts > 0)[:, None, None, None, :]  # (B,1,1,1,NU)
+        hmu = torch.einsum("bhgcd,bhyd->bhgcy", qg,
+                           up.k_mean.to(cdt)) * scale
+        hmu = torch.where(hlive, hmu, NEG_INF)
+        c = torch.maximum(c, hmu.amax(-1))
 
     # ---- exact term over the selected pages --------------------------------
     kf, vf = k_cache.to(cdt), v_cache.to(cdt)
@@ -97,6 +113,12 @@ def chunk_attention_ref(pre, k_cache, v_cache, q_pos, *, m: int, k_scale=None,
         w = w * counts[:, None, None, None, :] * adj[..., None]
         out = out + torch.einsum("bhgcy,bhyd->bhgcd", w, v_ds)
         rs = rs + w.sum(-1)
+        if up is not None:
+            wh = torch.where(hlive, torch.exp(hmu - c[..., None]), 0.0)
+            wh = wh * up.counts[:, None, None, None, :] * adj[..., None]
+            out = out + torch.einsum("bhgcy,bhyd->bhgcd", wh,
+                                     up.v_mean.to(cdt))
+            rs = rs + wh.sum(-1)
 
     alive = rs > 0
     out = (torch.where(alive[..., None], out, 0.0)
@@ -114,9 +136,10 @@ def chunk_attention_kernel(pre, k_cache, v_cache, q_pos, *, m: int,
     (B, Hq, C, D) fp32; the caller casts to q's dtype.
 
     A CUDA cache launches ``csrc/chunk_attn.cu`` on the current stream (no
-    synchronisation; launch errors raise). A CPU cache takes the plain
-    version ``chunk_attention_ref``. There is no other route: a CUDA tensor
-    never falls back to the plain version.
+    synchronisation; launch errors raise): the H-level program when
+    ``pre.upper`` is set and ``include_bg`` is on, else the two-level one.
+    A CPU cache takes the plain version ``chunk_attention_ref``. There is no
+    other route: a CUDA tensor never falls back to the plain version.
     """
     B, Hkv, G, C, D = pre.qg.shape
     if (k_scale is None) != (v_scale is None):
@@ -129,24 +152,32 @@ def chunk_attention_kernel(pre, k_cache, v_cache, q_pos, *, m: int,
             f"q_pos shape {tuple(q_pos.shape)} does not match the (B, C) = "
             f"({B}, {C}) of queries {tuple(pre.qg.shape)}")
     resolved = resolve_kernel_mode(mode, C)
-    if pre.upper is not None:
-        raise NotImplementedError(
-            "the H-level fold (collapsed levels + tail, levels >= 3) is not "
-            "ported yet; only the two-level kernel exists")
     if not k_cache.is_cuda:
         return chunk_attention_ref(pre, k_cache, v_cache, q_pos, m=m,
                                    k_scale=k_scale, v_scale=v_scale,
                                    include_bg=include_bg, mode=mode)
     c_tile = 1 if resolved == "latency" else min(C, THROUGHPUT_C_TILE)
-    return _launch(pre, k_cache, v_cache, q_pos, m, k_scale, v_scale,
-                   include_bg, c_tile)
+    upper = pre.upper if include_bg else None
+    out = _launch(pre, k_cache, v_cache, q_pos, m, k_scale, v_scale,
+                  include_bg, c_tile, upper)
+    if upper is None:
+        chunk_attention_kernel.launches += 1
+    else:
+        chunk_attention_kernel.upper_launches += 1
+    return out
 
 
-chunk_attention_kernel.launches = 0  # launches of the CUDA kernel, never reset here
+# launches of the CUDA kernel's two programs, never reset here
+chunk_attention_kernel.launches = 0        # two-level (with_upper=False)
+chunk_attention_kernel.upper_launches = 0  # H-level fold (with_upper=True)
 
 
 def smem_bytes(G: int, c_tile: int, D: int, b: int, nb: int) -> int:
-    """Dynamic shared memory of one block; mirrors ``smem_layout`` in the source."""
+    """Dynamic shared memory of one block; mirrors ``smem_layout`` in the source.
+
+    The same for both programs: the H-level fold streams the collapsed
+    entries through the K/V page and score buffers, whatever their count.
+    """
     rows = G * c_tile
     floats = (rows * D          # query tile
               + b * (D + 1)     # K page (row padded: conflict-free dots)
@@ -177,7 +208,7 @@ def _library() -> ctypes.CDLL:
     if lib.chunk_attn_launch.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.chunk_attn_launch.argtypes = (
-            [ptr] * 11 + [i32] * 9 + [ctypes.c_float] + [i32] * 3 + [ptr])
+            [ptr] * 14 + [i32] * 10 + [ctypes.c_float] + [i32] * 3 + [ptr])
         lib.chunk_attn_launch.restype = i32
         lib.chunk_attn_error_string.argtypes = [i32]
         lib.chunk_attn_error_string.restype = ctypes.c_char_p
@@ -185,7 +216,7 @@ def _library() -> ctypes.CDLL:
 
 
 def _launch(pre, k_cache, v_cache, q_pos, m, k_scale, v_scale, include_bg,
-            c_tile):
+            c_tile, upper):
     B, Hkv, G, C, D = pre.qg.shape
     b = pre.block_size
     S = k_cache.shape[2]
@@ -207,6 +238,14 @@ def _launch(pre, k_cache, v_cache, q_pos, m, k_scale, v_scale, include_bg,
     if quant:
         _check(k_scale, "k_scale", (B, Hkv, S), f32, dev)
         _check(v_scale, "v_scale", (B, Hkv, S), f32, dev)
+    nu = 0
+    if upper is not None:
+        nu = upper.k_mean.shape[2]
+        if nu < 1:
+            raise ValueError("the H-level view holds no entry (not even the tail)")
+        _check(upper.k_mean, "upper k_mean", (B, Hkv, nu, D), f32, dev)
+        _check(upper.v_mean, "upper v_mean", (B, Hkv, nu, D), f32, dev)
+        _check(upper.counts, "upper counts", (B, nu), f32, dev)
     qpos = q_pos.to(device=dev, dtype=torch.int32).contiguous()
     smem = smem_bytes(G, c_tile, D, b, nb)
     if smem > _MAX_SMEM:
@@ -222,11 +261,13 @@ def _launch(pre, k_cache, v_cache, q_pos, m, k_scale, v_scale, include_bg,
         k_cache.data_ptr(), v_cache.data_ptr(),
         k_scale.data_ptr() if quant else null,
         v_scale.data_ptr() if quant else null,
-        out.data_ptr(), B, Hkv, G, C, D, nb, b, m, c_tile,
+        upper.k_mean.data_ptr() if nu else null,
+        upper.v_mean.data_ptr() if nu else null,
+        upper.counts.data_ptr() if nu else null,
+        out.data_ptr(), B, Hkv, G, C, D, nb, b, m, c_tile, nu,
         float(pre.scale), _CACHE_DTYPES[k_cache.dtype], int(include_bg), smem,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         msg = lib.chunk_attn_error_string(rc).decode()
         raise RuntimeError(f"chunk_attn kernel launch failed: {msg} ({rc})")
-    chunk_attention_kernel.launches += 1
     return out

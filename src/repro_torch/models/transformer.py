@@ -4,21 +4,26 @@ Port of the dense family of ``repro/models/transformer.py`` (DESIGN.md §9):
 the full-sequence ``forward`` / ``loss_fn`` that training runs (the layers
 are a list here, so the reference's ``scan`` is a loop, each layer under
 the config's remat policy), and the serving half — ``cache_specs``
-(two-level ring-paged layout, with or without the int8 KV cache),
+(ring-paged layout, with or without the int8 KV cache, and at
+``levels >= 3`` the collapse-up hierarchy of ``core/hier.py``),
 ``layer_cache_kinds``, ``prefill_chunk`` and ``decode_step``. The
 whole-prompt ``prefill`` has no port yet.
 
 Unlike the reference, ``prefill_chunk`` and ``decode_step`` update the
 cache tensors **in place** (and return the same dict): a slot that is
 frozen for the call (``num_valid == 0``, ``active == False``) has every row
-of its K/V, scales, pyramid sums, page-table entries and length left
-bit-identical.
+of its K/V, scales, pyramid sums, hierarchy tables and payloads, page-table
+entries and length left bit-identical. In-place updates set the order of
+work at H >= 3: the collapse plan reads the page table before the call
+rewrites it, and each layer carries the evicted pages' sums up the
+hierarchy before its pyramid drops them.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import hier
 from repro_torch.core.attention import (
     MRA_KINDS,
     chunk_attention,
@@ -74,11 +79,15 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     k/v (B, Hkv, S, hd) at the activation dtype (int8 with per-token scales
     under ``kv_quant``); under the MRA kinds also the fp32 pyramid block
     sums (B, Hkv, nb, hd) per layer and the shared ring page table (B, nb)
-    (physical page -> logical block, -1 = never written).
+    (physical page -> logical block, -1 = never written). At
+    ``levels >= 3`` (MRA kinds) the hierarchy of ``core/hier.py``: per
+    collapsed level l in [2, H) int8 means ``hier_k{l}``/``hier_v{l}``
+    (B, Hkv, n, hd) and fp32 scales ``hier_ks{l}``/``hier_vs{l}``
+    (B, Hkv, n) per layer, shared int32 tables ``hier_own{l}`` (B, n, fill
+    -1) and ``hier_cnt{l}`` (B, n); fp32 tail sums ``tail_k``/``tail_v``
+    (B, Hkv, hd) per layer and the shared int32 ``tail_cnt`` (B,), with
+    n = ``hier_pages`` or nb.
     """
-    if cfg.attention.levels >= 3:
-        raise NotImplementedError(
-            "the H-level pyramid (levels >= 3) comes with its own slice")
     hd, Hkv, Lx = cfg.hd, cfg.kv_heads, cfg.num_layers
     mra = cfg.attention.kind in MRA_KINDS
     quant = cfg.attention.kv_quant and mra
@@ -96,6 +105,23 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
         c["pyr_k"] = [pyr] * Lx
         c["pyr_v"] = [pyr] * Lx
         c["page_blocks"] = TensorSpec((batch, nb), torch.int32, "fill", -1)
+        if cfg.attention.levels >= 3:
+            n = cfg.attention.hier_pages or nb
+            hmean = TensorSpec((batch, Hkv, n, hd), torch.int8, "zeros")
+            hscale = TensorSpec((batch, Hkv, n), torch.float32, "zeros")
+            for lvl in range(2, cfg.attention.levels):
+                c[f"hier_k{lvl}"] = [hmean] * Lx
+                c[f"hier_v{lvl}"] = [hmean] * Lx
+                c[f"hier_ks{lvl}"] = [hscale] * Lx
+                c[f"hier_vs{lvl}"] = [hscale] * Lx
+                c[f"hier_own{lvl}"] = TensorSpec((batch, n), torch.int32,
+                                                 "fill", -1)
+                c[f"hier_cnt{lvl}"] = TensorSpec((batch, n), torch.int32,
+                                                 "zeros")
+            tail = TensorSpec((batch, Hkv, hd), torch.float32, "zeros")
+            c["tail_k"] = [tail] * Lx
+            c["tail_v"] = [tail] * Lx
+            c["tail_cnt"] = TensorSpec((batch,), torch.int32, "zeros")
     return c
 
 
@@ -122,7 +148,8 @@ def prefill_chunk(params, cfg: ModelConfig, cache, tokens, num_valid, *,
     chunk's K/V (and pyramid block sums) are written into the cache at the
     slot's offset, then the chunk's queries attend the updated cache. A
     chunk token that starts a new block recycles its ring page (drops the
-    evicted block's sums first).
+    evicted block's sums first) — at H >= 3 after carrying them up the
+    hierarchy, oldest evicted block first.
 
     Args:
       tokens: (B, C) int prompt chunk per slot (padding arbitrary).
@@ -144,7 +171,8 @@ def prefill_chunk(params, cfg: ModelConfig, cache, tokens, num_valid, *,
     x = L.embed(tokens, params["embed"], cfg)
     paged = "page_blocks" in cache
     bs = cfg.attention.block_size
-    b_idx2 = torch.arange(B, device=dev)[:, None].expand(B, C)
+    b_idx = torch.arange(B, device=dev)
+    b_idx2 = b_idx[:, None].expand(B, C)
     frozen = (num_valid == 0)[:, None, None, None]
 
     def scatter_tokens(arr, vals):
@@ -166,6 +194,16 @@ def prefill_chunk(params, cfg: ModelConfig, cache, tokens, num_valid, *,
         touched = ind_b.any(1)  # (B, npages)
         blk_new = torch.where(ind_b, (positions // bs)[:, :, None], -1).amax(1)
         pb = cache["page_blocks"]
+        hplans = []
+        if hier.has_hier(cache):
+            # H-level collapse, plan phase: the recycled pages' owners come
+            # from the table before this call rewrites it; the shared
+            # tables update once, every layer replays the plans below
+            child = torch.full((B,), bs, dtype=torch.int32, device=dev)
+            for blk_j, on_j in hier.eviction_schedule(pb, fresh, C // bs + 1):
+                upd, plan = hier.cache_collapse_tables(cache, blk_j, child, on_j)
+                hier.cache_store_tables(cache, upd)
+                hplans.append((plan, blk_j % npages))
         pb.copy_(torch.where(touched, blk_new.to(pb.dtype), pb))
 
     for i, p in enumerate(params["layers"]):
@@ -185,6 +223,10 @@ def prefill_chunk(params, cfg: ModelConfig, cache, tokens, num_valid, *,
         pyramid = None
         if paged:
             base_k, base_v = cache["pyr_k"][i], cache["pyr_v"][i]
+            for plan, pg_j in hplans:  # value phase: before the sums drop
+                hier.cache_store_layer(cache, i, hier.cache_collapse_layer(
+                    cache, i, plan, base_k[b_idx, :, pg_j],
+                    base_v[b_idx, :, pg_j]))
             f4 = fresh[:, None, :, None]
             pk = torch.where(f4, 0.0, base_k) + torch.einsum(
                 "bcy,bhcd->bhyd", ind, k_new.to(torch.float32))
@@ -192,7 +234,8 @@ def prefill_chunk(params, cfg: ModelConfig, cache, tokens, num_valid, *,
                 "bcy,bhcd->bhyd", ind, v_new.to(torch.float32))
             base_k.copy_(torch.where(frozen, base_k, pk))
             base_v.copy_(torch.where(frozen, base_v, pv))
-            pyramid = PyramidState(base_k, base_v)
+            pyramid = PyramidState(base_k, base_v,
+                                   hier.cache_upper_view(cache, i))
         o = chunk_attention(
             q, kc, vc, lengths_new, positions, cfg.attn_spec, pyramid=pyramid,
             page_blocks=cache.get("page_blocks"), k_scale=ks, v_scale=vs)
@@ -216,8 +259,9 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, active=None):
     slots' cache rows (KV, scales, pyramid, page table, length) stay
     bit-identical and their logits are garbage for the caller to ignore.
     ``None`` = all active. The write position wraps modulo the physical
-    cache, so a stream past capacity recycles its oldest background page.
-    The cache is updated in place.
+    cache, so a stream past capacity recycles its oldest background page —
+    at H >= 3 after collapsing its sums up the hierarchy. The cache is
+    updated in place.
     """
     B = tokens.shape[0]
     dev = tokens.device
@@ -229,6 +273,19 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, active=None):
     paged = "page_blocks" in cache
     pos = lengths - 1  # the new token's position (-1 for an idle empty slot)
     am2, am3 = act[:, None], act[:, None, None]
+    bs = cfg.attention.block_size
+    hplan = page_e = None
+    if paged and hier.has_hier(cache):
+        # H-level collapse, plan phase: a token that starts a block recycles
+        # its page, whose owner carries up the hierarchy (floor division:
+        # an idle slot's pos -1 maps to page nb - 1, and it is inactive)
+        page_e = (pos // bs) % cache["page_blocks"].shape[1]
+        old_owner = cache["page_blocks"][b_idx, page_e]
+        evict = act & ((pos % bs) == 0) & (old_owner >= 0)
+        upd, hplan = hier.cache_collapse_tables(
+            cache, old_owner, torch.full((B,), bs, dtype=torch.int32,
+                                         device=dev), evict)
+        hier.cache_store_tables(cache, upd)
     for i, p in enumerate(params["layers"]):
         h = L.apply_norm(x, p["ln1"], cfg)
         q, k_new, v_new = L.qkv_project(h, p["attn"], cfg, pos[:, None])
@@ -249,13 +306,18 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, active=None):
         vc[b_idx, :, widx] = torch.where(am3, v_write, vc[b_idx, :, widx])
         pyramid = None
         if paged:
+            if hplan is not None:  # value phase: before the page's sums drop
+                hier.cache_store_layer(cache, i, hier.cache_collapse_layer(
+                    cache, i, hplan, cache["pyr_k"][i][b_idx, :, page_e],
+                    cache["pyr_v"][i][b_idx, :, page_e]))
             pyramid, pb = ring_pyramid_update(
                 PyramidState(cache["pyr_k"][i], cache["pyr_v"][i]),
                 cache["page_blocks"], k_new[:, :, 0], v_new[:, :, 0], pos,
-                cfg.attention.block_size, active=act)
+                bs, active=act)
             cache["pyr_k"][i].copy_(pyramid.k_sum)
             cache["pyr_v"][i].copy_(pyramid.v_sum)
             cache["page_blocks"].copy_(pb)
+            pyramid = pyramid._replace(upper=hier.cache_upper_view(cache, i))
         o = decode_attention(q, kc, vc, lengths, cfg.attn_spec,
                              pyramid=pyramid,
                              page_blocks=cache.get("page_blocks"),

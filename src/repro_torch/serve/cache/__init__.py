@@ -1,4 +1,4 @@
-"""serve/cache: the cache protocol and the ring-paged KV backend (H = 2)."""
+"""serve/cache: the cache protocol and the ring-paged KV backend."""
 from __future__ import annotations
 
 from .paged import RingPagedKVCache

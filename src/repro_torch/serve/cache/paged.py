@@ -1,4 +1,4 @@
-"""Ring-paged KV cache backend for the serving engine (two-level, H = 2).
+"""Ring-paged KV cache backend for the serving engine.
 
 Port of ``repro/serve/cache/paged.py``. Physical pages are
 ``cfg.attention.block_size`` tokens — exactly the MRA pyramid's blocks —
@@ -10,7 +10,17 @@ kinds get the same storage without a page table (dense, hard capacity).
 
 This module owns the lifecycle: building the cache on its device, bit-exact
 per-slot reset on admission, and occupancy introspection. The speculative
-snapshot/rewind and the H-level hierarchy come with their slices.
+snapshot/rewind comes with its slice.
+
+H-level hierarchy (``cfg.attention.levels >= 3``, ``core/hier.py``,
+DESIGN.md §14): ring eviction becomes collapse-up — a recycled page's sums
+merge into coarser per-level rings and an fp32 tail, so a slot serves
+contexts far longer than its fine window from bounded memory.
+``capacity`` is then None (prompts of any length stream through chunked
+prefill), ``chunk_cap`` keeps every chunk one block short of the window
+(so what a chunk collapses is older than all its queries),
+``window_tokens`` stays the fine-window size, and ``occupancy()`` adds
+per-level gauges.
 """
 from __future__ import annotations
 
@@ -49,6 +59,12 @@ class RingPagedKVCache(CacheBackend):
         self.paged = "page_blocks" in self.specs
         self.block = cfg.attention.block_size if self.paged else None
         self.pages = max_len // cfg.attention.block_size if self.paged else None
+        self.hier_lids = (tuple(range(2, cfg.attention.levels)) if self.paged
+                          else ())
+        self.window_tokens = max_len
+        if self.hier_lids:
+            self.capacity = None
+            self.chunk_cap = max_len - self.block
         self.tree = {
             k: ([materialize(s, self.device) for s in v] if isinstance(v, list)
                 else materialize(v, self.device))
@@ -59,8 +75,10 @@ class RingPagedKVCache(CacheBackend):
         """Clear the slots selected by ``mask`` (B,) bool for re-admission.
 
         Only the validity state is cleared (lengths, page table, pyramid
-        sums); stale K/V bytes are unreachable once no live page points at
-        them, so they stay — as in the reference.
+        sums, and at H >= 3 the collapsed levels' owner/count tables and
+        the tail); stale K/V bytes and collapsed payloads are unreachable
+        once no live page or entry count points at them, so they stay — as
+        in the reference.
         """
         m = torch.as_tensor(np.asarray(mask, bool), device=self.device)
         t = self.tree
@@ -70,6 +88,14 @@ class RingPagedKVCache(CacheBackend):
             for key in ("pyr_k", "pyr_v"):
                 for a in t[key]:
                     a.masked_fill_(m[:, None, None, None], 0.0)
+        for lvl in self.hier_lids:
+            t[f"hier_own{lvl}"].masked_fill_(m[:, None], -1)
+            t[f"hier_cnt{lvl}"].masked_fill_(m[:, None], 0)
+        if self.hier_lids:
+            for key in ("tail_k", "tail_v"):
+                for a in t[key]:
+                    a.masked_fill_(m[:, None, None], 0.0)
+            t["tail_cnt"].masked_fill_(m, 0)
 
     def occupancy(self) -> dict:
         """Occupancy gauges: live tokens/pages + evictions.
@@ -77,7 +103,10 @@ class RingPagedKVCache(CacheBackend):
         ``tokens_live`` counts positions still attendable (the window from
         the oldest live page to the stream head), ``pages_live`` the
         non-evicted page-table entries, ``tokens_evicted`` the positions
-        ring eviction has dropped. Dense storage never evicts.
+        ring eviction has dropped. Dense storage never evicts. At H >= 3
+        evicted tokens live on: ``level{l}_entries`` / ``level{l}_tokens``
+        count the live entries of collapsed level l and the tokens they
+        hold, ``tail_tokens`` those folded into the tail.
         """
         occ = super().occupancy()
         if self.paged:
@@ -86,6 +115,12 @@ class RingPagedKVCache(CacheBackend):
             occ["tokens_live"] = float((lengths - start).sum())
             occ["pages_live"] = float(self.live_pages().sum())
             occ["tokens_evicted"] = float(start.sum())
+        for lvl in self.hier_lids:
+            cnt = self.tree[f"hier_cnt{lvl}"].cpu().numpy()
+            occ[f"level{lvl}_entries"] = float((cnt > 0).sum())
+            occ[f"level{lvl}_tokens"] = float(cnt.sum())
+        if self.hier_lids:
+            occ["tail_tokens"] = float(self.tree["tail_cnt"].cpu().numpy().sum())
         return occ
 
     def live_pages(self) -> Optional[np.ndarray]:

@@ -7,7 +7,9 @@ introspection:
 
   tree           the dict of tensors handed to every model call
   specs          the TensorSpec tree that declared it
-  capacity       per-slot token budget for admission control
+  capacity       per-slot token budget for admission control, or None
+                 when prompts of any length may stream through (H >= 3)
+  chunk_cap      optional ceiling on the engine's prefill chunk size
   paged          ring-paged MRA semantics (page table + pyramid)
   reset_slots    bit-exact per-slot reset on (re)admission
   lengths        (slots,) host view of per-slot stream lengths
@@ -22,6 +24,7 @@ class CacheBackend:
 
     paged = False
     capacity: int | None = None
+    chunk_cap: int | None = None
 
     def reset_slots(self, mask: np.ndarray) -> None:
         raise NotImplementedError

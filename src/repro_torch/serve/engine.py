@@ -47,11 +47,14 @@ class EngineConfig:
 
     slots: concurrent sequences served.
     max_len: per-slot cache window. For MRA attention this is the ring
-      capacity (a multiple of the block size): prompts must fit, generation
-      beyond it evicts the oldest background pages. For dense attention it
-      is a hard prompt + generation cap.
+      capacity (a multiple of the block size): at ``levels == 2`` prompts
+      must fit and generation beyond it evicts the oldest background pages;
+      at ``levels >= 3`` evicted pages collapse up the hierarchy and prompts
+      of any length stream through. For dense attention it is a hard
+      prompt + generation cap.
     chunk: prefill chunk size (tokens per slot per prefill dispatch),
-      clamped to ``max_len``.
+      clamped to ``max_len`` and to the cache's ``chunk_cap`` (one block
+      short of the window at ``levels >= 3``).
     default_sampling: sampler settings for requests submitted with
       ``sampling=None`` (None = greedy).
     kernel_mode: serving-kernel tile shape — "auto" (decode -> latency,
@@ -115,6 +118,8 @@ class Engine:
         self.kv = RingPagedKVCache(cfg, self.slots, self.max_len,
                                    device=self.device)
         self.chunk = min(config.chunk, self.max_len)
+        if self.kv.chunk_cap is not None:
+            self.chunk = min(self.chunk, self.kv.chunk_cap)
         self.reset_stats()
 
     def reset_stats(self) -> None:

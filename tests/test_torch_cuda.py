@@ -14,6 +14,10 @@ run on the same CUDA tensors.
     a near tie (gap between the m-th and (m+1)-th allowed coarse score
     >= 1e-4), and near ties under 1% of rows — the kernel's fused
     multiply-adds may break such a tie the other way.
+  * the H-level program of ``chunk_attn`` (collapsed levels + tail) against
+    the same plain version with the same view, at the same tolerance, for
+    NU = 33 and 65 at the serving shapes (65 would not fit as resident
+    tiles) and NU above b at the smoke shapes (two entry tiles).
   * ``bsa_fwd`` / ``bsa_bwd_dq`` / ``bsa_bwd_dkv`` against
     ``block_sparse_attention_ref`` / ``_bwd_ref``: the normalized numerator
     and the max-scaled gradients at rtol/atol 1e-4, mt at abs 1e-5 (fp32
@@ -162,6 +166,83 @@ def test_chunk_attn_kernel_counts_launches_and_rejects_bad_input(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         chunk_attn.chunk_attention_kernel(
             pre, k.transpose(2, 3).contiguous().transpose(2, 3), v, q_pos, m=2)
+
+
+def upper_of(seed, B, Hkv, D, NU, pattern, device):
+    """A random H-level view (core.hier.HierUpper) of NU entries; pattern:
+    all_live | some_dead | all_dead | tail_only. A few entries carry 3x keys
+    so that their scores can lead the row stabilizer."""
+    from repro_torch.core.hier import HierUpper
+
+    r = np.random.default_rng(seed)
+    km = r.standard_normal((B, Hkv, NU, D)).astype(np.float32)
+    km[:, :, 1:3] *= 3.0
+    vm = r.standard_normal((B, Hkv, NU, D)).astype(np.float32)
+    cnt = r.integers(1, 257, (B, NU)).astype(np.float32)
+    if pattern == "some_dead":
+        cnt[:, ::2] = 0.0
+    elif pattern == "all_dead":
+        cnt[:] = 0.0
+    elif pattern == "tail_only":
+        cnt[:, :-1] = 0.0
+    return HierUpper(*(torch.as_tensor(x, device=device) for x in (km, vm, cnt)))
+
+
+UPPER_CASES = [("main", 33), ("main", 65), ("smoke", 5), ("smoke", 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,NU", UPPER_CASES)
+@pytest.mark.parametrize("C,mode", [(1, "latency"), (5, "throughput")])
+def test_chunk_attn_upper_kernel_matches_plain(cuda, shape, NU, C, mode):
+    sh = SHAPES[shape]
+    ties = rows = 0
+    for i, (layout, dtype, pattern) in enumerate(itertools.product(
+            ("ring", "ragged"), ("bf16", "int8"),
+            ("all_live", "some_dead", "all_dead", "tail_only"))):
+        q, k, v, lengths, q_pos, pb, ks, vs = make_inputs(
+            i, B=sh["B"], Hkv=sh["Hkv"], G=sh["G"], D=sh["D"], b=sh["b"],
+            nb=sh["nb"], C=C, layout=layout, dtype=dtype, device=cuda)
+        cfg = MraConfig(block_size=sh["b"])
+        pyr = pyramid_of(k, v, lengths, pb, ks, vs, sh["b"])._replace(
+            upper=upper_of(i, sh["B"], sh["Hkv"], sh["D"], NU, pattern, cuda))
+        pre = tmd._chunk_prelude(q, k, v, lengths, q_pos, cfg, sh["m"], pyr, pb)
+        before = chunk_attn.chunk_attention_kernel.upper_launches
+        _, t, n = compare(pre, k, v, q_pos, sh["m"], ks, vs, True, mode)
+        assert chunk_attn.chunk_attention_kernel.upper_launches == before + 1
+        ties, rows = ties + t, rows + n
+        if layout == "ragged" and pattern != "all_dead":  # slot 0: no window
+            out = chunk_attn.chunk_attention_kernel(
+                pre, k, v, q_pos, m=sh["m"], k_scale=ks, v_scale=vs, mode=mode)
+            assert bool((out[0].abs().amax(-1) > 0).all())
+    assert ties <= 0.01 * rows, f"{ties} near-tie rows of {rows}"
+
+
+@pytest.mark.cuda
+def test_chunk_attn_upper_program_counts_apart_and_skips_under_mra2_s(cuda):
+    """MRA-2-s ignores the view: the two-level program runs and gives the
+    same result as without it; the fold's launches are counted apart."""
+    sh = SHAPES["smoke"]
+    q, k, v, lengths, q_pos, pb, ks, vs = make_inputs(
+        3, B=sh["B"], Hkv=sh["Hkv"], G=sh["G"], D=sh["D"], b=sh["b"],
+        nb=sh["nb"], C=3, layout="ring", dtype="bf16", device=cuda)
+    cfg = MraConfig(block_size=sh["b"], variant="sparse")
+    pyr = pyramid_of(k, v, lengths, pb, ks, vs, sh["b"])
+    up = upper_of(0, sh["B"], sh["Hkv"], sh["D"], 9, "all_live", cuda)
+    with_up = tmd._chunk_prelude(q, k, v, lengths, q_pos, cfg, 2,
+                                 pyr._replace(upper=up), pb)
+    plain = tmd._chunk_prelude(q, k, v, lengths, q_pos, cfg, 2, pyr, pb)
+    fn = chunk_attn.chunk_attention_kernel
+    two, upper = fn.launches, fn.upper_launches
+    a = fn(with_up, k, v, q_pos, m=2, include_bg=False)
+    b = fn(plain, k, v, q_pos, m=2, include_bg=False)
+    assert torch.equal(a, b)
+    assert (fn.launches, fn.upper_launches) == (two + 2, upper)
+    fn(with_up, k, v, q_pos, m=2)
+    assert (fn.launches, fn.upper_launches) == (two + 2, upper + 1)
+    with pytest.raises(ValueError, match="upper counts"):
+        fn(with_up._replace(upper=up._replace(counts=up.counts[:, :-1])),
+           k, v, q_pos, m=2)
 
 
 def bsa_inputs(seed, *, BHKV, G, n, d, b, m, dtype, device, masked=True):

@@ -8,6 +8,10 @@ reference engine runs its jnp route, the port its kernel's plain twin on
 the CPU). Sampled streams use another generator than JAX's PRNG, so they
 are checked by their own contract (same seed -> same tokens, batched ==
 solo) and by distribution (a chi-square test).
+
+At ``levels = 3`` (the collapse-up hierarchy) the port's engine serves the
+reference's long-context requests (prompts far past the 64-token window)
+with the same greedy streams and the same final occupancy gauges.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from repro.serve import EngineConfig as JEngineConfig
 from repro.serve import Request as JRequest
 from repro.serve import sampling as jsampling
 from repro_torch.configs import get_smoke_config
+from repro_torch.models import transformer as TT
 from repro_torch.models.params import params_from_jax
 from repro_torch.serve import (
     Engine,
@@ -33,6 +38,8 @@ from repro_torch.serve import (
     filtered_logits,
     sample_batch,
 )
+from repro_torch.serve.cache import RingPagedKVCache
+from test_hier_pyramid import _long_reqs
 
 ECFG = EngineConfig(slots=3, max_len=64, chunk=8)
 
@@ -258,3 +265,73 @@ def test_unported_options_raise(cfgs, params, field, value):
         Engine(tcfg, tp, ECFG.replace(**{field: value}), device="cpu")
     with pytest.raises(ValueError, match="kernel_mode"):
         Engine(tcfg, tp, ECFG.replace(kernel_mode="fast"), device="cpu")
+
+
+# --------------------------------------------------------------------------- #
+# H = 3: serving past the fine window
+# --------------------------------------------------------------------------- #
+H3_ECFG = EngineConfig(slots=2, max_len=64, chunk=32)
+
+
+def _h3(cfgs):
+    return tuple(c.replace(attention=c.attention.replace(levels=3))
+                 for c in cfgs)
+
+
+def _port_long_reqs():
+    return [Request(prompt=np.asarray(r.prompt), max_new_tokens=r.max_new_tokens)
+            for r in _long_reqs()]
+
+
+def test_h3_streams_and_occupancy_match_the_jax_engine(cfgs, params):
+    jcfg, tcfg = _h3(cfgs)
+    jp, tp = params
+    jeng = JEngine(jcfg, jp, JEngineConfig(slots=2, max_len=64, chunk=32))
+    ref = {len(r.prompt): np.asarray(r.out) for r in jeng.run(_long_reqs())}
+    eng = Engine(tcfg, tp, H3_ECFG, device="cpu")
+    got = {len(r.prompt): np.asarray(r.out) for r in eng.run(_port_long_reqs())}
+    assert eng.kv.capacity is None and eng.kv.chunk_cap == 48
+    assert set(got) == set(ref)
+    for plen in ref:
+        np.testing.assert_array_equal(got[plen], ref[plen],
+                                      err_msg=f"prompt length {plen}")
+    occ, jocc = eng.kv.occupancy(), jeng.kv.occupancy()
+    assert occ == jocc
+    assert occ["level2_entries"] > 0 and occ["tail_tokens"] > 0
+    # every token of each slot is live, collapsed or in the tail, once
+    lengths = eng.kv.lengths
+    live = lengths - eng.kv.window_start()
+    held = (eng.kv.tree["hier_cnt2"].sum(-1) + eng.kv.tree["tail_cnt"]).numpy()
+    np.testing.assert_array_equal(live + held, lengths)
+    assert (live <= 64).all()
+
+
+def test_h3_block_aligned_chunks_match_sequential_decode(cfgs, params):
+    """Chunks of one block evict only at their own start — the sequential
+    schedule — so greedy tokens equal token-by-token decode replay."""
+    _, tcfg = _h3(cfgs)
+    _, tp = params
+    prompt = (np.arange(1, 201) % 512).astype(np.int64)
+    n_new = 8
+    eng = Engine(tcfg, tp, H3_ECFG.replace(slots=1, chunk=16), device="cpu")
+    out = eng.run([Request(prompt=prompt, max_new_tokens=n_new)])[0].out
+    cache = RingPagedKVCache(tcfg, 1, 64, device="cpu").tree
+    for t in prompt:
+        logits, _ = TT.decode_step(tp, tcfg, cache, torch.tensor([t]))
+    oracle = []
+    for _ in range(n_new):
+        tok = int(torch.argmax(logits[0, :tcfg.vocab]))
+        oracle.append(tok)
+        logits, _ = TT.decode_step(tp, tcfg, cache, torch.tensor([tok]))
+    np.testing.assert_array_equal(out, np.array(oracle))
+    assert int(cache["tail_cnt"][0]) > 0
+
+
+def test_h2_engine_still_rejects_a_prompt_past_the_window(cfgs, params):
+    _, tcfg = cfgs
+    _, tp = params
+    eng = Engine(tcfg, tp, H3_ECFG.replace(slots=1), device="cpu")
+    assert eng.kv.capacity == 64 and eng.kv.chunk_cap is None
+    with pytest.raises(ValueError, match="capacity"):
+        eng.run([Request(prompt=np.arange(100), max_new_tokens=1)])
+    assert not any(k.startswith(("level", "tail")) for k in eng.kv.occupancy())

@@ -3,7 +3,8 @@
 An AST scan of every module of ``src/repro_torch`` and of ``chip_smoke.py``
 finds no import of ``jax`` or of the reference package ``repro``; and a
 fresh interpreter with both blocked in ``sys.modules`` imports the port,
-serves a request and trains (with a checkpoint) on the CPU.
+serves a request (also past the window, through the H = 3 hierarchy) and
+trains (with a checkpoint) on the CPU.
 """
 from __future__ import annotations
 
@@ -47,8 +48,8 @@ def test_no_jax_or_reference_imports(path):
 def test_scan_sees_the_whole_port():
     names = {p.name for p in _sources()}
     assert {"chunk_attn.py", "engine.py", "transformer.py", "mra_decode.py",
-            "block_sparse_attn.py", "mra.py", "adamw.py", "pipeline.py",
-            "ckpt.py", "loop.py", "chip_smoke.py"} <= names
+            "hier.py", "block_sparse_attn.py", "mra.py", "adamw.py",
+            "pipeline.py", "ckpt.py", "loop.py", "chip_smoke.py"} <= names
 
 
 _SERVE_WITHOUT_JAX = r"""
@@ -76,6 +77,36 @@ def test_port_serves_with_jax_blocked():
                          capture_output=True, text=True, timeout=240)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "served" in res.stdout
+
+
+_SERVE_H3_WITHOUT_JAX = r"""
+import sys
+for name in ("jax", "jaxlib", "repro"):
+    sys.modules[name] = None
+import numpy as np
+from repro_torch.configs import get_smoke_config
+from repro_torch.models.params import init_params
+from repro_torch.serve import Engine, EngineConfig, Request
+cfg = get_smoke_config("qwen3-1.7b", activ_dtype="float32")
+cfg = cfg.replace(attention=cfg.attention.replace(levels=3))
+eng = Engine(cfg, init_params(cfg, seed=0, device="cpu"),
+             EngineConfig(slots=1, max_len=32, chunk=32), device="cpu")
+out = eng.run([Request(prompt=np.arange(1, 120), max_new_tokens=4)])[0].out
+occ = eng.kv.occupancy()
+assert len(out) == 4 and eng.chunk == 16 and occ["tail_tokens"] > 0
+assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules
+               if sys.modules[m] is not None)
+print("served past the window", out.tolist(), occ)
+"""
+
+
+def test_port_serves_past_the_window_with_jax_blocked():
+    """The H = 3 hierarchy (core/hier.py) needs nothing of the reference."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", _SERVE_H3_WITHOUT_JAX],
+                         env=env, capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "served past the window" in res.stdout
 
 
 _TRAIN_WITHOUT_JAX = r"""

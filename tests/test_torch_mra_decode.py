@@ -358,9 +358,6 @@ def test_wrapper_rejects_upper_levels_and_bad_arguments():
     _, tcfg = _cfgs(case)
     pre = tmd._chunk_prelude(T(q), T(k), T(v), T(lengths), T(q_pos), tcfg, 2,
                              None, None)
-    with pytest.raises(NotImplementedError, match="H-level"):
-        chunk_attn.chunk_attention_kernel(pre._replace(upper=object()), T(k),
-                                          T(v), T(q_pos), m=2)
     with pytest.raises(ValueError, match="together"):
         chunk_attn.chunk_attention_kernel(pre, T(k), T(v), T(q_pos), m=2,
                                           k_scale=T(k)[..., 0])

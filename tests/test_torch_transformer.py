@@ -10,6 +10,11 @@ normwise (every entry within 1e-5 of the tensor's largest magnitude: a
 cache entry's rounding error scales with the activations that produced
 it); page tables and lengths exactly; int8 cache codes within one step (a
 rounding boundary). Frozen slots must stay bit-identical in the port.
+
+At ``levels = 3`` (the collapse-up hierarchy) the same rules hold, and the
+shared hierarchy tables (``hier_own*``, ``hier_cnt*``, ``tail_cnt``) must
+be exactly equal; the collapsed payloads follow the cache rules above
+(fp32 scales and tail sums normwise, int8 means within one step).
 """
 from __future__ import annotations
 
@@ -79,12 +84,12 @@ def _schedule(vocab, seed=0):
 
 
 def _cache_close(tc, jc, quant):
-    for key in ("lengths", "page_blocks"):
+    assert set(tc) == set(jc)
+    lists = [k for k in jc if isinstance(jc[k], list)]
+    for key in set(jc) - set(lists):  # lengths, page table, hier tables
         np.testing.assert_array_equal(tc[key].numpy(), np.asarray(jc[key]),
                                       err_msg=key)
-    for key in ("k", "v", "pyr_k", "pyr_v", "k_scale", "v_scale"):
-        if key not in jc:
-            continue
+    for key in lists:
         for i, (t, j) in enumerate(zip(tc[key], jc[key])):
             j = np.asarray(j)
             if j.dtype == np.int8:  # codes: a value on a rounding boundary
@@ -140,6 +145,95 @@ def test_prefill_and_decode_match_jax(arch, quant):
         for s, rows in before.items():
             _assert_rows_equal(tc, rows, s)
     assert int(tc["lengths"][0]) > MAX_LEN  # the ring wrapped
+
+
+def _with_levels(jcfg, tcfg, levels, hier_pages=0):
+    return tuple(c.replace(attention=dataclasses.replace(
+        c.attention, levels=levels, hier_pages=hier_pages))
+        for c in (jcfg, tcfg))
+
+
+def _hier_schedule(vocab, seed=0):
+    """Ragged chunks with a frozen slot far past the 32-token window, then
+    decode waves: slot 0 reaches 8 x 8 + 40 = 104 tokens, so evicted pages
+    fill level 2 and cascade into the tail."""
+    r = np.random.default_rng(seed)
+    valid = [[8, 5, 0], [8, 0, 3], [8, 8, 8], [8, 3, 0], [8, 8, 5],
+             [8, 0, 8], [8, 8, 8], [8, 1, 8]]
+    steps = [("prefill", r.integers(0, vocab, (B, C)), np.array(nv))
+             for nv in valid]
+    for i in range(40):
+        steps.append(("decode", r.integers(0, vocab, (B,)),
+                      np.array([True, i % 3 != 1, i >= 4])))
+    return steps
+
+
+def _run_schedule(jcfg, tcfg, steps, quant):
+    jparams, tparams, jc, tc = _setup(jcfg, tcfg)
+    jpre, jdec = _jax_fns(jcfg)
+    for n, (kind, toks, arg) in enumerate(steps):
+        frozen = np.flatnonzero(arg == 0) if kind == "prefill" else \
+            np.flatnonzero(~arg)
+        before = {s: _frozen_rows(tc, s) for s in frozen}
+        if kind == "prefill":
+            jl, jc = jpre(jparams, jc, jnp.asarray(toks, jnp.int32),
+                          jnp.asarray(arg, jnp.int32))
+            tl, tc = TT.prefill_chunk(tparams, tcfg, tc, torch.as_tensor(toks),
+                                      torch.as_tensor(arg, dtype=torch.int32))
+            live = arg > 0
+        else:
+            jl, jc = jdec(jparams, jc, jnp.asarray(toks, jnp.int32),
+                          jnp.asarray(arg))
+            tl, tc = TT.decode_step(tparams, tcfg, tc, torch.as_tensor(toks),
+                                    active=torch.as_tensor(arg))
+            live = arg
+        np.testing.assert_allclose(tl.numpy()[live], np.asarray(jl)[live],
+                                   atol=1e-4, err_msg=f"step {n} ({kind})")
+        _cache_close(tc, jc, quant)
+        for s, rows in before.items():
+            _assert_rows_equal(tc, rows, s)
+    return tc
+
+
+@pytest.mark.parametrize("arch,levels,hier_pages", [
+    ("qwen3-1.7b", 3, 0), ("qwen3-1.7b", 5, 1), ("llama3.2-3b", 4, 1)])
+def test_hier_prefill_and_decode_match_jax(arch, levels, hier_pages):
+    """H >= 3: ragged chunks and decode waves far past the window give the
+    reference's logits and caches, the shared hierarchy tables exactly.
+
+    The KV cache is fp32 here: with an int8 KV cache a token's code can
+    land one step apart in the two frameworks (a rounding boundary), which
+    moves the logits by ~1e-3 whatever the hierarchy does; the collapsed
+    levels are int8 either way, and int8 KV caches under the fold are held
+    at the attention level (tests/test_torch_hier.py)."""
+    jcfg, tcfg = _with_levels(*_configs(arch), levels, hier_pages)
+    tc = _run_schedule(jcfg, tcfg, _hier_schedule(jcfg.vocab), False)
+    assert int(tc["lengths"][0]) == 104
+    cnt = [int(tc[f"hier_cnt{l}"][0].sum()) for l in range(2, levels)]
+    tail = int(tc["tail_cnt"][0])
+    assert cnt[0] > 0 and sum(cnt[1:]) + tail > 0  # cascades past level 2
+    # every token of slot 0 is live, collapsed or in the tail, exactly once
+    live = int(tc["lengths"][0]) - int(tc["page_blocks"][0].min()) * 16
+    assert live + sum(cnt) + tail == int(tc["lengths"][0])
+
+
+def test_hier_cache_specs_match_jax():
+    jcfg, tcfg = _with_levels(*_configs("qwen3-1.7b"), 4, 3)
+    jspec = JT.cache_specs(jcfg, B, MAX_LEN)
+    tspec = TT.cache_specs(tcfg, B, MAX_LEN)
+    assert set(jspec) == set(tspec)
+    assert {"hier_k3", "hier_own2", "tail_k", "tail_cnt"} <= set(tspec)
+    for key, js in jspec.items():
+        ts = tspec[key]
+        pairs = zip(js, ts) if isinstance(js, list) else [(js, ts)]
+        for j, t in pairs:
+            assert tuple(j.shape) == tuple(t.shape), key
+            assert np.dtype(j.dtype).name == str(t.dtype).replace(
+                "torch.", ""), key
+            fill = j.scale if j.init == "fill" else None
+            assert t.init == j.init and (fill is None or t.fill == fill), key
+    two = TT.cache_specs(_configs("qwen3-1.7b")[1], B, MAX_LEN)
+    assert not any(k.startswith(("hier", "tail")) for k in two)
 
 
 def test_all_logits_chunk_matches_jax():
