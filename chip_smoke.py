@@ -7,17 +7,23 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` (into
 ``build/repro_torch/``, one nvcc per source, all at once) and drives the
 port's serving path and its training path on the card:
 
-  1. device and build — the card's name and power limit, build seconds;
+  1. device and build — the card's name and power limit, build seconds,
+     and ptxas' registers and spill bytes of every chunk_attn kernel;
   2. kernel vs plain version — every CUDA kernel against its plain PyTorch
      twin on the same CUDA tensors, at the main path's shapes and at the
      smoke config's, over decode/chunk widths, bf16/int8 caches, MRA-2 /
-     MRA-2-s and dense/ring/ragged layouts (atol 2e-5 / rtol 1e-5 on rows
-     whose top-m selection is no near tie; near ties under 1% of rows);
-  3. kernel timing at the main path's shapes, beside its bound and the
-     plain version's time;
+     MRA-2-s and dense/ring/ragged layouts, plus decode at the serving
+     (B = 4) and long-context (B = 2) shapes with the split count forced to
+     1, 2 and the planned one (atol 2e-5 / rtol 1e-5 on rows whose top-m
+     selection is no near tie; near ties under 1% of rows);
+  3. kernel timing at the main path's shapes, beside its bound at the bf16
+     tensor-core and the fp32 CUDA-core rate and the plain version's time,
+     with the launch's split count, grid, shared memory, blocks per SM and
+     the mean pages of a query tile's selection union;
   4. the engine at full width — qwen3-1.7b, random weights from a seed, bf16
      activations, four greedy requests that run past the 4096-token ring —
-     with the kernel's launches counted over exactly that run; then a
+     with the kernel's launches (and the combine's, one per layer of every
+     dispatch with a planned split) counted over exactly that run; then a
      torch.profiler breakdown of its decode and prefill dispatches;
   5. engine parity — the same engine with the plain version substituted for
      the kernel (in this script only): identical greedy streams at the smoke
@@ -40,20 +46,22 @@ port's serving path and its training path on the card:
  10. the chunk kernel's H-level program (``levels >= 3``: collapsed levels +
      tail folded into the background) against its plain twin on the same
      CUDA tensors: NU = 33 (H = 3) and 65 (H = 4) at the long-context
-     slice's shapes, NU = 5 and 40 (two entry tiles) at the smoke shapes;
+     slice's shapes, NU = 5 and 40 (three entry tiles) at the smoke shapes;
      C = 1, 512 and 5; bf16 / int8 caches; entries all live, some dead,
      all dead, tail only; ring windows and an empty one (slot 0: no live
      window key, live entries: not zero); MRA-2-s, where the view must not
-     change the output (same tolerance and near-tie rule as phase 2);
+     change the output; decode with the split count forced to 1, 2 and the
+     planned one (same tolerance and near-tie rule as phase 2);
  11. its timing at the slice's shapes (decode and C = 512) beside the
-     two-level program on the same window, the bound and the plain version;
+     two-level program on the same window, both bounds, the plain version
+     and the launch's split, grid, shared memory and occupancy;
  12. long-context serving at full width — qwen3-1.7b at ``levels=3``, 28
      layers, bf16 activations, ``EngineConfig(slots=2, max_len=4096,
      chunk=512)``, a 65536-token and a 6000-token greedy prompt — with
      the H-level program's launches counted over exactly that run (and
-     none of the two-level one), the occupancy gauges and exact per-slot
-     token conservation, then a torch.profiler breakdown of its prefill
-     and decode dispatches;
+     none of the two-level one; the combine's as in phase 4), the occupancy
+     gauges and exact per-slot token conservation, then a torch.profiler
+     breakdown of its prefill and decode dispatches;
  13. H = 3 engine parity — the plain version substituted for the kernel (in
      this script only): identical greedy streams at the smoke size with
      prompts far past the window, identical tokens at full width (4
@@ -70,6 +78,7 @@ import contextlib
 import dataclasses
 import itertools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -163,8 +172,8 @@ def kernel_case(torch, tmd, seed, sh, C, layout, dtype):
 
 def selection_stats(torch, tmd, pre, q_pos, m):
     """Per-row selection margin (gap between the m-th and (m+1)-th allowed
-    score), the (B, Hkv, nb) selection union, and the (row, key) pairs the
-    exact term attends — all from the plain version's fp32 scores."""
+    score), the (B, Hkv, G, C, nb) selection grid, and the (row, key) pairs
+    the exact term attends — all from the plain version's fp32 scores."""
     sel = tmd._select_pages(pre, q_pos, m)
     scores = torch.where(sel.allowed, sel.coarse_m + 2e9 * sel.ownl, -torch.inf)
     top = torch.sort(scores, dim=-1, descending=True).values
@@ -175,25 +184,37 @@ def selection_stats(torch, tmd, pre, q_pos, m):
         margin = torch.full(top.shape[:-1], torch.inf, device=top.device)
     grid = torch.zeros(sel.coarse_m.shape, dtype=torch.bool,
                        device=top.device).scatter_(-1, sel.y_idx, sel.sel_ok)
-    union = grid.any(3).any(2)  # (B, Hkv, nb)
     b = pre.block_size
     j = torch.arange(b, device=top.device)
     pos = pre.pb[:, None, None, None, :, None] * b + j  # (B,1,1,1,nb,b)
     ok = (pos >= 0) & (pos <= q_pos[:, None, None, :, None, None])
     pairs = int((grid[..., None] & ok).sum())
-    return margin, union, pairs
+    return margin, grid, pairs
 
 
-def bound(pre, k, q_pos, ks, union, pairs, nu=0):
+def tile_union_pages(torch, grid, c_tile):
+    """Mean over (B·Hkv, query tile) of the pages in the tile's union."""
+    B, Hkv, G, C, nb = grid.shape
+    tiles = -(-C // c_tile)
+    pad = torch.zeros((B, Hkv, G, tiles * c_tile - C, nb), dtype=torch.bool,
+                      device=grid.device)
+    g = torch.cat([grid, pad], 3).reshape(B, Hkv, G, tiles, c_tile, nb)
+    return float(g.any(4).any(2).sum(-1).float().mean())
+
+
+def bound(pre, k, q_pos, ks, grid, pairs, nu=0):
     """Least time for this call: bytes it must move (each input read once,
-    the output written once) over HBM bandwidth vs fp32 operations over
-    the fp32 rate; ``nu`` collapsed entries (the H-level program) add their
-    fp32 means and counts and 2·rows·NU·D·2 operations (scores + fold).
-    Returns (ms, "bytes" | "operations", bytes, flops)."""
+    the output written once) over HBM bandwidth vs its operations over the
+    bf16 tensor-core rate and over the fp32 CUDA-core rate; ``nu``
+    collapsed entries (the H-level program) add their fp32 means and counts
+    and 2·rows·NU·D·2 operations (scores + fold). Returns a dict with
+    ``bound_ms`` / ``bound_by`` at the bf16 rate, ``bound_ms_fp32_rate`` /
+    ``bound_by_fp32_rate``, ``bytes`` and ``flops``."""
     B, Hkv, G, C, D = pre.qg.shape
     b, nb = pre.block_size, pre.pb.shape[1]
     page = b * D * k.element_size() + (b * 4 if ks is not None else 0)
     rows = B * Hkv * G * C
+    union = grid.any(3).any(2)  # (B, Hkv, nb): pages read at least once
     nbytes = (2 * int(union.sum()) * page          # selected K/V pages (+scales)
               + 2 * B * Hkv * nb * D * 4           # page means k_ds, v_ds
               + 2 * B * nb * 4                     # counts, page table
@@ -203,9 +224,13 @@ def bound(pre, k, q_pos, ks, union, pairs, nu=0):
     flops = (2 * 2 * rows * nb * D                 # coarse scores + background
              + 2 * 2 * pairs * D                   # exact scores + P.V
              + 2 * 2 * rows * nu * D)              # upper scores + fold
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
-    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
-            else "operations", nbytes, flops)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    out = {"bytes": nbytes, "flops": flops}
+    for key, rate in (("", BF16_FLOP_PER_S), ("_fp32_rate", FP32_FLOP_PER_S)):
+        t_ops = flops / rate
+        out[f"bound_ms{key}"] = 1e3 * max(t_bytes, t_ops)
+        out[f"bound_by{key}"] = "bytes" if t_bytes >= t_ops else "operations"
+    return out
 
 
 def time_ms(torch, fn, iters):
@@ -237,14 +262,70 @@ def phase_device(torch):
           "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s,
-          "libraries": {n: str(p.relative_to(ROOT)) for n, p in libs.items()}})
+          "libraries": {n: str(p.relative_to(ROOT)) for n, p in libs.items()},
+          "ptxas_chunk_attn": ptxas_report(
+              libs["chunk_attn"].with_suffix(".log").read_text())})
     return smi
+
+
+def ptxas_report(log):
+    """Registers and spill bytes per kernel from nvcc's -Xptxas=-v output,
+    named by storage type, (D, b) and program."""
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            if "combine" in name:
+                label = "combine"
+            else:
+                dt = ("bf16" if "bfloat16" in name else
+                      "int8" if "chunk_attn_kernelIa" in name else "fp32")
+                d = re.findall(r"Li(\d+)E", name)
+                up = "upper" if name.count("Lb1E") else "two_level"
+                label = f"{dt} D={d[0] if d else '?'} {up}"
+            out.append({"kernel": label, "registers": int(m.group(1)),
+                        "spill_stores": spills[0], "spill_loads": spills[1]})
+            name = None
+    return out
+
+
+def _hold(torch, tmd, got, pre, q_pos, m, ref, label):
+    """(max |err| outside near ties, near-tie rows, rows) of kernel vs plain;
+    raises on a disagreement outside the near ties or a non-finite value."""
+    margin, _, _ = selection_stats(torch, tmd, pre, q_pos, m)
+    tie = (margin < TIE).reshape(got.shape[:3])[..., None]
+    close = torch.isclose(got, ref, atol=ATOL, rtol=RTOL) | tie
+    err = float(torch.where(tie, 0.0, (got - ref).abs()).max())
+    if not bool(close.all()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"chunk_attn kernel != plain version: {label}: "
+                             f"max |err| {err}")
+    return err, int(tie.sum()), tie.numel()
+
+
+def _planned(torch, chunk_attn, pre, mode="auto"):
+    """The split count the wrapper plans for ``pre`` on this card."""
+    return chunk_attn.launch_geometry(pre, torch.bfloat16, mode=mode,
+                                      sms=chunk_attn.sm_count(0))["nsplit"]
 
 
 def phase_kernel_vs_plain(torch, tmd, chunk_attn):
     worst, ties, rows, n = 0.0, 0, 0, 0
-    for (name, sh), (C, mode) in itertools.product(
-            (("main", MAIN), ("smoke", SMOKE)), WIDTHS):
+    cases = [((name, sh), (C, mode), None) for (name, sh), (C, mode)
+             in itertools.product((("main", MAIN), ("smoke", SMOKE)), WIDTHS)]
+    # decode split across blocks, the count forced: serving and long context
+    cases += [((name, sh), (1, "latency"), ns) for (name, sh), ns
+              in itertools.product((("main", MAIN), ("long", UP_MAIN)),
+                                   (1, 2, "plan"))]
+    forced = 0
+    for (name, sh), (C, mode), nsplit in cases:
         for layout, dtype, variant in itertools.product(
                 ("dense", "ring", "ragged"), ("bf16", "int8"),
                 ("full", "sparse")):
@@ -253,21 +334,21 @@ def phase_kernel_vs_plain(torch, tmd, chunk_attn):
                                                    layout, dtype)
             kw = dict(m=sh["m"], k_scale=ks, v_scale=vs,
                       include_bg=variant == "full", mode=mode)
-            got = chunk_attn.chunk_attention_kernel(pre, k, v, q_pos, **kw)
+            if nsplit is None:
+                got = chunk_attn.chunk_attention_kernel(pre, k, v, q_pos, **kw)
+            else:
+                ns = (_planned(torch, chunk_attn, pre) if nsplit == "plan"
+                      else nsplit)
+                got = chunk_attn._launch(pre, k, v, q_pos, nsplit=ns, **kw)
+                forced += 1
             ref = chunk_attn.chunk_attention_ref(pre, k, v, q_pos, **kw)
             torch.cuda.synchronize()
-            margin, _, _ = selection_stats(torch, tmd, pre, q_pos, sh["m"])
-            tie = (margin < TIE).reshape(got.shape[:3])[..., None]
-            close = torch.isclose(got, ref, atol=ATOL, rtol=RTOL) | tie
-            err = float(torch.where(tie, 0.0, (got - ref).abs()).max())
-            if not bool(close.all()) or not bool(torch.isfinite(got).all()):
-                raise AssertionError(
-                    f"chunk_attn kernel != plain version: {name} C={C} {mode} "
-                    f"{layout} {dtype} {variant}: max |err| {err}")
-            worst = max(worst, err)
-            ties += int(tie.sum())
-            rows += tie.numel()
+            err, t, r = _hold(torch, tmd, got, pre, q_pos, sh["m"], ref,
+                              f"{name} C={C} {mode} nsplit={nsplit} {layout} "
+                              f"{dtype} {variant}")
+            worst, ties, rows = max(worst, err), ties + t, rows + r
     emit({"phase": "kernel_vs_plain", "kernel": "chunk_attn", "cases": n,
+          "forced_split_cases": forced, "forced_nsplit": [1, 2, "plan"],
           "atol": ATOL, "rtol": RTOL, "max_abs_err": worst,
           "near_tie_rows": ties, "rows": rows, "tie_margin": TIE})
     if ties > 0.01 * rows:
@@ -286,14 +367,29 @@ def phase_timing(torch, tmd, chunk_attn):
             pre, k, v, q_pos, **kw), 200)
         plain_ms = time_ms(torch, lambda: chunk_attn.chunk_attention_ref(
             pre, k, v, q_pos, **kw), 20)
-        _, union, pairs = selection_stats(torch, tmd, pre, q_pos, MAIN["m"])
-        bound_ms, by, nbytes, flops = bound(pre, k, q_pos, ks, union, pairs)
+        _, grid, pairs = selection_stats(torch, tmd, pre, q_pos, MAIN["m"])
         out[label] = {"C": C, "mode": mode, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": bound_ms, "bound_by": by, "bytes": nbytes,
-                      "flops": flops, "union_pages": int(union.sum())}
+                      **bound(pre, k, q_pos, ks, grid, pairs),
+                      **launch_info(torch, chunk_attn, pre, k, grid, mode,
+                                    upper=False)}
     emit({"phase": "kernel_timing", "kernel": "chunk_attn", "shape": MAIN,
           "cache": "bf16", "layout": "dense 4096-token slots", **out})
     return out
+
+
+def launch_info(torch, chunk_attn, pre, k, grid, mode, upper):
+    """The launch's split, grid, shared memory, blocks per SM (occupancy
+    API) and the mean pages in a query tile's selection union."""
+    geo = chunk_attn.launch_geometry(pre, k.dtype, mode=mode,
+                                     sms=chunk_attn.sm_count(0))
+    B, Hkv, G, C, D = pre.qg.shape
+    return {"nsplit": geo["nsplit"], "grid": geo["grid"],
+            "smem_bytes": geo["smem"],
+            "blocks_per_sm": chunk_attn.blocks_per_sm(
+                k.dtype, D, pre.block_size, upper, geo["smem"]),
+            "sms": chunk_attn.sm_count(0),
+            "union_pages_per_tile": tile_union_pages(torch, grid,
+                                                     geo["c_tile"])}
 
 
 def _requests(Request, lengths, new_tokens, vocab):
@@ -333,7 +429,9 @@ def phase_engine_full_width(torch, chunk_attn):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches, upper = _chunk_launches(chunk_attn)
+        combines = chunk_attn.chunk_attention_kernel.combine_launches
     st = eng.stats
+    want_comb = _want_combines(chunk_attn, cfg, st, 4, 128, 4096)
     dispatches = st["prefill_dispatches"] + st["decode_dispatches"]
     outs = [r.out for r in done]
     emit({"phase": "engine_full_width", "arch": cfg.name,
@@ -348,23 +446,40 @@ def phase_engine_full_width(torch, chunk_attn):
           "decode_dispatches": st["decode_dispatches"],
           "decode_s": st["decode_seconds"],
           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-          "kernel_launches": launches,
+          "kernel_launches": launches, "combine_launches": combines,
           "evicted_tokens": float(eng.kv.occupancy()["tokens_evicted"])})
     if launches != cfg.num_layers * dispatches or upper != 0:
         raise AssertionError(f"{launches} kernel launches (+{upper} of the "
                              f"H-level program) != {cfg.num_layers} x "
                              f"{dispatches} dispatches")
+    if combines != want_comb:
+        raise AssertionError(f"{combines} combine launches != {want_comb}")
     if int(bad) != 0:
         raise AssertionError(f"{int(bad)} non-finite logits")
     if any(len(o) != 192 or int(o.min()) < 0 or int(o.max()) >= cfg.vocab
            for o in outs):
         raise AssertionError("a stream is short or holds an out-of-vocab token")
-    return launches, eng
+    return (launches, combines), eng
 
 
 def _reset_chunk(chunk_attn):
     fn = chunk_attn.chunk_attention_kernel
-    fn.launches = fn.upper_launches = 0
+    fn.launches = fn.upper_launches = fn.combine_launches = 0
+
+
+def _want_combines(chunk_attn, cfg, stats, slots, chunk, max_len):
+    """Combine launches an engine run must make: one per layer of every
+    dispatch whose planned split count is above 1 (decode: C = 1; prefill:
+    C = chunk, the scheduler's fixed width)."""
+    G = cfg.num_heads // cfg.kv_heads
+    nb = max_len // cfg.attention.block_size
+    want = 0
+    for C, key in ((1, "decode_dispatches"), (chunk, "prefill_dispatches")):
+        tiles = -(-C // chunk_attn.tile_width("auto", C, G))
+        if chunk_attn.split_plan(slots, cfg.kv_heads, tiles, nb,
+                                 chunk_attn.sm_count(0))[0] > 1:
+            want += cfg.num_layers * stats[key]
+    return want
 
 
 def _chunk_launches(chunk_attn):
@@ -895,11 +1010,36 @@ def phase_upper_vs_plain(torch, tmd, chunk_attn):
         close = torch.isclose(a, ref, atol=ATOL, rtol=RTOL) | tie
         if not torch.equal(a, b) or not bool(close.all()):
             raise AssertionError(f"MRA-2-s output changed by the view: {label}")
+    # decode split across blocks, the count forced, at the slice's shape
+    forced = 0
+    for nu, nsplit, layout, dtype in itertools.product(
+            (33, 65), (1, 2, "plan"), ("ring", "ragged"), ("bf16", "int8")):
+        n += 1
+        pre2, k, v, q_pos, ks, vs = kernel_case(torch, tmd, SEED + 500 + n,
+                                                UP_MAIN, 1, layout, dtype)
+        for i, pattern in enumerate(UP_PATTERNS):
+            pre = pre2._replace(upper=upper_view(
+                torch, SEED + 1000 * n + i, UP_MAIN["B"], UP_MAIN["Hkv"],
+                UP_MAIN["D"], nu, pattern))
+            ns = (_planned(torch, chunk_attn, pre) if nsplit == "plan"
+                  else nsplit)
+            kw = dict(m=UP_MAIN["m"], k_scale=ks, v_scale=vs, mode="latency")
+            got = chunk_attn._launch(pre, k, v, q_pos, nsplit=ns, **kw)
+            ref = chunk_attn.chunk_attention_ref(pre, k, v, q_pos, **kw)
+            calls += 1
+            forced += 1
+            torch.cuda.synchronize()
+            err, t, r = _hold(torch, tmd, got, pre, q_pos, UP_MAIN["m"], ref,
+                              f"H-level NU={nu} nsplit={nsplit} {layout} "
+                              f"{dtype} {pattern}")
+            worst, ties, rows = max(worst, err), ties + t, rows + r
     if fn.upper_launches - upper0 != calls:
         raise AssertionError(f"{fn.upper_launches - upper0} H-level launches "
                              f"!= {calls} calls")
     emit({"phase": "upper_vs_plain", "kernel": "chunk_attn_upper",
-          "cases": n * len(UP_PATTERNS), "mra2_s_cases": n, "atol": ATOL,
+          "cases": calls, "forced_split_cases": forced,
+          "forced_nsplit": [1, 2, "plan"], "mra2_s_cases": n - forced // 4,
+          "atol": ATOL,
           "rtol": RTOL, "max_abs_err": worst, "near_tie_rows": ties,
           "rows": rows, "tie_margin": TIE, "empty_window_rows": empty_rows,
           "nu": sorted({nu for _, _, nu in UP_CASES})})
@@ -945,16 +1085,17 @@ def phase_upper_timing(torch, tmd, chunk_attn):
         plain_ms = time_ms(torch, cold(chunk_attn.chunk_attention_ref, pre),
                            10)
         del caches
-        _, union, pairs = selection_stats(torch, tmd, pre, q_pos, UP_MAIN["m"])
-        bound_ms, by, nbytes, flops = bound(pre, k, q_pos, ks, union, pairs,
-                                            nu=nu)
-        two_bound = bound(pre, k, q_pos, ks, union, pairs)[0]
+        _, grid, pairs = selection_stats(torch, tmd, pre, q_pos, UP_MAIN["m"])
+        two = bound(pre, k, q_pos, ks, grid, pairs)
         out[label] = {"C": C, "mode": mode, "ms": ms, "two_level_ms": two_ms,
                       "runs_ms": runs, "l2_copies": L2_COPIES,
-                      "plain_ms": plain_ms, "bound_ms": bound_ms,
-                      "bound_by": by, "two_level_bound_ms": two_bound,
-                      "bytes": nbytes, "flops": flops,
-                      "union_pages": int(union.sum())}
+                      "plain_ms": plain_ms,
+                      **bound(pre, k, q_pos, ks, grid, pairs, nu=nu),
+                      "two_level_bound_ms": two["bound_ms"],
+                      "two_level_bound_ms_fp32_rate": two["bound_ms_fp32_rate"],
+                      "union_pages": int(grid.any(3).any(2).sum()),
+                      **launch_info(torch, chunk_attn, pre, k, grid, mode,
+                                    upper=True)}
     emit({"phase": "upper_timing", "kernel": "chunk_attn_upper",
           "shape": UP_MAIN, "nu": nu, "cache": "bf16",
           "layout": "dense 4096-token slots, L2-cold", **out})
@@ -996,8 +1137,11 @@ def phase_long_context(torch, chunk_attn):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         two, upper = _chunk_launches(chunk_attn)
+        combines = chunk_attn.chunk_attention_kernel.combine_launches
     st = eng.stats
     dispatches = st["prefill_dispatches"] + st["decode_dispatches"]
+    want_comb = _want_combines(chunk_attn, cfg, st, LONG["slots"], eng.chunk,
+                               LONG["max_len"])
     kv, tree = eng.kv, eng.kv.tree
     lengths = kv.lengths.astype(np.int64)
     live = lengths - kv.window_start()
@@ -1019,6 +1163,7 @@ def phase_long_context(torch, chunk_attn):
           "generated_tok_per_s": st["generated_tokens"] / wall,
           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
           "upper_launches": upper, "two_level_launches": two,
+          "combine_launches": combines,
           "occupancy": occ, "slot_lengths": lengths.tolist(),
           "slot_tokens_live": live.tolist(),
           "slot_level_tokens": {str(k): v.tolist() for k, v in level.items()},
@@ -1027,6 +1172,8 @@ def phase_long_context(torch, chunk_attn):
     if upper != cfg.num_layers * dispatches or two != 0:
         raise AssertionError(f"{upper} H-level launches (+{two} two-level) != "
                              f"{cfg.num_layers} x {dispatches} dispatches")
+    if combines != want_comb:
+        raise AssertionError(f"{combines} combine launches != {want_comb}")
     if int(bad) != 0:
         raise AssertionError(f"{int(bad)} non-finite logits")
     for n, t in zip(LONG["prompts"], LONG["new_tokens"]):
@@ -1040,7 +1187,7 @@ def phase_long_context(torch, chunk_attn):
     if not np.array_equal(held, lengths):
         raise AssertionError(f"tokens not conserved: live + levels + tail "
                              f"{held} != lengths {lengths}")
-    return upper, eng
+    return (upper, combines), eng
 
 
 def phase_hier_parity(torch, chunk_attn):
@@ -1136,28 +1283,37 @@ def main() -> int:
             "bound_by_fp32_rate": t["bound_by_fp32"],
             "dense_sdpa_ms": dense_ms,
             "shape": "qwen3-1.7b train_4k, B=2, bf16, G=2"})
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "bound_ms_fp32_rate",
+            "bound_by_fp32_rate", "nsplit", "grid", "smem_bytes",
+            "blocks_per_sm", "union_pages_per_tile")
     emit({"kernels": [{
         "name": "chunk_attn", "route": "cuda",
         "source": "src/repro_torch/csrc/chunk_attn.cu",
         "replaces": "src/repro/kernels/chunk_attn.py:93",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": launches[0], "combine_launches": launches[1],
+        "max_abs_err": max_err,
         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
-        "library_ms": None, "shape": "decode C=1 (latency); chunk128 below",
-        "chunk128": {k: timing["chunk128"][k] for k in
-                     ("ms", "plain_ms", "bound_ms", "bound_by")}}, {
+        "bound_ms_fp32_rate": dec["bound_ms_fp32_rate"],
+        "bound_by_fp32_rate": dec["bound_by_fp32_rate"],
+        "nsplit": dec["nsplit"], "library_ms": None,
+        "shape": "decode C=1 (latency), B=4; chunk128 below",
+        "chunk128": {k: timing["chunk128"][k] for k in keys}}, {
         "name": "chunk_attn_upper", "route": "cuda",
         "source": "src/repro_torch/csrc/chunk_attn.cu",
         "replaces": "src/repro/kernels/chunk_attn.py:93 (with_upper=True)",
-        "launches": up_launches, "max_abs_err": up_err,
+        "launches": up_launches[0], "combine_launches": up_launches[1],
+        "max_abs_err": up_err,
         "ms": up_time["decode"]["ms"], "plain_ms": up_time["decode"]["plain_ms"],
         "bound_ms": up_time["decode"]["bound_ms"],
-        "bound_by": up_time["decode"]["bound_by"], "library_ms": None,
-        "shape": "decode C=1 (latency), B=2, NU=33; chunk512 below",
+        "bound_by": up_time["decode"]["bound_by"],
+        "bound_ms_fp32_rate": up_time["decode"]["bound_ms_fp32_rate"],
+        "bound_by_fp32_rate": up_time["decode"]["bound_by_fp32_rate"],
+        "nsplit": up_time["decode"]["nsplit"], "library_ms": None,
+        "shape": "decode C=1 (latency), B=2, NU=33, L2-cold; chunk512 below",
         "two_level_ms": up_time["decode"]["two_level_ms"],
         "chunk512": {k: up_time["chunk512"][k] for k in
-                     ("ms", "two_level_ms", "plain_ms", "bound_ms",
-                      "bound_by")}},
+                     keys + ("two_level_ms",)}},
         *train_kernels]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

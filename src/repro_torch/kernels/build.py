@@ -4,13 +4,16 @@ Each ``csrc/<name>.cu`` becomes one shared library with a plain C interface,
 compiled by ``nvcc`` for Hopper and loaded with ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/repro_torch/<name>-<hash>.so <name>.cu
+         -Xcompiler -fPIC -Xptxas=-v -o build/repro_torch/<name>-<hash>.so
+         <name>.cu
 
 The library name carries a hash of the source and the flags, so an edited
 source rebuilds and an unchanged one is reused. The build directory is
 ``build/repro_torch/`` at the root of the checkout (``.gitignore`` lists
-``build/``). ``build_all`` starts one ``nvcc`` per source, all at once. A
-failed build raises with the compiler's output; nothing falls back.
+``build/``); the compiler's output, with ptxas' registers and spills per
+kernel, stays beside each library as ``<name>-<hash>.log``. ``build_all``
+starts one ``nvcc`` per source, all at once. A failed build raises with the
+compiler's output; nothing falls back.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _loaded: dict = {}  # name -> ctypes.CDLL loaded in this process
 

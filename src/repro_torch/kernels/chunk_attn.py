@@ -8,7 +8,8 @@ is one function with two implementations:
 
   * ``csrc/chunk_attn.cu`` — a hand-written CUDA C++ kernel for Hopper
     (``sm_90a``), launched by ``chunk_attention_kernel`` for tensors on the
-    card. One thread block owns one (batch·kv-head, query-tile) output tile;
+    card. One thread block owns one (batch·kv-head, query-tile, split) tile;
+    the exact term runs on tensor cores over pages staged by ``cp.async``;
     the note at the top of the source says what bounds it.
   * ``chunk_attention_ref`` — the plain PyTorch version of the reference's
     jnp route (``_select_pages`` + the tail of ``mra2_chunk_attention``),
@@ -22,15 +23,24 @@ the live entries' scores join the row stabilizer ``c`` before any exp, and
 ``Σ exp(hmu − c)·count·v̄`` joins the background. The wrapper counts its
 launches apart from the two-level program's (``upper_launches``).
 
+Split decode: when the (batch·kv-head, query-tile) grid is too small for
+the card (``split_plan``: fewer than two blocks per SM, as at decode), each
+row's pages are cut into ``nsplit`` contiguous physical ranges, one block
+each; the blocks write partials to scratch and ``chunk_attn_combine_kernel``
+merges them (``combine_launches``). ``chunk_attention_split_ref`` is the
+plain version of that split-and-merge arithmetic.
+
 Dual mode: the kernel runs at two query-tile widths — ``latency``
 (C_tile = 1, decode) and ``throughput`` (C_tile = min(C, 8), chunked
-prefill) — with ``auto`` resolving from C. Every row's arithmetic is the
-same in both modes; only the tiling (and so which rows share a page fetch)
-changes. Forward only: the serving path is never differentiated.
+prefill; fewer for G > 4, so that a tile holds at most 32 query rows) —
+with ``auto`` resolving from C. Every row's arithmetic is the same in both
+modes; only the tiling (and so which rows share a page fetch) changes.
+Forward only: the serving path is never differentiated.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -39,8 +49,15 @@ from repro_torch.core.mra import NEG_INF
 
 KERNEL_MODES = ("auto", "latency", "throughput")
 THROUGHPUT_C_TILE = 8  # query-tile width of the throughput instantiation
+KERNEL_SHAPES = ((128, 128), (16, 16))  # (head dim D, block size b) built
+MAX_TILE_ROWS = 32  # G·C_tile query rows of one tile (two m16 row tiles)
 _MAX_SMEM = 232448  # dynamic shared memory a block may use on sm_90 (227 KB)
 _CACHE_DTYPES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
+# per storage type: bytes of an element, keys per ring stage, int8 scales
+_STORAGE = {torch.bfloat16: (2, 64, False), torch.int8: (1, 64, True),
+            torch.float32: (4, 32, False)}
+_ENTRY_TILE = 16  # fp32 collapsed entries per ring stage
+_RING_SLOTS = 2
 
 
 def resolve_kernel_mode(mode: str, C: int) -> str:
@@ -51,6 +68,130 @@ def resolve_kernel_mode(mode: str, C: int) -> str:
     if mode == "auto":
         return "latency" if C == 1 else "throughput"
     return mode
+
+
+def tile_width(mode: str, C: int, G: int) -> int:
+    """Query positions per tile (C_tile) of the resolved ``mode``."""
+    if G > MAX_TILE_ROWS:
+        raise ValueError(f"{G} query heads per KV head exceed the kernel's "
+                         f"{MAX_TILE_ROWS} rows a tile")
+    if resolve_kernel_mode(mode, C) == "latency":
+        return 1
+    return min(C, THROUGHPUT_C_TILE, MAX_TILE_ROWS // G)
+
+
+def split_ranges(nb: int, nsplit: int):
+    """Split s's contiguous range [s·nb // nsplit, (s+1)·nb // nsplit) of
+    physical pages; together they cover each page exactly once."""
+    return [(s * nb // nsplit, (s + 1) * nb // nsplit) for s in range(nsplit)]
+
+
+def split_plan(B: int, Hkv: int, tiles: int, nb: int, sms: int):
+    """(nsplit, page ranges) for a grid of B·Hkv·tiles blocks on ``sms`` SMs.
+
+    nsplit = 1 when the grid already has two blocks per SM (every chunked
+    prefill at C >= 128 of the served configs); else the least power of two
+    that reaches 2·sms blocks, at most the largest power of two <= nb (so
+    every split owns a page; at B = 2, Hkv = 8, nb = 32 a cap of nb/2 would
+    stop at 256 blocks, under the 264 of 132 SMs).
+    """
+    blocks = B * Hkv * tiles
+    nsplit = 1
+    while blocks * nsplit < 2 * sms and 2 * nsplit <= nb:
+        nsplit *= 2
+    return nsplit, split_ranges(nb, nsplit)
+
+
+def _a16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def smem_bytes(G: int, c_tile: int, D: int, b: int, nb: int,
+               cache_dtype) -> int:
+    """Dynamic shared memory of one block; mirrors ``smem_layout`` in the
+    source. The same for both programs: the H-level fold streams the
+    collapsed entries through the ring in tiles of 16, whatever their count.
+    """
+    size, keys, quant = _STORAGE[cache_dtype]
+    rows = G * c_tile
+    rp = 16 * -(-rows // 16)              # rows padded to m16 tiles
+    kt = min(keys, b)                     # keys per ring stage
+    nwd = 1 if D < 32 else min(4, D // 32)  # warps splitting D
+    stage = 2 * kt * D * size + (2 * kt * 4 if quant else 0)
+    slot = _a16(max(stage, 2 * _ENTRY_TILE * D * 4))
+    xs = max(kt, _ENTRY_TILE) + 8         # padded exchange row (floats)
+    return (_a16(max(_RING_SLOTS * slot, rp * D * 4))  # ring / q tile
+            + (_a16(nwd * rp * xs * 4) if nwd > 1 else 0)  # score exchange
+            + 2 * _a16(rows * nb * 4)     # coarse_m, selection scores / w
+            + 3 * _a16(rp * 4)            # qpos, c, background row sums
+            + _a16(rows * nb) + _a16(nb)  # selection flags, page union
+            + _a16(nb * 4) + 16)          # the split's union list, its count
+
+
+def _exact_inputs(pre, k_cache, v_cache, q_pos, m, k_scale, v_scale,
+                  include_bg):
+    """What the exact term and the background share: the selection, the
+    stabilizer c (with the live collapsed maxima), scores and their mask."""
+    qg, pb, scale = pre.qg, pre.pb, pre.scale
+    b = pre.block_size
+    S = k_cache.shape[2]
+    cdt = qg.dtype
+    sel = mra_decode._select_pages(pre, q_pos, m)
+    sel_grid = torch.zeros(sel.coarse_m.shape, dtype=torch.bool,
+                           device=sel.coarse_m.device).scatter_(
+                               -1, sel.y_idx, sel.sel_ok)
+    c = torch.clamp(sel.coarse_m.amax(-1), min=NEG_INF * 0.5)  # (B,Hkv,G,C)
+    up = pre.upper if include_bg else None  # MRA-2-s ignores the hierarchy
+    hmu = hlive = None
+    if up is not None:
+        # collapsed levels + tail: strictly past tokens, so liveness is the
+        # only gate; their maxima join the stabilizer before any exp
+        hlive = (up.counts > 0)[:, None, None, None, :]  # (B,1,1,1,NU)
+        hmu = torch.einsum("bhgcd,bhyd->bhgcy", qg,
+                           up.k_mean.to(cdt)) * scale
+        hmu = torch.where(hlive, hmu, NEG_INF)
+        c = torch.maximum(c, hmu.amax(-1))
+    kf, vf = k_cache.to(cdt), v_cache.to(cdt)
+    if k_scale is not None:  # int8 cache: dequantize with per-token scales
+        kf = kf * k_scale.to(cdt)[..., None]
+        vf = vf * v_scale.to(cdt)[..., None]
+    s = torch.einsum("bhgcd,bhsd->bhgcs", qg, kf) * scale  # (B,Hkv,G,C,S)
+    idx = torch.arange(S, device=qg.device)
+    page_of = idx // b
+    pos = pb[:, page_of] * b + (idx % b)[None, :]  # (B, S) logical positions
+    ok = (sel_grid[..., page_of]
+          & (pos >= 0)[:, None, None, None, :]
+          & (pos[:, None, None, None, :] <= q_pos[:, None, None, :, None]))
+    return sel, sel_grid, c, up, hmu, hlive, s, ok, vf, page_of
+
+
+def _add_background(pre, sel, sel_grid, c, up, hmu, hlive, out, rs, adj):
+    """out, rs plus the background on the stabilizer c, times ``adj`` where
+    given (the plain route's order of operations)."""
+    bg = sel.allowed & ~sel.ownl & ~sel_grid
+    w = torch.where(bg, torch.exp(sel.coarse_m - c[..., None]), 0.0)
+    w = w * pre.counts[:, None, None, None, :]
+    if adj is not None:
+        w = w * adj[..., None]
+    out = out + torch.einsum("bhgcy,bhyd->bhgcd", w, pre.v_ds)
+    rs = rs + w.sum(-1)
+    if up is not None:
+        wh = torch.where(hlive, torch.exp(hmu - c[..., None]), 0.0)
+        wh = wh * up.counts[:, None, None, None, :]
+        if adj is not None:
+            wh = wh * adj[..., None]
+        out = out + torch.einsum("bhgcy,bhyd->bhgcd", wh,
+                                 up.v_mean.to(pre.qg.dtype))
+        rs = rs + wh.sum(-1)
+    return out, rs
+
+
+def _normalize(out, rs):
+    alive = rs > 0
+    B, Hkv, G, C, D = out.shape
+    out = (torch.where(alive[..., None], out, 0.0)
+           / torch.where(alive, rs, 1.0)[..., None])
+    return out.reshape(B, Hkv * G, C, D)
 
 
 def chunk_attention_ref(pre, k_cache, v_cache, q_pos, *, m: int, k_scale=None,
@@ -65,39 +206,8 @@ def chunk_attention_ref(pre, k_cache, v_cache, q_pos, *, m: int, k_scale=None,
     (…, m, b, D) tensor per query; the sums are the reference's. Returns
     (B, Hq, C, D) fp32.
     """
-    qg, pb, counts, v_ds, scale = pre.qg, pre.pb, pre.counts, pre.v_ds, pre.scale
-    b = pre.block_size
-    B, Hkv, G, C, D = qg.shape
-    S = k_cache.shape[2]
-    cdt = qg.dtype
-    sel = mra_decode._select_pages(pre, q_pos, m)
-    coarse_m, allowed, own = sel.coarse_m, sel.allowed, sel.ownl
-    sel_grid = torch.zeros(coarse_m.shape, dtype=torch.bool,
-                           device=coarse_m.device).scatter_(-1, sel.y_idx,
-                                                            sel.sel_ok)
-    c = torch.clamp(coarse_m.amax(-1), min=NEG_INF * 0.5)  # (B,Hkv,G,C)
-    up = pre.upper if include_bg else None  # MRA-2-s ignores the hierarchy
-    if up is not None:
-        # collapsed levels + tail: strictly past tokens, so liveness is the
-        # only gate; their maxima join the stabilizer before any exp
-        hlive = (up.counts > 0)[:, None, None, None, :]  # (B,1,1,1,NU)
-        hmu = torch.einsum("bhgcd,bhyd->bhgcy", qg,
-                           up.k_mean.to(cdt)) * scale
-        hmu = torch.where(hlive, hmu, NEG_INF)
-        c = torch.maximum(c, hmu.amax(-1))
-
-    # ---- exact term over the selected pages --------------------------------
-    kf, vf = k_cache.to(cdt), v_cache.to(cdt)
-    if k_scale is not None:  # int8 cache: dequantize with per-token scales
-        kf = kf * k_scale.to(cdt)[..., None]
-        vf = vf * v_scale.to(cdt)[..., None]
-    s = torch.einsum("bhgcd,bhsd->bhgcs", qg, kf) * scale  # (B,Hkv,G,C,S)
-    idx = torch.arange(S, device=qg.device)
-    page_of = idx // b
-    pos = pb[:, page_of] * b + (idx % b)[None, :]  # (B, S) logical positions
-    ok = (sel_grid[..., page_of]
-          & (pos >= 0)[:, None, None, None, :]
-          & (pos[:, None, None, None, :] <= q_pos[:, None, None, :, None]))
+    sel, sel_grid, c, up, hmu, hlive, s, ok, vf, _ = _exact_inputs(
+        pre, k_cache, v_cache, q_pos, m, k_scale, v_scale, include_bg)
     fine_max = torch.where(ok, s, NEG_INF).amax(-1)
     c_tok = torch.maximum(c, fine_max)  # two-level stabilizer
     adj = torch.exp(c - c_tok)
@@ -105,25 +215,50 @@ def chunk_attention_ref(pre, k_cache, v_cache, q_pos, *, m: int, k_scale=None,
                     0.0)
     out = torch.einsum("bhgcs,bhsd->bhgcd", a, vf)
     rs = a.sum(-1)
+    if include_bg:  # the coarse background, on c_tok through adj
+        out, rs = _add_background(pre, sel, sel_grid, c, up, hmu, hlive, out,
+                                  rs, adj)
+    return _normalize(out, rs)
 
-    # ---- coarse background -------------------------------------------------
-    if include_bg:
-        bg = allowed & ~own & ~sel_grid
-        w = torch.where(bg, torch.exp(coarse_m - c[..., None]), 0.0)
-        w = w * counts[:, None, None, None, :] * adj[..., None]
-        out = out + torch.einsum("bhgcy,bhyd->bhgcd", w, v_ds)
-        rs = rs + w.sum(-1)
-        if up is not None:
-            wh = torch.where(hlive, torch.exp(hmu - c[..., None]), 0.0)
-            wh = wh * up.counts[:, None, None, None, :] * adj[..., None]
-            out = out + torch.einsum("bhgcy,bhyd->bhgcd", wh,
-                                     up.v_mean.to(cdt))
-            rs = rs + wh.sum(-1)
 
-    alive = rs > 0
-    out = (torch.where(alive[..., None], out, 0.0)
-           / torch.where(alive, rs, 1.0)[..., None])
-    return out.reshape(B, Hkv * G, C, D)
+def chunk_attention_split_ref(pre, k_cache, v_cache, q_pos, *, m: int,
+                              nsplit: int, k_scale=None, v_scale=None,
+                              include_bg: bool = True):
+    """Plain version of the split kernel and its combine.
+
+    Split s runs ``chunk_attention_ref``'s exact-term arithmetic over the
+    pages of its range (``split_ranges``) alone, with its own running max
+    mt_s; the merge takes M = max mt_s, rs = Σ rs_s·exp(mt_s − M) and acc
+    likewise in ascending split order, then normalizes with the two-level
+    stabilizer c_tok = max(c, M), as ``chunk_attn_combine_kernel`` does.
+    Equal to ``chunk_attention_ref`` up to rounding. Returns (B, Hq, C, D).
+    """
+    sel, sel_grid, c, up, hmu, hlive, s, ok, vf, page_of = _exact_inputs(
+        pre, k_cache, v_cache, q_pos, m, k_scale, v_scale, include_bg)
+    parts = []
+    for p0, p1 in split_ranges(pre.pb.shape[1], nsplit):
+        ok_s = ok & ((page_of >= p0) & (page_of < p1))
+        mt = torch.where(ok_s, s, NEG_INF).amax(-1)
+        a = torch.where(ok_s, torch.exp(torch.clamp(s - mt[..., None],
+                                                    max=80.0)), 0.0)
+        parts.append((mt, a.sum(-1), torch.einsum("bhgcs,bhsd->bhgcd", a, vf)))
+    M = torch.stack([mt for mt, _, _ in parts]).amax(0)
+    rs = torch.zeros_like(M)
+    acc = torch.zeros_like(parts[0][2])
+    for mt, l, x in parts:
+        w = torch.exp(mt - M)
+        rs = rs + l * w
+        acc = acc + x * w[..., None]
+    c_tok = torch.maximum(c, M)
+    fine_adj, adj = torch.exp(M - c_tok), torch.exp(c - c_tok)
+    out, rs = acc * fine_adj[..., None], rs * fine_adj
+    if include_bg:  # split 0's numerator and row sum on c, then adj
+        num, den = _add_background(pre, sel, sel_grid, c, up, hmu, hlive,
+                                   torch.zeros_like(out), torch.zeros_like(rs),
+                                   None)
+        out = out + adj[..., None] * num
+        rs = rs + adj * den
+    return _normalize(out, rs)
 
 
 def chunk_attention_kernel(pre, k_cache, v_cache, q_pos, *, m: int,
@@ -137,9 +272,11 @@ def chunk_attention_kernel(pre, k_cache, v_cache, q_pos, *, m: int,
 
     A CUDA cache launches ``csrc/chunk_attn.cu`` on the current stream (no
     synchronisation; launch errors raise): the H-level program when
-    ``pre.upper`` is set and ``include_bg`` is on, else the two-level one.
-    A CPU cache takes the plain version ``chunk_attention_ref``. There is no
-    other route: a CUDA tensor never falls back to the plain version.
+    ``pre.upper`` is set and ``include_bg`` is on, else the two-level one,
+    split across blocks (and merged by the combine kernel) where
+    ``split_plan`` says so. A CPU cache takes the plain version
+    ``chunk_attention_ref``. There is no other route: a CUDA tensor never
+    falls back to the plain version.
     """
     B, Hkv, G, C, D = pre.qg.shape
     if (k_scale is None) != (v_scale is None):
@@ -151,42 +288,19 @@ def chunk_attention_kernel(pre, k_cache, v_cache, q_pos, *, m: int,
         raise ValueError(
             f"q_pos shape {tuple(q_pos.shape)} does not match the (B, C) = "
             f"({B}, {C}) of queries {tuple(pre.qg.shape)}")
-    resolved = resolve_kernel_mode(mode, C)
+    resolve_kernel_mode(mode, C)
     if not k_cache.is_cuda:
         return chunk_attention_ref(pre, k_cache, v_cache, q_pos, m=m,
                                    k_scale=k_scale, v_scale=v_scale,
                                    include_bg=include_bg, mode=mode)
-    c_tile = 1 if resolved == "latency" else min(C, THROUGHPUT_C_TILE)
-    upper = pre.upper if include_bg else None
-    out = _launch(pre, k_cache, v_cache, q_pos, m, k_scale, v_scale,
-                  include_bg, c_tile, upper)
-    if upper is None:
-        chunk_attention_kernel.launches += 1
-    else:
-        chunk_attention_kernel.upper_launches += 1
-    return out
+    return _launch(pre, k_cache, v_cache, q_pos, m=m, k_scale=k_scale,
+                   v_scale=v_scale, include_bg=include_bg, mode=mode)
 
 
-# launches of the CUDA kernel's two programs, never reset here
-chunk_attention_kernel.launches = 0        # two-level (with_upper=False)
-chunk_attention_kernel.upper_launches = 0  # H-level fold (with_upper=True)
-
-
-def smem_bytes(G: int, c_tile: int, D: int, b: int, nb: int) -> int:
-    """Dynamic shared memory of one block; mirrors ``smem_layout`` in the source.
-
-    The same for both programs: the H-level fold streams the collapsed
-    entries through the K/V page and score buffers, whatever their count.
-    """
-    rows = G * c_tile
-    floats = (rows * D          # query tile
-              + b * (D + 1)     # K page (row padded: conflict-free dots)
-              + b * D           # V page
-              + rows * b        # page scores / weights
-              + 3 * rows * nb   # coarse_m, selection scores, background w
-              + rows * D        # accumulator
-              + 6 * rows)       # qpos, mt, rs, c, alpha, adj
-    return 4 * floats + rows * nb + nb  # + selection flags, page union
+# launches of the CUDA kernels, never reset here
+chunk_attention_kernel.launches = 0          # two-level (with_upper=False)
+chunk_attention_kernel.upper_launches = 0    # H-level fold (with_upper=True)
+chunk_attention_kernel.combine_launches = 0  # merges of split blocks
 
 
 def _check(t, name, shape, dtypes, device):
@@ -200,6 +314,14 @@ def _check(t, name, shape, dtypes, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def check_shape(D: int, b: int) -> None:
+    """Raise unless the kernel is built for head dim D and block size b."""
+    if (D, b) not in KERNEL_SHAPES:
+        raise ValueError(
+            f"chunk_attn is built for (head dim, block size) in "
+            f"{list(KERNEL_SHAPES)}, not ({D}, {b})")
+
+
 def _library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     from .build import load_library
@@ -208,20 +330,71 @@ def _library() -> ctypes.CDLL:
     if lib.chunk_attn_launch.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.chunk_attn_launch.argtypes = (
-            [ptr] * 14 + [i32] * 10 + [ctypes.c_float] + [i32] * 3 + [ptr])
+            [ptr] * 15 + [i32] * 11 + [ctypes.c_float] + [i32] * 3 + [ptr])
         lib.chunk_attn_launch.restype = i32
+        lib.chunk_attn_combine_launch.argtypes = [ptr] * 2 + [i32] * 7 + [ptr]
+        lib.chunk_attn_combine_launch.restype = i32
+        lib.chunk_attn_blocks_per_sm.argtypes = [i32] * 5 + [
+            ctypes.POINTER(i32)]
+        lib.chunk_attn_blocks_per_sm.restype = i32
+        lib.chunk_attn_smem_bytes.argtypes = [i32] * 5
+        lib.chunk_attn_smem_bytes.restype = ctypes.c_longlong
         lib.chunk_attn_error_string.argtypes = [i32]
         lib.chunk_attn_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(pre, k_cache, v_cache, q_pos, m, k_scale, v_scale, include_bg,
-            c_tile, upper):
+def _raise_on(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.chunk_attn_error_string(rc).decode()
+        raise RuntimeError(f"{what} failed: {msg} ({rc})")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def blocks_per_sm(cache_dtype, D: int, b: int, upper: bool, smem: int) -> int:
+    """Blocks of one program that fit on an SM (the CUDA occupancy API)."""
+    lib = _library()
+    n = ctypes.c_int(0)
+    _raise_on(lib, lib.chunk_attn_blocks_per_sm(
+        _CACHE_DTYPES[cache_dtype], D, b, int(upper), smem, ctypes.byref(n)),
+        "chunk_attn occupancy query")
+    return n.value
+
+
+def launch_geometry(pre, cache_dtype, *, mode: str = "auto",
+                    nsplit: int | None = None, sms: int = 132) -> dict:
+    """Tile width, grid, split and shared memory of a launch on ``pre``."""
+    B, Hkv, G, C, D = pre.qg.shape
+    b, nb = pre.block_size, pre.pb.shape[1]
+    c_tile = tile_width(mode, C, G)
+    tiles = -(-C // c_tile)
+    if nsplit is None:
+        nsplit = split_plan(B, Hkv, tiles, nb, sms)[0]
+    if not 1 <= nsplit <= nb:
+        raise ValueError(f"nsplit {nsplit} outside [1, nb = {nb}]")
+    return {"c_tile": c_tile, "rows": G * c_tile, "tiles": tiles,
+            "nsplit": nsplit, "grid": [B * Hkv, tiles, nsplit],
+            "smem": smem_bytes(G, c_tile, D, b, nb, cache_dtype)}
+
+
+def _launch(pre, k_cache, v_cache, q_pos, *, m, k_scale=None, v_scale=None,
+            include_bg=True, mode="auto", nsplit=None):
+    """Launch the kernel (and the combine where split) on CUDA tensors.
+
+    ``nsplit`` None takes ``split_plan``'s; an explicit count is for tests
+    and ``chip_smoke.py`` only. Counts each launch where it is made.
+    """
     B, Hkv, G, C, D = pre.qg.shape
     b = pre.block_size
     S = k_cache.shape[2]
     nb = S // b
     dev = k_cache.device
+    check_shape(D, b)
     f32 = (torch.float32,)
     _check(pre.qg, "queries", (B, Hkv, G, C, D), f32, dev)
     _check(k_cache, "k_cache", (B, Hkv, S, D), tuple(_CACHE_DTYPES), dev)
@@ -238,6 +411,7 @@ def _launch(pre, k_cache, v_cache, q_pos, m, k_scale, v_scale, include_bg,
     if quant:
         _check(k_scale, "k_scale", (B, Hkv, S), f32, dev)
         _check(v_scale, "v_scale", (B, Hkv, S), f32, dev)
+    upper = pre.upper if include_bg else None
     nu = 0
     if upper is not None:
         nu = upper.k_mean.shape[2]
@@ -246,16 +420,26 @@ def _launch(pre, k_cache, v_cache, q_pos, m, k_scale, v_scale, include_bg,
         _check(upper.k_mean, "upper k_mean", (B, Hkv, nu, D), f32, dev)
         _check(upper.v_mean, "upper v_mean", (B, Hkv, nu, D), f32, dev)
         _check(upper.counts, "upper counts", (B, nu), f32, dev)
-    qpos = q_pos.to(device=dev, dtype=torch.int32).contiguous()
-    smem = smem_bytes(G, c_tile, D, b, nb)
+    geo = launch_geometry(pre, k_cache.dtype, mode=mode, nsplit=nsplit,
+                          sms=sm_count(dev.index if dev.index is not None
+                                       else torch.cuda.current_device()))
+    c_tile, tiles, ns, smem = (geo[k] for k in ("c_tile", "tiles", "nsplit",
+                                                "smem"))
     if smem > _MAX_SMEM:
         raise ValueError(
             f"chunk_attn tile needs {smem} bytes of shared memory (G={G}, "
             f"c_tile={c_tile}, D={D}, b={b}, nb={nb}); a block has {_MAX_SMEM}")
+    qpos = q_pos.to(device=dev, dtype=torch.int32).contiguous()
     out = torch.empty((B, Hkv * G, C, D), dtype=torch.float32, device=dev)
+    part = None
+    if ns > 1:  # per (row, tile): ns partials (acc, max, sum) and split 0's
+        # background (numerator, c, sum), G·c_tile rows each (part_stride)
+        part = torch.empty(B * Hkv * tiles * (ns + 1) * G * c_tile * (D + 2),
+                           dtype=torch.float32, device=dev)
     lib = _library()
-    null = None  # NULL for the scale pointers of a bf16/fp32 cache
-    rc = lib.chunk_attn_launch(
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    null = None  # NULL for the pointers a program does not read
+    _raise_on(lib, lib.chunk_attn_launch(
         pre.qg.data_ptr(), qpos.data_ptr(), pre.k_ds.data_ptr(),
         pre.v_ds.data_ptr(), pre.counts.data_ptr(), pre.pb.data_ptr(),
         k_cache.data_ptr(), v_cache.data_ptr(),
@@ -264,10 +448,17 @@ def _launch(pre, k_cache, v_cache, q_pos, m, k_scale, v_scale, include_bg,
         upper.k_mean.data_ptr() if nu else null,
         upper.v_mean.data_ptr() if nu else null,
         upper.counts.data_ptr() if nu else null,
-        out.data_ptr(), B, Hkv, G, C, D, nb, b, m, c_tile, nu,
-        float(pre.scale), _CACHE_DTYPES[k_cache.dtype], int(include_bg), smem,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        msg = lib.chunk_attn_error_string(rc).decode()
-        raise RuntimeError(f"chunk_attn kernel launch failed: {msg} ({rc})")
+        out.data_ptr(), part.data_ptr() if ns > 1 else null,
+        B, Hkv, G, C, D, nb, b, m, c_tile, nu, ns, float(pre.scale),
+        _CACHE_DTYPES[k_cache.dtype], int(include_bg), smem, stream),
+        "chunk_attn kernel launch")
+    if nu:
+        chunk_attention_kernel.upper_launches += 1
+    else:
+        chunk_attention_kernel.launches += 1
+    if ns > 1:
+        _raise_on(lib, lib.chunk_attn_combine_launch(
+            part.data_ptr(), out.data_ptr(), B, Hkv, G, C, D, c_tile, ns,
+            stream), "chunk_attn combine launch")
+        chunk_attention_kernel.combine_launches += 1
     return out

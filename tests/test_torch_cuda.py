@@ -18,6 +18,11 @@ run on the same CUDA tensors.
     the same plain version with the same view, at the same tolerance, for
     NU = 33 and 65 at the serving shapes (65 would not fit as resident
     tiles) and NU above b at the smoke shapes (two entry tiles).
+  * ``chunk_attn`` split across blocks (the split count forced to 1, 2 and
+    the planned one at the decode shapes, counts that do not divide nb, a
+    union smaller than the count, NU = 65), G = 3 row padding, the fp32
+    cache, bitwise reruns, the refused (D, b) and the shared-memory mirror,
+    at the same tolerance and near-tie rule.
   * ``bsa_fwd`` / ``bsa_bwd_dq`` / ``bsa_bwd_dkv`` against
     ``block_sparse_attention_ref`` / ``_bwd_ref``: the normalized numerator
     and the max-scaled gradients at rtol/atol 1e-4, mt at abs 1e-5 (fp32
@@ -79,7 +84,7 @@ def make_inputs(seed, *, B, Hkv, G, D, b, nb, C, layout, dtype, device):
     if dtype == "int8":
         k, ks = tmd.quantize_kv(k)
         v, vs = tmd.quantize_kv(v)
-    else:
+    elif dtype == "bf16":
         k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
     return (dev(q, torch.float32), k, v, dev(lengths, torch.int32),
             dev(q_pos, torch.int32), dev(pb, torch.int32), ks, vs)
@@ -109,10 +114,14 @@ def selection_margin(pre, q_pos, m):
     return torch.where(torch.isfinite(gap), gap, torch.inf)
 
 
-def compare(pre, k, v, q_pos, m, ks, vs, include_bg, mode):
-    """(max |err| over non-tie rows, near-tie rows, rows) of kernel vs plain."""
+def compare(pre, k, v, q_pos, m, ks, vs, include_bg, mode, nsplit=None):
+    """(max |err| over non-tie rows, near-tie rows, rows) of kernel vs plain;
+    ``nsplit`` forces the kernel's split count (the private launcher)."""
     kw = dict(m=m, k_scale=ks, v_scale=vs, include_bg=include_bg, mode=mode)
-    got = chunk_attn.chunk_attention_kernel(pre, k, v, q_pos, **kw)
+    if nsplit is None:
+        got = chunk_attn.chunk_attention_kernel(pre, k, v, q_pos, **kw)
+    else:
+        got = chunk_attn._launch(pre, k, v, q_pos, nsplit=nsplit, **kw)
     ref = chunk_attn.chunk_attention_ref(pre, k, v, q_pos, **kw)
     torch.cuda.synchronize()
     B, Hkv, G, C, D = pre.qg.shape
@@ -243,6 +252,165 @@ def test_chunk_attn_upper_program_counts_apart_and_skips_under_mra2_s(cuda):
     with pytest.raises(ValueError, match="upper counts"):
         fn(with_up._replace(upper=up._replace(counts=up.counts[:, :-1])),
            k, v, q_pos, m=2)
+
+
+# ---- the split decode, row padding and the fp32 cache (tensor-core body) ----
+DECODE = {"main": dict(B=4, Hkv=8, G=2, D=128, b=128, nb=32, m=16),
+          "long": dict(B=2, Hkv=8, G=2, D=128, b=128, nb=32, m=16)}
+
+
+def prelude(seed, sh, C, layout, dtype, device, variant="full", upper=None):
+    """(pre, k, v, q_pos, ks, vs) of one case, with the engine's pyramid."""
+    q, k, v, lengths, q_pos, pb, ks, vs = make_inputs(
+        seed, B=sh["B"], Hkv=sh["Hkv"], G=sh["G"], D=sh["D"], b=sh["b"],
+        nb=sh["nb"], C=C, layout=layout, dtype=dtype, device=device)
+    pyr = pyramid_of(k, v, lengths, pb, ks, vs, sh["b"])._replace(upper=upper)
+    cfg = MraConfig(block_size=sh["b"], variant=variant)
+    return (tmd._chunk_prelude(q, k, v, lengths, q_pos, cfg, sh["m"], pyr, pb),
+            k, v, q_pos, ks, vs)
+
+
+def planned(pre, mode="auto"):
+    return chunk_attn.launch_geometry(
+        pre, torch.bfloat16, mode=mode,
+        sms=chunk_attn.sm_count(torch.cuda.current_device()))["nsplit"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(DECODE))
+@pytest.mark.parametrize("nsplit", [1, 2, "plan"])
+def test_chunk_attn_forced_splits_match_plain(cuda, shape, nsplit):
+    """Decode at the serving (B = 4) and long-context (B = 2) shapes with the
+    split count forced to 1, 2 and the planned one; the combine launches
+    exactly when the count is above 1."""
+    sh = DECODE[shape]
+    ties = rows = 0
+    for i, (layout, dtype, variant) in enumerate(itertools.product(
+            ("dense", "ring", "ragged"), ("bf16", "int8"), ("full", "sparse"))):
+        pre, k, v, q_pos, ks, vs = prelude(i, sh, 1, layout, dtype, cuda,
+                                           variant)
+        ns = planned(pre) if nsplit == "plan" else nsplit
+        assert nsplit != "plan" or ns * sh["B"] * sh["Hkv"] >= 264
+        before = chunk_attn.chunk_attention_kernel.combine_launches
+        _, t, n = compare(pre, k, v, q_pos, sh["m"], ks, vs,
+                          variant == "full", "latency", nsplit=ns)
+        assert (chunk_attn.chunk_attention_kernel.combine_launches
+                == before + (ns > 1))
+        ties, rows = ties + t, rows + n
+    assert ties <= 0.01 * rows, f"{ties} near-tie rows of {rows}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,nsplit", [(24, 16), (20, 8), (12, 8)])
+def test_chunk_attn_split_ranges_nsplit_does_not_divide(cuda, nb, nsplit):
+    sh = dict(DECODE["main"], nb=nb, m=6)
+    for i, layout in enumerate(("dense", "ring", "ragged")):
+        pre, k, v, q_pos, ks, vs = prelude(10 + i, sh, 1, layout, "bf16", cuda)
+        compare(pre, k, v, q_pos, sh["m"], ks, vs, True, "latency",
+                nsplit=nsplit)
+
+
+@pytest.mark.cuda
+def test_chunk_attn_split_union_smaller_than_nsplit(cuda):
+    """m = 2 selects at most four pages for the tile's two rows: most of the
+    16 splits find no page in their range and hand in empty partials."""
+    sh = dict(DECODE["main"], m=2)
+    for i, dtype in enumerate(("bf16", "int8")):
+        pre, k, v, q_pos, ks, vs = prelude(20 + i, sh, 1, "ring", dtype, cuda)
+        sel = tmd._select_pages(pre, q_pos, sh["m"])
+        grid = torch.zeros(sel.coarse_m.shape, dtype=torch.bool,
+                           device=cuda).scatter_(-1, sel.y_idx, sel.sel_ok)
+        assert int(grid.any(3).any(2).sum(-1).max()) < 16
+        for variant in (True, False):
+            compare(pre, k, v, q_pos, sh["m"], ks, vs, variant, "latency",
+                    nsplit=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nsplit", [1, 2, "plan"])
+def test_chunk_attn_upper_split_nu65(cuda, nsplit):
+    """The H-level program with NU = 65 (five entry tiles) under splits:
+    split 0 folds the entries, the combine merges."""
+    sh = DECODE["long"]
+    for i, (layout, pattern) in enumerate(itertools.product(
+            ("ring", "ragged"), ("all_live", "some_dead", "tail_only"))):
+        up = upper_of(30 + i, sh["B"], sh["Hkv"], sh["D"], 65, pattern, cuda)
+        pre, k, v, q_pos, ks, vs = prelude(30 + i, sh, 1, layout, "bf16",
+                                           cuda, upper=up)
+        ns = planned(pre) if nsplit == "plan" else nsplit
+        before = chunk_attn.chunk_attention_kernel.upper_launches
+        compare(pre, k, v, q_pos, sh["m"], ks, vs, True, "latency",
+                nsplit=ns)
+        assert chunk_attn.chunk_attention_kernel.upper_launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,mode", [(1, "latency"), (8, "throughput"),
+                                    (13, "throughput")])
+@pytest.mark.parametrize("dtype", ["bf16", "int8", "fp32"])
+def test_chunk_attn_g3_row_padding(cuda, C, mode, dtype):
+    """llama3.2-3b's G = 3: 3 rows padded to one m16 tile at decode, 24
+    rows to two at C_tile = 8 (and a ragged last tile at C = 13)."""
+    sh = dict(DECODE["main"], G=3)
+    ties = rows = 0
+    for i, (layout, variant) in enumerate(itertools.product(
+            ("dense", "ring", "ragged"), ("full", "sparse"))):
+        pre, k, v, q_pos, ks, vs = prelude(40 + i, sh, C, layout, dtype, cuda,
+                                           variant)
+        _, t, n = compare(pre, k, v, q_pos, sh["m"], ks, vs,
+                          variant == "full", mode)
+        ties, rows = ties + t, rows + n
+    assert ties <= 0.01 * rows, f"{ties} near-tie rows of {rows}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(SHAPES))
+@pytest.mark.parametrize("C,mode", [(1, "latency"), (5, "throughput")])
+def test_chunk_attn_fp32_cache_matches_plain(cuda, shape, C, mode):
+    """The fp32 cache (fp32-activation engines) through the six-product
+    split, with and without an H-level view."""
+    sh = SHAPES[shape]
+    for i, layout in enumerate(("dense", "ring", "ragged")):
+        for up in (None, upper_of(i, sh["B"], sh["Hkv"], sh["D"], 33,
+                                  "some_dead", cuda)):
+            pre, k, v, q_pos, ks, vs = prelude(50 + i, sh, C, layout, "fp32",
+                                               cuda, upper=up)
+            compare(pre, k, v, q_pos, sh["m"], ks, vs, True, mode)
+
+
+@pytest.mark.cuda
+def test_chunk_attn_reruns_are_bit_identical(cuda):
+    sh = DECODE["long"]
+    up = upper_of(60, sh["B"], sh["Hkv"], sh["D"], 33, "all_live", cuda)
+    for C, mode in ((1, "latency"), (64, "throughput")):
+        pre, k, v, q_pos, ks, vs = prelude(60, sh, C, "ring", "bf16", cuda,
+                                           upper=up)
+        for ns in (None, 4):
+            runs = [chunk_attn._launch(pre, k, v, q_pos, m=sh["m"], mode=mode,
+                                       nsplit=ns) for _ in range(2)]
+            torch.cuda.synchronize()
+            assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.cuda
+def test_chunk_attn_refuses_an_unbuilt_shape_and_mirrors_smem(cuda):
+    q, k, v, lengths, q_pos, pb, ks, vs = make_inputs(
+        0, B=2, Hkv=2, G=2, D=8, b=16, nb=4, C=1, layout="dense",
+        dtype="bf16", device=cuda)
+    pre = tmd._chunk_prelude(q, k, v, lengths, q_pos, MraConfig(block_size=16),
+                             2, None, pb)
+    with pytest.raises(ValueError, match=r"\(128, 128\), \(16, 16\)"):
+        chunk_attn.chunk_attention_kernel(pre, k, v, q_pos, m=2)
+    lib = chunk_attn._library()
+    for dt, (D, b), G, c_tile in itertools.product(
+            (torch.bfloat16, torch.int8, torch.float32), chunk_attn.KERNEL_SHAPES,
+            (2, 3), (1, 8)):
+        nb = 4096 // b if D == 128 else 4
+        want = chunk_attn.smem_bytes(G, c_tile, D, b, nb, dt)
+        assert lib.chunk_attn_smem_bytes(chunk_attn._CACHE_DTYPES[dt], D, b,
+                                         G * c_tile, nb) == want
+        if D == 128:
+            assert chunk_attn.blocks_per_sm(dt, D, b, True, want) >= 2
 
 
 def bsa_inputs(seed, *, BHKV, G, n, d, b, m, dtype, device, masked=True):

@@ -396,13 +396,15 @@ def test_resolve_kernel_mode():
 @pytest.mark.parametrize("mode", ["latency", "throughput"])
 def test_cuda_kernel_matches_plain_version(mode):
     """On a card: the CUDA kernel == its plain twin on the same CUDA tensors
-    (atol 2e-5 / rtol 1e-5), across paged/int8/ragged/sparse cases."""
+    (atol 2e-5 / rtol 1e-5), across paged/int8/ragged/sparse cases, at the
+    head dim the kernel is built for with b = 16 (D = 16)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode); "
                     "chip_smoke.py runs this comparison at full width")
     for case in (Case(), Case(paged=True, quant=True, seed=21),
                  Case(ragged=True, group=2, seed=33),
                  Case(quant=True, variant="sparse", coarse_only=True, seed=40)):
+        case = dataclasses.replace(case, D=16)
         for C in (1, 5):
             q, k, v, lengths, q_pos, pb, ks, vs = make_case_inputs(case, C=C)
             _, tcfg = _cfgs(case)
