@@ -8,7 +8,8 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` (into
 port's serving path and its training path on the card:
 
   1. device and build — the card's name and power limit, build seconds,
-     and ptxas' registers and spill bytes of every chunk_attn kernel;
+     and ptxas' registers and spill bytes of every chunk_attn and bsa_*
+     kernel (a bf16 bsa_fwd / bsa_bwd_dkv instantiation that spills fails);
   2. kernel vs plain version — every CUDA kernel against its plain PyTorch
      twin on the same CUDA tensors, at the main path's shapes and at the
      smoke config's, over decode/chunk widths, bf16/int8 caches, MRA-2 /
@@ -32,10 +33,14 @@ port's serving path and its training path on the card:
      against their plain twins on the same CUDA tensors, at the training
      path's shapes and the smoke config's, bf16 and fp32, G in {1, 2}, pairs
      from a real causal MRA-2 selection, and with padded keys, invalid pairs
-     and an unvisited query tile; every kernel run twice, bit-identical;
+     and an unvisited query tile; plus a hot key tile (every query block of
+     a row also selects key block 0) at the main shapes and the padded head
+     dim (d, b) = (12, 16); every kernel run twice, bit-identical;
   7. their timing at the main shapes beside the bounds, the plain versions
      and, as a yardstick of exact attention (not the same function), causal
-     scaled_dot_product_attention forward + backward;
+     scaled_dot_product_attention forward + backward; for the forward and
+     dk/dv kernels also the grid, shared memory, blocks per SM and the
+     min/mean/max pairs of an output tile;
   8. training at full width — qwen3-1.7b, 28 layers, remat="full", seq 4096,
      batch 2, three steps of ``train()`` from random weights — with the
      kernels' launches counted over exactly that run, then a torch.profiler
@@ -111,6 +116,10 @@ LONG = dict(slots=2, max_len=4096, chunk=512, prompts=(65536, 6000),
 # smoke config; Hq query heads, G per KV head
 BSA_MAIN = dict(B=2, Hq=16, n=4096, d=128, b=128, bpr=4)
 BSA_SMOKE = dict(B=2, Hq=4, n=256, d=16, b=16, bpr=2)
+# phase 6's further cases (G = 2, bf16 and fp32): a hot key tile at the main
+# shapes, and the smoke shapes at a head dim the kernels zero-pad (12 -> 16)
+BSA_EXTRA = (("main-hot", BSA_MAIN, True), ("smoke-d12", dict(BSA_SMOKE, d=12),
+                                            False))
 # fp32 sums in another order and FMA contraction: normalized numerator and
 # max-scaled gradients at rtol/atol 1e-4, the stabilizer mt at abs 1e-5
 BSA_TOL, MT_TOL = 1e-4, 1e-5
@@ -258,19 +267,45 @@ def phase_device(torch):
     t0 = time.perf_counter()
     libs = build.build_all()
     build_s = time.perf_counter() - t0
+    bsa_ptx = ptxas_report(
+        libs["block_sparse_attn"].with_suffix(".log").read_text())
     emit({"phase": "device", "nvidia_smi": smi,
           "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s,
           "libraries": {n: str(p.relative_to(ROOT)) for n, p in libs.items()},
           "ptxas_chunk_attn": ptxas_report(
-              libs["chunk_attn"].with_suffix(".log").read_text())})
+              libs["chunk_attn"].with_suffix(".log").read_text()),
+          "ptxas_block_sparse_attn": bsa_ptx})
+    # 14 = bf16 and fp32 x (three (D, b) of bsa_fwd and of bsa_bwd_dkv, dq)
+    spills = [k for k in bsa_ptx if k["kernel"].startswith(
+        ("bsa_fwd bf16", "bsa_bwd_dkv bf16"))
+        and (k["spill_stores"] or k["spill_loads"] or k["registers"] > 255)]
+    if len(bsa_ptx) != 14 or spills:
+        raise AssertionError(f"bsa kernels: {len(bsa_ptx)} built, spilling "
+                             f"bf16 tensor-core kernels {spills}")
     return smi
+
+
+def _kernel_label(name):
+    """A readable label of a mangled kernel name: chunk_attn by storage
+    type, D and program; bsa_* by kernel, input type, D and b."""
+    if "combine" in name:
+        return "combine"
+    dims = re.findall(r"Li(\d+)E", name)
+    if "bsa_" in name:
+        kind = re.search(r"(bsa_\w+?)_kernel", name).group(1)
+        dt = "bf16" if "bfloat16" in name else "fp32"
+        return " ".join([kind, dt] + [f"{k}={v}" for k, v in zip("Db", dims)])
+    dt = ("bf16" if "bfloat16" in name else
+          "int8" if "chunk_attn_kernelIa" in name else "fp32")
+    up = "upper" if name.count("Lb1E") else "two_level"
+    return f"{dt} D={dims[0] if dims else '?'} {up}"
 
 
 def ptxas_report(log):
     """Registers and spill bytes per kernel from nvcc's -Xptxas=-v output,
-    named by storage type, (D, b) and program."""
+    named by ``_kernel_label``."""
     out, name = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -283,15 +318,8 @@ def ptxas_report(log):
             spills = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            if "combine" in name:
-                label = "combine"
-            else:
-                dt = ("bf16" if "bfloat16" in name else
-                      "int8" if "chunk_attn_kernelIa" in name else "fp32")
-                d = re.findall(r"Li(\d+)E", name)
-                up = "upper" if name.count("Lb1E") else "two_level"
-                label = f"{dt} D={d[0] if d else '?'} {up}"
-            out.append({"kernel": label, "registers": int(m.group(1)),
+            out.append({"kernel": _kernel_label(name),
+                        "registers": int(m.group(1)),
                         "spill_stores": spills[0], "spill_loads": spills[1]})
             name = None
     return out
@@ -623,11 +651,13 @@ def _bsa_launches(bsa):
     return {name: getattr(bsa, name).launches for name in BSA_KERNELS}
 
 
-def bsa_case(torch, sh, G, dtype, seed, edited):
+def bsa_case(torch, sh, G, dtype, seed, edited, hot=False):
     """(q, k, v, c, x, y, flags, km, scale) for one comparison, numpy from
     ``seed``; pairs from a real causal MRA-2 selection (``select_blocks``).
     ``edited`` pads the keys of batch row 1, invalidates every 7th pair and
-    leaves query block 1 of BHG row 0 without pairs."""
+    leaves query block 1 of BHG row 0 without pairs. ``hot`` makes the first
+    nb pairs of every row (x, 0) for x = 0 .. nb - 1, so key tile 0 of each
+    KV head walks G·nb pairs more than the rest."""
     from repro_torch.core.mra import MraConfig, kernel_pairs, select_blocks
 
     r = np.random.default_rng(seed)
@@ -647,6 +677,11 @@ def bsa_case(torch, sh, G, dtype, seed, edited):
     if edited:
         flags[:, ::7] &= ~1
         x[0] = torch.where(x[0] == 1, 0, x[0])
+    if hot:
+        nb = n // b
+        x[:, :nb] = torch.arange(nb, device=x.device, dtype=x.dtype)
+        y[:, :nb] = 0
+        flags[:, :nb] = 1 | 2 * (x[:, :nb] == 0).to(flags.dtype)
     km = key_mask[:, None].expand(B, Hkv, n).reshape(B * Hkv, n)
     return (q.reshape(B * Hkv * G, n, d), k.reshape(B * Hkv, n, d),
             v.reshape(B * Hkv, n, d), c, x.contiguous(), y, flags.contiguous(),
@@ -663,12 +698,17 @@ def _scaled_close(torch, got, want, tol):
 def phase_bsa_vs_plain(torch, bsa):
     worst = dict.fromkeys(BSA_KERNELS, 0.0)
     worst_mt, n, unvisited = 0.0, 0, 0
-    for (name, sh), dtype, G, edited in itertools.product(
-            (("main", BSA_MAIN), ("smoke", BSA_SMOKE)),
-            (torch.bfloat16, torch.float32), (1, 2), (False, True)):
+    dtypes = (torch.bfloat16, torch.float32)
+    cases = [(name, sh, dtype, G, edited, False)
+             for (name, sh), dtype, G, edited in itertools.product(
+                 (("main", BSA_MAIN), ("smoke", BSA_SMOKE)), dtypes, (1, 2),
+                 (False, True))]
+    cases += [(name, sh, dtype, 2, False, hot)
+              for (name, sh, hot), dtype in itertools.product(BSA_EXTRA, dtypes)]
+    for name, sh, dtype, G, edited, hot in cases:
         n += 1
         q, k, v, c, x, y, fl, km, scale = bsa_case(torch, sh, G, dtype,
-                                                   SEED + n, edited)
+                                                   SEED + n, edited, hot)
         b, nb = sh["b"], sh["n"] // sh["b"]
         pq = bsa.group_by_query(x, y, fl, nb)
         pk = bsa.group_by_key(x, y, fl, G, nb)
@@ -788,6 +828,15 @@ def phase_bsa_timing(torch, bsa):
         "plain_ms": time_ms(torch, lambda: bsa.block_sparse_attention_bwd_dkv_ref(
             *plain_args, **kw), 5),
         **_bsa_bounds(q, k, fl, nb, bwd_in + 2 * BHKV * n * d * 4, 4)}
+    # the tensor-core kernels' launch: grid, block, occupancy, pair balance
+    for key, pairs_, tiles in (("fwd", pq, BHG * nb), ("dkv", pk, BHKV * nb)):
+        counts = bsa.pairs_per_tile(pairs_.ptr).float()
+        res[key].update(
+            bsa.launch_geometry(key, q.dtype, d, b, tiles),
+            blocks_per_sm=bsa.blocks_per_sm(key, q.dtype, d, b),
+            pairs_per_tile={"min": float(counts.min()),
+                            "mean": float(counts.mean()),
+                            "max": float(counts.max())})
 
     def both():
         bsa.bsa_bwd_dq(q, k, v, mt, do, dr, pq, km, **kw)
@@ -1282,7 +1331,9 @@ def main() -> int:
             "bound_ms_fp32_rate": t["bound_ms_fp32"],
             "bound_by_fp32_rate": t["bound_by_fp32"],
             "dense_sdpa_ms": dense_ms,
-            "shape": "qwen3-1.7b train_4k, B=2, bf16, G=2"})
+            "shape": "qwen3-1.7b train_4k, B=2, bf16, G=2",
+            **{k: t[k] for k in ("grid", "smem_bytes", "blocks_per_sm",
+                                 "pairs_per_tile") if k in t}})
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "bound_ms_fp32_rate",
             "bound_by_fp32_rate", "nsplit", "grid", "smem_bytes",
             "blocks_per_sm", "union_pages_per_tile")

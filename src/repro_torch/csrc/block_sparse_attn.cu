@@ -18,37 +18,66 @@
 //   dkv: over each KV head's pairs of all G groups, sorted by key block,
 //        dk = Σ dsᵀ·q·scale and dv = Σ aᵀ·do (the GQA reduction inside).
 //
-// Design. The TPU grid runs in order and keeps an output tile resident in
+// Ownership. The TPU grid runs in order and keeps an output tile resident in
 // VMEM while consecutive grid steps revisit it (first-visit flags, coverage
 // padding). Here every output tile has exactly one owning thread block that
-// walks that tile's CSR list of pairs (row_ptr offsets built by the
-// wrapper) and zero-initializes its accumulators itself: no atomics, no
-// first-visit flags, no coverage padding, and results that are bitwise the
-// same from run to run. A block is 256 threads over a tile of 32 rows (query
-// rows for fwd / dq, key rows for dk/dv) by up to 128 columns; each thread
-// owns 2 rows x 8 columns of every score tile and of its accumulators, and
-// the 16 threads of a row group reduce row maxima and sums by warp
-// shuffles. K/V (fwd, dq) or q/do (dkv) of the pair's block are staged in
-// shared memory in the input dtype (bf16 or fp32) with padded rows (no bank
-// conflicts on the score loop); all arithmetic and accumulation is fp32,
-// as the reference's preferred_element_type=float32. Shapes: b <= 128,
-// head dim <= 128; shared memory is sized for those maxima and zeroed once
-// per block, so smaller shapes read zeros in the padding.
+// walks that tile's CSR list of pairs (row_ptr offsets built by the wrapper)
+// in a fixed order and zero-initializes its accumulators itself: no atomics,
+// no first-visit flags, no coverage padding, and results that are bitwise
+// the same from run to run. The forward and dk/dv grids are one-dimensional
+// over (tile, row sub-tile) and map the tile through `order`, which the
+// wrapper sorts heaviest first (most pairs), so the longest pair lists start
+// in the first wave; a balanced selection keeps the natural order.
 //
-// What bounds it on this card: operations. A pair costs 2·b²·d
-// multiply-adds per product (2 in the forward, 3 in dq, 4 in dk/dv), and
-// at b = d = 128 the forward does about 250 FLOP per byte it must move,
-// above the fp32 ridge point (67 TFLOP/s over 3.35 TB/s = 20) though below
-// the bf16 tensor-core one (295). This first version runs fp32 FMAs on CUDA
-// cores from shared memory and restages each pair's block with plain loads
-// (no overlap); the block-stabilizer never leaves the block, the scores and
-// weights never reach device memory, and each staged block is reused by
-// all 32 rows of the tile. Tensor cores (wgmma), TMA and pipelined staging
-// are left for later work.
+// What bounds the forward and dk/dv kernels on this card: operations. A pair
+// costs 2·b²·d multiply-adds per product (2 in the forward, 4 in dk/dv) in
+// the reference's fp32, about 250 FLOP per byte moved at b = d = 128 — below
+// the bf16 tensor-core ridge point (295) and far above the fp32 CUDA-core one
+// (20). What their design does about it:
+//   * Every product runs on tensor cores as mma.sync.m16n8k16 bf16 with fp32
+//     accumulators, in fp32 accuracy: an fp32 operand is split into three
+//     bf16 terms that sum to it exactly (split3) and the products of terms
+//     i + j <= 2 are kept (what is dropped is below 2^-24 of the product).
+//     bf16 q/k/v need no split. At bf16 inputs the forward does 1 + 3 bf16
+//     products per pair (S = q·kᵀ; P·v with P split), dk/dv 1 + 3 + 6 + 3
+//     (Sᵀ = k·qᵀ; dPᵀ = v·doᵀ with do split; dv += aᵀ·do, both split;
+//     dk += dsᵀ·q with ds split). With fp32 q/k/v every operand is split.
+//   * One warp owns 16 rows outright (query rows in the forward, key rows in
+//     dk/dv), so its online softmax and its weights never leave its
+//     registers: no exchange between warps. A block is four warps, 64 rows
+//     (all b rows when b < 64).
+//   * Operands are staged in their own type by 16-byte cp.async copies into a
+//     two-slot ring: the next stage is in flight while the current one is
+//     computed. A bf16 operand lands in an XOR-swizzled tile that ldmatrix
+//     reads free of bank conflicts; an fp32 one (do, and fp32 q/k/v) lands
+//     raw and is split once per block into three bf16 tiles, so the four
+//     warps share the split.
+//   * Forward: the warp's q fragments stay in registers for the whole pair
+//     list; K/V stream in stages of 64 keys (32 for fp32 inputs). dk/dv: the
+//     block's K/V rows are staged once; the pairs' q, do, mt and dr stream in
+//     stages of 32 queries, 16 at a time; Aᵀ and dSᵀ turn from accumulator
+//     into A fragments in registers (as FlashAttention-2's backward) and
+//     never go through shared memory; dk and dv accumulate in registers over
+//     the whole pair list (128 of a thread's <= 255) and are written once.
+//   * Precision of the stabilizer. The tensor cores' fp32 accumulation is
+//     not rounded to nearest at each step, so the forward's scores take each
+//     k-step's products from zero and add them in fp32. At fp32
+//     inputs the reference's own fp32 rounding comes close to the 1e-5 that
+//     mt is held to, so there the few scores near each stage's maximum are
+//     recomputed with sequential fp32 FMAs over d, as a plain fp32 product
+//     sums them.
+//   * A stage that holds no live score of the block's rows (an invalid pair,
+//     or the keys above every row of a diagonal block) is neither loaded nor
+//     computed: it would add exactly zero.
+// The dq kernel keeps the first port's design (fp32 FMAs on CUDA cores over
+// staged tiles of 32 rows); its redesign is later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC (repro_torch/kernels/build.py); plain C entry
-//        points, loaded with ctypes.
+//        -Xcompiler -fPIC -Xptxas=-v (repro_torch/kernels/build.py); plain C
+//        entry points, loaded with ctypes. The forward and dk/dv kernels are
+//        instantiated for (head dim, block size) = (128, 128), (64, 64) and
+//        (16, 16), bf16 and fp32; the wrapper zero-pads a head dim to the
+//        next multiple of 16 (exact for the products).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,8 +85,664 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "sm90_mma.cuh"
+
 namespace {
 
+constexpr float kNegInf = -1e9f;  // repro NEG_INF
+
+// ==========================================================================
+// forward and dk/dv: tensor-core products over cp.async-staged tiles
+// ==========================================================================
+// bf16 terms of an input type: bf16 is exact, fp32 takes three
+template <typename T>
+struct Terms;
+template <>
+struct Terms<__nv_bfloat16> {
+  static constexpr int n = 1;
+};
+template <>
+struct Terms<float> {
+  static constexpr int n = 3;
+};
+
+// A "plane" is a bf16 tile of rows x D: rows of D / 8 16-byte chunks,
+// XOR-swizzled (swz), read by ldmatrix. A raw tile holds fp32 rows of D
+// floats as they are in device memory.
+
+// copy ROWS rows of RB bytes (device row stride RB) into a tile: swizzled
+// (a bf16 plane) or as they are (raw). A thread copies one 16-byte chunk
+// column of every NT / CPR-th row, so its swizzled column is the same in
+// each row it copies and its addresses step by constants.
+template <int RB, bool SWZ, int NT, int ROWS>
+__device__ __forceinline__ void stage(unsigned char* dst, const void* src) {
+  constexpr int CPR = RB / 16, STEP = NT / CPR;
+  static_assert(NT % CPR == 0 && (!SWZ || STEP % cmin(CPR, 8) == 0),
+                "a thread's chunk column is fixed");
+  const int r0 = threadIdx.x / CPR, ch = threadIdx.x % CPR;
+  unsigned char* d = dst + r0 * RB + (SWZ ? swz<CPR>(r0, ch) : ch) * 16;
+  const char* s = static_cast<const char*>(src) + (size_t)r0 * RB + ch * 16;
+#pragma unroll
+  for (int r = 0; r < ROWS; r += STEP)
+    if (ROWS % STEP == 0 || r0 + r < ROWS)
+      cp16(d + r * RB, s + (size_t)r * RB, true);
+}
+
+// raw fp32 rows (rows x D) -> three planes of rows x D, `pstride` bytes
+// apart, largest term first
+template <int D, int NT>
+__device__ __forceinline__ void split_rows(unsigned char* planes, int pstride,
+                                           const float* raw, int rows) {
+  constexpr int C4 = D / 4, CPR = D / 8;
+  for (int i = threadIdx.x; i < rows * C4; i += NT) {
+    const int row = i / C4, c = i - row * C4;  // floats 4c .. 4c + 3
+    const float4 x = reinterpret_cast<const float4*>(raw)[i];
+    uint32_t lo[3], hi[3];
+    split3(x.x, x.y, lo);
+    split3(x.z, x.w, hi);
+    const int off = row * D * 2 + swz<CPR>(row, c >> 1) * 16 + (c & 1) * 8;
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      *reinterpret_cast<uint2*>(planes + j * pstride + off) = make_uint2(lo[j], hi[j]);
+  }
+}
+
+// A fragment (16 x 16) of plane rows r0.. at columns k0..; `tile` is the
+// plane's shared-space address
+template <int D>
+__device__ __forceinline__ void lda(uint32_t* a, uint32_t tile, int r0, int k0,
+                                    int lane) {
+  constexpr int RB = D * 2;
+  const int i = lane >> 3, row = r0 + ((i & 1) << 3) + (lane & 7);
+  ldsm4(a, tile + row * RB + swz<RB / 16>(row, (k0 >> 3) + (i >> 1)) * 16);
+}
+
+// B fragments of two n-tiles whose n runs over plane rows n0.. and n0 + 8..,
+// k over columns k0..: regs {0, 1} the first n-tile, {2, 3} the second.
+// Loaded with lda's lane-to-address map (so the kernels' ldmatrix loads
+// share their swizzled offsets): lda's regs {0, 2} are the first n-tile's
+// pair and {1, 3} the second's.
+template <int D>
+__device__ __forceinline__ void ldb(uint32_t* b, uint32_t tile, int n0, int k0,
+                                    int lane) {
+  uint32_t r[4];
+  lda<D>(r, tile, n0, k0, lane);
+  b[0] = r[0];
+  b[1] = r[2];
+  b[2] = r[1];
+  b[3] = r[3];
+}
+
+// B fragments of two n-tiles whose k runs over plane rows k0.., n over
+// columns n0.. and n0 + 8.. (ldmatrix.trans)
+template <int D>
+__device__ __forceinline__ void ldbt(uint32_t* b, uint32_t tile, int k0, int n0,
+                                     int lane) {
+  constexpr int RB = D * 2;
+  const int i = lane >> 3, row = k0 + ((i & 1) << 3) + (lane & 7);
+  ldsm4t(b, tile + row * RB + swz<RB / 16>(row, (n0 >> 3) + (i >> 1)) * 16);
+}
+
+// c += Σ_i a_i · b_j for term j of B (B's terms are loaded and applied one
+// at a time, largest j first): the term products i + j <= 2 (i < NA),
+// smallest first; what is dropped is below 2^-24 of the product. h picks
+// the n-tile of a two-tile B fragment.
+template <int NA>
+__device__ __forceinline__ void mma_plane(float* c, const uint32_t (&a)[NA][4],
+                                          const uint32_t* b, int j, int h) {
+#pragma unroll
+  for (int i = NA - 1; i >= 0; --i)
+    if (i + j <= 2) mma(c, a[i], b[2 * h], b[2 * h + 1]);
+}
+
+// the three-term A fragments of a 16-wide k-step from fp32 weights in the
+// C layout of its two n-tiles w0 (k 0-7) and w1 (k 8-15)
+__device__ __forceinline__ void split_c(const float* w0, const float* w1,
+                                        uint32_t (&a)[3][4]) {
+  uint32_t x[4][3];
+  split3(w0[0], w0[1], x[0]);
+  split3(w0[2], w0[3], x[1]);
+  split3(w1[0], w1[1], x[2]);
+  split3(w1[2], w1[3], x[3]);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[i][e] = x[e][i];
+}
+
+// A fragments (terms of T) of rows g and g + 8 of a 16-row tile in device
+// memory (row stride D) at columns k0..
+template <typename T, int D>
+__device__ __forceinline__ void row_frag(const T* rows, int k0, int g, int t,
+                                         uint32_t (&a)[Terms<T>::n][4]) {
+  const T* ra = rows + (size_t)g * D + k0 + 2 * t;
+  const T* rb = ra + 8 * D;
+  if constexpr (Terms<T>::n == 1) {
+    a[0][0] = *reinterpret_cast<const uint32_t*>(ra);
+    a[0][1] = *reinterpret_cast<const uint32_t*>(rb);
+    a[0][2] = *reinterpret_cast<const uint32_t*>(ra + 8);
+    a[0][3] = *reinterpret_cast<const uint32_t*>(rb + 8);
+  } else {
+    const float2 x0 = *reinterpret_cast<const float2*>(ra);
+    const float2 x1 = *reinterpret_cast<const float2*>(rb);
+    const float2 x2 = *reinterpret_cast<const float2*>(ra + 8);
+    const float2 x3 = *reinterpret_cast<const float2*>(rb + 8);
+    uint32_t x[4][3];
+    split3(x0.x, x0.y, x[0]);
+    split3(x1.x, x1.y, x[1]);
+    split3(x2.x, x2.y, x[2]);
+    split3(x3.x, x3.y, x[3]);
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[i][e] = x[e][i];
+  }
+}
+
+// --------------------------------------------------------------------------
+// forward: one block per (BHG row, query block, 64-row sub-tile)
+// --------------------------------------------------------------------------
+struct FwdArgs {
+  const void* q;         // (BHG, n, D) input type
+  const void* k;         // (BHKV, n, D)
+  const void* v;         // (BHKV, n, D)
+  const float* c;        // (BHG, nb) stabilizer floor
+  const int* row_ptr;    // (BHG, nb + 1) CSR offsets by query block
+  const int* ys;         // (BHG, m) key blocks
+  const int* fls;        // (BHG, m) flags
+  const int* km;         // (BHKV, n) key mask
+  const int* order;      // (BHG · nb) query tiles, heaviest first
+  float* out;            // (BHG, n, D)
+  float* rowsum;         // (BHG, n)
+  float* mt;             // (BHG, n)
+  int G, n, m;
+  float scale;
+};
+
+// Tile geometry of one instantiation; the wrapper's kernel_plan() mirrors it.
+template <typename T, int D, int BS>
+struct FwdGeo {
+  static constexpr int NI = Terms<T>::n;                  // terms of q, k, v
+  static constexpr int QR = cmin(64, BS);                 // query rows a block
+  static constexpr int NW = QR / 16;                      // warps, 16 rows each
+  static constexpr int NT = 32 * NW;                      // threads
+  static constexpr int SUB = BS / QR;                     // blocks a query tile
+  static constexpr int KT = cmin(NI == 1 ? 64 : 32, BS);  // keys a stage
+  static constexpr int SPP = BS / KT;                     // stages a pair
+  static constexpr int RB = D * 2;                        // bytes of a plane row
+  static constexpr int RAW = D * (int)sizeof(T);          // bytes of an input row
+  static constexpr int PLANE = KT * RB;
+  static constexpr int SLOT = (int)align16(2 * KT * RAW + KT * 4);  // k, v, mask
+  static constexpr int PLANES = NI > 1 ? 2 * NI * PLANE : 0;        // split k, v
+  static constexpr int QROW = D * 4 + 16;  // padded fp32 row of the q tile
+  static constexpr int QTILE = NI > 1 ? QR * QROW : 0;  // fp32 q (recompute)
+  static constexpr int SMEM = 2 * SLOT + PLANES + QTILE;
+  static_assert(D % 16 == 0 && BS % 16 == 0 && BS % QR == 0 && BS % KT == 0,
+                "tile shapes");
+};
+
+// An fp32 score recomputed with fp32 FMAs in ascending d, one thread: the
+// forward's winning scores at fp32 inputs (see the softmax below).
+template <int D>
+__device__ __forceinline__ float dot_rows(const float* a, const float* b) {
+  float s = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; d += 4) {
+    const float4 x = *reinterpret_cast<const float4*>(a + d);
+    const float4 y = *reinterpret_cast<const float4*>(b + d);
+    s = fmaf(x.x, y.x, s);
+    s = fmaf(x.y, y.y, s);
+    s = fmaf(x.z, y.z, s);
+    s = fmaf(x.w, y.w, s);
+  }
+  return s;
+}
+
+template <typename T, int D, int BS>
+__global__ void __launch_bounds__(FwdGeo<T, D, BS>::NT, 2)
+bsa_fwd_kernel(const FwdArgs p) {
+  using Gm = FwdGeo<T, D, BS>;
+  constexpr int NI = Gm::NI, KT = Gm::KT, SPP = Gm::SPP;
+  constexpr int NTK = KT / 8, NTD = D / 8, KSD = D / 16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int nb = p.n / BS;
+  const int tile = p.order[blockIdx.x / Gm::SUB], sub = blockIdx.x % Gm::SUB;
+  const int bhg = tile / nb, xb = tile - bhg * nb, kvh = bhg / p.G;
+  const int rblk = sub * Gm::QR;    // the block's first row in the query block
+  const int r0 = rblk + warp * 16;  // the warp's
+  const size_t qbase = (size_t)bhg * p.n + (size_t)xb * BS;
+
+  uint32_t qf[KSD][NI][4];  // the warp's 16 query rows, split into NI terms
+#pragma unroll
+  for (int ks = 0; ks < KSD; ++ks)
+    row_frag<T, D>(static_cast<const T*>(p.q) + (qbase + r0) * D, ks * 16, g, t,
+                   qf[ks]);
+
+  // fp32 inputs: the block's q rows in fp32, for the winning scores
+  float* qtile = reinterpret_cast<float*>(smem + 2 * Gm::SLOT + Gm::PLANES);
+  if constexpr (NI > 1) {
+    const float* qsrc = static_cast<const float*>(p.q) + (qbase + rblk) * D;
+    for (int i = threadIdx.x; i < Gm::QR * (D / 4); i += Gm::NT) {
+      const int r = i / (D / 4), c4 = i - r * (D / 4);
+      cp16(reinterpret_cast<unsigned char*>(qtile) + r * Gm::QROW + c4 * 16,
+           qsrc + (size_t)r * D + 4 * c4, true);
+    }
+  }
+
+  const float floor_c = p.c[(size_t)bhg * nb + xb];
+  float mrow[2] = {floor_c, floor_c}, lrow[2] = {0.f, 0.f}, o[NTD][4];
+#pragma unroll
+  for (int nd = 0; nd < NTD; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
+
+  const int p0 = p.row_ptr[(size_t)bhg * (nb + 1) + xb];
+  const int p1 = p.row_ptr[(size_t)bhg * (nb + 1) + xb + 1];
+  const int* ysr = p.ys + (size_t)bhg * p.m;
+  const int* flr = p.fls + (size_t)bhg * p.m;
+  // a stage with no live score of this block's rows: an invalid pair, or
+  // keys above every row of a diagonal block
+  auto live = [&](int st) {
+    const int fl = flr[p0 + st / SPP];
+    return (fl & 1) && (!(fl & 2) || rblk + Gm::QR - 1 >= (st % SPP) * KT);
+  };
+  auto load = [&](int st, int slot) {
+    const size_t kb = (size_t)kvh * p.n + (size_t)ysr[p0 + st / SPP] * BS +
+                      (st % SPP) * KT;
+    unsigned char* dst = smem + slot * Gm::SLOT;
+    stage<Gm::RAW, NI == 1, Gm::NT, KT>(dst, static_cast<const T*>(p.k) + kb * D);
+    stage<Gm::RAW, NI == 1, Gm::NT, KT>(dst + KT * Gm::RAW,
+                                        static_cast<const T*>(p.v) + kb * D);
+    stage<KT * 4, false, Gm::NT, 1>(dst + 2 * KT * Gm::RAW, p.km + kb);
+  };
+
+  const int nst = (p1 - p0) * SPP;
+  if (nst > 0 && live(0)) load(0, 0);
+  cp_commit();
+  for (int st = 0; st < nst; ++st) {
+    cp_wait_all();
+    __syncthreads();  // stage st landed; stage st - 1 is no longer read
+    if (st + 1 < nst && live(st + 1)) load(st + 1, (st + 1) & 1);
+    cp_commit();
+    if (!live(st)) continue;  // block-uniform
+    const unsigned char* slot = smem + (st & 1) * Gm::SLOT;
+    const unsigned char* kp = slot;
+    const unsigned char* vp = slot + KT * Gm::RAW;
+    const int* kms = reinterpret_cast<const int*>(slot + 2 * KT * Gm::RAW);
+    if constexpr (NI > 1) {
+      unsigned char* planes = smem + 2 * Gm::SLOT;
+      split_rows<D, Gm::NT>(planes, Gm::PLANE, reinterpret_cast<const float*>(kp), KT);
+      split_rows<D, Gm::NT>(planes + NI * Gm::PLANE, Gm::PLANE,
+                            reinterpret_cast<const float*>(vp), KT);
+      __syncthreads();
+      kp = planes;
+      vp = planes + NI * Gm::PLANE;
+    }
+    const uint32_t kp_s = smem_addr(kp), vp_s = smem_addr(vp);
+
+    // S = q·kᵀ for the warp's 16 rows x KT keys. The tensor cores' fp32
+    // accumulation does not round to nearest at each step, so each k-step's
+    // products are summed from zero and added in fp32: a long mma chain errs
+    // more, and these scores set the stabilizer mt (held to 1e-5 absolute).
+    float s[NTK][4];
+#pragma unroll
+    for (int n = 0; n < NTK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int n = 0; n < NTK; n += 2)
+#pragma unroll
+      for (int ks = 0; ks < KSD; ++ks) {
+        float t[2][4] = {};
+#pragma unroll
+        for (int j = NI - 1; j >= 0; --j) {
+          uint32_t b[4];
+          ldb<D>(b, kp_s + j * Gm::PLANE, n * 8, ks * 16, lane);
+          mma_plane<NI>(t[0], qf[ks], b, j, 0);
+          mma_plane<NI>(t[1], qf[ks], b, j, 1);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] += t[0][e];
+          s[n + 1][e] += t[1][e];
+        }
+      }
+
+    // mask, online rescale: raise the running max, shrink the accumulators,
+    // then add this stage at the new stabilizer
+    const int fl = flr[p0 + st / SPP], k0 = (st % SPP) * KT;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qi = r0 + g + 8 * h;
+      float mx = kNegInf;
+#pragma unroll
+      for (int n = 0; n < NTK; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = n * 8 + 2 * t + e;
+          const bool ok = kms[j] > 0 && (!(fl & 2) || qi >= k0 + j);
+          const float sv = ok ? s[n][2 * h + e] * p.scale : -INFINITY;
+          s[n][2 * h + e] = sv;
+          mx = fmaxf(mx, sv);
+        }
+      mx = quad_max(mx);
+      if constexpr (NI > 1) {
+        // fp32 inputs: the reference's own fp32 rounding of a score reaches
+        // the stabilizer's 1e-5 tolerance, so the scores within a margin of
+        // the stage's maximum (far above the tensor cores' error) are
+        // recomputed with sequential fp32 FMAs over d, and the largest of
+        // them is the stage's maximum
+        const float thr = mx - 1e-5f * (1.f + fabsf(mx));
+        float best = kNegInf;
+#pragma unroll
+        for (int n = 0; n < NTK; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (s[n][2 * h + e] >= thr) {
+              const float* kr = reinterpret_cast<const float*>(slot) +
+                                (size_t)(n * 8 + 2 * t + e) * D;
+              best = fmaxf(best, dot_rows<D>(reinterpret_cast<const float*>(
+                  reinterpret_cast<const unsigned char*>(qtile) +
+                  (qi - rblk) * Gm::QROW), kr) * p.scale);
+            }
+        mx = quad_max(best);
+      }
+      const float m_new = fmaxf(mrow[h], mx);
+      const float alpha = expf(mrow[h] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < NTK; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float sv = s[n][2 * h + e];
+          const float a = sv == -INFINITY ? 0.f : expf(fminf(sv - m_new, 0.f));
+          s[n][2 * h + e] = a;
+          sum += a;
+        }
+      lrow[h] = lrow[h] * alpha + quad_sum(sum);
+      mrow[h] = m_new;
+#pragma unroll
+      for (int nd = 0; nd < NTD; ++nd) {
+        o[nd][2 * h] *= alpha;
+        o[nd][2 * h + 1] *= alpha;
+      }
+    }
+
+    // o += P·v, P split into three terms
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) {
+      uint32_t pa[3][4];
+      split_c(s[2 * kk], s[2 * kk + 1], pa);
+#pragma unroll
+      for (int nd = 0; nd < NTD; nd += 2)
+#pragma unroll
+        for (int j = NI - 1; j >= 0; --j) {
+          uint32_t b[4];
+          ldbt<D>(b, vp_s + j * Gm::PLANE, kk * 16, nd * 8, lane);
+          mma_plane<3>(o[nd], pa, b, j, 0);
+          mma_plane<3>(o[nd + 1], pa, b, j, 1);
+        }
+    }
+  }
+  cp_wait_all();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const size_t row = qbase + r0 + g + 8 * h;
+    float* orow = p.out + row * D + 2 * t;
+#pragma unroll
+    for (int nd = 0; nd < NTD; ++nd)
+      *reinterpret_cast<float2*>(orow + nd * 8) = make_float2(o[nd][2 * h], o[nd][2 * h + 1]);
+    if (t == 0) {
+      p.rowsum[row] = lrow[h];
+      p.mt[row] = mrow[h];
+    }
+  }
+}
+
+// --------------------------------------------------------------------------
+// backward, dk/dv: one block per (KV head, key block, 64-row sub-tile) over
+// the pairs of all G groups of the KV head, sorted by key block
+// --------------------------------------------------------------------------
+struct DkvArgs {
+  const void* q;         // (BHG, n, D) input type
+  const void* k;         // (BHKV, n, D)
+  const void* v;         // (BHKV, n, D)
+  const float* mt;       // (BHG, n)
+  const float* dout;     // (BHG, n, D)
+  const float* dr;       // (BHG, n)
+  const int* row_ptr;    // (BHKV, nb + 1) CSR offsets by key block
+  const int* rows;       // (BHKV, m2) owning BHG row of each pair
+  const int* xs;         // (BHKV, m2) query blocks
+  const int* fls;        // (BHKV, m2) flags
+  const int* km;         // (BHKV, n) key mask
+  const int* order;      // (BHKV · nb) key tiles, heaviest first
+  float* dk;             // (BHKV, n, D)
+  float* dv;             // (BHKV, n, D)
+  int n, m2;
+  float scale;
+};
+
+// Tile geometry and shared-memory layout of one instantiation; the
+// wrapper's kernel_plan() mirrors it.
+template <typename T, int D, int BS>
+struct DkvGeo {
+  static constexpr int NI = Terms<T>::n;            // terms of q, k, v
+  static constexpr int KR = cmin(64, BS);           // key rows a block
+  static constexpr int NW = KR / 16;                // warps, 16 rows each
+  static constexpr int NT = 32 * NW;                // threads
+  static constexpr int SUB = BS / KR;               // blocks a key tile
+  static constexpr int QT = cmin(32, BS);           // queries a stage
+  static constexpr int SPP = BS / QT;               // stages a pair
+  static constexpr int RB = D * 2;                  // bytes of a plane row
+  static constexpr int RAW = D * (int)sizeof(T);    // bytes of an input row
+  static constexpr int RBF = D * 4;                 // bytes of an fp32 row
+  static constexpr int KV = 2 * NI * KR * RB;       // k planes, then v planes
+  // a ring slot: q (raw; a plane when bf16), do raw, mt, dr
+  static constexpr int SLOT = (int)align16(QT * RAW + QT * RBF + 2 * QT * 4);
+  // the ring also holds the raw k / v rows of an fp32 input, once
+  static constexpr int RING = cmax(2 * SLOT, NI > 1 ? 2 * KR * RAW : 0);
+  static constexpr int QPLANE = QT * RB;
+  static constexpr int DOP = 3 * QPLANE;            // split do
+  static constexpr int QP = NI > 1 ? NI * QPLANE : 0;  // split q (fp32 input)
+  static constexpr int SMEM = KV + RING + DOP + QP;
+  static_assert(D % 16 == 0 && BS % 16 == 0 && BS % KR == 0 && BS % QT == 0,
+                "tile shapes");
+};
+
+template <typename T, int D, int BS>
+__global__ void __launch_bounds__(DkvGeo<T, D, BS>::NT, 2)
+bsa_bwd_dkv_kernel(const DkvArgs p) {
+  using Gm = DkvGeo<T, D, BS>;
+  constexpr int NI = Gm::NI, QT = Gm::QT, SPP = Gm::SPP, KR = Gm::KR;
+  constexpr int NTD = D / 8, KSD = D / 16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* kvp = smem;
+  unsigned char* ring = smem + Gm::KV;
+  unsigned char* dop = ring + Gm::RING;
+  unsigned char* qpl = dop + Gm::DOP;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int nb = p.n / BS;
+  const int tile = p.order[blockIdx.x / Gm::SUB], sub = blockIdx.x % Gm::SUB;
+  const int kvh = tile / nb, yb = tile - kvh * nb;
+  const int kr0 = sub * KR;     // the block's first row in the key block
+  const int wr = warp * 16;     // the warp's first row in the block
+  const size_t kbase = (size_t)kvh * p.n + (size_t)yb * BS + kr0;
+  const T* qg = static_cast<const T*>(p.q);
+
+  // the block's k and v rows, once
+  if constexpr (NI == 1) {
+    stage<Gm::RB, true, Gm::NT, KR>(kvp, static_cast<const T*>(p.k) + kbase * D);
+    stage<Gm::RB, true, Gm::NT, KR>(kvp + KR * Gm::RB,
+                                    static_cast<const T*>(p.v) + kbase * D);
+    // committed with the first stage's group below
+  } else {
+    stage<Gm::RAW, false, Gm::NT, KR>(ring, static_cast<const T*>(p.k) + kbase * D);
+    stage<Gm::RAW, false, Gm::NT, KR>(ring + KR * Gm::RAW,
+                                      static_cast<const T*>(p.v) + kbase * D);
+    cp_commit();
+    cp_wait_all();
+    __syncthreads();
+    split_rows<D, Gm::NT>(kvp, KR * Gm::RB, reinterpret_cast<const float*>(ring), KR);
+    split_rows<D, Gm::NT>(kvp + NI * KR * Gm::RB, KR * Gm::RB,
+                          reinterpret_cast<const float*>(ring + KR * Gm::RAW), KR);
+    __syncthreads();  // the ring is free
+  }
+  bool kok[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) kok[h] = p.km[kbase + wr + g + 8 * h] > 0;
+  float dk[NTD][4], dv[NTD][4];
+#pragma unroll
+  for (int nd = 0; nd < NTD; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[nd][e] = dv[nd][e] = 0.f;
+
+  const int p0 = p.row_ptr[(size_t)kvh * (nb + 1) + yb];
+  const int p1 = p.row_ptr[(size_t)kvh * (nb + 1) + yb + 1];
+  const size_t pb = (size_t)kvh * p.m2 + p0;
+  // a stage with no live score of this block's rows: an invalid pair, or
+  // queries below every key row of a diagonal block
+  auto live = [&](int st) {
+    const int fl = p.fls[pb + st / SPP];
+    return (fl & 1) && (!(fl & 2) || (st % SPP) * QT + QT - 1 >= kr0);
+  };
+  auto load = [&](int st, int slot) {
+    const size_t pi = pb + st / SPP;
+    const size_t qb = (size_t)p.rows[pi] * p.n + (size_t)p.xs[pi] * BS + (st % SPP) * QT;
+    unsigned char* dst = ring + slot * Gm::SLOT;
+    stage<Gm::RAW, NI == 1, Gm::NT, QT>(dst, qg + qb * D);
+    stage<Gm::RBF, false, Gm::NT, QT>(dst + QT * Gm::RAW, p.dout + qb * D);
+    stage<QT * 4, false, Gm::NT, 1>(dst + QT * (Gm::RAW + Gm::RBF), p.mt + qb);
+    stage<QT * 4, false, Gm::NT, 1>(dst + QT * (Gm::RAW + Gm::RBF + 4), p.dr + qb);
+  };
+
+  const int nst = (p1 - p0) * SPP;
+  if (nst > 0 && live(0)) load(0, 0);
+  cp_commit();
+  for (int st = 0; st < nst; ++st) {
+    cp_wait_all();
+    __syncthreads();  // stage st landed; stage st - 1 is no longer read
+    if (st + 1 < nst && live(st + 1)) load(st + 1, (st + 1) & 1);
+    cp_commit();
+    if (!live(st)) continue;  // block-uniform
+    const unsigned char* slot = ring + (st & 1) * Gm::SLOT;
+    const unsigned char* qs = slot;
+    const float* mts = reinterpret_cast<const float*>(slot + QT * (Gm::RAW + Gm::RBF));
+    const float* drs = mts + QT;
+    split_rows<D, Gm::NT>(dop, Gm::QPLANE,
+                          reinterpret_cast<const float*>(slot + QT * Gm::RAW), QT);
+    if constexpr (NI > 1) {
+      split_rows<D, Gm::NT>(qpl, Gm::QPLANE, reinterpret_cast<const float*>(qs), QT);
+      qs = qpl;
+    }
+    __syncthreads();
+    const uint32_t qs_s = smem_addr(qs), dop_s = smem_addr(dop), kv_s = smem_addr(kvp);
+
+    // sixteen queries at a time: Sᵀ = k·qᵀ and dPᵀ = v·doᵀ for the warp's
+    // 16 key rows, the weights, then dv += aᵀ·do and dk += dsᵀ·q
+    const int fl = p.fls[pb + st / SPP], q0 = (st % SPP) * QT;
+#pragma unroll 1
+    for (int kk = 0; kk < QT / 16; ++kk) {
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+      // four k-steps unrolled: fully unrolled, the loads the scheduler
+      // hoists push the kernel past 255 registers and it spills
+#pragma unroll 4
+      for (int ks = 0; ks < KSD; ++ks) {
+        uint32_t ak[NI][4], av[NI][4], b[4];
+#pragma unroll
+        for (int i = 0; i < NI; ++i) {
+          lda<D>(ak[i], kv_s + i * KR * Gm::RB, wr, ks * 16, lane);
+          lda<D>(av[i], kv_s + (NI + i) * KR * Gm::RB, wr, ks * 16, lane);
+        }
+#pragma unroll
+        for (int j = NI - 1; j >= 0; --j) {
+          ldb<D>(b, qs_s + j * Gm::QPLANE, kk * 16, ks * 16, lane);
+          mma_plane<NI>(s[0], ak, b, j, 0);
+          mma_plane<NI>(s[1], ak, b, j, 1);
+        }
+#pragma unroll
+        for (int j = 2; j >= 0; --j) {
+          ldb<D>(b, dop_s + j * Gm::QPLANE, kk * 16, ks * 16, lane);
+          mma_plane<NI>(dp[0], av, b, j, 0);
+          mma_plane<NI>(dp[1], av, b, j, 1);
+        }
+      }
+
+      // aᵀ = mask·exp(min(s − mt, 0)) from the forward's stabilizer;
+      // dsᵀ = aᵀ ⊙ (dPᵀ + dr)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int kr = kr0 + wr + g + 8 * h;
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = kk * 16 + n * 8 + 2 * t + e;
+            const bool ok = kok[h] && (!(fl & 2) || q0 + col >= kr);
+            const float a =
+                ok ? expf(fminf(s[n][2 * h + e] * p.scale - mts[col], 0.f)) : 0.f;
+            s[n][2 * h + e] = a;
+            dp[n][2 * h + e] = a * (dp[n][2 * h + e] + drs[col]);
+          }
+      }
+
+      uint32_t pa[3][4];
+      split_c(s[0], s[1], pa);  // dv += aᵀ·do: six term products
+#pragma unroll
+      for (int nd = 0; nd < NTD; nd += 2) {
+#pragma unroll
+        for (int j = 2; j >= 0; --j) {
+          uint32_t b[4];
+          ldbt<D>(b, dop_s + j * Gm::QPLANE, kk * 16, nd * 8, lane);
+          mma_plane<3>(dv[nd], pa, b, j, 0);
+          mma_plane<3>(dv[nd + 1], pa, b, j, 1);
+        }
+      }
+      split_c(dp[0], dp[1], pa);  // dk += dsᵀ·q
+#pragma unroll
+      for (int nd = 0; nd < NTD; nd += 2) {
+#pragma unroll
+        for (int j = NI - 1; j >= 0; --j) {
+          uint32_t b[4];
+          ldbt<D>(b, qs_s + j * Gm::QPLANE, kk * 16, nd * 8, lane);
+          mma_plane<3>(dk[nd], pa, b, j, 0);
+          mma_plane<3>(dk[nd + 1], pa, b, j, 1);
+        }
+      }
+    }
+  }
+  cp_wait_all();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const size_t row = kbase + wr + g + 8 * h;
+#pragma unroll
+    for (int nd = 0; nd < NTD; ++nd) {
+      const size_t i = row * D + nd * 8 + 2 * t;
+      *reinterpret_cast<float2*>(p.dk + i) =
+          make_float2(dk[nd][2 * h] * p.scale, dk[nd][2 * h + 1] * p.scale);
+      *reinterpret_cast<float2*>(p.dv + i) = make_float2(dv[nd][2 * h], dv[nd][2 * h + 1]);
+    }
+  }
+}
+
+// ==========================================================================
+// dq: fp32 FMAs on CUDA cores over staged tiles (the first port's design)
+// ==========================================================================
+// A block is 256 threads over a tile of 32 query rows by up to 128 columns;
+// each thread owns 2 rows x 8 columns of every score tile and of its
+// accumulators, and the 16 threads of a row group reduce by warp shuffles.
+// K/V of the pair's block are staged in shared memory in the input dtype
+// with padded rows; all arithmetic and accumulation is fp32. Shapes: b <= 128,
+// head dim <= 128; shared memory is sized for those maxima and zeroed once
+// per block, so smaller shapes read zeros in the padding.
 constexpr int kThreads = 256;  // 16 row groups x 16 column groups
 constexpr int kRT = 32;        // rows of a tile
 constexpr int kRPT = 2;        // rows per thread: rg and rg + 16
@@ -66,8 +751,6 @@ constexpr int kMaxB = 128;     // largest block size
 constexpr int kMaxD = 128;     // largest head dim
 constexpr int kFS = kMaxD + 1; // row stride of fp32 [row][d] tiles
 constexpr int kPS = kMaxB + 1; // row stride of fp32 [row][key] tiles
-constexpr float kNegInf = -1e9f;  // repro NEG_INF
-constexpr unsigned kFull = 0xffffffffu;
 
 static_assert(kThreads == 16 * 16, "16 x 16 thread layout");
 static_assert(kRT == 16 * kRPT, "tile rows");
@@ -78,8 +761,6 @@ static_assert(kMaxB == 16 * kCPT && kMaxD == 16 * kCPT, "tile columns");
 template <typename T>
 constexpr int tile_stride() { return kMaxD + static_cast<int>(4 / sizeof(T)); }
 
-constexpr size_t align16(size_t x) { return (x + 15) & ~static_cast<size_t>(15); }
-
 template <typename T>
 __device__ __forceinline__ float to_f32(T x);
 template <>
@@ -87,16 +768,6 @@ __device__ __forceinline__ float to_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-
-// max / sum over the 16 lanes of a row group (lanes differ in bits 0-3)
-__device__ __forceinline__ float group_max(float v) {
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-__device__ __forceinline__ float group_sum(float v) {
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
 }
 
 __device__ __forceinline__ void zero_smem(unsigned char* smem, size_t bytes) {
@@ -111,156 +782,6 @@ __device__ __forceinline__ bool pair_ok(int flags, int qrow, int krow, int b,
                                        bool key_valid) {
   return (flags & 1) && qrow < b && krow < b && key_valid &&
          (!(flags & 2) || qrow >= krow);
-}
-
-// --------------------------------------------------------------------------
-// forward
-// --------------------------------------------------------------------------
-template <typename T>
-struct FwdLayout {
-  static constexpr int KS = tile_stride<T>();
-  static constexpr size_t q = 0;                                        // float [kRT][kFS]
-  static constexpr size_t k = align16(q + sizeof(float) * kRT * kFS);   // T [kMaxB][KS]
-  static constexpr size_t v = align16(k + sizeof(T) * kMaxB * KS);      // T [kMaxB][kMaxD]
-  static constexpr size_t p = align16(v + sizeof(T) * kMaxB * kMaxD);   // float [kRT][kPS]
-  static constexpr size_t km = align16(p + sizeof(float) * kRT * kPS);  // int [kMaxB]
-  static constexpr size_t bytes = align16(km + sizeof(int) * kMaxB);
-};
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-bsa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const float* __restrict__ c,
-               const int* __restrict__ row_ptr, const int* __restrict__ ys,
-               const int* __restrict__ fls, const int* __restrict__ km,
-               float* __restrict__ out, float* __restrict__ rowsum,
-               float* __restrict__ mt_out, int G, int n, int D, int b, int m,
-               float scale) {
-  using L = FwdLayout<T>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem + L::q);
-  T* Ks = reinterpret_cast<T*>(smem + L::k);
-  T* Vs = reinterpret_cast<T*>(smem + L::v);
-  float* Ps = reinterpret_cast<float*>(smem + L::p);
-  int* Km = reinterpret_cast<int*>(smem + L::km);
-
-  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
-  const int bhg = blockIdx.x, xb = blockIdx.y, row0 = blockIdx.z * kRT;
-  const int nb = n / b, kvh = bhg / G;
-  const int rows = min(kRT, b - row0);
-  const size_t qbase = static_cast<size_t>(bhg) * n + static_cast<size_t>(xb) * b + row0;
-
-  zero_smem(smem, L::bytes);
-  __syncthreads();
-  for (int e = tid; e < rows * D; e += kThreads) {
-    const int i = e / D, d = e - i * D;
-    Qs[i * kFS + d] = to_f32(q[(qbase + i) * D + d]);
-  }
-
-  const float floor_c = c[static_cast<size_t>(bhg) * nb + xb];
-  float o[kRPT][kCPT], mrow[kRPT], lrow[kRPT];
-#pragma unroll
-  for (int r = 0; r < kRPT; ++r) {
-    mrow[r] = floor_c;
-    lrow[r] = 0.f;
-#pragma unroll
-    for (int t = 0; t < kCPT; ++t) o[r][t] = 0.f;
-  }
-
-  const int p0 = row_ptr[static_cast<size_t>(bhg) * (nb + 1) + xb];
-  const int p1 = row_ptr[static_cast<size_t>(bhg) * (nb + 1) + xb + 1];
-  for (int p = p0; p < p1; ++p) {
-    const int y = ys[static_cast<size_t>(bhg) * m + p];
-    const int fl = fls[static_cast<size_t>(bhg) * m + p];
-    const size_t kbase = static_cast<size_t>(kvh) * n + static_cast<size_t>(y) * b;
-    __syncthreads();  // the previous pair's tiles are no longer read
-#pragma unroll 4
-    for (int e = tid; e < b * D; e += kThreads) {
-      const int j = e / D, d = e - j * D;
-      const size_t g = (kbase + j) * D + d;
-      Ks[j * L::KS + d] = k[g];
-      Vs[j * kMaxD + d] = v[g];
-    }
-    for (int j = tid; j < b; j += kThreads) Km[j] = km[kbase + j] > 0;
-    __syncthreads();
-
-    float s[kRPT][kCPT];
-#pragma unroll
-    for (int r = 0; r < kRPT; ++r)
-#pragma unroll
-      for (int t = 0; t < kCPT; ++t) s[r][t] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[kRPT], kv[kCPT];
-#pragma unroll
-      for (int r = 0; r < kRPT; ++r) qv[r] = Qs[(rg + 16 * r) * kFS + d];
-#pragma unroll
-      for (int t = 0; t < kCPT; ++t) kv[t] = to_f32(Ks[(cg + 16 * t) * L::KS + d]);
-#pragma unroll
-      for (int r = 0; r < kRPT; ++r)
-#pragma unroll
-        for (int t = 0; t < kCPT; ++t) s[r][t] = fmaf(qv[r], kv[t], s[r][t]);
-    }
-
-    // mask, online rescale (flash-attention): raise the running max, shrink
-    // the accumulators, then add this block at the new stabilizer
-#pragma unroll
-    for (int r = 0; r < kRPT; ++r) {
-      const int i = rg + 16 * r, qrow = row0 + i;
-      unsigned ok = 0;
-      float mx = kNegInf;
-#pragma unroll
-      for (int t = 0; t < kCPT; ++t) {
-        const int j = cg + 16 * t;
-        s[r][t] *= scale;
-        if (pair_ok(fl, qrow, j, b, j < b && Km[j])) {
-          ok |= 1u << t;
-          mx = fmaxf(mx, s[r][t]);
-        }
-      }
-      const float m_new = fmaxf(mrow[r], group_max(mx));
-      const float alpha = expf(mrow[r] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int t = 0; t < kCPT; ++t) {
-        const float a = (ok >> t) & 1u ? expf(fminf(s[r][t] - m_new, 0.f)) : 0.f;
-        Ps[i * kPS + cg + 16 * t] = a;
-        sum += a;
-      }
-      lrow[r] = lrow[r] * alpha + group_sum(sum);
-      mrow[r] = m_new;
-#pragma unroll
-      for (int t = 0; t < kCPT; ++t) o[r][t] *= alpha;
-    }
-    __syncthreads();
-
-    for (int j = 0; j < b; ++j) {
-      float pv[kRPT], vv[kCPT];
-#pragma unroll
-      for (int r = 0; r < kRPT; ++r) pv[r] = Ps[(rg + 16 * r) * kPS + j];
-#pragma unroll
-      for (int t = 0; t < kCPT; ++t) vv[t] = to_f32(Vs[j * kMaxD + cg + 16 * t]);
-#pragma unroll
-      for (int r = 0; r < kRPT; ++r)
-#pragma unroll
-        for (int t = 0; t < kCPT; ++t) o[r][t] = fmaf(pv[r], vv[t], o[r][t]);
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRPT; ++r) {
-    const int i = rg + 16 * r;
-    if (i >= rows) continue;
-    const size_t row = qbase + i;
-#pragma unroll
-    for (int t = 0; t < kCPT; ++t) {
-      const int col = cg + 16 * t;
-      if (col < D) out[row * D + col] = o[r][t];
-    }
-    if (cg == 0) {
-      rowsum[row] = lrow[r];
-      mt_out[row] = mrow[r];
-    }
-  }
 }
 
 // --------------------------------------------------------------------------
@@ -404,197 +925,83 @@ bsa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// --------------------------------------------------------------------------
-// backward, dk/dv: grid (BHKV, key block, key-row sub-tile) over the pairs
-// of all G groups of a KV head, sorted by key block
-// --------------------------------------------------------------------------
-template <typename T>
-struct DkvLayout {
-  static constexpr int QS = tile_stride<T>();
-  static constexpr size_t k = 0;                                        // float [kRT][kFS]
-  static constexpr size_t v = align16(k + sizeof(float) * kRT * kFS);   // float [kRT][kFS]
-  static constexpr size_t q = align16(v + sizeof(float) * kRT * kFS);   // T [kMaxB][QS]
-  static constexpr size_t dout = align16(q + sizeof(T) * kMaxB * QS);   // float [kMaxB][kFS]
-  static constexpr size_t a = align16(dout + sizeof(float) * kMaxB * kFS); // float [kRT][kPS]
-  static constexpr size_t ds = align16(a + sizeof(float) * kRT * kPS);  // float [kRT][kPS]
-  static constexpr size_t mt = align16(ds + sizeof(float) * kRT * kPS); // float [kMaxB]
-  static constexpr size_t dr = align16(mt + sizeof(float) * kMaxB);     // float [kMaxB]
-  static constexpr size_t bytes = align16(dr + sizeof(float) * kMaxB);
+// ==========================================================================
+// host side
+// ==========================================================================
+struct KernelInfo {
+  const void* fn;  // null for a (kernel, dtype, D, b) not instantiated
+  int smem;
+  int threads;
+  int sub;         // blocks an output tile (row sub-tiles)
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-bsa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const float* __restrict__ mt,
-                   const float* __restrict__ dout, const float* __restrict__ dr,
-                   const int* __restrict__ row_ptr, const int* __restrict__ rows_k,
-                   const int* __restrict__ xs, const int* __restrict__ fls,
-                   const int* __restrict__ km, float* __restrict__ dk,
-                   float* __restrict__ dv, int n, int D, int b, int m2,
-                   float scale) {
-  using L = DkvLayout<T>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* Kt = reinterpret_cast<float*>(smem + L::k);
-  float* Vt = reinterpret_cast<float*>(smem + L::v);
-  T* Qb = reinterpret_cast<T*>(smem + L::q);
-  float* dOb = reinterpret_cast<float*>(smem + L::dout);
-  float* At = reinterpret_cast<float*>(smem + L::a);
-  float* dSt = reinterpret_cast<float*>(smem + L::ds);
-  float* Mts = reinterpret_cast<float*>(smem + L::mt);
-  float* Drs = reinterpret_cast<float*>(smem + L::dr);
+enum Kernel { kFwd = 0, kDkv = 1 };
 
-  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
-  const int kvh = blockIdx.x, yb = blockIdx.y, row0 = blockIdx.z * kRT;
-  const int nb = n / b;
-  const int rows = min(kRT, b - row0);
-  const size_t kbase = static_cast<size_t>(kvh) * n + static_cast<size_t>(yb) * b + row0;
-
-  zero_smem(smem, L::bytes);
-  __syncthreads();
-  for (int e = tid; e < rows * D; e += kThreads) {
-    const int i = e / D, d = e - i * D;
-    Kt[i * kFS + d] = to_f32(k[(kbase + i) * D + d]);
-    Vt[i * kFS + d] = to_f32(v[(kbase + i) * D + d]);
-  }
-  bool kvalid[kRPT];
-  float dk_acc[kRPT][kCPT], dv_acc[kRPT][kCPT];
-#pragma unroll
-  for (int r = 0; r < kRPT; ++r) {
-    const int i = rg + 16 * r;
-    kvalid[r] = i < rows && km[kbase + i] > 0;
-#pragma unroll
-    for (int t = 0; t < kCPT; ++t) dk_acc[r][t] = dv_acc[r][t] = 0.f;
-  }
-
-  const int p0 = row_ptr[static_cast<size_t>(kvh) * (nb + 1) + yb];
-  const int p1 = row_ptr[static_cast<size_t>(kvh) * (nb + 1) + yb + 1];
-  for (int p = p0; p < p1; ++p) {
-    const size_t pi = static_cast<size_t>(kvh) * m2 + p;
-    const int owner = rows_k[pi], x = xs[pi], fl = fls[pi];
-    const size_t qbase = static_cast<size_t>(owner) * n + static_cast<size_t>(x) * b;
-    __syncthreads();
-#pragma unroll 4
-    for (int e = tid; e < b * D; e += kThreads) {
-      const int j = e / D, d = e - j * D;
-      const size_t g = (qbase + j) * D + d;
-      Qb[j * L::QS + d] = q[g];
-      dOb[j * kFS + d] = dout[g];
-    }
-    for (int j = tid; j < b; j += kThreads) {
-      Mts[j] = mt[qbase + j];
-      Drs[j] = dr[qbase + j];
-    }
-    __syncthreads();
-
-    // transposed scores: rows are this tile's keys, columns the pair's
-    // queries
-    float s[kRPT][kCPT], dp[kRPT][kCPT];
-#pragma unroll
-    for (int r = 0; r < kRPT; ++r)
-#pragma unroll
-      for (int t = 0; t < kCPT; ++t) s[r][t] = dp[r][t] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float kv[kRPT], vv[kRPT], qv[kCPT], ov[kCPT];
-#pragma unroll
-      for (int r = 0; r < kRPT; ++r) {
-        kv[r] = Kt[(rg + 16 * r) * kFS + d];
-        vv[r] = Vt[(rg + 16 * r) * kFS + d];
-      }
-#pragma unroll
-      for (int t = 0; t < kCPT; ++t) {
-        qv[t] = to_f32(Qb[(cg + 16 * t) * L::QS + d]);
-        ov[t] = dOb[(cg + 16 * t) * kFS + d];
-      }
-#pragma unroll
-      for (int r = 0; r < kRPT; ++r)
-#pragma unroll
-        for (int t = 0; t < kCPT; ++t) {
-          s[r][t] = fmaf(kv[r], qv[t], s[r][t]);
-          dp[r][t] = fmaf(vv[r], ov[t], dp[r][t]);
-        }
-    }
-#pragma unroll
-    for (int r = 0; r < kRPT; ++r) {
-      const int i = rg + 16 * r, krow = row0 + i;
-#pragma unroll
-      for (int t = 0; t < kCPT; ++t) {
-        const int j = cg + 16 * t;
-        float a = 0.f, ds = 0.f;
-        if (pair_ok(fl, j, krow, b, kvalid[r])) {
-          a = expf(fminf(s[r][t] * scale - Mts[j], 0.f));
-          ds = a * (dp[r][t] + Drs[j]);
-        }
-        At[i * kPS + j] = a;
-        dSt[i * kPS + j] = ds;
-      }
-    }
-    __syncthreads();
-
-    for (int j = 0; j < b; ++j) {
-      float av[kRPT], sv[kRPT], ov[kCPT], qv[kCPT];
-#pragma unroll
-      for (int r = 0; r < kRPT; ++r) {
-        av[r] = At[(rg + 16 * r) * kPS + j];
-        sv[r] = dSt[(rg + 16 * r) * kPS + j];
-      }
-#pragma unroll
-      for (int t = 0; t < kCPT; ++t) {
-        ov[t] = dOb[j * kFS + cg + 16 * t];
-        qv[t] = to_f32(Qb[j * L::QS + cg + 16 * t]);
-      }
-#pragma unroll
-      for (int r = 0; r < kRPT; ++r)
-#pragma unroll
-        for (int t = 0; t < kCPT; ++t) {
-          dv_acc[r][t] = fmaf(av[r], ov[t], dv_acc[r][t]);
-          dk_acc[r][t] = fmaf(sv[r], qv[t], dk_acc[r][t]);
-        }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRPT; ++r) {
-    const int i = rg + 16 * r;
-    if (i >= rows) continue;
-#pragma unroll
-    for (int t = 0; t < kCPT; ++t) {
-      const int col = cg + 16 * t;
-      if (col < D) {
-        dk[(kbase + i) * D + col] = dk_acc[r][t] * scale;
-        dv[(kbase + i) * D + col] = dv_acc[r][t];
-      }
-    }
-  }
+template <typename T, int D, int BS>
+KernelInfo info_of(int kernel) {
+  if (kernel == kFwd)
+    return {reinterpret_cast<const void*>(bsa_fwd_kernel<T, D, BS>),
+            FwdGeo<T, D, BS>::SMEM, FwdGeo<T, D, BS>::NT, FwdGeo<T, D, BS>::SUB};
+  return {reinterpret_cast<const void*>(bsa_bwd_dkv_kernel<T, D, BS>),
+          DkvGeo<T, D, BS>::SMEM, DkvGeo<T, D, BS>::NT, DkvGeo<T, D, BS>::SUB};
 }
 
-bool shape_ok(int rows, int n, int D, int b) {
-  return rows > 0 && b > 0 && b <= kMaxB && D > 0 && D <= kMaxD && n % b == 0 &&
-         n / b > 0 && n / b <= 65535;
+template <typename T>
+KernelInfo info_shape(int kernel, int D, int b) {
+  if (D == 128 && b == 128) return info_of<T, 128, 128>(kernel);
+  if (D == 64 && b == 64) return info_of<T, 64, 64>(kernel);
+  if (D == 16 && b == 16) return info_of<T, 16, 16>(kernel);
+  return {nullptr, 0, 0, 0};
+}
+
+// dtype: 0 = bf16, 1 = fp32 (q, k and v share it)
+KernelInfo info(int kernel, int dtype, int D, int b) {
+  if (kernel != kFwd && kernel != kDkv) return {nullptr, 0, 0, 0};
+  if (dtype == 0) return info_shape<__nv_bfloat16>(kernel, D, b);
+  if (dtype == 1) return info_shape<float>(kernel, D, b);
+  return {nullptr, 0, 0, 0};
+}
+
+// Allow the kernel's dynamic shared memory (and the largest carveout, so that
+// two blocks fit on an SM); done once per kernel.
+cudaError_t configure(const KernelInfo& k) {
+  static const void* done[16];
+  static int ndone = 0;
+  for (int i = 0; i < ndone; ++i)
+    if (done[i] == k.fn) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, k.smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(k.fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  if (ndone < 16) done[ndone++] = k.fn;
+  return cudaSuccess;
+}
+
+// one launch of `tiles` output tiles of a tensor-core kernel (a block per
+// row sub-tile of each)
+template <typename Args>
+cudaError_t launch_tc(int kernel, int dtype, int D, int b, const Args& args,
+                      int tiles, cudaStream_t st) {
+  const KernelInfo k = info(kernel, dtype, D, b);
+  if (!k.fn) return cudaErrorInvalidValue;
+  cudaError_t err = configure(k);
+  if (err != cudaSuccess) return err;
+  void* params[] = {const_cast<Args*>(&args)};
+  err = cudaLaunchKernel(k.fn, dim3(tiles * k.sub), dim3(k.threads), params,
+                         k.smem, st);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+bool shape_ok(int rows, int n, int b) {
+  return rows > 0 && b > 0 && n % b == 0 && n / b > 0;
 }
 
 template <typename Kernel>
 cudaError_t opt_in(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
-}
-
-template <typename T>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* c,
-                       const void* ptr, const void* ys, const void* fl,
-                       const void* km, void* out, void* rs, void* mt, int BHG,
-                       int G, int n, int D, int b, int m, float scale,
-                       cudaStream_t st) {
-  const size_t smem = FwdLayout<T>::bytes;
-  cudaError_t err = opt_in(bsa_fwd_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(BHG, n / b, (b + kRT - 1) / kRT);
-  bsa_fwd_kernel<T><<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(c), static_cast<const int*>(ptr),
-      static_cast<const int*>(ys), static_cast<const int*>(fl),
-      static_cast<const int*>(km), static_cast<float*>(out),
-      static_cast<float*>(rs), static_cast<float*>(mt), G, n, D, b, m, scale);
-  return cudaGetLastError();
 }
 
 template <typename T>
@@ -616,44 +1023,54 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* m
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* mt,
-                       const void* dout, const void* dr, const void* ptr,
-                       const void* rows, const void* xs, const void* fl,
-                       const void* km, void* dk, void* dv, int BHKV, int n,
-                       int D, int b, int m2, float scale, cudaStream_t st) {
-  const size_t smem = DkvLayout<T>::bytes;
-  cudaError_t err = opt_in(bsa_bwd_dkv_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(BHKV, n / b, (b + kRT - 1) / kRT);
-  bsa_bwd_dkv_kernel<T><<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(mt), static_cast<const float*>(dout),
-      static_cast<const float*>(dr), static_cast<const int*>(ptr),
-      static_cast<const int*>(rows), static_cast<const int*>(xs),
-      static_cast<const int*>(fl), static_cast<const int*>(km),
-      static_cast<float*>(dk), static_cast<float*>(dv), n, D, b, m2, scale);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
-// dtype: 0 = bf16, 1 = fp32 (q, k and v share it). Each entry point returns
-// the cudaError_t of its launch (0 = launched).
+// Dynamic shared memory of one block of the forward (kernel 0) or dk/dv
+// (kernel 1) kernel, or 0 for a (dtype, D, b) not built.
+extern "C" long long bsa_smem_bytes(int kernel, int dtype, int D, int b) {
+  return info(kernel, dtype, D, b).smem;
+}
+
+// Blocks of the forward (0) or dk/dv (1) kernel that fit on an SM
+// (occupancy API: registers, threads and shared memory).
+extern "C" int bsa_blocks_per_sm(int kernel, int dtype, int D, int b, int* blocks) {
+  const KernelInfo k = info(kernel, dtype, D, b);
+  if (!k.fn) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = configure(k);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, k.fn, k.threads, k.smem));
+}
+
+// Each entry point returns the cudaError_t of its launch (0 = launched).
+// `order` lists the output tiles (BHG·nb query tiles, BHKV·nb key tiles) in
+// launch order; D is the head dim as stored (a built, padded one).
 extern "C" int bsa_fwd_launch(const void* q, const void* k, const void* v,
                               const void* c, const void* ptr, const void* ys,
-                              const void* fl, const void* km, void* out, void* rs,
-                              void* mt, int BHG, int G, int n, int D, int b, int m,
-                              float scale, int dtype, void* stream) {
-  if (!shape_ok(BHG, n, D, b) || G <= 0) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_fwd<__nv_bfloat16>(q, k, v, c, ptr, ys, fl, km, out, rs, mt, BHG,
-                                     G, n, D, b, m, scale, st);
-  if (dtype == 1)
-    return launch_fwd<float>(q, k, v, c, ptr, ys, fl, km, out, rs, mt, BHG, G, n,
-                             D, b, m, scale, st);
-  return cudaErrorInvalidValue;
+                              const void* fl, const void* km, const void* order,
+                              void* out, void* rs, void* mt, int BHG, int G,
+                              int n, int D, int b, int m, float scale, int dtype,
+                              void* stream) {
+  if (!shape_ok(BHG, n, b) || G <= 0 || BHG % G) return cudaErrorInvalidValue;
+  FwdArgs a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.c = static_cast<const float*>(c);
+  a.row_ptr = static_cast<const int*>(ptr);
+  a.ys = static_cast<const int*>(ys);
+  a.fls = static_cast<const int*>(fl);
+  a.km = static_cast<const int*>(km);
+  a.order = static_cast<const int*>(order);
+  a.out = static_cast<float*>(out);
+  a.rowsum = static_cast<float*>(rs);
+  a.mt = static_cast<float*>(mt);
+  a.G = G;
+  a.n = n;
+  a.m = m;
+  a.scale = scale;
+  return launch_tc(kFwd, dtype, D, b, a, BHG * (n / b),
+                   static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int bsa_bwd_dq_launch(const void* q, const void* k, const void* v,
@@ -662,7 +1079,9 @@ extern "C" int bsa_bwd_dq_launch(const void* q, const void* k, const void* v,
                                  const void* km, void* dq, int BHG, int G, int n,
                                  int D, int b, int m, float scale, int dtype,
                                  void* stream) {
-  if (!shape_ok(BHG, n, D, b) || G <= 0) return cudaErrorInvalidValue;
+  if (!shape_ok(BHG, n, b) || b > kMaxB || D <= 0 || D > kMaxD || n / b > 65535 ||
+      G <= 0)
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_dq<__nv_bfloat16>(q, k, v, mt, dout, dr, ptr, ys, fl, km, dq, BHG,
@@ -676,18 +1095,30 @@ extern "C" int bsa_bwd_dq_launch(const void* q, const void* k, const void* v,
 extern "C" int bsa_bwd_dkv_launch(const void* q, const void* k, const void* v,
                                   const void* mt, const void* dout, const void* dr,
                                   const void* ptr, const void* rows, const void* xs,
-                                  const void* fl, const void* km, void* dk, void* dv,
-                                  int BHKV, int n, int D, int b, int m2,
-                                  float scale, int dtype, void* stream) {
-  if (!shape_ok(BHKV, n, D, b)) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_dkv<__nv_bfloat16>(q, k, v, mt, dout, dr, ptr, rows, xs, fl, km,
-                                     dk, dv, BHKV, n, D, b, m2, scale, st);
-  if (dtype == 1)
-    return launch_dkv<float>(q, k, v, mt, dout, dr, ptr, rows, xs, fl, km, dk, dv,
-                             BHKV, n, D, b, m2, scale, st);
-  return cudaErrorInvalidValue;
+                                  const void* fl, const void* km, const void* order,
+                                  void* dk, void* dv, int BHKV, int n, int D, int b,
+                                  int m2, float scale, int dtype, void* stream) {
+  if (!shape_ok(BHKV, n, b)) return cudaErrorInvalidValue;
+  DkvArgs a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.mt = static_cast<const float*>(mt);
+  a.dout = static_cast<const float*>(dout);
+  a.dr = static_cast<const float*>(dr);
+  a.row_ptr = static_cast<const int*>(ptr);
+  a.rows = static_cast<const int*>(rows);
+  a.xs = static_cast<const int*>(xs);
+  a.fls = static_cast<const int*>(fl);
+  a.km = static_cast<const int*>(km);
+  a.order = static_cast<const int*>(order);
+  a.dk = static_cast<float*>(dk);
+  a.dv = static_cast<float*>(dv);
+  a.n = n;
+  a.m2 = m2;
+  a.scale = scale;
+  return launch_tc(kDkv, dtype, D, b, a, BHKV * (n / b),
+                   static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* bsa_error_string(int code) {

@@ -76,6 +76,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90_mma.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;   // four warps
@@ -87,7 +89,6 @@ constexpr int kSlots = 2;       // cp.async ring depth
 constexpr float kNegInf = -1e9f;     // repro NEG_INF
 constexpr float kForceBonus = 2e9f;  // repro FORCE_BONUS
 constexpr float kPicked = -2e9f;     // knock-out of already-picked pages
-constexpr unsigned kFull = 0xffffffffu;
 
 struct Params {
   const float* q;       // (BKV, G, C, D)
@@ -125,17 +126,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// the four lanes of a quad hold one fragment row
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(kFull, v, 1));
-  return fmaxf(v, __shfl_xor_sync(kFull, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(kFull, v, 1);
-  return v + __shfl_xor_sync(kFull, v, 2);
-}
-
 // ---- storage types ---------------------------------------------------------
 template <typename T>
 struct Cache;
@@ -154,10 +144,6 @@ struct Cache<float> {  // three bf16 terms
   static constexpr int kKeys = 32, kTerms = 3;
   static constexpr bool kPerm = true, kQuant = false;
 };
-
-__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
-__host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
-__host__ __device__ constexpr size_t align16(size_t x) { return (x + 15) & ~size_t(15); }
 
 // Tile geometry of one instantiation; the wrapper's smem_bytes() mirrors it.
 template <typename T, int D, int BS>
@@ -230,76 +216,10 @@ size_t smem_bytes(int rows, int RP, int nb) {
          align16((size_t)nb * 4) + 16;
 }
 
-// ---- PTX wrappers -----------------------------------------------------------
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; full = false writes zeros (src is not read)
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(full ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-__device__ __forceinline__ void ldsm4t(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-// c += a · b on tensor cores: m16n8k16, bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
-                                    uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// (a, b) as three bf16x2 terms, largest first: a == a0 + a1 + a2 exactly
-// for normal fp32 (each residual is exact in fp32 and fits 8 more bits)
-__device__ __forceinline__ void split3(float a, float b, uint32_t* o) {
-  const __nv_bfloat16 a0 = __float2bfloat16_rn(a), b0 = __float2bfloat16_rn(b);
-  const float ra = a - __bfloat162float(a0), rb = b - __bfloat162float(b0);
-  const __nv_bfloat16 a1 = __float2bfloat16_rn(ra), b1 = __float2bfloat16_rn(rb);
-  o[0] = pack(a0, b0);
-  o[1] = pack(a1, b1);
-  o[2] = pack(__float2bfloat16_rn(ra - __bfloat162float(a1)),
-              __float2bfloat16_rn(rb - __bfloat162float(b1)));
-}
-
+// ---- operand helpers (PTX wrappers and split3: sm90_mma.cuh) -------------
 __device__ __forceinline__ uint32_t pack_codes(int c0, int c1) {
   return pack(__float2bfloat16_rn(static_cast<float>(c0)),
               __float2bfloat16_rn(static_cast<float>(c1)));
-}
-
-// 16-byte chunk ch of row `row` lies at chunk ch ^ (row % 8) (within the
-// row's first min(chunks, 8) chunks)
-template <int CPR>
-__device__ __forceinline__ int swz(int row, int ch) {
-  return ch ^ (row & (cmin(CPR, 8) - 1));
 }
 
 // address of element d of row `row` in a swizzled tile of U rows of width D
@@ -328,15 +248,12 @@ __device__ __forceinline__ void stage_rows(unsigned char* dst, const void* src,
 }
 
 // ---- fragments --------------------------------------------------------------
-// Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
-//   A (16x16, row): regs {a[g][2t..], a[g+8][2t..], a[g][2t+8..], a[g+8][2t+8..]}
-//   B (16x8, col):  regs {b[2t..][g], b[2t+8..][g]}
-//   C (16x8):       {c[g][2t], c[g][2t+1], c[g+8][2t], c[g+8][2t+1]}
-// For q·k the k index runs over D. bf16 pages use it as it stands (ldmatrix);
-// int8 and fp32 pages permute it inside each 16-column step so that a lane's
-// four columns are adjacent (one 4-byte / 16-byte load): k = 2t + {0, 1} is
-// column 4t + {0, 1} and k = 2t + 8 + {0, 1} is column 4t + 2 + {0, 1}. The
-// query fragments use the same map; a sum over k does not see the order.
+// (the mma fragment layouts are listed in sm90_mma.cuh) For q·k the k index
+// runs over D. bf16 pages use it as it stands (ldmatrix); int8 and fp32 pages
+// permute it inside each 16-column step so that a lane's four columns are
+// adjacent (one 4-byte / 16-byte load): k = 2t + {0, 1} is column 4t + {0, 1}
+// and k = 2t + 8 + {0, 1} is column 4t + 2 + {0, 1}. The query fragments use
+// the same map; a sum over k does not see the order.
 
 // B fragments of k^T for the 8 keys from `key0` at columns d0..d0+15 of an
 // int8 / fp32 tile: b[term][reg]

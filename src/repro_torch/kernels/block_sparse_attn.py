@@ -18,6 +18,10 @@ Two implementations of each pass, chosen by the tensors' device:
     has one owning thread block that walks that tile's CSR list of pairs
     (``group_by_query`` / ``group_by_key`` below), so results are bitwise
     deterministic; the note at the top of the source says what bounds them.
+    The forward and dk/dv kernels run their products on tensor cores over
+    tiles staged by ``cp.async`` (``kernel_plan`` mirrors their geometry and
+    shared memory); they are built for the (head dim, block size) pairs of
+    ``KERNEL_SHAPES``, a head dim zero-padded to the next multiple of 16.
   * ``block_sparse_attention_ref`` / ``block_sparse_attention_bwd_ref`` —
     the plain PyTorch versions of the reference's ``kernels/ref.py``, taken
     for tensors on the CPU and held against the kernels on the card
@@ -35,9 +39,13 @@ import torch
 
 from repro_torch.core.mra import NEG_INF
 
-MAX_BLOCK = 128  # largest block size b the kernels take
-MAX_HEAD_DIM = 128  # largest head dim d the kernels take
+# (head dim padded to a multiple of 16, block size b) the kernels are built for
+KERNEL_SHAPES = ((128, 128), (64, 64), (16, 16))
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+_KERNELS = {"fwd": 0, "dkv": 1}  # the tensor-core kernels of the source
+_SM_SMEM = 233472   # shared memory of an SM (228 KB)
+_BLOCK_RESERVED = 1024  # shared memory the runtime keeps per block
+_SM_THREADS = 2048
 
 
 # --------------------------------------------------------------------------- #
@@ -266,6 +274,105 @@ def group_by_key(x_idx, y_idx, flags, G: int, nb: int) -> KeyPairs:
 
 
 # --------------------------------------------------------------------------- #
+# what the tensor-core kernels are built for, and their plan
+# --------------------------------------------------------------------------- #
+def padded_dim(d: int) -> int:
+    """The head dim as the kernels take it: the next multiple of 16."""
+    return -(-d // 16) * 16
+
+
+def check_shape(d: int, block_size: int) -> None:
+    """Raise ValueError unless the kernels are built for (d, block_size)."""
+    if (padded_dim(d), block_size) not in KERNEL_SHAPES:
+        raise ValueError(
+            f"(head dim, block size) ({d}, {block_size}) is not built: the "
+            "kernels take (head dim padded to a multiple of 16, block size) in "
+            + ", ".join(str(x) for x in KERNEL_SHAPES))
+
+
+def _a16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def kernel_plan(kernel: str, dtype, d: int, block_size: int) -> dict:
+    """Geometry and dynamic shared memory of one block of the forward
+    (``"fwd"``) or dk/dv (``"dkv"``) kernel; mirrors ``FwdGeo`` / ``DkvGeo``
+    in the source. ``rows``: the block's query (fwd) or key (dkv) rows, 16
+    a warp; ``stage``: keys (fwd) or queries (dkv) a ring stage."""
+    check_shape(d, block_size)
+    D, b = padded_dim(d), block_size
+    terms = 1 if dtype == torch.bfloat16 else 3
+    size = 2 if dtype == torch.bfloat16 else 4
+    rows = min(64, b)
+    if kernel == "fwd":
+        stage = min(64 if terms == 1 else 32, b)
+        slot = _a16(2 * stage * D * size + stage * 4)  # k, v, key mask
+        planes = 2 * terms * stage * D * 2 if terms > 1 else 0  # split k, v
+        qtile = rows * (D * 4 + 16) if terms > 1 else 0  # fp32 q rows
+        smem = 2 * slot + planes + qtile
+    elif kernel == "dkv":
+        stage = min(32, b)
+        kv = 2 * terms * rows * D * 2  # k and v planes
+        slot = _a16(stage * D * size + stage * D * 4 + 2 * stage * 4)
+        ring = max(2 * slot, 2 * rows * D * size if terms > 1 else 0)
+        smem = kv + ring + 3 * stage * D * 2 + (
+            terms * stage * D * 2 if terms > 1 else 0)  # split do (and q)
+    else:
+        raise ValueError(f"kernel must be one of {tuple(_KERNELS)}, got "
+                         f"{kernel!r}")
+    return {"threads": 2 * rows, "rows": rows, "sub_tiles": b // rows,
+            "stage": stage, "smem_bytes": smem}
+
+
+def smem_bytes(kernel: str, dtype, d: int, block_size: int) -> int:
+    """Dynamic shared memory of one block (``kernel_plan``)."""
+    return kernel_plan(kernel, dtype, d, block_size)["smem_bytes"]
+
+
+def planned_blocks_per_sm(kernel: str, dtype, d: int, block_size: int) -> int:
+    """Blocks an SM holds by shared memory and threads alone (registers,
+    which ptxas decides, can only lower it: ``blocks_per_sm`` asks the
+    card)."""
+    plan = kernel_plan(kernel, dtype, d, block_size)
+    return min(_SM_SMEM // (plan["smem_bytes"] + _BLOCK_RESERVED),
+               _SM_THREADS // plan["threads"], 32)
+
+
+def launch_geometry(kernel: str, dtype, d: int, block_size: int,
+                    tiles: int) -> dict:
+    """The launch of ``tiles`` output tiles: a one-dimensional grid of one
+    block per row sub-tile of each tile, with ``kernel_plan``'s block."""
+    plan = kernel_plan(kernel, dtype, d, block_size)
+    return {"grid": tiles * plan["sub_tiles"], **plan}
+
+
+def blocks_per_sm(kernel: str, dtype, d: int, block_size: int) -> int:
+    """Blocks of the kernel resident on one SM, from the card's occupancy
+    API (registers as ptxas allocated them, threads, shared memory)."""
+    check_shape(d, block_size)
+    lib = _library()
+    n = ctypes.c_int(0)
+    rc = lib.bsa_blocks_per_sm(_KERNELS[kernel], _DTYPES[dtype],
+                               padded_dim(d), block_size, ctypes.byref(n))
+    _raise_on(rc, lib, f"bsa {kernel} occupancy")
+    return n.value
+
+
+def pairs_per_tile(ptr) -> torch.Tensor:
+    """Pairs of each output tile, flattened: the CSR offsets' differences."""
+    return (ptr[:, 1:] - ptr[:, :-1]).reshape(-1)
+
+
+def tile_order(ptr) -> torch.Tensor:
+    """Launch order of the output tiles of a CSR pair list: heaviest first
+    (most pairs), ties in natural order, so the longest pair lists start in
+    the first wave; a balanced selection keeps the natural order. Computed
+    on the pairs' device, with no sync."""
+    return torch.argsort(pairs_per_tile(ptr), descending=True,
+                         stable=True).to(torch.int32)
+
+
+# --------------------------------------------------------------------------- #
 # CUDA launches
 # --------------------------------------------------------------------------- #
 def _library() -> ctypes.CDLL:
@@ -275,11 +382,14 @@ def _library() -> ctypes.CDLL:
     lib = load_library("block_sparse_attn")
     if lib.bsa_fwd_launch.argtypes is None:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.bsa_fwd_launch.argtypes = [ptr] * 11 + [i32] * 6 + [f32, i32, ptr]
+        lib.bsa_fwd_launch.argtypes = [ptr] * 12 + [i32] * 6 + [f32, i32, ptr]
         lib.bsa_bwd_dq_launch.argtypes = [ptr] * 11 + [i32] * 6 + [f32, i32, ptr]
-        lib.bsa_bwd_dkv_launch.argtypes = [ptr] * 13 + [i32] * 5 + [f32, i32, ptr]
+        lib.bsa_bwd_dkv_launch.argtypes = [ptr] * 14 + [i32] * 5 + [f32, i32, ptr]
+        lib.bsa_blocks_per_sm.argtypes = [i32] * 4 + [ptr]
+        lib.bsa_smem_bytes.argtypes = [i32] * 4
+        lib.bsa_smem_bytes.restype = ctypes.c_longlong
         for fn in (lib.bsa_fwd_launch, lib.bsa_bwd_dq_launch,
-                   lib.bsa_bwd_dkv_launch):
+                   lib.bsa_bwd_dkv_launch, lib.bsa_blocks_per_sm):
             fn.restype = i32
         lib.bsa_error_string.argtypes = [i32]
         lib.bsa_error_string.restype = ctypes.c_char_p
@@ -309,11 +419,9 @@ def _check_qkv(q, k, v, block_size):
         raise ValueError(f"the CUDA kernels take tensors on the card, got {dev}")
     if BHKV == 0 or BHG % BHKV:
         raise ValueError(f"q rows {BHG} are not a multiple of k rows {BHKV}")
-    if not (0 < block_size <= MAX_BLOCK) or n % block_size:
-        raise ValueError(f"block size {block_size} must be in (0, {MAX_BLOCK}] "
-                         f"and divide n = {n}")
-    if not 0 < d <= MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} must be in (0, {MAX_HEAD_DIM}]")
+    if block_size <= 0 or n % block_size:
+        raise ValueError(f"block size {block_size} must divide n = {n}")
+    check_shape(d, block_size)
     _check(q, "q", (BHG, n, d), tuple(_DTYPES), dev)
     _check(k, "k", (BHKV, n, d), (q.dtype,), dev)
     _check(v, "v", (BHKV, n, d), (q.dtype,), dev)
@@ -330,6 +438,20 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _pad_dim(*ts):
+    """The tensors with their last dim zero-padded to ``padded_dim`` (exact
+    for the kernels' products); as they are when it is built already."""
+    d = ts[0].shape[-1]
+    D = padded_dim(d)
+    if D == d:
+        return ts
+    return tuple(torch.nn.functional.pad(t, (0, D - d)) for t in ts)
+
+
+def _unpad(d, *ts):
+    return tuple(t if t.shape[-1] == d else t[..., :d].contiguous() for t in ts)
+
+
 def bsa_fwd(q, k, v, c, pairs: QueryPairs, key_mask, *, scale: float,
             block_size: int):
     """Launch the forward kernel: (out (BHG,n,d), rowsum, mt (BHG,n)) fp32."""
@@ -341,19 +463,22 @@ def bsa_fwd(q, k, v, c, pairs: QueryPairs, key_mask, *, scale: float,
     _check(pairs.y, "y_idx", (BHG, m), i32, dev)
     _check(pairs.flags, "flags", (BHG, m), i32, dev)
     _check(key_mask, "key_mask", (BHKV, n), i32, dev)
-    out = torch.empty((BHG, n, d), dtype=torch.float32, device=dev)
+    q, k, v = _pad_dim(q, k, v)
+    D = q.shape[-1]
+    order = tile_order(pairs.ptr)
+    out = torch.empty((BHG, n, D), dtype=torch.float32, device=dev)
     rowsum = torch.empty((BHG, n), dtype=torch.float32, device=dev)
     mt = torch.empty((BHG, n), dtype=torch.float32, device=dev)
     lib = _library()
     rc = lib.bsa_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), c.data_ptr(),
         pairs.ptr.data_ptr(), pairs.y.data_ptr(), pairs.flags.data_ptr(),
-        key_mask.data_ptr(), out.data_ptr(), rowsum.data_ptr(), mt.data_ptr(),
-        BHG, BHG // BHKV, n, d, block_size, m, float(scale), _DTYPES[q.dtype],
-        _stream(dev))
+        key_mask.data_ptr(), order.data_ptr(), out.data_ptr(),
+        rowsum.data_ptr(), mt.data_ptr(), BHG, BHG // BHKV, n, D, block_size,
+        m, float(scale), _DTYPES[q.dtype], _stream(dev))
     _raise_on(rc, lib, "bsa_fwd")
     bsa_fwd.launches += 1
-    return out, rowsum, mt
+    return (*_unpad(d, out), rowsum, mt)
 
 
 def bsa_bwd_dq(q, k, v, mt, do, dr, pairs: QueryPairs, key_mask, *,
@@ -395,18 +520,21 @@ def bsa_bwd_dkv(q, k, v, mt, do, dr, pairs: KeyPairs, key_mask, *,
     for name in ("rows", "x", "flags"):
         _check(getattr(pairs, name), name, (BHKV, m2), i32, dev)
     _check(key_mask, "key_mask", (BHKV, n), i32, dev)
-    dk = torch.empty((BHKV, n, d), dtype=torch.float32, device=dev)
-    dv = torch.empty((BHKV, n, d), dtype=torch.float32, device=dev)
+    q, k, v, do = _pad_dim(q, k, v, do)
+    D = q.shape[-1]
+    order = tile_order(pairs.ptr)
+    dk = torch.empty((BHKV, n, D), dtype=torch.float32, device=dev)
+    dv = torch.empty((BHKV, n, D), dtype=torch.float32, device=dev)
     lib = _library()
     rc = lib.bsa_bwd_dkv_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mt.data_ptr(), do.data_ptr(),
         dr.data_ptr(), pairs.ptr.data_ptr(), pairs.rows.data_ptr(),
         pairs.x.data_ptr(), pairs.flags.data_ptr(), key_mask.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), BHKV, n, d, block_size, m2, float(scale),
-        _DTYPES[q.dtype], _stream(dev))
+        order.data_ptr(), dk.data_ptr(), dv.data_ptr(), BHKV, n, D,
+        block_size, m2, float(scale), _DTYPES[q.dtype], _stream(dev))
     _raise_on(rc, lib, "bsa_bwd_dkv")
     bsa_bwd_dkv.launches += 1
-    return dk, dv
+    return _unpad(d, dk, dv)
 
 
 bsa_fwd.launches = 0  # launches of each CUDA kernel, never reset here

@@ -7,8 +7,9 @@ compiled by ``nvcc`` for Hopper and loaded with ``ctypes``:
          -Xcompiler -fPIC -Xptxas=-v -o build/repro_torch/<name>-<hash>.so
          <name>.cu
 
-The library name carries a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is reused. The build directory is
+The library name carries a hash of the source, of the shared headers
+``csrc/*.cuh`` and of the flags, so an edited source or header rebuilds and
+an unchanged one is reused. The build directory is
 ``build/repro_torch/`` at the root of the checkout (``.gitignore`` lists
 ``build/``); the compiler's output, with ptxas' registers and spills per
 kernel, stays beside each library as ``<name>-<hash>.log``. ``build_all``
@@ -49,9 +50,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library for ``csrc/<name>.cu`` is built (content-keyed)."""
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    """Where the library for ``csrc/<name>.cu`` is built (content-keyed: the
+    source, every shared header ``csrc/*.cuh`` and the flags)."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

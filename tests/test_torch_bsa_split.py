@@ -1,0 +1,284 @@
+"""The tensor-core block-sparse kernels' arithmetic and plan, on the CPU.
+
+The forward and dk/dv kernels of ``csrc/block_sparse_attn.cu`` cannot run
+here, so this file holds what they compute and how they are laid out to the
+plain route, with numpy inputs from a seed:
+
+  * a plain emulation of each kernel's arithmetic — operands split into
+    bf16 terms (``repro_torch.kernels.split``) with the term products
+    i + j <= 2 kept; the forward over its CSR pair list in stages of 64
+    keys (32 for fp32 inputs) with the online rescale from the floor c; dk/dv
+    over ``group_by_key``'s pair order in stages of 32 queries — against
+    ``block_sparse_attention_ref`` / ``block_sparse_attention_bwd_dkv_ref``
+    at the card's tolerances (normalized numerator and row sums rtol/atol
+    1e-4, mt abs 1e-5, gradients 1e-4 of their largest magnitude) over
+    ``tests/harness.py::OP_SWEEP`` and over qwen3-1.7b-width tiles (d = b =
+    128) at small n, bf16 and fp32, with a hot key tile and a padded head
+    dim;
+  * the mirrors of the kernels' plan: shared memory within the 227 KB a
+    block may use for every built (dtype, d, b), two blocks an SM planned at
+    the training shapes in bf16, and the launch geometry;
+  * the heaviest-first tile order is a permutation that covers every tile
+    once, keeps a balanced list in natural order, and refuses nothing.
+"""
+from __future__ import annotations
+
+import itertools
+
+import numpy as np
+import pytest
+import torch
+
+from harness import OP_SWEEP, make_op_inputs
+from repro_torch.kernels import block_sparse_attn as bsa
+from repro_torch.kernels.split import operand_terms, term_products
+
+BSA_TOL, MT_TOL = 1e-4, 1e-5  # chip_smoke.py phase 6
+SCALE = 0.3
+
+
+# --------------------------------------------------------------------------- #
+# plain emulations of the two kernels
+# --------------------------------------------------------------------------- #
+def _live(fl, key_ok, qi, kj):
+    """(len(qi), len(kj)) mask of one pair: valid, key mask, causal triangle
+    on a diagonal block (query row >= key row within the block)."""
+    m = key_ok[None, :].expand(len(qi), len(kj)).clone()
+    if fl & 2:
+        m &= qi[:, None] >= kj[None, :]
+    return m if fl & 1 else torch.zeros_like(m)
+
+
+def fwd_emulated(q, k, v, c, pairs, key_mask, *, scale, block_size):
+    """bsa_fwd_kernel's arithmetic: (out, rowsum, mt) fp32."""
+    BHG, n, d = q.shape
+    G, b = BHG // k.shape[0], block_size
+    nb = n // b
+    kt = min(64 if q.dtype == torch.bfloat16 else 32, b)
+    out = torch.zeros((BHG, n, d))
+    rowsum, mt = torch.zeros((BHG, n)), torch.zeros((BHG, n))
+    rows = torch.arange(b)
+    for r, x in itertools.product(range(BHG), range(nb)):
+        qs = slice(x * b, (x + 1) * b)
+        q_terms = operand_terms(q[r, qs])
+        m = torch.full((b,), float(c[r, x]))
+        lsum, o = torch.zeros(b), torch.zeros((b, d))
+        for p in range(int(pairs.ptr[r, x]), int(pairs.ptr[r, x + 1])):
+            y, fl = int(pairs.y[r, p]), int(pairs.flags[r, p])
+            for k0 in range(0, b, kt):
+                ks = slice(y * b + k0, y * b + k0 + kt)
+                ok = _live(fl, key_mask[r // G, ks] > 0, rows, rows[k0:k0 + kt])
+                s = term_products(q_terms, [t.T for t in operand_terms(
+                    k[r // G, ks])]) * scale
+                s = torch.where(ok, s, -torch.inf)
+                m_new = torch.maximum(m, torch.where(
+                    ok.any(1), s.amax(1), torch.tensor(-1e9)))
+                a = torch.where(ok, torch.exp(torch.clamp(
+                    s - m_new[:, None], max=0.0)), 0.0)
+                alpha = torch.exp(m - m_new)
+                lsum = lsum * alpha + a.sum(1)
+                o = o * alpha[:, None] + term_products(
+                    operand_terms(a), operand_terms(v[r // G, ks]))
+                m = m_new
+        out[r, qs], rowsum[r, qs], mt[r, qs] = o, lsum, m
+    return out, rowsum, mt
+
+
+def dkv_emulated(q, k, v, mt, do, dr, pairs, key_mask, *, scale, block_size):
+    """bsa_bwd_dkv_kernel's arithmetic over ``group_by_key``'s pairs:
+    (dk, dv) fp32."""
+    BHG, n, d = q.shape
+    BHKV, b = k.shape[0], block_size
+    nb = n // b
+    qt = min(32, b)
+    dk, dv = torch.zeros((BHKV, n, d)), torch.zeros((BHKV, n, d))
+    rows = torch.arange(b)
+    for h, y in itertools.product(range(BHKV), range(nb)):
+        ks = slice(y * b, (y + 1) * b)
+        k_terms, v_terms = operand_terms(k[h, ks]), operand_terms(v[h, ks])
+        key_ok = key_mask[h, ks] > 0
+        gk, gv = torch.zeros((b, d)), torch.zeros((b, d))
+        for p in range(int(pairs.ptr[h, y]), int(pairs.ptr[h, y + 1])):
+            r, x = int(pairs.rows[h, p]), int(pairs.x[h, p])
+            fl = int(pairs.flags[h, p])
+            for q0 in range(0, b, qt):
+                qs = slice(x * b + q0, x * b + q0 + qt)
+                ok = _live(fl, key_ok, rows[q0:q0 + qt], rows).T
+                q_terms, do_terms = operand_terms(q[r, qs]), operand_terms(do[r, qs])
+                st = term_products(k_terms, [t.T for t in q_terms])
+                dpt = term_products(v_terms, [t.T for t in do_terms])
+                a = torch.where(ok, torch.exp(torch.clamp(
+                    st * scale - mt[r, qs][None], max=0.0)), 0.0)
+                ds = a * (dpt + dr[r, qs][None])
+                gv = gv + term_products(operand_terms(a), do_terms)
+                gk = gk + term_products(operand_terms(ds), q_terms)
+        dk[h, ks], dv[h, ks] = gk * scale, gv
+    return dk, dv
+
+
+# --------------------------------------------------------------------------- #
+# cases
+# --------------------------------------------------------------------------- #
+def _normalized(out, rs):
+    alive = rs > 0
+    return torch.where(alive[..., None], out, 0.0) / torch.where(
+        alive, rs, 1.0)[..., None]
+
+
+def _scaled_close(got, want, tol=BSA_TOL):
+    s = float(want.abs().max()) or 1.0
+    return bool(torch.isclose(got / s, want / s, rtol=tol, atol=tol).all())
+
+
+def _op_case(case, dtype):
+    q, k, v, c, x, y, fl, km = (None if a is None else torch.from_numpy(
+        np.array(a)) for a in make_op_inputs(case))
+    if km is None:
+        km = torch.ones(k.shape[:2], dtype=torch.int32)
+    return (q.to(dtype), k.to(dtype), v.to(dtype), c, x, y, fl, km, case.b)
+
+
+def _wide_case(seed, *, BHKV, G, n, d, b, m, dtype, hot=False):
+    """qwen3-1.7b-like tiles: random pairs with a causal diagonal, one
+    invalid pair a row, keys masked at random; ``hot``: every query block of
+    each row also selects key block 0."""
+    r = np.random.default_rng(seed)
+    BHG, nb = BHKV * G, n // b
+    x = r.integers(0, nb, (BHG, m))
+    y = r.integers(0, nb, (BHG, m))
+    if hot:
+        x[:, :nb] = np.arange(nb)
+        y[:, :nb] = 0
+    flags = np.ones((BHG, m), np.int32)
+    flags[:, -1] = 0
+    flags |= 2 * (x == y)
+    T = torch.from_numpy
+    return (T(r.standard_normal((BHG, n, d)).astype(np.float32)).to(dtype),
+            T(r.standard_normal((BHKV, n, d)).astype(np.float32)).to(dtype),
+            T(r.standard_normal((BHKV, n, d)).astype(np.float32)).to(dtype),
+            T(r.standard_normal((BHG, nb)).astype(np.float32)),
+            T(x.astype(np.int32)), T(y.astype(np.int32)), T(flags),
+            T(r.integers(0, 2, (BHKV, n)).astype(np.int32)), b)
+
+
+WIDE = {"d128-b128-g2": dict(BHKV=2, G=2, n=512, d=128, b=128, m=8),
+        "d128-b128-g1-hot": dict(BHKV=2, G=1, n=512, d=128, b=128, m=6,
+                                 hot=True),
+        "d64-b64-g2": dict(BHKV=1, G=2, n=256, d=64, b=64, m=6),
+        "d12-b16-g2-hot": dict(BHKV=2, G=2, n=96, d=12, b=16, m=9, hot=True)}
+DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
+
+
+def _cases():
+    for case, dt in itertools.product(OP_SWEEP, DTYPES):
+        yield pytest.param(("op", case, dt), id=f"{case.id}-{dt}")
+    for name, dt in itertools.product(WIDE, DTYPES):
+        yield pytest.param(("wide", name, dt), id=f"{name}-{dt}")
+
+
+def _inputs(spec):
+    kind, case, dt = spec
+    if kind == "op":
+        return _op_case(case, DTYPES[dt])
+    return _wide_case(len(case), dtype=DTYPES[dt], **WIDE[case])
+
+
+@pytest.mark.parametrize("spec", list(_cases()))
+def test_split_kernels_match_the_plain_reference(spec):
+    q, k, v, c, x, y, fl, km, b = _inputs(spec)
+    G, nb = q.shape[0] // k.shape[0], q.shape[1] // b
+    kw = dict(scale=SCALE, block_size=b)
+    out, rs, mt = fwd_emulated(q, k, v, c, bsa.group_by_query(x, y, fl, nb),
+                               km, **kw)
+    ref = bsa.block_sparse_attention_ref(q, k, v, x, y, fl, c, km, **kw)
+    assert torch.equal(rs > 0, ref[1] > 0)
+    assert bool(torch.isclose(_normalized(out, rs), _normalized(*ref[:2]),
+                              rtol=BSA_TOL, atol=BSA_TOL).all())
+    assert bool(torch.isclose(rs, ref[1], rtol=BSA_TOL, atol=BSA_TOL).all())
+    assert float((mt - ref[2]).abs().max()) <= MT_TOL
+
+    r = np.random.default_rng(7)
+    do = torch.from_numpy(r.standard_normal(tuple(q.shape)).astype(np.float32))
+    dr = torch.from_numpy(r.standard_normal(tuple(q.shape[:2])).astype(np.float32))
+    dk, dv = dkv_emulated(q, k, v, ref[2], do, dr,
+                          bsa.group_by_key(x, y, fl, G, nb), km, **kw)
+    want = bsa.block_sparse_attention_bwd_dkv_ref(q, k, v, c, x, y, fl, km, do,
+                                                  dr, **kw)
+    assert _scaled_close(dk, want[0]) and _scaled_close(dv, want[1])
+
+
+def test_hot_key_tile_walks_far_more_pairs_than_the_mean():
+    q, k, v, c, x, y, fl, km, b = _inputs(("wide", "d128-b128-g1-hot", "bf16"))
+    counts = bsa.pairs_per_tile(bsa.group_by_key(x, y, fl, 1, 4).ptr).float()
+    assert float(counts.max()) > 2 * float(counts.mean())
+
+
+# --------------------------------------------------------------------------- #
+# the plan: shared memory, blocks per SM, launch geometry
+# --------------------------------------------------------------------------- #
+BUILT = [(D, b) for D, b in bsa.KERNEL_SHAPES] + [(12, 16)]
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "dkv"])
+@pytest.mark.parametrize("dtype", list(DTYPES.values()), ids=list(DTYPES))
+@pytest.mark.parametrize("d,b", BUILT)
+def test_smem_fits_a_block_and_the_plan_is_consistent(kernel, dtype, d, b):
+    plan = bsa.kernel_plan(kernel, dtype, d, b)
+    assert plan["smem_bytes"] <= 232448 and plan["smem_bytes"] % 16 == 0
+    assert plan["threads"] == 2 * plan["rows"] and plan["rows"] % 16 == 0
+    assert plan["rows"] * plan["sub_tiles"] == b and b % plan["stage"] == 0
+    assert bsa.planned_blocks_per_sm(kernel, dtype, d, b) >= 1
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "dkv"])
+def test_training_shapes_plan_two_blocks_an_sm_in_bf16(kernel):
+    """qwen3-1.7b (d = b = 128) in bf16: 64 rows a block, two blocks an SM
+    by shared memory (the forward three)."""
+    plan = bsa.kernel_plan(kernel, torch.bfloat16, 128, 128)
+    assert plan["rows"] == 64 and plan["threads"] == 128
+    assert plan["stage"] == (64 if kernel == "fwd" else 32)
+    assert bsa.planned_blocks_per_sm(kernel, torch.bfloat16, 128, 128) == (
+        3 if kernel == "fwd" else 2)
+
+
+def test_launch_geometry_of_the_training_call():
+    """BSA_MAIN: 32 BHG rows and 16 KV heads of 32 blocks each, two 64-row
+    blocks a tile: 2048 forward and 1024 dk/dv blocks."""
+    fwd = bsa.launch_geometry("fwd", torch.bfloat16, 128, 128, 32 * 32)
+    dkv = bsa.launch_geometry("dkv", torch.bfloat16, 128, 128, 16 * 32)
+    assert (fwd["grid"], dkv["grid"]) == (2048, 1024)
+    assert fwd["smem_bytes"] == bsa.smem_bytes("fwd", torch.bfloat16, 128, 128)
+    small = bsa.launch_geometry("dkv", torch.float32, 12, 16, 10)
+    assert small["grid"] == 10 and small["threads"] == 32
+
+
+@pytest.mark.parametrize("d,b", [(32, 32), (128, 64), (16, 128), (130, 128)])
+def test_unbuilt_shapes_are_refused(d, b):
+    with pytest.raises(ValueError, match="is not built"):
+        bsa.check_shape(d, b)
+    with pytest.raises(ValueError, match="is not built"):
+        bsa.kernel_plan("fwd", torch.bfloat16, d, b)
+
+
+# --------------------------------------------------------------------------- #
+# the heaviest-first tile order
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("seed", range(4))
+def test_tile_order_is_a_heaviest_first_permutation(seed):
+    r = np.random.default_rng(seed)
+    counts = torch.from_numpy(r.integers(0, 9, (5, 12)).astype(np.int32))
+    ptr = torch.cat([torch.zeros((5, 1), dtype=torch.int32),
+                     torch.cumsum(counts, 1, dtype=torch.int32)], 1)
+    order = bsa.tile_order(ptr)
+    assert order.dtype == torch.int32
+    assert sorted(order.tolist()) == list(range(60))
+    flat = counts.reshape(-1)[order.long()]
+    assert bool((flat[:-1] >= flat[1:]).all())
+    for a, b in zip(order.tolist(), order.tolist()[1:]):  # ties: natural order
+        if counts.reshape(-1)[a] == counts.reshape(-1)[b]:
+            assert a < b
+
+
+def test_tile_order_keeps_a_balanced_list_in_natural_order():
+    ptr = torch.arange(0, 4 * 9, 4, dtype=torch.int32).reshape(1, 9)
+    assert bsa.tile_order(ptr).tolist() == list(range(8))

@@ -32,20 +32,12 @@ from repro_torch.core import mra_decode as tmd
 from repro_torch.core.hier import HierUpper
 from repro_torch.core.mra import MraConfig
 from repro_torch.kernels import chunk_attn
+from repro_torch.kernels.split import bf16_terms
 from test_chunk_kernel import SWEEP, Case, make_case_inputs
 from test_torch_mra_decode import T, _dequant_pyramid
 
 SMS = 132  # streaming multiprocessors of an H100 SXM
 SMEM_TARGET = 113 * 1024  # per block, so that two blocks share an SM
-
-
-def bf16_terms(x: torch.Tensor):
-    """x as three bf16 terms, largest first, as the kernel splits an fp32
-    operand (``split3`` in csrc/chunk_attn.cu)."""
-    t0 = x.to(torch.bfloat16)
-    r = x - t0.float()
-    t1 = r.to(torch.bfloat16)
-    return t0, t1, (r - t1.float()).to(torch.bfloat16)
 
 
 # --------------------------------------------------------------------------- #

@@ -26,7 +26,10 @@ run on the same CUDA tensors.
   * ``bsa_fwd`` / ``bsa_bwd_dq`` / ``bsa_bwd_dkv`` against
     ``block_sparse_attention_ref`` / ``_bwd_ref``: the normalized numerator
     and the max-scaled gradients at rtol/atol 1e-4, mt at abs 1e-5 (fp32
-    sums in another order, FMA contraction); reruns bit-identical.
+    sums in another order, split bf16 operands on tensor cores); reruns
+    bit-identical; bf16 and fp32 (every operand split) at every built
+    (d, b), a padded head dim and a hot key tile; an unbuilt (d, b) is
+    refused before any launch; the plan mirrors the library.
 """
 from __future__ import annotations
 
@@ -413,9 +416,12 @@ def test_chunk_attn_refuses_an_unbuilt_shape_and_mirrors_smem(cuda):
             assert chunk_attn.blocks_per_sm(dt, D, b, True, want) >= 2
 
 
-def bsa_inputs(seed, *, BHKV, G, n, d, b, m, dtype, device, masked=True):
+def bsa_inputs(seed, *, BHKV, G, n, d, b, m, dtype, device, masked=True,
+               hot=False):
     """Random q/k/v, floor c and m pairs per row: one invalid pair per row,
-    causal flags on diagonal pairs, query block 0 of row 0 unvisited."""
+    causal flags on diagonal pairs, query block 0 of row 0 unvisited.
+    ``hot``: pairs 1 .. nb - 1 of every row are (x, 0) for x = 1 .. nb - 1,
+    so key tile 0 walks far more pairs than the rest."""
     r = np.random.default_rng(seed)
     BHG, nb = BHKV * G, n // b
 
@@ -425,6 +431,9 @@ def bsa_inputs(seed, *, BHKV, G, n, d, b, m, dtype, device, masked=True):
     x = r.integers(0, nb, (BHG, m))
     x[0] = np.where(x[0] == 0, 1 % nb, x[0])
     y = r.integers(0, nb, (BHG, m))
+    if hot:
+        x[:, 1:nb] = np.arange(1, nb)
+        y[:, 1:nb] = 0
     flags = np.ones((BHG, m), np.int32)
     flags[:, -1] = 0
     flags |= 2 * (x == y)
@@ -452,14 +461,16 @@ BSA_SHAPES = [dict(BHKV=2, G=2, n=64, d=16, b=16, m=6),
               dict(BHKV=2, G=1, n=96, d=12, b=16, m=7),
               dict(BHKV=3, G=2, n=320, d=64, b=64, m=9),
               dict(BHKV=2, G=2, n=512, d=128, b=128, m=8),
-              dict(BHKV=4, G=2, n=1024, d=128, b=128, m=24)]
+              dict(BHKV=4, G=2, n=1024, d=128, b=128, m=24),
+              dict(BHKV=2, G=2, n=1024, d=128, b=128, m=16, hot=True)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "fp32"])
 @pytest.mark.parametrize("shape", BSA_SHAPES,
-                         ids=lambda s: "n{n}-d{d}-b{b}-g{G}".format(**s))
+                         ids=lambda s: "n{n}-d{d}-b{b}-g{G}".format(**s)
+                         + ("-hot" if s.get("hot") else ""))
 def test_bsa_kernels_match_plain(cuda, shape, dtype):
     q, k, v, c, x, y, fl, km = bsa_inputs(0, dtype=dtype, device=cuda, **shape)
     b, G, nb = shape["b"], shape["G"], shape["n"] // shape["b"]
@@ -535,3 +546,39 @@ def test_bsa_kernels_reject_bad_input(cuda):
                     pq, km, **kw)
     with pytest.raises(ValueError, match="block size"):
         bsa.bsa_fwd(q, k, v, c, pq, km, scale=0.3, block_size=256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,b", [(32, 32), (128, 64), (24, 16)])
+def test_bsa_kernels_refuse_an_unbuilt_shape_before_launching(cuda, d, b):
+    shape = dict(BHKV=1, G=2, n=4 * b, d=d, b=b, m=4)
+    q, k, v, c, x, y, fl, km = bsa_inputs(4, dtype=torch.bfloat16, device=cuda,
+                                          **shape)
+    pq, pk = bsa.group_by_query(x, y, fl, 4), bsa.group_by_key(x, y, fl, 2, 4)
+    mt = torch.zeros(q.shape[:2], device=cuda)
+    do = torch.zeros(q.shape, device=cuda)
+    kw = dict(scale=0.3, block_size=b)
+    before = {n: getattr(bsa, n).launches
+              for n in ("bsa_fwd", "bsa_bwd_dq", "bsa_bwd_dkv")}
+    with pytest.raises(ValueError, match="is not built"):
+        bsa.bsa_fwd(q, k, v, c, pq, km, **kw)
+    with pytest.raises(ValueError, match="is not built"):
+        bsa.bsa_bwd_dq(q, k, v, mt, do, mt, pq, km, **kw)
+    with pytest.raises(ValueError, match="is not built"):
+        bsa.bsa_bwd_dkv(q, k, v, mt, do, mt, pk, km, **kw)
+    assert before == {n: getattr(bsa, n).launches for n in before}
+
+
+@pytest.mark.cuda
+def test_bsa_plan_mirrors_the_library(cuda):
+    lib = bsa._library()
+    for (kernel, kid), dt, (D, b) in itertools.product(
+            bsa._KERNELS.items(), (torch.bfloat16, torch.float32),
+            bsa.KERNEL_SHAPES):
+        assert lib.bsa_smem_bytes(kid, bsa._DTYPES[dt], D, b) == \
+            bsa.smem_bytes(kernel, dt, D, b)
+        assert 1 <= bsa.blocks_per_sm(kernel, dt, D, b) <= \
+            bsa.planned_blocks_per_sm(kernel, dt, D, b)
+    assert lib.bsa_smem_bytes(0, 0, 32, 32) == 0
+    for kernel in ("fwd", "dkv"):  # the training shapes, bf16
+        assert bsa.blocks_per_sm(kernel, torch.bfloat16, 128, 128) >= 2
