@@ -9,7 +9,8 @@ port's serving path and its training path on the card:
 
   1. device and build — the card's name and power limit, build seconds,
      and ptxas' registers and spill bytes of every chunk_attn and bsa_*
-     kernel (a bf16 bsa_fwd / bsa_bwd_dkv instantiation that spills fails);
+     kernel (a bf16 bsa_fwd / bsa_bwd_dq / bsa_bwd_dkv instantiation that
+     spills fails);
   2. kernel vs plain version — every CUDA kernel against its plain PyTorch
      twin on the same CUDA tensors, at the main path's shapes and at the
      smoke config's, over decode/chunk widths, bf16/int8 caches, MRA-2 /
@@ -38,8 +39,8 @@ port's serving path and its training path on the card:
      dim (d, b) = (12, 16); every kernel run twice, bit-identical;
   7. their timing at the main shapes beside the bounds, the plain versions
      and, as a yardstick of exact attention (not the same function), causal
-     scaled_dot_product_attention forward + backward; for the forward and
-     dk/dv kernels also the grid, shared memory, blocks per SM and the
+     scaled_dot_product_attention forward + backward; for each of the three
+     kernels also the grid, threads, shared memory, blocks per SM and the
      min/mean/max pairs of an output tile;
   8. training at full width — qwen3-1.7b, 28 layers, remat="full", seq 4096,
      batch 2, three steps of ``train()`` from random weights — with the
@@ -277,11 +278,11 @@ def phase_device(torch):
           "ptxas_chunk_attn": ptxas_report(
               libs["chunk_attn"].with_suffix(".log").read_text()),
           "ptxas_block_sparse_attn": bsa_ptx})
-    # 14 = bf16 and fp32 x (three (D, b) of bsa_fwd and of bsa_bwd_dkv, dq)
+    # 18 = bf16 and fp32 x three (D, b) x bsa_fwd, bsa_bwd_dq, bsa_bwd_dkv
     spills = [k for k in bsa_ptx if k["kernel"].startswith(
-        ("bsa_fwd bf16", "bsa_bwd_dkv bf16"))
+        ("bsa_fwd bf16", "bsa_bwd_dq bf16", "bsa_bwd_dkv bf16"))
         and (k["spill_stores"] or k["spill_loads"] or k["registers"] > 255)]
-    if len(bsa_ptx) != 14 or spills:
+    if len(bsa_ptx) != 18 or spills:
         raise AssertionError(f"bsa kernels: {len(bsa_ptx)} built, spilling "
                              f"bf16 tensor-core kernels {spills}")
     return smi
@@ -829,7 +830,8 @@ def phase_bsa_timing(torch, bsa):
             *plain_args, **kw), 5),
         **_bsa_bounds(q, k, fl, nb, bwd_in + 2 * BHKV * n * d * 4, 4)}
     # the tensor-core kernels' launch: grid, block, occupancy, pair balance
-    for key, pairs_, tiles in (("fwd", pq, BHG * nb), ("dkv", pk, BHKV * nb)):
+    for key, pairs_, tiles in (("fwd", pq, BHG * nb), ("dq", pq, BHG * nb),
+                               ("dkv", pk, BHKV * nb)):
         counts = bsa.pairs_per_tile(pairs_.ptr).float()
         res[key].update(
             bsa.launch_geometry(key, q.dtype, d, b, tiles),
@@ -1332,8 +1334,8 @@ def main() -> int:
             "bound_by_fp32_rate": t["bound_by_fp32"],
             "dense_sdpa_ms": dense_ms,
             "shape": "qwen3-1.7b train_4k, B=2, bf16, G=2",
-            **{k: t[k] for k in ("grid", "smem_bytes", "blocks_per_sm",
-                                 "pairs_per_tile") if k in t}})
+            **{k: t[k] for k in ("grid", "threads", "smem_bytes",
+                                 "blocks_per_sm", "pairs_per_tile")}})
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "bound_ms_fp32_rate",
             "bound_by_fp32_rate", "nsplit", "grid", "smem_bytes",
             "blocks_per_sm", "union_pages_per_tile")

@@ -24,13 +24,13 @@
 // walks that tile's CSR list of pairs (row_ptr offsets built by the wrapper)
 // in a fixed order and zero-initializes its accumulators itself: no atomics,
 // no first-visit flags, no coverage padding, and results that are bitwise
-// the same from run to run. The forward and dk/dv grids are one-dimensional
-// over (tile, row sub-tile) and map the tile through `order`, which the
-// wrapper sorts heaviest first (most pairs), so the longest pair lists start
-// in the first wave; a balanced selection keeps the natural order.
+// the same from run to run. The grids are one-dimensional over (tile, row
+// sub-tile) and map the tile through `order`, which the wrapper sorts
+// heaviest first (most pairs), so the longest pair lists start in the first
+// wave; a balanced selection keeps the natural order.
 //
-// What bounds the forward and dk/dv kernels on this card: operations. A pair
-// costs 2·b²·d multiply-adds per product (2 in the forward, 4 in dk/dv) in
+// What bounds the three kernels on this card: operations. A pair costs
+// 2·b²·d multiply-adds per product (2 in the forward, 3 in dq, 4 in dk/dv) in
 // the reference's fp32, about 250 FLOP per byte moved at b = d = 128 — below
 // the bf16 tensor-core ridge point (295) and far above the fp32 CUDA-core one
 // (20). What their design does about it:
@@ -39,45 +39,52 @@
 //     bf16 terms that sum to it exactly (split3) and the products of terms
 //     i + j <= 2 are kept (what is dropped is below 2^-24 of the product).
 //     bf16 q/k/v need no split. At bf16 inputs the forward does 1 + 3 bf16
-//     products per pair (S = q·kᵀ; P·v with P split), dk/dv 1 + 3 + 6 + 3
-//     (Sᵀ = k·qᵀ; dPᵀ = v·doᵀ with do split; dv += aᵀ·do, both split;
-//     dk += dsᵀ·q with ds split). With fp32 q/k/v every operand is split.
-//   * One warp owns 16 rows outright (query rows in the forward, key rows in
-//     dk/dv), so its online softmax and its weights never leave its
-//     registers: no exchange between warps. A block is four warps, 64 rows
-//     (all b rows when b < 64).
+//     products per pair (S = q·kᵀ; P·v with P split), dq 1 + 3 + 3 (S;
+//     dP = do·vᵀ with do split; dq += dS·k with dS split), dk/dv
+//     1 + 3 + 6 + 3 (Sᵀ = k·qᵀ; dPᵀ = v·doᵀ with do split; dv += aᵀ·do, both
+//     split; dk += dsᵀ·q with ds split). With fp32 q/k/v every operand is
+//     split.
+//   * One warp owns 16 rows outright (query rows in the forward and dq, key
+//     rows in dk/dv), so its softmax weights and its accumulators never leave
+//     its registers: no exchange between warps, and each output is written
+//     once. A block is four warps, 64 rows (all b rows when b < 64).
 //   * Operands are staged in their own type by 16-byte cp.async copies into a
 //     two-slot ring: the next stage is in flight while the current one is
 //     computed. A bf16 operand lands in an XOR-swizzled tile that ldmatrix
-//     reads free of bank conflicts; an fp32 one (do, and fp32 q/k/v) lands
-//     raw and is split once per block into three bf16 tiles, so the four
-//     warps share the split.
-//   * Forward: the warp's q fragments stay in registers for the whole pair
-//     list; K/V stream in stages of 64 keys (32 for fp32 inputs). dk/dv: the
+//     reads free of bank conflicts; an fp32 one (do, and fp32 q/k/v) is
+//     split into three bf16 tiles once per block, so the four warps share
+//     the split.
+//   * Forward and dq: the warp's bf16 q fragments stay in registers for the
+//     whole pair list; K/V and the key mask stream in stages of 64 keys (32
+//     for fp32 inputs). dq splits the block's do rows (and fp32 q rows) into
+//     three planes once; per stage it computes S and dP, the weights, then
+//     dq += dS·k with dS turned from accumulator into A fragments in
+//     registers; dq (64 registers beside q's 32 and S's and dP's 64) stays
+//     in registers over the whole pair list. dk/dv: the
 //     block's K/V rows are staged once; the pairs' q, do, mt and dr stream in
 //     stages of 32 queries, 16 at a time; Aᵀ and dSᵀ turn from accumulator
 //     into A fragments in registers (as FlashAttention-2's backward) and
 //     never go through shared memory; dk and dv accumulate in registers over
 //     the whole pair list (128 of a thread's <= 255) and are written once.
 //   * Precision of the stabilizer. The tensor cores' fp32 accumulation is
-//     not rounded to nearest at each step, so the forward's scores take each
-//     k-step's products from zero and add them in fp32. At fp32
-//     inputs the reference's own fp32 rounding comes close to the 1e-5 that
-//     mt is held to, so there the few scores near each stage's maximum are
-//     recomputed with sequential fp32 FMAs over d, as a plain fp32 product
-//     sums them.
+//     not rounded to nearest at each step, so the forward's scores (and dq's,
+//     which recompute the weights from the forward's mt) take each k-step's
+//     products from zero and add them in fp32. At fp32 inputs the
+//     reference's own fp32 rounding comes close to the 1e-5 that mt is held
+//     to, so there the forward recomputes the few scores near each stage's
+//     maximum with sequential fp32 FMAs over d, as a plain fp32 product sums
+//     them.
 //   * A stage that holds no live score of the block's rows (an invalid pair,
 //     or the keys above every row of a diagonal block) is neither loaded nor
-//     computed: it would add exactly zero.
-// The dq kernel keeps the first port's design (fp32 FMAs on CUDA cores over
-// staged tiles of 32 rows); its redesign is later work.
+//     computed: it would add exactly zero. In dq a warp also skips a stage
+//     of a diagonal block whose keys lie above all of its own rows.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -Xptxas=-v (repro_torch/kernels/build.py); plain C
-//        entry points, loaded with ctypes. The forward and dk/dv kernels are
-//        instantiated for (head dim, block size) = (128, 128), (64, 64) and
-//        (16, 16), bf16 and fp32; the wrapper zero-pads a head dim to the
-//        next multiple of 16 (exact for the products).
+//        entry points, loaded with ctypes. The three kernels are instantiated
+//        for (head dim, block size) = (128, 128), (64, 64) and (16, 16), bf16
+//        and fp32; the wrapper zero-pads a head dim to the next multiple of 16
+//        (exact for the products).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,7 +99,7 @@ namespace {
 constexpr float kNegInf = -1e9f;  // repro NEG_INF
 
 // ==========================================================================
-// forward and dk/dv: tensor-core products over cp.async-staged tiles
+// tensor-core products over cp.async-staged tiles
 // ==========================================================================
 // bf16 terms of an input type: bf16 is exact, fp32 takes three
 template <typename T>
@@ -259,9 +266,11 @@ struct FwdArgs {
   float scale;
 };
 
-// Tile geometry of one instantiation; the wrapper's kernel_plan() mirrors it.
+// Tile geometry of the kernels that walk a query tile's pairs over K/V
+// stages (forward and dq); FwdGeo / DqGeo add their own shared memory, and
+// the wrapper's kernel_plan() mirrors them.
 template <typename T, int D, int BS>
-struct FwdGeo {
+struct QueryGeo {
   static constexpr int NI = Terms<T>::n;                  // terms of q, k, v
   static constexpr int QR = cmin(64, BS);                 // query rows a block
   static constexpr int NW = QR / 16;                      // warps, 16 rows each
@@ -274,12 +283,37 @@ struct FwdGeo {
   static constexpr int PLANE = KT * RB;
   static constexpr int SLOT = (int)align16(2 * KT * RAW + KT * 4);  // k, v, mask
   static constexpr int PLANES = NI > 1 ? 2 * NI * PLANE : 0;        // split k, v
-  static constexpr int QROW = D * 4 + 16;  // padded fp32 row of the q tile
-  static constexpr int QTILE = NI > 1 ? QR * QROW : 0;  // fp32 q (recompute)
-  static constexpr int SMEM = 2 * SLOT + PLANES + QTILE;
   static_assert(D % 16 == 0 && BS % 16 == 0 && BS % QR == 0 && BS % KT == 0,
                 "tile shapes");
 };
+
+template <typename T, int D, int BS>
+struct FwdGeo : QueryGeo<T, D, BS> {
+  using G = QueryGeo<T, D, BS>;
+  static constexpr int QROW = D * 4 + 16;  // padded fp32 row of the q tile
+  static constexpr int QTILE = G::NI > 1 ? G::QR * QROW : 0;  // fp32 q (recompute)
+  static constexpr int SMEM = 2 * G::SLOT + G::PLANES + QTILE;
+};
+
+// a stage of a query tile's pair list with no live score of the block's
+// rows (from rblk): an invalid pair, or keys above every row of a diagonal
+// block
+template <typename Gm>
+__device__ __forceinline__ bool stage_live(int fl, int st, int rblk) {
+  return (fl & 1) && (!(fl & 2) || rblk + Gm::QR - 1 >= (st % Gm::SPP) * Gm::KT);
+}
+
+// stage st of a pair into a ring slot: the K and V rows of its keys (from
+// key row kb) in their own type, then their key mask
+template <typename Gm, typename T, int D>
+__device__ __forceinline__ void stage_keys(unsigned char* dst, const void* k,
+                                           const void* v, const int* km, size_t kb) {
+  constexpr int KT = Gm::KT;
+  stage<Gm::RAW, Gm::NI == 1, Gm::NT, KT>(dst, static_cast<const T*>(k) + kb * D);
+  stage<Gm::RAW, Gm::NI == 1, Gm::NT, KT>(dst + KT * Gm::RAW,
+                                          static_cast<const T*>(v) + kb * D);
+  stage<KT * 4, false, Gm::NT, 1>(dst + 2 * KT * Gm::RAW, km + kb);
+}
 
 // An fp32 score recomputed with fp32 FMAs in ascending d, one thread: the
 // forward's winning scores at fp32 inputs (see the softmax below).
@@ -342,20 +376,11 @@ bsa_fwd_kernel(const FwdArgs p) {
   const int p1 = p.row_ptr[(size_t)bhg * (nb + 1) + xb + 1];
   const int* ysr = p.ys + (size_t)bhg * p.m;
   const int* flr = p.fls + (size_t)bhg * p.m;
-  // a stage with no live score of this block's rows: an invalid pair, or
-  // keys above every row of a diagonal block
-  auto live = [&](int st) {
-    const int fl = flr[p0 + st / SPP];
-    return (fl & 1) && (!(fl & 2) || rblk + Gm::QR - 1 >= (st % SPP) * KT);
-  };
+  auto live = [&](int st) { return stage_live<Gm>(flr[p0 + st / SPP], st, rblk); };
   auto load = [&](int st, int slot) {
-    const size_t kb = (size_t)kvh * p.n + (size_t)ysr[p0 + st / SPP] * BS +
-                      (st % SPP) * KT;
-    unsigned char* dst = smem + slot * Gm::SLOT;
-    stage<Gm::RAW, NI == 1, Gm::NT, KT>(dst, static_cast<const T*>(p.k) + kb * D);
-    stage<Gm::RAW, NI == 1, Gm::NT, KT>(dst + KT * Gm::RAW,
-                                        static_cast<const T*>(p.v) + kb * D);
-    stage<KT * 4, false, Gm::NT, 1>(dst + 2 * KT * Gm::RAW, p.km + kb);
+    stage_keys<Gm, T, D>(smem + slot * Gm::SLOT, p.k, p.v, p.km,
+                         (size_t)kvh * p.n + (size_t)ysr[p0 + st / SPP] * BS +
+                             (st % SPP) * KT);
   };
 
   const int nst = (p1 - p0) * SPP;
@@ -733,195 +758,215 @@ bsa_bwd_dkv_kernel(const DkvArgs p) {
   }
 }
 
-// ==========================================================================
-// dq: fp32 FMAs on CUDA cores over staged tiles (the first port's design)
-// ==========================================================================
-// A block is 256 threads over a tile of 32 query rows by up to 128 columns;
-// each thread owns 2 rows x 8 columns of every score tile and of its
-// accumulators, and the 16 threads of a row group reduce by warp shuffles.
-// K/V of the pair's block are staged in shared memory in the input dtype
-// with padded rows; all arithmetic and accumulation is fp32. Shapes: b <= 128,
-// head dim <= 128; shared memory is sized for those maxima and zeroed once
-// per block, so smaller shapes read zeros in the padding.
-constexpr int kThreads = 256;  // 16 row groups x 16 column groups
-constexpr int kRT = 32;        // rows of a tile
-constexpr int kRPT = 2;        // rows per thread: rg and rg + 16
-constexpr int kCPT = 8;        // columns per thread: cg + 16 t
-constexpr int kMaxB = 128;     // largest block size
-constexpr int kMaxD = 128;     // largest head dim
-constexpr int kFS = kMaxD + 1; // row stride of fp32 [row][d] tiles
-constexpr int kPS = kMaxB + 1; // row stride of fp32 [row][key] tiles
-
-static_assert(kThreads == 16 * 16, "16 x 16 thread layout");
-static_assert(kRT == 16 * kRPT, "tile rows");
-static_assert(kMaxB == 16 * kCPT && kMaxD == 16 * kCPT, "tile columns");
-
-// row stride (elements) of a [row][d] tile staged in the input dtype: one
-// 4-byte word of padding per row
-template <typename T>
-constexpr int tile_stride() { return kMaxD + static_cast<int>(4 / sizeof(T)); }
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-__device__ __forceinline__ void zero_smem(unsigned char* smem, size_t bytes) {
-  float4* p = reinterpret_cast<float4*>(smem);
-  const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (size_t i = threadIdx.x; i < bytes / 16; i += kThreads) p[i] = z;
-}
-
-// mask of one score: pair valid, causal triangle on a diagonal block
-// (query row >= key row within the block), key valid, inside the block
-__device__ __forceinline__ bool pair_ok(int flags, int qrow, int krow, int b,
-                                       bool key_valid) {
-  return (flags & 1) && qrow < b && krow < b && key_valid &&
-         (!(flags & 2) || qrow >= krow);
-}
-
 // --------------------------------------------------------------------------
-// backward, dq: same grid and pair lists as the forward
+// backward, dq: one block per (BHG row, query block, 64-row sub-tile), the
+// forward's grid over the same pair lists
 // --------------------------------------------------------------------------
-template <typename T>
-struct DqLayout {
-  static constexpr int KS = tile_stride<T>();
-  static constexpr size_t q = 0;                                        // float [kRT][kFS]
-  static constexpr size_t dout = align16(q + sizeof(float) * kRT * kFS);// float [kRT][kFS]
-  static constexpr size_t k = align16(dout + sizeof(float) * kRT * kFS);// T [kMaxB][KS]
-  static constexpr size_t v = align16(k + sizeof(T) * kMaxB * KS);      // T [kMaxB][KS]
-  static constexpr size_t ds = align16(v + sizeof(T) * kMaxB * KS);     // float [kRT][kPS]
-  static constexpr size_t km = align16(ds + sizeof(float) * kRT * kPS); // int [kMaxB]
-  static constexpr size_t bytes = align16(km + sizeof(int) * kMaxB);
+struct DqArgs {
+  const void* q;         // (BHG, n, D) input type
+  const void* k;         // (BHKV, n, D)
+  const void* v;         // (BHKV, n, D)
+  const float* mt;       // (BHG, n)
+  const float* dout;     // (BHG, n, D)
+  const float* dr;       // (BHG, n)
+  const int* row_ptr;    // (BHG, nb + 1) CSR offsets by query block
+  const int* ys;         // (BHG, m) key blocks
+  const int* fls;        // (BHG, m) flags
+  const int* km;         // (BHKV, n) key mask
+  const int* order;      // (BHG · nb) query tiles, heaviest first
+  float* dq;             // (BHG, n, D)
+  int G, n, m;
+  float scale;
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-bsa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const float* __restrict__ mt,
-                  const float* __restrict__ dout, const float* __restrict__ dr,
-                  const int* __restrict__ row_ptr, const int* __restrict__ ys,
-                  const int* __restrict__ fls, const int* __restrict__ km,
-                  float* __restrict__ dq, int G, int n, int D, int b, int m,
-                  float scale) {
-  using L = DqLayout<T>;
+// shared memory: the K/V ring, split k and v (fp32), then three planes of
+// split do and NI of split q (fp32)
+template <typename T, int D, int BS>
+struct DqGeo : QueryGeo<T, D, BS> {
+  using G = QueryGeo<T, D, BS>;
+  static constexpr int RPLANE = G::QR * G::RB;  // a plane of the block's rows
+  static constexpr int DOP = 3 * RPLANE;
+  static constexpr int QP = G::NI > 1 ? G::NI * RPLANE : 0;
+  static constexpr int SMEM = 2 * G::SLOT + G::PLANES + DOP + QP;
+};
+
+template <typename T, int D, int BS>
+__global__ void __launch_bounds__(DqGeo<T, D, BS>::NT, 2)
+bsa_bwd_dq_kernel(const DqArgs p) {
+  using Gm = DqGeo<T, D, BS>;
+  constexpr int NI = Gm::NI, KT = Gm::KT, SPP = Gm::SPP;
+  constexpr int NTK = KT / 8, NTD = D / 8, KSD = D / 16;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem + L::q);
-  float* dOs = reinterpret_cast<float*>(smem + L::dout);
-  T* Ks = reinterpret_cast<T*>(smem + L::k);
-  T* Vs = reinterpret_cast<T*>(smem + L::v);
-  float* dSs = reinterpret_cast<float*>(smem + L::ds);
-  int* Km = reinterpret_cast<int*>(smem + L::km);
+  unsigned char* dop = smem + 2 * Gm::SLOT + Gm::PLANES;
+  unsigned char* qpl = dop + Gm::DOP;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int nb = p.n / BS;
+  const int tile = p.order[blockIdx.x / Gm::SUB], sub = blockIdx.x % Gm::SUB;
+  const int bhg = tile / nb, xb = tile - bhg * nb, kvh = bhg / p.G;
+  const int rblk = sub * Gm::QR;    // the block's first row in the query block
+  const int wr = warp * 16;         // the warp's first row in the block
+  const int r0 = rblk + wr;         // ... in the query block
+  const size_t qbase = (size_t)bhg * p.n + (size_t)xb * BS + rblk;
 
-  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
-  const int bhg = blockIdx.x, xb = blockIdx.y, row0 = blockIdx.z * kRT;
-  const int nb = n / b, kvh = bhg / G;
-  const int rows = min(kRT, b - row0);
-  const size_t qbase = static_cast<size_t>(bhg) * n + static_cast<size_t>(xb) * b + row0;
+  const int p0 = p.row_ptr[(size_t)bhg * (nb + 1) + xb];
+  const int p1 = p.row_ptr[(size_t)bhg * (nb + 1) + xb + 1];
+  const int* ysr = p.ys + (size_t)bhg * p.m;
+  const int* flr = p.fls + (size_t)bhg * p.m;
+  auto live = [&](int st) { return stage_live<Gm>(flr[p0 + st / SPP], st, rblk); };
+  auto load = [&](int st, int slot) {
+    stage_keys<Gm, T, D>(smem + slot * Gm::SLOT, p.k, p.v, p.km,
+                         (size_t)kvh * p.n + (size_t)ysr[p0 + st / SPP] * BS +
+                             (st % SPP) * KT);
+  };
 
-  zero_smem(smem, L::bytes);
-  __syncthreads();
-  for (int e = tid; e < rows * D; e += kThreads) {
-    const int i = e / D, d = e - i * D;
-    Qs[i * kFS + d] = to_f32(q[(qbase + i) * D + d]);
-    dOs[i * kFS + d] = dout[(qbase + i) * D + d];
-  }
-  float mt_r[kRPT], dr_r[kRPT], acc[kRPT][kCPT];
+  const int nst = (p1 - p0) * SPP;
+  float dq[NTD][4];
 #pragma unroll
-  for (int r = 0; r < kRPT; ++r) {
-    const int i = rg + 16 * r;
-    mt_r[r] = i < rows ? mt[qbase + i] : 0.f;
-    dr_r[r] = i < rows ? dr[qbase + i] : 0.f;
+  for (int nd = 0; nd < NTD; ++nd)
 #pragma unroll
-    for (int t = 0; t < kCPT; ++t) acc[r][t] = 0.f;
-  }
-
-  const int p0 = row_ptr[static_cast<size_t>(bhg) * (nb + 1) + xb];
-  const int p1 = row_ptr[static_cast<size_t>(bhg) * (nb + 1) + xb + 1];
-  for (int p = p0; p < p1; ++p) {
-    const int y = ys[static_cast<size_t>(bhg) * m + p];
-    const int fl = fls[static_cast<size_t>(bhg) * m + p];
-    const size_t kbase = static_cast<size_t>(kvh) * n + static_cast<size_t>(y) * b;
-    __syncthreads();
-#pragma unroll 4
-    for (int e = tid; e < b * D; e += kThreads) {
-      const int j = e / D, d = e - j * D;
-      const size_t g = (kbase + j) * D + d;
-      Ks[j * L::KS + d] = k[g];
-      Vs[j * L::KS + d] = v[g];
+    for (int e = 0; e < 4; ++e) dq[nd][e] = 0.f;
+  // bf16 q: the warp's fragments stay in registers; fp32 q is split once
+  // into three planes (as do), so its 96 registers of terms are not held
+  uint32_t qf[NI == 1 ? KSD : 1][1][4];
+  float mtr[2], drr[2];
+  if (nst > 0) {
+    if (live(0)) load(0, 0);
+    cp_commit();
+    if constexpr (NI == 1) {
+#pragma unroll
+      for (int ks = 0; ks < KSD; ++ks)
+        row_frag<T, D>(static_cast<const T*>(p.q) + (qbase + wr) * D, ks * 16, g,
+                       t, qf[ks]);
+    } else {
+      split_rows<D, Gm::NT>(qpl, Gm::RPLANE,
+                            static_cast<const float*>(p.q) + qbase * D, Gm::QR);
     }
-    for (int j = tid; j < b; j += kThreads) Km[j] = km[kbase + j] > 0;
-    __syncthreads();
+    split_rows<D, Gm::NT>(dop, Gm::RPLANE, p.dout + qbase * D, Gm::QR);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const size_t row = qbase + wr + g + 8 * h;
+      mtr[h] = p.mt[row];
+      drr[h] = p.dr[row];
+    }
+  }
+  const uint32_t dop_s = smem_addr(dop), qpl_s = smem_addr(qpl);
 
-    float s[kRPT][kCPT], dp[kRPT][kCPT];
+  for (int st = 0; st < nst; ++st) {
+    cp_wait_all();
+    __syncthreads();  // stage st and the split do landed; st - 1 is not read
+    if (st + 1 < nst && live(st + 1)) load(st + 1, (st + 1) & 1);
+    cp_commit();
+    if (!live(st)) continue;  // block-uniform
+    const unsigned char* slot = smem + (st & 1) * Gm::SLOT;
+    const unsigned char* kp = slot;
+    const unsigned char* vp = slot + KT * Gm::RAW;
+    const int* kms = reinterpret_cast<const int*>(slot + 2 * KT * Gm::RAW);
+    if constexpr (NI > 1) {
+      unsigned char* planes = smem + 2 * Gm::SLOT;
+      split_rows<D, Gm::NT>(planes, Gm::PLANE, reinterpret_cast<const float*>(kp), KT);
+      split_rows<D, Gm::NT>(planes + NI * Gm::PLANE, Gm::PLANE,
+                            reinterpret_cast<const float*>(vp), KT);
+      __syncthreads();
+      kp = planes;
+      vp = planes + NI * Gm::PLANE;
+    }
+    const uint32_t kp_s = smem_addr(kp), vp_s = smem_addr(vp);
+    const int fl = flr[p0 + st / SPP], k0 = (st % SPP) * KT;
+
+    // warp-uniform: on a diagonal block these keys lie above every row of
+    // the warp
+    if ((fl & 2) && r0 + 15 < k0) continue;
+
+    // S = q·kᵀ and dP = do·vᵀ for the warp's 16 rows x KT keys
+    float s[NTK][4], dp[NTK][4];
 #pragma unroll
-    for (int r = 0; r < kRPT; ++r)
+    for (int n = 0; n < NTK; ++n)
 #pragma unroll
-      for (int t = 0; t < kCPT; ++t) s[r][t] = dp[r][t] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[kRPT], ov[kRPT], kv[kCPT], vv[kCPT];
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
 #pragma unroll
-      for (int r = 0; r < kRPT; ++r) {
-        qv[r] = Qs[(rg + 16 * r) * kFS + d];
-        ov[r] = dOs[(rg + 16 * r) * kFS + d];
+    for (int ks = 0; ks < KSD; ++ks) {
+      uint32_t qa[NI][4], da[3][4];
+      if constexpr (NI == 1) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[0][e] = qf[ks][0][e];
+      } else {
+#pragma unroll
+        for (int i = 0; i < NI; ++i)
+          lda<D>(qa[i], qpl_s + i * Gm::RPLANE, wr, ks * 16, lane);
       }
 #pragma unroll
-      for (int t = 0; t < kCPT; ++t) {
-        kv[t] = to_f32(Ks[(cg + 16 * t) * L::KS + d]);
-        vv[t] = to_f32(Vs[(cg + 16 * t) * L::KS + d]);
-      }
+      for (int i = 0; i < 3; ++i)
+        lda<D>(da[i], dop_s + i * Gm::RPLANE, wr, ks * 16, lane);
 #pragma unroll
-      for (int r = 0; r < kRPT; ++r)
+      for (int n = 0; n < NTK; n += 2) {
+        // the scores' products from zero at each k-step, added in fp32 (as
+        // the forward's, which set mt)
+        float tt[2][4] = {};
 #pragma unroll
-        for (int t = 0; t < kCPT; ++t) {
-          s[r][t] = fmaf(qv[r], kv[t], s[r][t]);
-          dp[r][t] = fmaf(ov[r], vv[t], dp[r][t]);
+        for (int j = NI - 1; j >= 0; --j) {
+          uint32_t b[4];
+          ldb<D>(b, kp_s + j * Gm::PLANE, n * 8, ks * 16, lane);
+          mma_plane<NI>(tt[0], qa, b, j, 0);
+          mma_plane<NI>(tt[1], qa, b, j, 1);
         }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] += tt[0][e];
+          s[n + 1][e] += tt[1][e];
+        }
+#pragma unroll
+        for (int j = NI - 1; j >= 0; --j) {
+          uint32_t b[4];
+          ldb<D>(b, vp_s + j * Gm::PLANE, n * 8, ks * 16, lane);
+          mma_plane<3>(dp[n], da, b, j, 0);
+          mma_plane<3>(dp[n + 1], da, b, j, 1);
+        }
+      }
     }
+
     // a = mask·exp(min(s − mt, 0)) from the forward's stabilizer;
-    // ds = a ⊙ (do·vᵀ + dr)
+    // ds = a ⊙ (dP + dr)
 #pragma unroll
-    for (int r = 0; r < kRPT; ++r) {
-      const int i = rg + 16 * r, qrow = row0 + i;
+    for (int h = 0; h < 2; ++h) {
+      const int qi = r0 + g + 8 * h;
 #pragma unroll
-      for (int t = 0; t < kCPT; ++t) {
-        const int j = cg + 16 * t;
-        float ds = 0.f;
-        if (pair_ok(fl, qrow, j, b, j < b && Km[j])) {
-          const float a = expf(fminf(s[r][t] * scale - mt_r[r], 0.f));
-          ds = a * (dp[r][t] + dr_r[r]);
+      for (int n = 0; n < NTK; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = n * 8 + 2 * t + e;
+          const bool ok = kms[j] > 0 && (!(fl & 2) || qi >= k0 + j);
+          const float a =
+              ok ? expf(fminf(s[n][2 * h + e] * p.scale - mtr[h], 0.f)) : 0.f;
+          s[n][2 * h + e] = a * (dp[n][2 * h + e] + drr[h]);
         }
-        dSs[i * kPS + j] = ds;
-      }
     }
-    __syncthreads();
 
-    for (int j = 0; j < b; ++j) {
-      float dv_[kRPT], kv[kCPT];
+    // dq += dS·k, dS split into three terms
 #pragma unroll
-      for (int r = 0; r < kRPT; ++r) dv_[r] = dSs[(rg + 16 * r) * kPS + j];
+    for (int kk = 0; kk < KT / 16; ++kk) {
+      uint32_t pa[3][4];
+      split_c(s[2 * kk], s[2 * kk + 1], pa);
 #pragma unroll
-      for (int t = 0; t < kCPT; ++t) kv[t] = to_f32(Ks[j * L::KS + cg + 16 * t]);
+      for (int nd = 0; nd < NTD; nd += 2)
 #pragma unroll
-      for (int r = 0; r < kRPT; ++r)
-#pragma unroll
-        for (int t = 0; t < kCPT; ++t) acc[r][t] = fmaf(dv_[r], kv[t], acc[r][t]);
+        for (int j = NI - 1; j >= 0; --j) {
+          uint32_t b[4];
+          ldbt<D>(b, kp_s + j * Gm::PLANE, kk * 16, nd * 8, lane);
+          mma_plane<3>(dq[nd], pa, b, j, 0);
+          mma_plane<3>(dq[nd + 1], pa, b, j, 1);
+        }
     }
   }
+  cp_wait_all();
 
 #pragma unroll
-  for (int r = 0; r < kRPT; ++r) {
-    const int i = rg + 16 * r;
-    if (i >= rows) continue;
+  for (int h = 0; h < 2; ++h) {
+    float* row = p.dq + (qbase + wr + g + 8 * h) * D + 2 * t;
 #pragma unroll
-    for (int t = 0; t < kCPT; ++t) {
-      const int col = cg + 16 * t;
-      if (col < D) dq[(qbase + i) * D + col] = acc[r][t] * scale;
-    }
+    for (int nd = 0; nd < NTD; ++nd)
+      *reinterpret_cast<float2*>(row + nd * 8) =
+          make_float2(dq[nd][2 * h] * p.scale, dq[nd][2 * h + 1] * p.scale);
   }
 }
 
@@ -935,13 +980,16 @@ struct KernelInfo {
   int sub;         // blocks an output tile (row sub-tiles)
 };
 
-enum Kernel { kFwd = 0, kDkv = 1 };
+enum Kernel { kFwd = 0, kDkv = 1, kDq = 2 };
 
 template <typename T, int D, int BS>
 KernelInfo info_of(int kernel) {
   if (kernel == kFwd)
     return {reinterpret_cast<const void*>(bsa_fwd_kernel<T, D, BS>),
             FwdGeo<T, D, BS>::SMEM, FwdGeo<T, D, BS>::NT, FwdGeo<T, D, BS>::SUB};
+  if (kernel == kDq)
+    return {reinterpret_cast<const void*>(bsa_bwd_dq_kernel<T, D, BS>),
+            DqGeo<T, D, BS>::SMEM, DqGeo<T, D, BS>::NT, DqGeo<T, D, BS>::SUB};
   return {reinterpret_cast<const void*>(bsa_bwd_dkv_kernel<T, D, BS>),
           DkvGeo<T, D, BS>::SMEM, DkvGeo<T, D, BS>::NT, DkvGeo<T, D, BS>::SUB};
 }
@@ -956,7 +1004,7 @@ KernelInfo info_shape(int kernel, int D, int b) {
 
 // dtype: 0 = bf16, 1 = fp32 (q, k and v share it)
 KernelInfo info(int kernel, int dtype, int D, int b) {
-  if (kernel != kFwd && kernel != kDkv) return {nullptr, 0, 0, 0};
+  if (kernel != kFwd && kernel != kDkv && kernel != kDq) return {nullptr, 0, 0, 0};
   if (dtype == 0) return info_shape<__nv_bfloat16>(kernel, D, b);
   if (dtype == 1) return info_shape<float>(kernel, D, b);
   return {nullptr, 0, 0, 0};
@@ -965,7 +1013,7 @@ KernelInfo info(int kernel, int dtype, int D, int b) {
 // Allow the kernel's dynamic shared memory (and the largest carveout, so that
 // two blocks fit on an SM); done once per kernel.
 cudaError_t configure(const KernelInfo& k) {
-  static const void* done[16];
+  static const void* done[32];  // 18 instantiations
   static int ndone = 0;
   for (int i = 0; i < ndone; ++i)
     if (done[i] == k.fn) return cudaSuccess;
@@ -975,7 +1023,7 @@ cudaError_t configure(const KernelInfo& k) {
   err = cudaFuncSetAttribute(k.fn, cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  if (ndone < 16) done[ndone++] = k.fn;
+  if (ndone < 32) done[ndone++] = k.fn;
   return cudaSuccess;
 }
 
@@ -998,40 +1046,15 @@ bool shape_ok(int rows, int n, int b) {
   return rows > 0 && b > 0 && n % b == 0 && n / b > 0;
 }
 
-template <typename Kernel>
-cudaError_t opt_in(Kernel kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
-
-template <typename T>
-cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* mt,
-                      const void* dout, const void* dr, const void* ptr,
-                      const void* ys, const void* fl, const void* km, void* dq,
-                      int BHG, int G, int n, int D, int b, int m, float scale,
-                      cudaStream_t st) {
-  const size_t smem = DqLayout<T>::bytes;
-  cudaError_t err = opt_in(bsa_bwd_dq_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(BHG, n / b, (b + kRT - 1) / kRT);
-  bsa_bwd_dq_kernel<T><<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(mt), static_cast<const float*>(dout),
-      static_cast<const float*>(dr), static_cast<const int*>(ptr),
-      static_cast<const int*>(ys), static_cast<const int*>(fl),
-      static_cast<const int*>(km), static_cast<float*>(dq), G, n, D, b, m, scale);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
-// Dynamic shared memory of one block of the forward (kernel 0) or dk/dv
-// (kernel 1) kernel, or 0 for a (dtype, D, b) not built.
+// Dynamic shared memory of one block of the forward (kernel 0), dk/dv
+// (kernel 1) or dq (kernel 2) kernel, or 0 for a (dtype, D, b) not built.
 extern "C" long long bsa_smem_bytes(int kernel, int dtype, int D, int b) {
   return info(kernel, dtype, D, b).smem;
 }
 
-// Blocks of the forward (0) or dk/dv (1) kernel that fit on an SM
+// Blocks of the forward (0), dk/dv (1) or dq (2) kernel that fit on an SM
 // (occupancy API: registers, threads and shared memory).
 extern "C" int bsa_blocks_per_sm(int kernel, int dtype, int D, int b, int* blocks) {
   const KernelInfo k = info(kernel, dtype, D, b);
@@ -1044,7 +1067,8 @@ extern "C" int bsa_blocks_per_sm(int kernel, int dtype, int D, int b, int* block
 
 // Each entry point returns the cudaError_t of its launch (0 = launched).
 // `order` lists the output tiles (BHG·nb query tiles, BHKV·nb key tiles) in
-// launch order; D is the head dim as stored (a built, padded one).
+// launch order; D is the head dim as stored (a built, padded one), and a
+// (dtype, D, b) not built is refused (info()).
 extern "C" int bsa_fwd_launch(const void* q, const void* k, const void* v,
                               const void* c, const void* ptr, const void* ys,
                               const void* fl, const void* km, const void* order,
@@ -1076,20 +1100,29 @@ extern "C" int bsa_fwd_launch(const void* q, const void* k, const void* v,
 extern "C" int bsa_bwd_dq_launch(const void* q, const void* k, const void* v,
                                  const void* mt, const void* dout, const void* dr,
                                  const void* ptr, const void* ys, const void* fl,
-                                 const void* km, void* dq, int BHG, int G, int n,
-                                 int D, int b, int m, float scale, int dtype,
-                                 void* stream) {
-  if (!shape_ok(BHG, n, b) || b > kMaxB || D <= 0 || D > kMaxD || n / b > 65535 ||
-      G <= 0)
-    return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_dq<__nv_bfloat16>(q, k, v, mt, dout, dr, ptr, ys, fl, km, dq, BHG,
-                                    G, n, D, b, m, scale, st);
-  if (dtype == 1)
-    return launch_dq<float>(q, k, v, mt, dout, dr, ptr, ys, fl, km, dq, BHG, G, n,
-                            D, b, m, scale, st);
-  return cudaErrorInvalidValue;
+                                 const void* km, const void* order, void* dq,
+                                 int BHG, int G, int n, int D, int b, int m,
+                                 float scale, int dtype, void* stream) {
+  if (!shape_ok(BHG, n, b) || G <= 0 || BHG % G) return cudaErrorInvalidValue;
+  DqArgs a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.mt = static_cast<const float*>(mt);
+  a.dout = static_cast<const float*>(dout);
+  a.dr = static_cast<const float*>(dr);
+  a.row_ptr = static_cast<const int*>(ptr);
+  a.ys = static_cast<const int*>(ys);
+  a.fls = static_cast<const int*>(fl);
+  a.km = static_cast<const int*>(km);
+  a.order = static_cast<const int*>(order);
+  a.dq = static_cast<float*>(dq);
+  a.G = G;
+  a.n = n;
+  a.m = m;
+  a.scale = scale;
+  return launch_tc(kDq, dtype, D, b, a, BHG * (n / b),
+                   static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int bsa_bwd_dkv_launch(const void* q, const void* k, const void* v,

@@ -18,9 +18,11 @@ Two implementations of each pass, chosen by the tensors' device:
     has one owning thread block that walks that tile's CSR list of pairs
     (``group_by_query`` / ``group_by_key`` below), so results are bitwise
     deterministic; the note at the top of the source says what bounds them.
-    The forward and dk/dv kernels run their products on tensor cores over
-    tiles staged by ``cp.async`` (``kernel_plan`` mirrors their geometry and
-    shared memory); they are built for the (head dim, block size) pairs of
+    All three run their products on tensor cores (bf16 operands, an fp32
+    one split into three bf16 terms) over tiles staged by ``cp.async``, one
+    warp per 16 output rows, output tiles launched heaviest first
+    (``tile_order``); ``kernel_plan`` mirrors their geometry and shared
+    memory. They are built for the (head dim, block size) pairs of
     ``KERNEL_SHAPES``, a head dim zero-padded to the next multiple of 16.
   * ``block_sparse_attention_ref`` / ``block_sparse_attention_bwd_ref`` —
     the plain PyTorch versions of the reference's ``kernels/ref.py``, taken
@@ -42,7 +44,7 @@ from repro_torch.core.mra import NEG_INF
 # (head dim padded to a multiple of 16, block size b) the kernels are built for
 KERNEL_SHAPES = ((128, 128), (64, 64), (16, 16))
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-_KERNELS = {"fwd": 0, "dkv": 1}  # the tensor-core kernels of the source
+_KERNELS = {"fwd": 0, "dkv": 1, "dq": 2}  # the kernels of the source
 _SM_SMEM = 233472   # shared memory of an SM (228 KB)
 _BLOCK_RESERVED = 1024  # shared memory the runtime keeps per block
 _SM_THREADS = 2048
@@ -296,20 +298,24 @@ def _a16(x: int) -> int:
 
 def kernel_plan(kernel: str, dtype, d: int, block_size: int) -> dict:
     """Geometry and dynamic shared memory of one block of the forward
-    (``"fwd"``) or dk/dv (``"dkv"``) kernel; mirrors ``FwdGeo`` / ``DkvGeo``
-    in the source. ``rows``: the block's query (fwd) or key (dkv) rows, 16
-    a warp; ``stage``: keys (fwd) or queries (dkv) a ring stage."""
+    (``"fwd"``), dq (``"dq"``) or dk/dv (``"dkv"``) kernel; mirrors
+    ``FwdGeo`` / ``DqGeo`` / ``DkvGeo`` in the source. ``rows``: the block's
+    query (fwd, dq) or key (dkv) rows, 16 a warp; ``stage``: keys (fwd, dq)
+    or queries (dkv) a ring stage."""
     check_shape(d, block_size)
     D, b = padded_dim(d), block_size
     terms = 1 if dtype == torch.bfloat16 else 3
     size = 2 if dtype == torch.bfloat16 else 4
     rows = min(64, b)
-    if kernel == "fwd":
+    if kernel in ("fwd", "dq"):
         stage = min(64 if terms == 1 else 32, b)
         slot = _a16(2 * stage * D * size + stage * 4)  # k, v, key mask
         planes = 2 * terms * stage * D * 2 if terms > 1 else 0  # split k, v
-        qtile = rows * (D * 4 + 16) if terms > 1 else 0  # fp32 q rows
-        smem = 2 * slot + planes + qtile
+        if kernel == "fwd":
+            rest = rows * (D * 4 + 16) if terms > 1 else 0  # fp32 q rows
+        else:  # split do (and q) rows
+            rest = (3 + (terms if terms > 1 else 0)) * rows * D * 2
+        smem = 2 * slot + planes + rest
     elif kernel == "dkv":
         stage = min(32, b)
         kv = 2 * terms * rows * D * 2  # k and v planes
@@ -383,7 +389,7 @@ def _library() -> ctypes.CDLL:
     if lib.bsa_fwd_launch.argtypes is None:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.bsa_fwd_launch.argtypes = [ptr] * 12 + [i32] * 6 + [f32, i32, ptr]
-        lib.bsa_bwd_dq_launch.argtypes = [ptr] * 11 + [i32] * 6 + [f32, i32, ptr]
+        lib.bsa_bwd_dq_launch.argtypes = [ptr] * 12 + [i32] * 6 + [f32, i32, ptr]
         lib.bsa_bwd_dkv_launch.argtypes = [ptr] * 14 + [i32] * 5 + [f32, i32, ptr]
         lib.bsa_blocks_per_sm.argtypes = [i32] * 4 + [ptr]
         lib.bsa_smem_bytes.argtypes = [i32] * 4
@@ -494,17 +500,20 @@ def bsa_bwd_dq(q, k, v, mt, do, dr, pairs: QueryPairs, key_mask, *,
     _check(pairs.y, "y_idx", (BHG, m), i32, dev)
     _check(pairs.flags, "flags", (BHG, m), i32, dev)
     _check(key_mask, "key_mask", (BHKV, n), i32, dev)
-    dq = torch.empty((BHG, n, d), dtype=torch.float32, device=dev)
+    q, k, v, do = _pad_dim(q, k, v, do)
+    D = q.shape[-1]
+    order = tile_order(pairs.ptr)
+    dq = torch.empty((BHG, n, D), dtype=torch.float32, device=dev)
     lib = _library()
     rc = lib.bsa_bwd_dq_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mt.data_ptr(), do.data_ptr(),
         dr.data_ptr(), pairs.ptr.data_ptr(), pairs.y.data_ptr(),
-        pairs.flags.data_ptr(), key_mask.data_ptr(), dq.data_ptr(),
-        BHG, BHG // BHKV, n, d, block_size, m, float(scale), _DTYPES[q.dtype],
-        _stream(dev))
+        pairs.flags.data_ptr(), key_mask.data_ptr(), order.data_ptr(),
+        dq.data_ptr(), BHG, BHG // BHKV, n, D, block_size, m, float(scale),
+        _DTYPES[q.dtype], _stream(dev))
     _raise_on(rc, lib, "bsa_bwd_dq")
     bsa_bwd_dq.launches += 1
-    return dq
+    return _unpad(d, dq)[0]
 
 
 def bsa_bwd_dkv(q, k, v, mt, do, dr, pairs: KeyPairs, key_mask, *,

@@ -1,23 +1,27 @@
 """The tensor-core block-sparse kernels' arithmetic and plan, on the CPU.
 
-The forward and dk/dv kernels of ``csrc/block_sparse_attn.cu`` cannot run
-here, so this file holds what they compute and how they are laid out to the
-plain route, with numpy inputs from a seed:
+The forward, dq and dk/dv kernels of ``csrc/block_sparse_attn.cu`` cannot
+run here, so this file holds what they compute and how they are laid out
+to the plain route, with numpy inputs from a seed:
 
   * a plain emulation of each kernel's arithmetic — operands split into
     bf16 terms (``repro_torch.kernels.split``) with the term products
     i + j <= 2 kept; the forward over its CSR pair list in stages of 64
-    keys (32 for fp32 inputs) with the online rescale from the floor c; dk/dv
+    keys (32 for fp32 inputs) with the online rescale from the floor c; dq
+    over the same list and stages, its scores summed from zero at each
+    16-wide k-step and dS split into three terms; dk/dv
     over ``group_by_key``'s pair order in stages of 32 queries — against
-    ``block_sparse_attention_ref`` / ``block_sparse_attention_bwd_dkv_ref``
-    at the card's tolerances (normalized numerator and row sums rtol/atol
-    1e-4, mt abs 1e-5, gradients 1e-4 of their largest magnitude) over
+    ``block_sparse_attention_ref`` / ``block_sparse_attention_bwd_dq_ref`` /
+    ``block_sparse_attention_bwd_dkv_ref`` at the card's tolerances
+    (normalized numerator and row sums rtol/atol 1e-4, mt abs 1e-5,
+    gradients 1e-4 of their largest magnitude) over
     ``tests/harness.py::OP_SWEEP`` and over qwen3-1.7b-width tiles (d = b =
-    128) at small n, bf16 and fp32, with a hot key tile and a padded head
-    dim;
+    128) at small n, bf16 and fp32, with a hot key tile, a query tile
+    without pairs and a padded head dim;
   * the mirrors of the kernels' plan: shared memory within the 227 KB a
-    block may use for every built (dtype, d, b), two blocks an SM planned at
-    the training shapes in bf16, and the launch geometry;
+    block may use for every built (dtype, d, b) of the three kernels, two
+    blocks an SM planned at the training shapes in bf16, and the launch
+    geometry;
   * the heaviest-first tile order is a permutation that covers every tile
     once, keeps a balanced list in natural order, and refuses nothing.
 """
@@ -116,6 +120,38 @@ def dkv_emulated(q, k, v, mt, do, dr, pairs, key_mask, *, scale, block_size):
     return dk, dv
 
 
+def dq_emulated(q, k, v, mt, do, dr, pairs, key_mask, *, scale, block_size):
+    """bsa_bwd_dq_kernel's arithmetic over ``group_by_query``'s pairs: dq
+    fp32. A query tile without pairs stays 0."""
+    BHG, n, d = q.shape
+    G, b = BHG // k.shape[0], block_size
+    nb = n // b
+    kt = min(64 if q.dtype == torch.bfloat16 else 32, b)
+    dq = torch.zeros((BHG, n, d))
+    rows = torch.arange(b)
+    for r, x in itertools.product(range(BHG), range(nb)):
+        qs = slice(x * b, (x + 1) * b)
+        q_terms, do_terms = operand_terms(q[r, qs]), operand_terms(do[r, qs])
+        acc = torch.zeros((b, d))
+        for p in range(int(pairs.ptr[r, x]), int(pairs.ptr[r, x + 1])):
+            y, fl = int(pairs.y[r, p]), int(pairs.flags[r, p])
+            for k0 in range(0, b, kt):
+                ks = slice(y * b + k0, y * b + k0 + kt)
+                ok = _live(fl, key_mask[r // G, ks] > 0, rows, rows[k0:k0 + kt])
+                k_terms = operand_terms(k[r // G, ks])
+                s = sum(term_products([t[:, c:c + 16] for t in q_terms],
+                                      [t[:, c:c + 16].T for t in k_terms])
+                        for c in range(0, d, 16))
+                dp = term_products(do_terms, [t.T for t in operand_terms(
+                    v[r // G, ks])])
+                a = torch.where(ok, torch.exp(torch.clamp(
+                    s * scale - mt[r, qs][:, None], max=0.0)), 0.0)
+                ds = a * (dp + dr[r, qs][:, None])
+                acc = acc + term_products(operand_terms(ds), k_terms)
+        dq[r, qs] = acc * scale
+    return dq
+
+
 # --------------------------------------------------------------------------- #
 # cases
 # --------------------------------------------------------------------------- #
@@ -138,10 +174,12 @@ def _op_case(case, dtype):
     return (q.to(dtype), k.to(dtype), v.to(dtype), c, x, y, fl, km, case.b)
 
 
-def _wide_case(seed, *, BHKV, G, n, d, b, m, dtype, hot=False):
+def _wide_case(seed, *, BHKV, G, n, d, b, m, dtype, hot=False,
+               unvisited=False):
     """qwen3-1.7b-like tiles: random pairs with a causal diagonal, one
     invalid pair a row, keys masked at random; ``hot``: every query block of
-    each row also selects key block 0."""
+    each row also selects key block 0; ``unvisited``: query block 1 of row 0
+    has no pairs."""
     r = np.random.default_rng(seed)
     BHG, nb = BHKV * G, n // b
     x = r.integers(0, nb, (BHG, m))
@@ -149,6 +187,8 @@ def _wide_case(seed, *, BHKV, G, n, d, b, m, dtype, hot=False):
     if hot:
         x[:, :nb] = np.arange(nb)
         y[:, :nb] = 0
+    if unvisited:
+        x[0] = np.where(x[0] == 1, 0, x[0])
     flags = np.ones((BHG, m), np.int32)
     flags[:, -1] = 0
     flags |= 2 * (x == y)
@@ -164,6 +204,8 @@ def _wide_case(seed, *, BHKV, G, n, d, b, m, dtype, hot=False):
 WIDE = {"d128-b128-g2": dict(BHKV=2, G=2, n=512, d=128, b=128, m=8),
         "d128-b128-g1-hot": dict(BHKV=2, G=1, n=512, d=128, b=128, m=6,
                                  hot=True),
+        "d128-b128-g2-unvisited": dict(BHKV=1, G=2, n=512, d=128, b=128,
+                                       m=8, unvisited=True),
         "d64-b64-g2": dict(BHKV=1, G=2, n=256, d=64, b=64, m=6),
         "d12-b16-g2-hot": dict(BHKV=2, G=2, n=96, d=12, b=16, m=9, hot=True)}
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
@@ -207,6 +249,28 @@ def test_split_kernels_match_the_plain_reference(spec):
     assert _scaled_close(dk, want[0]) and _scaled_close(dv, want[1])
 
 
+@pytest.mark.parametrize("spec", list(_cases()))
+def test_split_dq_matches_the_plain_reference(spec):
+    q, k, v, c, x, y, fl, km, b = _inputs(spec)
+    nb = q.shape[1] // b
+    kw = dict(scale=SCALE, block_size=b)
+    pq = bsa.group_by_query(x, y, fl, nb)
+    mt = bsa.block_sparse_attention_ref(q, k, v, x, y, fl, c, km, **kw)[2]
+    r = np.random.default_rng(7)
+    do = torch.from_numpy(r.standard_normal(tuple(q.shape)).astype(np.float32))
+    dr = torch.from_numpy(r.standard_normal(tuple(q.shape[:2])).astype(np.float32))
+    dq = dq_emulated(q, k, v, mt, do, dr, pq, km, **kw)
+    want = bsa.block_sparse_attention_bwd_dq_ref(q, k, v, c, x, y, fl, km, do,
+                                                 dr, **kw)
+    assert _scaled_close(dq, want)
+    empty = (bsa.pairs_per_tile(pq.ptr) == 0).reshape(q.shape[0], nb)
+    rows = empty.repeat_interleave(b, 1)
+    assert int(torch.count_nonzero(dq[rows])) == 0
+    assert int(torch.count_nonzero(want[rows])) == 0
+    if spec[0] == "wide" and WIDE[spec[1]].get("unvisited"):
+        assert bool(empty[0, 1])
+
+
 def test_hot_key_tile_walks_far_more_pairs_than_the_mean():
     q, k, v, c, x, y, fl, km, b = _inputs(("wide", "d128-b128-g1-hot", "bf16"))
     counts = bsa.pairs_per_tile(bsa.group_by_key(x, y, fl, 1, 4).ptr).float()
@@ -219,7 +283,7 @@ def test_hot_key_tile_walks_far_more_pairs_than_the_mean():
 BUILT = [(D, b) for D, b in bsa.KERNEL_SHAPES] + [(12, 16)]
 
 
-@pytest.mark.parametrize("kernel", ["fwd", "dkv"])
+@pytest.mark.parametrize("kernel", ["fwd", "dkv", "dq"])
 @pytest.mark.parametrize("dtype", list(DTYPES.values()), ids=list(DTYPES))
 @pytest.mark.parametrize("d,b", BUILT)
 def test_smem_fits_a_block_and_the_plan_is_consistent(kernel, dtype, d, b):
@@ -230,24 +294,28 @@ def test_smem_fits_a_block_and_the_plan_is_consistent(kernel, dtype, d, b):
     assert bsa.planned_blocks_per_sm(kernel, dtype, d, b) >= 1
 
 
-@pytest.mark.parametrize("kernel", ["fwd", "dkv"])
+@pytest.mark.parametrize("kernel", ["fwd", "dkv", "dq"])
 def test_training_shapes_plan_two_blocks_an_sm_in_bf16(kernel):
     """qwen3-1.7b (d = b = 128) in bf16: 64 rows a block, two blocks an SM
     by shared memory (the forward three)."""
     plan = bsa.kernel_plan(kernel, torch.bfloat16, 128, 128)
     assert plan["rows"] == 64 and plan["threads"] == 128
-    assert plan["stage"] == (64 if kernel == "fwd" else 32)
+    assert plan["stage"] == (32 if kernel == "dkv" else 64)
     assert bsa.planned_blocks_per_sm(kernel, torch.bfloat16, 128, 128) == (
         3 if kernel == "fwd" else 2)
 
 
 def test_launch_geometry_of_the_training_call():
     """BSA_MAIN: 32 BHG rows and 16 KV heads of 32 blocks each, two 64-row
-    blocks a tile: 2048 forward and 1024 dk/dv blocks."""
+    blocks a tile: 2048 forward, 2048 dq and 1024 dk/dv blocks; dq's block
+    holds the two-slot K/V ring and three planes of split do (115,200
+    bytes)."""
     fwd = bsa.launch_geometry("fwd", torch.bfloat16, 128, 128, 32 * 32)
+    dq = bsa.launch_geometry("dq", torch.bfloat16, 128, 128, 32 * 32)
     dkv = bsa.launch_geometry("dkv", torch.bfloat16, 128, 128, 16 * 32)
-    assert (fwd["grid"], dkv["grid"]) == (2048, 1024)
+    assert (fwd["grid"], dq["grid"], dkv["grid"]) == (2048, 2048, 1024)
     assert fwd["smem_bytes"] == bsa.smem_bytes("fwd", torch.bfloat16, 128, 128)
+    assert dq["smem_bytes"] == 2 * 33024 + 3 * 64 * 128 * 2 == 115200
     small = bsa.launch_geometry("dkv", torch.float32, 12, 16, 10)
     assert small["grid"] == 10 and small["threads"] == 32
 

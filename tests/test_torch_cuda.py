@@ -23,6 +23,11 @@ run on the same CUDA tensors.
     union smaller than the count, NU = 65), G = 3 row padding, the fp32
     cache, bitwise reruns, the refused (D, b) and the shared-memory mirror,
     at the same tolerance and near-tie rule.
+  * ``chunk_attn`` on four points of the JAX package's serving sweep
+    (``tests/test_chunk_kernel.py::FORCED``: plain, paged + int8, ragged
+    G = 2, int8 sparse coarse-only) at D = 16, C = 1 and 5, both modes, with
+    the sweep's inputs rebuilt here without JAX (``ref_case_inputs``):
+    atol 2e-5 / rtol 1e-5 on every row.
   * ``bsa_fwd`` / ``bsa_bwd_dq`` / ``bsa_bwd_dkv`` against
     ``block_sparse_attention_ref`` / ``_bwd_ref``: the normalized numerator
     and the max-scaled gradients at rtol/atol 1e-4, mt at abs 1e-5 (fp32
@@ -33,6 +38,7 @@ run on the same CUDA tensors.
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
 
 import numpy as np
@@ -381,6 +387,89 @@ def test_chunk_attn_fp32_cache_matches_plain(cuda, shape, C, mode):
             compare(pre, k, v, q_pos, sh["m"], ks, vs, True, mode)
 
 
+@dataclasses.dataclass(frozen=True)
+class RefCase:
+    """A point of the JAX package's serving sweep
+    (``tests/test_chunk_kernel.py::Case``), with its defaults."""
+
+    paged: bool = False        # ring layout (stream longer than the cache)
+    quant: bool = False        # int8 pages + per-token scales
+    coarse_only: bool = False  # m = 1: own block + pyramid background only
+    group: int = 1             # GQA: Hq = group * Hkv
+    ragged: bool = False       # per-slot lengths (incl. a zero-length slot)
+    variant: str = "full"
+    B: int = 2
+    Hkv: int = 2
+    S: int = 64
+    D: int = 8
+    b: int = 16
+    m: int = 3
+    seed: int = 0
+
+
+def ref_case_inputs(case: RefCase, *, C: int):
+    """(q, k, v, lengths, q_pos, page_blocks, k_scale, v_scale) on the CPU:
+    ``tests/test_chunk_kernel.py::make_case_inputs`` without JAX — the same
+    numpy draws from the case's seed in the same order, rounded to fp32, and
+    the port's ``quantize_kv``."""
+    r = np.random.default_rng(case.seed)
+    B, Hkv, S, D, b = case.B, case.Hkv, case.S, case.D, case.b
+    nb = S // b
+
+    def f32(shape):
+        return torch.from_numpy(r.standard_normal(shape).astype(np.float32))
+
+    k, v = f32((B, Hkv, S, D)), f32((B, Hkv, S, D))
+    q = f32((B, Hkv * case.group, C, D))
+    page_blocks = None
+    if case.paged:  # logical blocks nb/2 .. 3nb/2 - 1, block y on page y % nb
+        lengths = np.full((B,), S + S // 2)
+        page_blocks = torch.from_numpy(np.roll(np.tile(
+            np.arange(nb, dtype=np.int32) + nb // 2, (B, 1)), nb // 2, axis=1))
+    elif case.ragged:
+        lengths = np.array([0] + list(r.integers(1, S + 1, B - 1)))
+    else:
+        lengths = np.full((B,), S)
+    q_pos = np.maximum(lengths[:, None] - C, 0) + np.arange(C)
+    k_scale = v_scale = None
+    if case.quant:
+        k, k_scale = tmd.quantize_kv(k)
+        v, v_scale = tmd.quantize_kv(v)
+    return (q, k, v, torch.from_numpy(lengths.astype(np.int32)),
+            torch.from_numpy(q_pos.astype(np.int32)), page_blocks, k_scale,
+            v_scale)
+
+
+# tests/test_chunk_kernel.py::FORCED
+REF_CASES = (RefCase(), RefCase(paged=True, quant=True, seed=21),
+             RefCase(ragged=True, group=2, seed=33),
+             RefCase(quant=True, variant="sparse", coarse_only=True, seed=40))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["latency", "throughput"])
+def test_cuda_kernel_matches_plain_version(cuda, mode):
+    """The CUDA kernel == its plain twin on the same CUDA tensors (atol 2e-5
+    / rtol 1e-5 on every row), across the paged / int8 / ragged / sparse
+    points of the reference sweep, at the head dim the kernel is built for
+    with b = 16 (D = 16)."""
+    for case in REF_CASES:
+        case = dataclasses.replace(case, D=16)
+        for C in (1, 5):
+            q, k, v, lengths, q_pos, pb, ks, vs = (
+                None if x is None else x.to(cuda)
+                for x in ref_case_inputs(case, C=C))
+            cfg = MraConfig(block_size=case.b, variant=case.variant)
+            m = 1 if case.coarse_only else case.m
+            pre = tmd._chunk_prelude(q, k, v, lengths, q_pos, cfg, m, None, pb)
+            kw = dict(m=m, k_scale=ks, v_scale=vs,
+                      include_bg=case.variant == "full", mode=mode)
+            got = chunk_attn.chunk_attention_kernel(pre, k, v, q_pos, **kw)
+            ref = chunk_attn.chunk_attention_ref(pre, k, v, q_pos, **kw)
+            np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                       atol=ATOL, rtol=RTOL)
+
+
 @pytest.mark.cuda
 def test_chunk_attn_reruns_are_bit_identical(cuda):
     sh = DECODE["long"]
@@ -494,8 +583,9 @@ def test_bsa_kernels_match_plain(cuda, shape, dtype):
                               rtol=1e-4, atol=1e-4).all())
     assert bool(torch.isclose(rs, ref[1], rtol=1e-4, atol=1e-4).all())
     assert float((mt - ref[2]).abs().max()) <= 1e-5
-    # the unvisited tile: 0 / 0 / c
+    # the unvisited tile: 0 / 0 / c, and dq 0
     assert float(out[0, :b].abs().max()) == 0.0 == float(rs[0, :b].abs().max())
+    assert float(dq[0, :b].abs().max()) == 0.0
     assert torch.equal(mt[0, :b], c[0, :1].expand(b))
     for got, want in zip((dq, dk, dv), gref):
         assert _scaled_close(got, want)
@@ -580,5 +670,5 @@ def test_bsa_plan_mirrors_the_library(cuda):
         assert 1 <= bsa.blocks_per_sm(kernel, dt, D, b) <= \
             bsa.planned_blocks_per_sm(kernel, dt, D, b)
     assert lib.bsa_smem_bytes(0, 0, 32, 32) == 0
-    for kernel in ("fwd", "dkv"):  # the training shapes, bf16
+    for kernel in ("fwd", "dq", "dkv"):  # the training shapes, bf16
         assert bsa.blocks_per_sm(kernel, torch.bfloat16, 128, 128) >= 2

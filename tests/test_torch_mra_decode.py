@@ -8,7 +8,9 @@ integers (page tables, counts, selected page sets) exactly; float page
 statistics 1e-6; attention outputs atol 2e-5 / rtol 1e-5 (the reference's
 own kernel-vs-jnp tolerance: sums run in another order in the two
 frameworks); exact-softmax anchors atol 1e-4 (the reference's oracle
-tolerance).
+tolerance). The CUDA kernel's own comparison with its plain twin needs a
+card and lives in the JAX-free ``tests/test_torch_cuda.py``; its inputs,
+rebuilt there without JAX, are held here to the reference sweep's.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from repro_torch.core import mra_decode as tmd
 from repro_torch.core.mra import MraConfig
 from repro_torch.kernels import chunk_attn
 from test_chunk_kernel import SWEEP, Case, make_case_inputs
+from test_torch_cuda import REF_CASES, ref_case_inputs
 
 ATOL, RTOL = 2e-5, 1e-5
 
@@ -392,34 +395,17 @@ def test_resolve_kernel_mode():
         chunk_attn.resolve_kernel_mode("fast", 1)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["latency", "throughput"])
-def test_cuda_kernel_matches_plain_version(mode):
-    """On a card: the CUDA kernel == its plain twin on the same CUDA tensors
-    (atol 2e-5 / rtol 1e-5), across paged/int8/ragged/sparse cases, at the
-    head dim the kernel is built for with b = 16 (D = 16)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernel has no CPU mode); "
-                    "chip_smoke.py runs this comparison at full width")
-    for case in (Case(), Case(paged=True, quant=True, seed=21),
-                 Case(ragged=True, group=2, seed=33),
-                 Case(quant=True, variant="sparse", coarse_only=True, seed=40)):
-        case = dataclasses.replace(case, D=16)
-        for C in (1, 5):
-            q, k, v, lengths, q_pos, pb, ks, vs = make_case_inputs(case, C=C)
-            _, tcfg = _cfgs(case)
-            m = 1 if case.coarse_only else case.m
-
-            def cu(x):
-                return None if x is None else T(x).cuda()
-
-            pre = tmd._chunk_prelude(cu(q), cu(k), cu(v), cu(lengths),
-                                     cu(q_pos), tcfg, m, None, cu(pb))
-            kw = dict(m=m, k_scale=cu(ks), v_scale=cu(vs),
-                      include_bg=case.variant == "full", mode=mode)
-            got = chunk_attn.chunk_attention_kernel(pre, cu(k), cu(v),
-                                                    cu(q_pos), **kw)
-            ref = chunk_attn.chunk_attention_ref(pre, cu(k), cu(v), cu(q_pos),
-                                                 **kw)
-            np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
-                                       atol=ATOL, rtol=RTOL)
+@pytest.mark.parametrize("C", [1, 5])
+@pytest.mark.parametrize("i", range(len(REF_CASES)))
+def test_card_case_inputs_equal_the_reference_sweep_inputs(i, C):
+    """``tests/test_torch_cuda.py`` rebuilds four points of the reference
+    sweep without JAX (the card's machine has none): the same values, dtypes
+    and shapes as ``make_case_inputs``, at the D = 16 its card test takes."""
+    case = dataclasses.replace(REF_CASES[i], D=16)
+    ref = make_case_inputs(Case(**dataclasses.asdict(case)), C=C)
+    for got, want in zip(ref_case_inputs(case, C=C), ref):
+        assert (got is None) == (want is None)
+        if got is not None:
+            want = np.asarray(want)
+            assert got.numpy().dtype == want.dtype
+            np.testing.assert_array_equal(got.numpy(), want)
