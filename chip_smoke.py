@@ -16,8 +16,11 @@ port's serving path and its training path on the card:
      smoke config's, over decode/chunk widths, bf16/int8 caches, MRA-2 /
      MRA-2-s and dense/ring/ragged layouts, plus decode at the serving
      (B = 4) and long-context (B = 2) shapes with the split count forced to
-     1, 2 and the planned one (atol 2e-5 / rtol 1e-5 on rows whose top-m
-     selection is no near tie; near ties under 1% of rows);
+     1, 2 and the planned one, and the speculative drafts' budget m = 1 at
+     both under MRA-2 (C = 1, the split forced and planned, and C = 5; at
+     long context with an H-level view of NU = 33) (atol 2e-5 / rtol 1e-5
+     on rows whose top-m selection is no near tie; near ties under 1% of
+     rows);
   3. kernel timing at the main path's shapes, beside its bound at the bf16
      tensor-core and the fp32 CUDA-core rate and the plain version's time,
      with the launch's split count, grid, shared memory, blocks per SM and
@@ -71,7 +74,22 @@ port's serving path and its training path on the card:
  13. H = 3 engine parity — the plain version substituted for the kernel (in
      this script only): identical greedy streams at the smoke size with
      prompts far past the window, identical tokens at full width (4
-     layers, fp32) with a prompt over 4x the window.
+     layers, fp32) with a prompt over 4x the window;
+ 14. speculative serving at full width — phase 4's engine and requests
+     with ``spec_k=4`` (144 new tokens each): coarse-only drafts (budget
+     m = 1, split decode), one (K+1)-chunk verify, ring rewinds, and plain
+     fallback waves where a round would straddle the ring boundary. Rounds,
+     acceptance, decode-side tokens per full-MRA dispatch against phase 4's,
+     tok/s of both engines, chunk-kernel and combine launches by dispatch
+     kind (each 28 x that kind's dispatches) and peak GiB; streams equal
+     phase 4's, or leave them only where phase 4's top-2 logit gap is under
+     4 bf16 ulps of its top logit; then a torch.profiler breakdown of one
+     draft, one verify and one snapshot + rewind;
+ 15. speculative and telemetry parity on the card (smoke size, fp32): greedy
+     spec_k = 3 streams equal the plain engine's at H = 2 and H = 3,
+     telemetry on and off serve the same streams, and snapshot -> four
+     draft steps -> rewind leaves every cache tensor (the hierarchy's at
+     H = 3) bitwise as it was.
 
 One JSON line per phase; then the card line from nvidia-smi, the kernels
 line and, last, ``{"ok": true, "device": {...}}``. Any failed phase raises,
@@ -106,6 +124,8 @@ WIDTHS = ((1, "latency"), (128, "throughput"), (5, "throughput"))
 # the long-context slice (levels=3): 2 slots of 4096-token windows; NU
 # collapsed entries per (batch, kv-head) row: 32 per level + the tail
 UP_MAIN = dict(B=2, Hkv=8, G=2, D=128, b=128, nb=32, m=16)
+# speculative drafts run the serving shapes at the budget m = 1
+DRAFT_MAIN, DRAFT_UP = dict(MAIN, m=1), dict(UP_MAIN, m=1)
 UP_CASES = (("main", UP_MAIN, 33), ("main", UP_MAIN, 65),
             ("smoke", SMOKE, 5), ("smoke", SMOKE, 40))
 UP_WIDTHS = ((1, "latency"), (512, "throughput"), (5, "throughput"))
@@ -125,6 +145,11 @@ BSA_EXTRA = (("main-hot", BSA_MAIN, True), ("smoke-d12", dict(BSA_SMOKE, d=12),
 # max-scaled gradients at rtol/atol 1e-4, the stabilizer mt at abs 1e-5
 BSA_TOL, MT_TOL = 1e-4, 1e-5
 TRAIN = dict(seq=4096, batch=2, steps=3)  # train_4k with the batch cut to 2
+# the serving engine's traffic (phase 4), and phase 14's speculative run of
+# the same requests: new tokens cut from 192 to 144 to hold the script's
+# time, still past the 4096-token ring (3968 + 144), so fallback waves run
+SERVE = dict(prompts=(3968, 2500, 1200, 300), new_tokens=192)
+SPEC = dict(spec_k=4, new_tokens=144)
 
 
 def emit(obj) -> None:
@@ -353,14 +378,29 @@ def phase_kernel_vs_plain(torch, tmd, chunk_attn):
     cases += [((name, sh), (1, "latency"), ns) for (name, sh), ns
               in itertools.product((("main", MAIN), ("long", UP_MAIN)),
                                    (1, 2, "plan"))]
-    forced = 0
+    # the speculative drafts' budget m = 1 (own block only): decode with the
+    # split forced and planned, and a verify-width chunk; at long context
+    # with the H-level view (NU = 33) attached
+    cases += [(("main-m1", DRAFT_MAIN), (1, "latency"), ns)
+              for ns in (1, 2, "plan")]
+    cases += [(("main-m1", DRAFT_MAIN), (5, "throughput"), None)]
+    cases += [(("long-m1", DRAFT_UP), (C, mode), None)
+              for C, mode in ((1, "latency"), (5, "throughput"))]
+    forced = budget_one = 0
     for (name, sh), (C, mode), nsplit in cases:
+        # the drafts run MRA-2 (the background on); tests/test_torch_cuda.py
+        # holds m = 1 under MRA-2-s too
+        variants = ("full",) if sh["m"] == 1 else ("full", "sparse")
         for layout, dtype, variant in itertools.product(
-                ("dense", "ring", "ragged"), ("bf16", "int8"),
-                ("full", "sparse")):
+                ("dense", "ring", "ragged"), ("bf16", "int8"), variants):
             n += 1
             pre, k, v, q_pos, ks, vs = kernel_case(torch, tmd, SEED + n, sh, C,
                                                    layout, dtype)
+            if name == "long-m1":
+                pre = pre._replace(upper=upper_view(
+                    torch, SEED + 2000 + n, sh["B"], sh["Hkv"], sh["D"], 33,
+                    "all_live"))
+            budget_one += sh["m"] == 1
             kw = dict(m=sh["m"], k_scale=ks, v_scale=vs,
                       include_bg=variant == "full", mode=mode)
             if nsplit is None:
@@ -378,6 +418,7 @@ def phase_kernel_vs_plain(torch, tmd, chunk_attn):
             worst, ties, rows = max(worst, err), ties + t, rows + r
     emit({"phase": "kernel_vs_plain", "kernel": "chunk_attn", "cases": n,
           "forced_split_cases": forced, "forced_nsplit": [1, 2, "plan"],
+          "budget_one_cases": budget_one,
           "atol": ATOL, "rtol": RTOL, "max_abs_err": worst,
           "near_tie_rows": ties, "rows": rows, "tie_margin": TIE})
     if ties > 0.01 * rows:
@@ -427,17 +468,47 @@ def _requests(Request, lengths, new_tokens, vocab):
             for n in lengths]
 
 
+def _dispatch_seconds(eng, hist):
+    """Wall seconds summed over an engine's dispatches of one kind: the
+    exact total of its telemetry histogram (each span ends after the device
+    finished)."""
+    return eng.telemetry.metrics.get(hist).total
+
+
+def _top2_recorder(torch, engine_mod, Scheduler, vocab):
+    """(patches, gaps): while the patches are on, every sampled token of a
+    request (keyed by prompt length) records its logits' top-2 gap and top
+    value as device scalars, in token order."""
+    last, gaps = {}, {}
+    orig_sample, orig_on_sampled = engine_mod.sample_batch, Scheduler.on_sampled
+
+    def sample_batch(logits, *a, **kw):
+        top2 = torch.topk(logits[:, :vocab].float(), 2, dim=-1).values
+        last["gap"], last["top"] = top2[:, 0] - top2[:, 1], top2[:, 0]
+        return orig_sample(logits, *a, **kw)
+
+    def on_sampled(self, s, token):
+        req = self.slots[s].req
+        gaps.setdefault(len(req.prompt), []).append(
+            (last["gap"][s], last["top"][s]))
+        return orig_on_sampled(self, s, token)
+
+    return (mock.patch.object(engine_mod, "sample_batch", sample_batch),
+            mock.patch.object(Scheduler, "on_sampled", on_sampled)), gaps
+
+
 def phase_engine_full_width(torch, chunk_attn):
     from repro_torch.configs import get_config
     from repro_torch.models import transformer
     from repro_torch.models.params import init_params
-    from repro_torch.serve import Engine, EngineConfig, Request
+    from repro_torch.serve import Engine, EngineConfig, Request, Scheduler
+    from repro_torch.serve import engine as engine_mod
 
     cfg = get_config("qwen3-1.7b")
     params = init_params(cfg, seed=SEED, device=DEVICE)
     eng = Engine(cfg, params, EngineConfig(slots=4, max_len=4096, chunk=128),
                  device=DEVICE)
-    reqs = _requests(Request, (3968, 2500, 1200, 300), 192, cfg.vocab)
+    reqs = _requests(Request, SERVE["prompts"], SERVE["new_tokens"], cfg.vocab)
     bad = torch.zeros((), dtype=torch.int64, device=DEVICE)
     orig = (transformer.prefill_chunk, transformer.decode_step)
 
@@ -448,10 +519,14 @@ def phase_engine_full_width(torch, chunk_attn):
             return logits, cache
         return wrapped
 
+    # top-2 logit gaps of every sampled token, for phase 14's near-tie rule
+    (p_sample, p_sched), gaps = _top2_recorder(torch, engine_mod, Scheduler,
+                                               cfg.vocab)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with mock.patch.object(transformer, "prefill_chunk", finite(orig[0])), \
-            mock.patch.object(transformer, "decode_step", finite(orig[1])):
+            mock.patch.object(transformer, "decode_step", finite(orig[1])), \
+            p_sample, p_sched:
         _reset_chunk(chunk_attn)
         t0 = time.perf_counter()
         done = eng.run(reqs)
@@ -463,17 +538,25 @@ def phase_engine_full_width(torch, chunk_attn):
     want_comb = _want_combines(chunk_attn, cfg, st, 4, 128, 4096)
     dispatches = st["prefill_dispatches"] + st["decode_dispatches"]
     outs = [r.out for r in done]
+    base = {"streams": {len(r.prompt): np.asarray(r.out) for r in done},
+            "gaps": {n: torch.stack([torch.stack(g) for g in v]).cpu().numpy()
+                     for n, v in gaps.items()},
+            "tok_per_s": st["generated_tokens"] / wall,
+            "decode_tokens_per_dispatch": (st["generated_tokens"] - len(done))
+            / st["decode_dispatches"]}
     emit({"phase": "engine_full_width", "arch": cfg.name,
           "layers": cfg.num_layers, "activ_dtype": cfg.activ_dtype,
           "param_dtype": cfg.param_dtype, "slots": 4, "max_len": 4096,
-          "chunk": 128, "prompts": [3968, 2500, 1200, 300], "new_tokens": 192,
+          "chunk": 128, "prompts": list(SERVE["prompts"]),
+          "new_tokens": SERVE["new_tokens"],
           "wall_s": wall, "generated_tokens": st["generated_tokens"],
-          "tok_per_s": st["generated_tokens"] / wall,
+          "tok_per_s": base["tok_per_s"],
           "prefill_tokens": st["prefill_tokens"],
           "prefill_dispatches": st["prefill_dispatches"],
-          "prefill_s": st["prefill_seconds"],
+          "prefill_s": _dispatch_seconds(eng, "prefill_chunk_seconds"),
           "decode_dispatches": st["decode_dispatches"],
-          "decode_s": st["decode_seconds"],
+          "decode_s": _dispatch_seconds(eng, "decode_step_seconds"),
+          "decode_tokens_per_dispatch": base["decode_tokens_per_dispatch"],
           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
           "kernel_launches": launches, "combine_launches": combines,
           "evicted_tokens": float(eng.kv.occupancy()["tokens_evicted"])})
@@ -485,10 +568,12 @@ def phase_engine_full_width(torch, chunk_attn):
         raise AssertionError(f"{combines} combine launches != {want_comb}")
     if int(bad) != 0:
         raise AssertionError(f"{int(bad)} non-finite logits")
-    if any(len(o) != 192 or int(o.min()) < 0 or int(o.max()) >= cfg.vocab
-           for o in outs):
+    if any(len(o) != SERVE["new_tokens"] or int(o.min()) < 0
+           or int(o.max()) >= cfg.vocab for o in outs):
         raise AssertionError("a stream is short or holds an out-of-vocab token")
-    return (launches, combines), eng
+    if any(len(g) != SERVE["new_tokens"] for g in base["gaps"].values()):
+        raise AssertionError("a stream's top-2 gaps were not all recorded")
+    return (launches, combines), eng, base
 
 
 def _reset_chunk(chunk_attn):
@@ -496,19 +581,23 @@ def _reset_chunk(chunk_attn):
     fn.launches = fn.upper_launches = fn.combine_launches = 0
 
 
+def _splits(chunk_attn, cfg, slots, C, max_len):
+    """Whether a dispatch of C-token chunks plans a split (and a combine)."""
+    G = cfg.num_heads // cfg.kv_heads
+    nb = max_len // cfg.attention.block_size
+    tiles = -(-C // chunk_attn.tile_width("auto", C, G))
+    return chunk_attn.split_plan(slots, cfg.kv_heads, tiles, nb,
+                                 chunk_attn.sm_count(0))[0] > 1
+
+
 def _want_combines(chunk_attn, cfg, stats, slots, chunk, max_len):
     """Combine launches an engine run must make: one per layer of every
     dispatch whose planned split count is above 1 (decode: C = 1; prefill:
     C = chunk, the scheduler's fixed width)."""
-    G = cfg.num_heads // cfg.kv_heads
-    nb = max_len // cfg.attention.block_size
-    want = 0
-    for C, key in ((1, "decode_dispatches"), (chunk, "prefill_dispatches")):
-        tiles = -(-C // chunk_attn.tile_width("auto", C, G))
-        if chunk_attn.split_plan(slots, cfg.kv_heads, tiles, nb,
-                                 chunk_attn.sm_count(0))[0] > 1:
-            want += cfg.num_layers * stats[key]
-    return want
+    return sum(cfg.num_layers * stats[key]
+               for C, key in ((1, "decode_dispatches"),
+                              (chunk, "prefill_dispatches"))
+               if _splits(chunk_attn, cfg, slots, C, max_len))
 
 
 def _chunk_launches(chunk_attn):
@@ -1206,10 +1295,11 @@ def phase_long_context(torch, chunk_attn):
           "param_dtype": cfg.param_dtype, **LONG, "chunk_used": eng.chunk,
           "wall_s": wall, "prefill_tokens": st["prefill_tokens"],
           "prefill_dispatches": st["prefill_dispatches"],
-          "prefill_s": st["prefill_seconds"],
-          "context_tok_per_s": st["prefill_tokens"] / st["prefill_seconds"],
+          "prefill_s": _dispatch_seconds(eng, "prefill_chunk_seconds"),
+          "context_tok_per_s": st["prefill_tokens"]
+          / _dispatch_seconds(eng, "prefill_chunk_seconds"),
           "decode_dispatches": st["decode_dispatches"],
-          "decode_s": st["decode_seconds"],
+          "decode_s": _dispatch_seconds(eng, "decode_step_seconds"),
           "generated_tokens": st["generated_tokens"],
           "generated_tok_per_s": st["generated_tokens"] / wall,
           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -1280,6 +1370,284 @@ def phase_hier_parity(torch, chunk_attn):
         raise AssertionError("H=3 full-width tokens differ kernel vs plain")
 
 
+# --------------------------------------------------------------------------- #
+# speculative serving: coarse-pyramid drafts, chunked verify, ring rewind
+# --------------------------------------------------------------------------- #
+def _bf16_ulp(x):
+    """One bf16 unit in the last place at |x| (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(max(abs(float(x)), 1e-30))) - 7)
+
+
+def _count_dispatches(torch, transformer, chunk_attn, counts, bad):
+    """Patches of prefill_chunk / decode_step that attribute the chunk
+    kernel's launches and combines, and the dispatch itself, to its kind:
+    draft (coarse-only decode), decode (a plain wave), verify (a chunk with
+    collect_kv) or prefill; and count non-finite logits on the device."""
+    fn = chunk_attn.chunk_attention_kernel
+    orig = {"prefill_chunk": transformer.prefill_chunk,
+            "decode_step": transformer.decode_step}
+
+    def wrap(name):
+        def wrapped(params, cfg, *a, **kw):
+            l0, c0 = fn.launches + fn.upper_launches, fn.combine_launches
+            res = orig[name](params, cfg, *a, **kw)
+            if name == "decode_step":
+                kind = "draft" if cfg.attention.coarse_only else "decode"
+            else:
+                kind = "verify" if kw.get("collect_kv") else "prefill"
+            c = counts[kind]
+            c["dispatches"] += 1
+            c["launches"] += fn.launches + fn.upper_launches - l0
+            c["combines"] += fn.combine_launches - c0
+            bad.add_((~torch.isfinite(res[0])).sum())
+            return res
+        return wrapped
+
+    return [mock.patch.object(transformer, n, wrap(n)) for n in orig]
+
+
+def phase_spec_full_width(torch, chunk_attn, base):
+    """Phase 4's requests through the speculative engine (spec_k = 4). The
+    first crosses the ring boundary; whether a round lands in the K tokens
+    before it (and a fallback wave runs) depends on the acceptance."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.models.params import init_params
+    from repro_torch.serve import Engine, EngineConfig, Request
+
+    cfg = get_config("qwen3-1.7b")
+    params = init_params(cfg, seed=SEED, device=DEVICE)
+    K, n_new = SPEC["spec_k"], SPEC["new_tokens"]
+    eng = Engine(cfg, params, EngineConfig(slots=4, max_len=4096, chunk=128,
+                                           spec_k=K), device=DEVICE)
+    reqs = _requests(Request, SERVE["prompts"], n_new, cfg.vocab)
+    counts = {k: dict(dispatches=0, launches=0, combines=0)
+              for k in ("prefill", "decode", "draft", "verify")}
+    bad = torch.zeros((), dtype=torch.int64, device=DEVICE)
+    patches = _count_dispatches(torch, transformer, chunk_attn, counts, bad)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        _reset_chunk(chunk_attn)
+        t0 = time.perf_counter()
+        done = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        upper = chunk_attn.chunk_attention_kernel.upper_launches
+    st = eng.stats
+    n_req = len(done)
+    gen = st["generated_tokens"]
+    full = st["verify_dispatches"] + st["decode_dispatches"]
+    slot_rounds = st["spec_drafted_tokens"] // K
+    plain_tokens = gen - n_req - st["spec_emitted_tokens"]
+    per_dispatch = (gen - n_req) / full
+    # streams against phase 4's: identical, or the first difference sits
+    # where phase 4's top-2 logit gap is under 4 bf16 ulps of its top logit
+    streams, first = {}, {}
+    for r in done:
+        n = len(r.prompt)
+        streams[n] = np.asarray(r.out)
+        diff = np.flatnonzero(streams[n] != base["streams"][n][:n_new])
+        if diff.size:
+            i = int(diff[0])
+            gap, top = base["gaps"][n][i]
+            first[n] = {"position": i, "top2_gap": float(gap),
+                        "limit_4_ulps": 4 * _bf16_ulp(top),
+                        "top_logit": float(top)}
+    result = {
+        "phase": "spec_full_width", "arch": cfg.name, "layers": cfg.num_layers,
+        "activ_dtype": cfg.activ_dtype, "slots": 4, "max_len": 4096,
+        "chunk": 128, "spec_k": K, "draft_budget_m": 1,
+        "prompts": list(SERVE["prompts"]), "new_tokens": n_new,
+        "wall_s": wall, "generated_tokens": gen, "tok_per_s": gen / wall,
+        "plain_engine_tok_per_s": base["tok_per_s"],
+        "spec_rounds": st["spec_rounds"],
+        "drafted_tokens": st["spec_drafted_tokens"],
+        "accepted_tokens": st["spec_accepted_tokens"],
+        "emitted_tokens": st["spec_emitted_tokens"],
+        "acceptance_rate": st["spec_accepted_tokens"]
+        / max(st["spec_drafted_tokens"], 1),
+        "slot_rounds": slot_rounds, "fallback_waves": st["decode_dispatches"],
+        "fallback_wave_tokens": plain_tokens,
+        # decode-side tokens per full-MRA dispatch (verifies + fallback
+        # waves), against phase 4's per decode wave; and per slot, where
+        # plain decoding gives exactly 1
+        "tokens_per_full_dispatch": per_dispatch,
+        "plain_tokens_per_dispatch": base["decode_tokens_per_dispatch"],
+        "dispatch_gain": per_dispatch / base["decode_tokens_per_dispatch"],
+        "tokens_per_slot_dispatch": (gen - n_req)
+        / (slot_rounds + plain_tokens),
+        "draft_s": _dispatch_seconds(eng, "draft_seconds"),
+        "verify_s": _dispatch_seconds(eng, "verify_seconds"),
+        "prefill_s": _dispatch_seconds(eng, "prefill_chunk_seconds"),
+        "decode_wave_s": _dispatch_seconds(eng, "decode_step_seconds"),
+        "by_kind": counts, "upper_launches": upper,
+        "evicted_tokens": float(eng.kv.occupancy()["tokens_evicted"]),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "identical_streams": not first, "first_divergence": first}
+    emit(result)
+    for kind, c in counts.items():
+        if c["launches"] != cfg.num_layers * c["dispatches"]:
+            raise AssertionError(f"{kind}: {c['launches']} chunk-kernel "
+                                 f"launches != {cfg.num_layers} x "
+                                 f"{c['dispatches']} dispatches")
+        C = {"prefill": 128, "verify": K + 1}.get(kind, 1)
+        want = (cfg.num_layers * c["dispatches"]
+                if _splits(chunk_attn, cfg, 4, C, 4096) else 0)
+        if c["combines"] != want:
+            raise AssertionError(f"{kind}: {c['combines']} combines != {want}")
+    for kind, key in (("draft", "draft_dispatches"),
+                      ("verify", "verify_dispatches"),
+                      ("decode", "decode_dispatches"),
+                      ("prefill", "prefill_dispatches")):
+        if counts[kind]["dispatches"] != st[key]:
+            raise AssertionError(f"{kind} dispatches {counts[kind]} != {key}")
+    if upper or not st["spec_rounds"] or not result["evicted_tokens"]:
+        raise AssertionError("no round, no ring crossing, or an H-level launch")
+    if int(bad) != 0:
+        raise AssertionError(f"{int(bad)} non-finite logits")
+    if any(len(o) != n_new or int(o.min()) < 0 or int(o.max()) >= cfg.vocab
+           for o in streams.values()):
+        raise AssertionError("a stream is short or holds an out-of-vocab token")
+    for n, f in first.items():
+        if not f["top2_gap"] < f["limit_4_ulps"]:
+            raise AssertionError(f"prompt {n}: speculative stream leaves phase "
+                                 f"4's at {f} (no near tie)")
+    return counts, eng
+
+
+def phase_spec_profile(torch, eng):
+    """Where a round's time goes, on the engine's cache after its run: one
+    draft dispatch (coarse-only decode + draft sample), one verify dispatch
+    (the (K+1)-chunk with all logits and its K/V + the accept step) and one
+    snapshot + rewind pair."""
+    from repro_torch.models import transformer
+    from repro_torch.serve.sampling import draft_batch, spec_verify_batch
+
+    B, K, spec = eng.slots, eng.spec_k, eng._spec
+    vocab = eng.cfg.vocab
+    host = [np.zeros(B, np.float32), np.zeros(B, np.int64),
+            np.ones(B, np.float32), np.zeros(B, np.int64),
+            np.zeros(B, np.int64)]
+    toks = torch.arange(1, B + 1, device=DEVICE)
+    active = torch.ones(B, dtype=torch.bool, device=DEVICE)
+    chunk = (torch.arange(1, B * (K + 1) + 1, device=DEVICE)
+             % vocab).reshape(B, K + 1)
+    nv = torch.full((B,), K + 1, dtype=torch.int32, device=DEVICE)
+    qs = torch.zeros((B, K, eng.cfg.padded_vocab), device=DEVICE)
+
+    def draft():
+        logits, _ = transformer.decode_step(eng.params, spec.dcfg, eng.kv.tree,
+                                            toks, active=active)
+        draft_batch(logits, *host, vocab=vocab)
+        torch.cuda.synchronize()
+
+    def verify():
+        logits, _, _ = transformer.prefill_chunk(
+            eng.params, eng.cfg, eng.kv.tree, chunk, nv, all_logits=True,
+            collect_kv=True)
+        out, _, _ = spec_verify_batch(logits, chunk[:, 1:], qs, *host[:4],
+                                      host[4], active, vocab=vocab)
+        out.cpu()
+
+    def rewind():
+        snap = eng.kv.spec_snapshot(K + 1)
+        eng.kv.spec_rewind(snap, snap["lengths"], active)
+        torch.cuda.synchronize()
+
+    emit({"phase": "spec_profile", "note": "ms per dispatch; device_ms = "
+          "summed kernel time from torch.profiler; busy_share = device_ms / "
+          "wall_ms", "slots": B, "spec_k": K, "draft": _profile(torch, draft, 3),
+          "verify": _profile(torch, verify, 3),
+          "snapshot_rewind": _profile(torch, rewind, 3)})
+
+
+def _park_for_rewind(cfg, params, Engine, EngineConfig, Request):
+    """An engine whose two slots sit at lengths 30 and 12 of a 32-token
+    window, so four draft steps of slot 0 cross the ring boundary."""
+    eng = Engine(cfg, params, EngineConfig(slots=2, max_len=32, chunk=8),
+                 device=DEVICE)
+    eng.run([Request(prompt=np.arange(1, 9), max_new_tokens=23),
+             Request(prompt=np.arange(3, 9), max_new_tokens=7)])
+    return eng
+
+
+def phase_spec_parity(torch, chunk_attn):
+    """Speculative and telemetry parity on the card at the smoke size, fp32:
+    greedy spec_k = 3 streams equal the plain engine's at H = 2 and H = 3,
+    telemetry on and off give equal streams, and snapshot -> 4 draft steps
+    -> rewind leaves every cache tensor bitwise as it was."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer
+    from repro_torch.models.params import init_params
+    from repro_torch.serve import Engine, EngineConfig, Request
+    from repro_torch.serve.speculative import draft_config
+
+    def h3(cfg):
+        return cfg.replace(attention=cfg.attention.replace(levels=3))
+
+    small = get_smoke_config("qwen3-1.7b", activ_dtype="float32")
+    params = init_params(small, seed=SEED, device=DEVICE)
+    fn = chunk_attn.chunk_attention_kernel
+    result = {}
+    for label, cfg, ecfg, lens, n_new in (
+            ("h2", small, EngineConfig(slots=3, max_len=64, chunk=8),
+             (19, 3, 10, 40, 50), 60),
+            ("h3", h3(small), EngineConfig(slots=2, max_len=64, chunk=32),
+             (200, 37, 150, 90), 24)):
+        runs = {}
+        for key, ec in (("plain", ecfg), ("spec", ecfg.replace(spec_k=3)),
+                        ("spec_no_telemetry",
+                         ecfg.replace(spec_k=3, telemetry=False))):
+            _reset_chunk(chunk_attn)
+            eng = Engine(cfg, params, ec, device=DEVICE)
+            done = eng.run(_requests(Request, lens, n_new, cfg.vocab))
+            runs[key] = {len(r.prompt): np.asarray(r.out) for r in done}
+            if fn.launches + fn.upper_launches == 0:
+                raise AssertionError(f"{label} {key}: no kernel launch")
+            if key == "spec":
+                rounds = eng.stats["spec_rounds"]
+                accepted = eng.stats["spec_accepted_tokens"]
+        same = {k: all(np.array_equal(runs[k][n], runs["plain"][n])
+                       for n in runs["plain"]) for k in runs}
+        result[label] = {"spec_equals_plain": same["spec"],
+                         "telemetry_off_equals_on": all(np.array_equal(
+                             runs["spec_no_telemetry"][n], runs["spec"][n])
+                             for n in runs["spec"]),
+                         "spec_rounds": rounds, "accepted_tokens": accepted,
+                         "requests": len(runs["plain"])}
+        if not (same["spec"] and result[label]["telemetry_off_equals_on"]
+                and rounds > 0):
+            raise AssertionError(f"{label}: speculative streams differ: "
+                                 f"{result[label]}")
+    rewinds = {}
+    for label, cfg in (("h2", small), ("h2_int8", small.replace(
+            attention=small.attention.replace(kv_quant=True))),
+            ("h3", h3(small))):
+        eng = _park_for_rewind(cfg, params, Engine, EngineConfig, Request)
+        before = {(k, i): a.clone() for k, v in eng.kv.tree.items()
+                  for i, a in enumerate(v if isinstance(v, list) else [v])}
+        act = torch.ones(2, dtype=torch.bool, device=DEVICE)
+        snap = eng.kv.spec_snapshot(5)
+        tok = torch.tensor([7, 9], device=DEVICE)
+        for _ in range(4):
+            logits, _ = transformer.decode_step(params, draft_config(cfg),
+                                                eng.kv.tree, tok, active=act)
+            tok = torch.argmax(logits[:, :cfg.vocab], -1)
+        moved = int(eng.kv.lengths[0]) == 34
+        eng.kv.spec_rewind(snap, snap["lengths"], act)
+        after = {(k, i): a for k, v in eng.kv.tree.items()
+                 for i, a in enumerate(v if isinstance(v, list) else [v])}
+        exact = all(torch.equal(after[k], before[k]) for k in before)
+        rewinds[label] = {"drafts_advanced": moved, "bitwise_equal": exact,
+                          "tensors": len(before)}
+        if not (moved and exact):
+            raise AssertionError(f"rewind {label}: {rewinds[label]}")
+    emit({"phase": "spec_parity", **result, "rewind": rewinds})
+
+
 def main() -> int:
     import torch
 
@@ -1297,7 +1665,7 @@ def main() -> int:
     smi = phase_device(torch)
     max_err = phase_kernel_vs_plain(torch, tmd, chunk_attn)
     timing = phase_timing(torch, tmd, chunk_attn)
-    launches, eng = phase_engine_full_width(torch, chunk_attn)
+    launches, eng, base = phase_engine_full_width(torch, chunk_attn)
     phase_profile(torch, eng)
     del eng
     phase_engine_parity(torch, chunk_attn)
@@ -1316,6 +1684,12 @@ def main() -> int:
     del eng
     torch.cuda.empty_cache()
     phase_hier_parity(torch, chunk_attn)
+    torch.cuda.empty_cache()
+    spec_counts, eng = phase_spec_full_width(torch, chunk_attn, base)
+    phase_spec_profile(torch, eng)
+    del eng
+    torch.cuda.empty_cache()
+    phase_spec_parity(torch, chunk_attn)
     dec = timing["decode"]
     print(smi, flush=True)
     train_kernels = []
@@ -1344,6 +1718,9 @@ def main() -> int:
         "source": "src/repro_torch/csrc/chunk_attn.cu",
         "replaces": "src/repro/kernels/chunk_attn.py:93",
         "launches": launches[0], "combine_launches": launches[1],
+        "draft_launches": spec_counts["draft"]["launches"],
+        "verify_launches": spec_counts["verify"]["launches"],
+        "fallback_wave_launches": spec_counts["decode"]["launches"],
         "max_abs_err": max_err,
         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],

@@ -290,8 +290,9 @@ def mra2_chunk_attention(q, k_cache, v_cache, lengths, q_pos, cfg: MraConfig,
             f"({B}, {C}) of q {tuple(q.shape)}")
     if cfg.draft_level > 1:
         raise NotImplementedError(
-            "draft_level > 1 (coarser speculative-draft background) comes "
-            "with the speculative-decoding slice")
+            "draft_level > 1 (coarser speculative-draft background) is not "
+            "ported: the grouped fold needs the CUDA chunk kernel's support "
+            "(ROADMAP.md)")
     from repro_torch.kernels.chunk_attn import chunk_attention_kernel
 
     pre = _chunk_prelude(q, k_cache, v_cache, lengths, q_pos, cfg,

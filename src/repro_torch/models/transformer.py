@@ -141,7 +141,7 @@ def _residual_attention(x, o, p, cfg: ModelConfig):
 
 @torch.no_grad()
 def prefill_chunk(params, cfg: ModelConfig, cache, tokens, num_valid, *,
-                  all_logits: bool = False):
+                  all_logits: bool = False, collect_kv: bool = False):
     """Chunked batched prefill: C prompt tokens per slot, ragged lengths.
 
     Every prefilling slot advances by up to C tokens in one call: the
@@ -155,11 +155,16 @@ def prefill_chunk(params, cfg: ModelConfig, cache, tokens, num_valid, *,
       tokens: (B, C) int prompt chunk per slot (padding arbitrary).
       num_valid: (B,) count of real tokens per slot; 0 freezes the slot.
       all_logits: return logits at every chunk position, not just the last
-        valid one.
+        valid one (a speculative verify reads the target distribution after
+        every draft).
+      collect_kv: also return the chunk's per-layer fp32 K/V, (L, B, Hkv, C,
+        D) each — the exact values the pyramid sums added, so a speculative
+        rewind replays the kept prefix bit for bit even over an int8 cache.
 
     Returns:
       (logits (B, V) — or (B, C, V) with ``all_logits`` —, cache), the cache
-      updated in place.
+      updated in place, with ``(chunk_k, chunk_v)`` appended when
+      ``collect_kv``.
     """
     B, C = tokens.shape
     dev = tokens.device
@@ -174,6 +179,7 @@ def prefill_chunk(params, cfg: ModelConfig, cache, tokens, num_valid, *,
     b_idx = torch.arange(B, device=dev)
     b_idx2 = b_idx[:, None].expand(B, C)
     frozen = (num_valid == 0)[:, None, None, None]
+    chunk_k, chunk_v = [], []
 
     def scatter_tokens(arr, vals):
         """Masked in-place write: vals (B, Hkv, C, ...) -> arr (B, Hkv, S, ...)."""
@@ -220,6 +226,9 @@ def prefill_chunk(params, cfg: ModelConfig, cache, tokens, num_valid, *,
             k_write, v_write = k_new, v_new
         kc = scatter_tokens(cache["k"][i], k_write)
         vc = scatter_tokens(cache["v"][i], v_write)
+        if collect_kv:
+            chunk_k.append(k_new.to(torch.float32))
+            chunk_v.append(v_new.to(torch.float32))
         pyramid = None
         if paged:
             base_k, base_v = cache["pyr_k"][i], cache["pyr_v"][i]
@@ -248,6 +257,8 @@ def prefill_chunk(params, cfg: ModelConfig, cache, tokens, num_valid, *,
         x_last = x[torch.arange(B, device=dev), last]  # (B, d)
         logits = L.unembed(x_last[:, None], params["embed"], cfg)[:, 0]
     cache["lengths"].copy_(lengths_new)
+    if collect_kv:
+        return logits, cache, (torch.stack(chunk_k), torch.stack(chunk_v))
     return logits, cache
 
 

@@ -2,16 +2,22 @@ from .cache import CacheBackend, RingPagedKVCache
 from .engine import Engine, EngineConfig
 from .sampling import SamplingParams, filtered_logits, greedy_batch, sample_batch
 from .scheduler import Request, Scheduler, SlotState
+from .speculative import SpecDecoder
+from .telemetry import MetricsRegistry, Telemetry, UndeclaredMetric
 
 __all__ = [
     "CacheBackend",
     "Engine",
     "EngineConfig",
+    "MetricsRegistry",
     "Request",
     "RingPagedKVCache",
     "SamplingParams",
     "Scheduler",
     "SlotState",
+    "SpecDecoder",
+    "Telemetry",
+    "UndeclaredMetric",
     "filtered_logits",
     "greedy_batch",
     "sample_batch",

@@ -13,6 +13,8 @@ introspection:
   paged          ring-paged MRA semantics (page table + pyramid)
   reset_slots    bit-exact per-slot reset on (re)admission
   lengths        (slots,) host view of per-slot stream lengths
+  spec_snapshot  the speculative snapshot / rewind pair; only the
+  spec_rewind    ring-paged MRA cache has one (the defaults raise)
 """
 from __future__ import annotations
 
@@ -43,3 +45,14 @@ class CacheBackend:
             "pages_live": 0.0,
             "tokens_evicted": 0.0,
         }
+
+    # speculative decoding is a ring-paged feature (DESIGN.md §10/§12)
+    def spec_snapshot(self, window: int):
+        raise NotImplementedError(
+            "speculative rounds need the ring-paged MRA cache "
+            "(pyramid pages are the draft model)")
+
+    def spec_rewind(self, snap, target_lengths, gate, chunk_kv=None):
+        raise NotImplementedError(
+            "speculative rounds need the ring-paged MRA cache "
+            "(pyramid pages are the draft model)")

@@ -10,17 +10,24 @@ Port of ``repro/serve/engine.py`` (DESIGN.md §9). Per engine iteration:
      chunk's last-position logits.
   3. decode — ONE ``decode_step`` + sampling dispatch advances every DECODE
      slot (active-masked: other slots' state is untouched bit-for-bit).
+     With ``spec_k > 0`` the wave runs a resolution-speculative round
+     instead (``serve/speculative.py``, DESIGN.md §10): K coarse-pyramid
+     drafts + one chunked full-MRA verify emit up to K + 1 tokens a slot,
+     with greedy streams identical to plain decoding; slots whose round
+     would straddle a ring-eviction boundary take a plain wave.
 
-On a card every layer of both dispatches runs MRA chunk/decode attention
-through the CUDA kernel (``kernels/chunk_attn.py``). Speculative decoding,
-mesh serving and the typed telemetry of the reference come with later
-slices; the engine keeps plain counters and per-dispatch wall seconds in
-``stats``.
+On a card every layer of every dispatch runs MRA chunk/decode attention
+through the CUDA kernel (``kernels/chunk_attn.py``). Observability
+(``serve/telemetry.py``, DESIGN.md §13): the engine's ``Telemetry`` declares
+its metric set in ``reset_stats`` — typed counters, bounded histograms of
+dispatch wall time and request latencies, occupancy gauges — and traces
+each request's lifecycle; ``Engine.stats`` is a typed view over it.
+``EngineConfig(telemetry=False)`` keeps only the counters. Mesh serving
+comes with a later slice.
 """
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import List, Optional
 
 import numpy as np
@@ -33,12 +40,10 @@ from repro_torch.models import transformer
 
 from .cache import RingPagedKVCache
 from .sampling import SamplingParams, sample_batch
-from .scheduler import Request, Scheduler
+from .scheduler import Request, Scheduler, SlotState
+from .telemetry import StatsView, Telemetry
 
 __all__ = ["Engine", "EngineConfig", "Request", "SamplingParams"]
-
-_COUNTERS = ("prefill_dispatches", "decode_dispatches", "prefill_tokens",
-             "generated_tokens", "requests_completed")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,18 +65,26 @@ class EngineConfig:
     kernel_mode: serving-kernel tile shape — "auto" (decode -> latency,
       prefill -> throughput), or "latency" / "throughput" for every
       dispatch. Token streams are the same in all three.
-    spec_k / mesh / telemetry: speculative decoding, mesh serving and typed
-      telemetry; not ported yet — any other value than the default raises.
+    spec_k: speculative draft length (0 = plain decode); needs an MRA
+      attention kind (the ring-paged cache) and ``spec_k + 1 <= max_len``.
+    draft_level: background resolution of the drafts; only 1 (per-page
+      means) is ported — any other value raises.
+    mesh: tensor-parallel serving; not ported yet — any value but None
+      raises.
+    telemetry: request-lifecycle tracing, latency histograms, occupancy
+      gauges and profiler annotations (``serve/telemetry.py``). False keeps
+      only the counters; token streams are the same either way.
     """
 
     slots: int = 4
     max_len: int = 512
     chunk: int = 32
+    spec_k: int = 0
+    draft_level: int = 1
+    mesh: Optional[object] = None
     default_sampling: Optional[SamplingParams] = None
     kernel_mode: str = "auto"
-    spec_k: int = 0
-    mesh: Optional[object] = None
-    telemetry: bool = False
+    telemetry: bool = True
 
     def replace(self, **kw) -> "EngineConfig":
         return dataclasses.replace(self, **kw)
@@ -92,14 +105,14 @@ class Engine:
         if config.kernel_mode not in KERNEL_MODES:
             raise ValueError(f"EngineConfig.kernel_mode must be one of "
                              f"{KERNEL_MODES}, got {config.kernel_mode!r}")
-        for name, later in (("spec_k", "speculative decoding"),
-                            ("mesh", "distributed serving"),
-                            ("telemetry", "serving telemetry")):
-            default = EngineConfig.__dataclass_fields__[name].default
-            if getattr(config, name) != default:
-                raise NotImplementedError(
-                    f"EngineConfig.{name}={getattr(config, name)!r}: {later} "
-                    "is not ported yet")
+        if config.mesh is not None:
+            raise NotImplementedError(
+                f"EngineConfig.mesh={config.mesh!r}: distributed serving is "
+                "not ported yet")
+        if config.draft_level != 1:
+            raise NotImplementedError(
+                f"EngineConfig.draft_level={config.draft_level}: only "
+                "draft_level=1 is ported (ROADMAP.md)")
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"family {cfg.family!r} does not serve in the port yet")
@@ -120,12 +133,61 @@ class Engine:
         self.chunk = min(config.chunk, self.max_len)
         if self.kv.chunk_cap is not None:
             self.chunk = min(self.chunk, self.kv.chunk_cap)
+        self.spec_k = config.spec_k
+        self._spec = None
+        if self.spec_k:
+            from .speculative import SpecDecoder
+
+            if self.spec_k + 1 > self.max_len:
+                raise ValueError(f"spec_k {self.spec_k} + 1 exceeds the cache "
+                                 f"window {self.max_len}")
+            self._spec = SpecDecoder(cfg, self.spec_k)
         self.reset_stats()
 
     def reset_stats(self) -> None:
-        """Zero the counters and the per-dispatch wall-second totals."""
-        self.stats = {k: 0 for k in _COUNTERS}
-        self.stats.update(prefill_seconds=0.0, decode_seconds=0.0)
+        """Declare the engine's metric set anew, zeroed (DESIGN.md §13).
+
+        The only place serving metrics come into existence: every counter a
+        component writes — the engine's and the speculative keys
+        ``SpecDecoder`` increments — is declared here, so a write to any
+        other name raises ``UndeclaredMetric``. Dispatch wall time is in
+        the ``prefill_chunk_seconds`` / ``decode_step_seconds`` (a whole
+        decode wave) / ``draft_seconds`` / ``verify_seconds`` histograms,
+        whose ``total`` is exact; each span ends after the device finished.
+        """
+        tel = Telemetry(enabled=self.config.telemetry, tags={
+            "family": self.cfg.family,
+            "cache": type(self.kv).__name__,
+            "kernel_mode": self.config.kernel_mode,
+        })
+        m = tel.metrics
+        m.declare_counter(
+            "prefill_dispatches", "decode_dispatches", "prefill_tokens",
+            "generated_tokens", "requests_completed",
+            # speculative decoding (spec_k > 0; serve/speculative.py)
+            "spec_rounds", "draft_dispatches", "verify_dispatches",
+            "spec_drafted_tokens", "spec_accepted_tokens",
+            "spec_emitted_tokens")
+        # dispatch wall time + request-derived latencies, bounded reservoirs
+        m.declare_histogram(
+            "decode_step_seconds", "prefill_chunk_seconds", "draft_seconds",
+            "verify_seconds", "ttft_seconds", "queue_wait_seconds",
+            "prefill_seconds", "inter_token_seconds",
+            "spec_accepted_per_round")
+        # occupancy gauges, refreshed once per iteration; the cache's keys
+        # (per-level ones at H >= 3 included) come from the backend itself
+        m.declare_gauge(
+            "queue_depth", "slots_free", "slots_prefill", "slots_decode",
+            *("cache_" + k for k in self.kv.occupancy()))
+        m.declare_series("spec_accept_by_slot")
+        self.telemetry = tel
+
+    @property
+    def stats(self) -> StatsView:
+        """Typed view over the telemetry registry: counters and gauges read
+        as numbers, histograms as their reservoir lists; undeclared keys
+        raise."""
+        return StatsView(self.telemetry.metrics)
 
     def _tensor(self, a, dtype):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
@@ -141,16 +203,18 @@ class Engine:
         (completion order, which may differ from submission order)."""
         sched = Scheduler(self.slots, self.kv.capacity, self.chunk,
                           ring=self.kv.paged,
-                          default_sampling=self.config.default_sampling)
+                          default_sampling=self.config.default_sampling,
+                          telemetry=self.telemetry)
         for r in requests:
             sched.submit(r)
         while sched.busy():
             self._iterate(sched)
-        self.stats["requests_completed"] += len(sched.done)
+        self.telemetry.metrics.inc("requests_completed", len(sched.done))
         return sched.done
 
     # ------------------------------------------------------------------ #
     def _iterate(self, sched: Scheduler) -> None:
+        tel = self.telemetry
         newly = sched.admit()
         if newly:
             mask = np.zeros((self.slots,), bool)
@@ -160,38 +224,57 @@ class Engine:
         plan = sched.prefill_plan()
         if plan is not None:
             tokens, num_valid, finishing = plan
-            t0 = time.perf_counter()
-            logits, _ = transformer.prefill_chunk(
-                self.params, self.cfg, self.kv.tree,
-                self._tensor(tokens, torch.int64),
-                self._tensor(num_valid, torch.int32))
-            first = None
-            if finishing:
-                first = sample_batch(logits, *sched.sampler_arrays(),
-                                     vocab=self.cfg.vocab).cpu().numpy()
-            self._sync()
-            self.stats["prefill_seconds"] += time.perf_counter() - t0
-            self.stats["prefill_dispatches"] += 1
-            self.stats["prefill_tokens"] += int(num_valid.sum())
+            with tel.dispatch("prefill_chunk", hist="prefill_chunk_seconds",
+                              tokens=int(num_valid.sum())):
+                logits, _ = transformer.prefill_chunk(
+                    self.params, self.cfg, self.kv.tree,
+                    self._tensor(tokens, torch.int64),
+                    self._tensor(num_valid, torch.int32))
+                first = None
+                if finishing:
+                    first = sample_batch(logits, *sched.sampler_arrays(),
+                                         vocab=self.cfg.vocab).cpu().numpy()
+                self._sync()
+            tel.metrics.inc("prefill_dispatches")
+            tel.metrics.inc("prefill_tokens", int(num_valid.sum()))
             for s in finishing:
+                tel.on_prefill_done(sched.slots[s].req)
                 sched.on_sampled(s, first[s])
-            self.stats["generated_tokens"] += len(finishing)
+            tel.metrics.inc("generated_tokens", len(finishing))
 
         active = sched.decode_mask()
         if active.any():
-            self._plain_decode(sched, active)
+            t0 = tel.now() if tel.enabled else 0.0
+            if self._spec is not None:
+                spec_wave, plain_wave = self._spec.split_wave(self.kv, active)
+                if spec_wave.any():
+                    self._spec.round(self, sched, spec_wave)
+                if plain_wave.any():
+                    self._plain_decode(sched, plain_wave)
+            else:
+                self._plain_decode(sched, active)
+            if tel.enabled:
+                tel.metrics.observe("decode_step_seconds", tel.now() - t0)
+        if tel.enabled:
+            states = [s.state for s in sched.slots]
+            tel.set_occupancy(
+                {"queue_depth": len(sched.pending),
+                 "slots_free": states.count(SlotState.FREE),
+                 "slots_prefill": states.count(SlotState.PREFILL),
+                 "slots_decode": states.count(SlotState.DECODE)},
+                self.kv.occupancy())
 
     def _plain_decode(self, sched: Scheduler, active: np.ndarray) -> None:
         """One decode_step + sample dispatch for the ``active`` slots."""
         feed = sched.feed_tokens()
-        t0 = time.perf_counter()
-        logits, _ = transformer.decode_step(
-            self.params, self.cfg, self.kv.tree, self._tensor(feed, torch.int64),
-            active=self._tensor(active, torch.bool))
-        nxt = sample_batch(logits, *sched.sampler_arrays(),
-                           vocab=self.cfg.vocab).cpu().numpy()
-        self.stats["decode_seconds"] += time.perf_counter() - t0
-        self.stats["decode_dispatches"] += 1
+        with self.telemetry.dispatch("decode_step", slots=int(active.sum())):
+            logits, _ = transformer.decode_step(
+                self.params, self.cfg, self.kv.tree,
+                self._tensor(feed, torch.int64),
+                active=self._tensor(active, torch.bool))
+            nxt = sample_batch(logits, *sched.sampler_arrays(),
+                               vocab=self.cfg.vocab).cpu().numpy()
+        self.telemetry.metrics.inc("decode_dispatches")
         for s in np.flatnonzero(active):
             sched.on_sampled(int(s), nxt[s])
-        self.stats["generated_tokens"] += int(active.sum())
+        self.telemetry.metrics.inc("generated_tokens", int(active.sum()))

@@ -8,9 +8,10 @@ with ragged per-slot progress: slots prefill different prompts in shared
 chunked dispatches, decode at different lengths in shared decode
 dispatches, and finish/readmit independently. The scheduler only plans;
 device state lives in the cache backend and numerics in the model
-functions, so planning order can never change a request's tokens. The
-reference's telemetry hooks and speculative-round bookkeeping are left out
-until those slices.
+functions, so planning order can never change a request's tokens. It
+stamps each request's lifecycle through the engine's telemetry
+(``serve/telemetry.py``) and delivers a speculative round's ragged
+emission (``on_spec_tokens``).
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from typing import List, Optional
 import numpy as np
 
 from .sampling import SamplingParams
+from .telemetry import Telemetry
 
 
 @dataclasses.dataclass
@@ -35,12 +37,18 @@ class Request:
       resolved at submit.
     out: filled by the engine — (max_new_tokens,) int32 sampled tokens
       (empty for degenerate requests: empty prompt or max_new_tokens <= 0).
+    spec_accepted: drafted tokens of this request that verification
+      accepted (speculative serving; DESIGN.md §10).
+    trace: lifecycle stamps (``telemetry.RequestTrace``); None with
+      telemetry disabled.
     """
 
     prompt: np.ndarray
     max_new_tokens: int = 16
     sampling: Optional[SamplingParams] = None
     out: Optional[np.ndarray] = None
+    spec_accepted: int = 0
+    trace: Optional[object] = None
 
 
 class SlotState(enum.Enum):
@@ -70,7 +78,8 @@ class Scheduler:
 
     def __init__(self, slots: int, capacity: Optional[int], chunk: int, *,
                  ring: bool = True,
-                 default_sampling: Optional[SamplingParams] = None):
+                 default_sampling: Optional[SamplingParams] = None,
+                 telemetry: Optional[Telemetry] = None):
         if chunk < 1 or (capacity is not None and capacity < 1):
             raise ValueError(f"chunk {chunk} and capacity {capacity} must be >= 1")
         self.capacity = capacity
@@ -80,12 +89,15 @@ class Scheduler:
         self.slots = [Slot() for _ in range(slots)]
         self.pending: deque = deque()
         self.done: List[Request] = []
+        # lifecycle stamping; None (direct construction) is the no-op
+        self.telemetry = telemetry or Telemetry(enabled=False)
 
     # ---- admission ---------------------------------------------------------
     def submit(self, req: Request) -> None:
         plen = int(len(req.prompt))
         if req.sampling is None:
             req.sampling = self.default_sampling or SamplingParams()
+        self.telemetry.on_submit(req)
         if self.capacity is not None:
             if plen > self.capacity:
                 raise ValueError(
@@ -101,6 +113,7 @@ class Scheduler:
             # without occupying a slot or issuing a spurious decode step
             req.out = np.array([], np.int32)
             self.done.append(req)
+            self.telemetry.on_complete(req)
             return
         self.pending.append(req)
 
@@ -109,8 +122,9 @@ class Scheduler:
         newly = []
         for s, slot in enumerate(self.slots):
             if slot.state is SlotState.FREE and self.pending:
-                self.slots[s] = Slot(state=SlotState.PREFILL,
-                                     req=self.pending.popleft())
+                req = self.pending.popleft()
+                self.slots[s] = Slot(state=SlotState.PREFILL, req=req)
+                self.telemetry.on_admit(req, s)
                 newly.append(s)
         return newly
 
@@ -148,6 +162,17 @@ class Scheduler:
             [s.state is SlotState.DECODE and s.generated > 0 for s in self.slots],
             bool)
 
+    def any_sampling(self, slots=None) -> bool:
+        """True when any of ``slots`` (default: every DECODE slot) samples
+        (temperature > 0); a sampling request still prefilling must not
+        send greedy decode slots down the sampling path."""
+        if slots is None:
+            slots = [s for s, slot in enumerate(self.slots)
+                     if slot.state is SlotState.DECODE]
+        return any(self.slots[s].req is not None
+                   and self.slots[s].req.sampling.temperature > 0.0
+                   for s in slots)
+
     def feed_tokens(self) -> np.ndarray:
         """(n_slots,) int32 token each slot feeds next (garbage if inactive)."""
         return np.array([s.token for s in self.slots], np.int32)
@@ -169,19 +194,44 @@ class Scheduler:
         return temp, top_k, top_p, seed, step
 
     # ---- progress ----------------------------------------------------------
-    def on_sampled(self, s: int, token: int) -> Optional[Request]:
-        """Record a sampled token for slot ``s``; returns the request when done."""
+    def _decoding(self, s: int) -> Slot:
         slot = self.slots[s]
         if slot.state is not SlotState.DECODE or slot.req is None:
             raise RuntimeError(f"slot {s} is {slot.state}, not decoding")
+        return slot
+
+    def on_spec_tokens(self, s: int, tokens, n_accepted: int) -> int:
+        """Deliver a speculative round's emission to slot ``s``.
+
+        ``tokens`` are the round's tokens for this slot (accepted drafts,
+        then the correction or bonus token), ``n_accepted`` the accepted
+        drafts among them. Delivery stops when the request completes: the
+        surplus is dropped (the rewind already trimmed the cache, and a
+        freed slot is reset on readmission). Returns the delivered count.
+        """
+        slot = self._decoding(s)
+        slot.req.spec_accepted += int(n_accepted)
+        self.telemetry.on_spec_accept(slot.req, s, int(n_accepted))
+        delivered = 0
+        for t in tokens:
+            delivered += 1
+            if self.on_sampled(s, int(t)) is not None:
+                break
+        return delivered
+
+    def on_sampled(self, s: int, token: int) -> Optional[Request]:
+        """Record a sampled token for slot ``s``; returns the request when done."""
+        slot = self._decoding(s)
         slot.out.append(int(token))
         slot.token = int(token)
         slot.generated += 1
+        self.telemetry.on_token(slot.req)
         if slot.generated >= slot.req.max_new_tokens:
             req = slot.req
             req.out = np.array(slot.out, np.int32)
             self.done.append(req)
             self.slots[s] = Slot()
+            self.telemetry.on_complete(req)
             return req
         return None
 

@@ -28,6 +28,10 @@ run on the same CUDA tensors.
     G = 2, int8 sparse coarse-only) at D = 16, C = 1 and 5, both modes, with
     the sweep's inputs rebuilt here without JAX (``ref_case_inputs``):
     atol 2e-5 / rtol 1e-5 on every row.
+  * ``chunk_attn`` at the speculative drafts' budget m = 1 (decode with the
+    split forced and planned, a verify-width chunk, the H-level view), and
+    the speculative engine on the card: greedy streams equal the plain
+    engine's at H = 2 and H = 3, the snapshot/rewind bitwise.
   * ``bsa_fwd`` / ``bsa_bwd_dq`` / ``bsa_bwd_dkv`` against
     ``block_sparse_attention_ref`` / ``_bwd_ref``: the normalized numerator
     and the max-scaled gradients at rtol/atol 1e-4, mt at abs 1e-5 (fp32
@@ -307,6 +311,27 @@ def test_chunk_attn_forced_splits_match_plain(cuda, shape, nsplit):
                 == before + (ns > 1))
         ties, rows = ties + t, rows + n
     assert ties <= 0.01 * rows, f"{ties} near-tie rows of {rows}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,C,nsplit", [
+    ("main", 1, 1), ("main", 1, 2), ("main", 1, "plan"), ("main", 5, None),
+    ("long", 1, None), ("long", 5, None)])
+def test_chunk_attn_budget_one_matches_plain(cuda, shape, C, nsplit):
+    """The speculative drafts' budget m = 1 (own block only): most splits of
+    a decode row hold no selected page and must add nothing to the merge;
+    at long context with an H-level view (NU = 33) folded in by split 0."""
+    sh = dict(DECODE[shape], m=1)
+    mode = "latency" if C == 1 else "throughput"
+    for i, (layout, dtype, variant) in enumerate(itertools.product(
+            ("dense", "ring", "ragged"), ("bf16", "int8"), ("full", "sparse"))):
+        up = (upper_of(40 + i, sh["B"], sh["Hkv"], sh["D"], 33, "all_live",
+                       cuda) if shape == "long" else None)
+        pre, k, v, q_pos, ks, vs = prelude(40 + i, sh, C, layout, dtype, cuda,
+                                           variant, upper=up)
+        ns = planned(pre) if nsplit == "plan" else nsplit
+        compare(pre, k, v, q_pos, 1, ks, vs, variant == "full", mode,
+                nsplit=ns)
 
 
 @pytest.mark.cuda
@@ -672,3 +697,80 @@ def test_bsa_plan_mirrors_the_library(cuda):
     assert lib.bsa_smem_bytes(0, 0, 32, 32) == 0
     for kernel in ("fwd", "dq", "dkv"):  # the training shapes, bf16
         assert bsa.blocks_per_sm(kernel, torch.bfloat16, 128, 128) >= 2
+
+
+# ---- speculative serving through the kernel (smoke size, fp32) ------------
+def _smoke_engine_case(levels, cuda):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.params import init_params
+    from repro_torch.serve import EngineConfig
+
+    cfg = get_smoke_config("qwen3-1.7b", activ_dtype="float32")
+    cfg = cfg.replace(attention=cfg.attention.replace(levels=levels))
+    params = init_params(cfg, seed=0, device=cuda)
+    if levels == 2:
+        return cfg, params, EngineConfig(slots=3, max_len=64, chunk=8), (
+            (19, 60), (3, 60), (10, 60), (40, 60), (50, 60))
+    return cfg, params, EngineConfig(slots=2, max_len=64, chunk=32), (
+        (200, 24), (37, 24), (150, 24), (90, 24))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [2, 3])
+def test_spec_engine_streams_match_the_plain_engine(cuda, levels):
+    """Greedy spec_k = 3 on the card: coarse-only drafts (m = 1) and
+    (K+1)-chunk verifies through the kernel emit the plain engine's tokens."""
+    from repro_torch.serve import Engine, Request
+
+    cfg, params, ecfg, mix = _smoke_engine_case(levels, cuda)
+    r = np.random.default_rng(0)
+    prompts = [r.integers(0, cfg.vocab, n) for n, _ in mix]
+
+    def run(ec):
+        fn = chunk_attn.chunk_attention_kernel
+        before = fn.launches + fn.upper_launches
+        eng = Engine(cfg, params, ec, device=cuda)
+        done = eng.run([Request(prompt=p, max_new_tokens=t)
+                        for p, (_, t) in zip(prompts, mix)])
+        assert fn.launches + fn.upper_launches > before
+        return eng, {len(q.prompt): q.out for q in done}
+
+    _, plain = run(ecfg)
+    eng, spec = run(ecfg.replace(spec_k=3))
+    assert eng.stats["spec_rounds"] > 0
+    for n in plain:
+        np.testing.assert_array_equal(spec[n], plain[n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["h2", "int8", "h3"])
+def test_spec_rewind_is_bitwise_on_the_card(cuda, case):
+    """snapshot -> 4 coarse draft steps across the ring boundary -> rewind
+    leaves every cache tensor (the hierarchy's at H = 3) bitwise as it was."""
+    from repro_torch.models import transformer
+    from repro_torch.serve import Engine, EngineConfig, Request
+    from repro_torch.serve.speculative import draft_config
+
+    cfg, params, _, _ = _smoke_engine_case(3 if case == "h3" else 2, cuda)
+    cfg = cfg.replace(attention=cfg.attention.replace(kv_quant=case == "int8"))
+    eng = Engine(cfg, params, EngineConfig(slots=2, max_len=32, chunk=8),
+                 device=cuda)
+    eng.run([Request(prompt=np.arange(1, 9), max_new_tokens=23),
+             Request(prompt=np.arange(3, 9), max_new_tokens=7)])
+    def flat(tree):
+        return {(k, i): a.clone() for k, v in tree.items()
+                for i, a in enumerate(v if isinstance(v, list) else [v])}
+
+    before = flat(eng.kv.tree)
+    act = torch.ones(2, dtype=torch.bool, device=cuda)
+    snap = eng.kv.spec_snapshot(5)
+    tok = torch.tensor([7, 9], device=cuda)
+    for _ in range(4):
+        logits, _ = transformer.decode_step(params, draft_config(cfg),
+                                            eng.kv.tree, tok, active=act)
+        tok = torch.argmax(logits[:, :cfg.vocab], -1)
+    assert int(eng.kv.lengths[0]) == 34
+    eng.kv.spec_rewind(snap, snap["lengths"], act)
+    after = flat(eng.kv.tree)
+    for key in before:
+        assert torch.equal(after[key], before[key]), key

@@ -256,8 +256,8 @@ def test_engine_needs_cuda_or_an_explicit_cpu(cfgs, params):
         Engine(tcfg, tp, ECFG)
 
 
-@pytest.mark.parametrize("field,value", [("spec_k", 2), ("mesh", object()),
-                                         ("telemetry", True)])
+@pytest.mark.parametrize("field,value", [("mesh", object()),
+                                         ("draft_level", 2)])
 def test_unported_options_raise(cfgs, params, field, value):
     _, tcfg = cfgs
     _, tp = params
