@@ -9,8 +9,8 @@ port's serving path and its training path on the card:
 
   1. device and build — the card's name and power limit, build seconds,
      and ptxas' registers and spill bytes of every chunk_attn and bsa_*
-     kernel (a bf16 bsa_fwd / bsa_bwd_dq / bsa_bwd_dkv instantiation that
-     spills fails);
+     kernel (a bf16 bsa_fwd / bsa_bwd_dq / bsa_bwd_dkv or bf16 chunk_attn
+     instantiation that spills fails);
   2. kernel vs plain version — every CUDA kernel against its plain PyTorch
      twin on the same CUDA tensors, at the main path's shapes and at the
      smoke config's, over decode/chunk widths, bf16/int8 caches, MRA-2 /
@@ -18,13 +18,16 @@ port's serving path and its training path on the card:
      (B = 4) and long-context (B = 2) shapes with the split count forced to
      1, 2 and the planned one, and the speculative drafts' budget m = 1 at
      both under MRA-2 (C = 1, the split forced and planned, and C = 5; at
-     long context with an H-level view of NU = 33) (atol 2e-5 / rtol 1e-5
-     on rows whose top-m selection is no near tie; near ties under 1% of
-     rows);
-  3. kernel timing at the main path's shapes, beside its bound at the bf16
-     tensor-core and the fp32 CUDA-core rate and the plain version's time,
-     with the launch's split count, grid, shared memory, blocks per SM and
-     the mean pages of a query tile's selection union;
+     long context with an H-level view of NU = 33), and granite-moe's
+     (D, b) = (64, 128), G = 3 (decode with the split forced to 1 and
+     planned, and C = 128) and the G = 7 / 8 of qwen2-7b / yi-6b at
+     (128, 128) (atol 2e-5 / rtol 1e-5 on rows whose top-m selection is no
+     near tie; near ties under 1% of rows);
+  3. kernel timing at the main path's shapes and at granite-moe's (D = 64,
+     G = 3), beside its bound at the bf16 tensor-core and the fp32
+     CUDA-core rate and the plain version's time, with the launch's split
+     count, grid, shared memory, blocks per SM and the mean pages of a
+     query tile's selection union;
   4. the engine at full width — qwen3-1.7b, random weights from a seed, bf16
      activations, four greedy requests that run past the 4096-token ring —
      with the kernel's launches (and the combine's, one per layer of every
@@ -55,7 +58,8 @@ port's serving path and its training path on the card:
  10. the chunk kernel's H-level program (``levels >= 3``: collapsed levels +
      tail folded into the background) against its plain twin on the same
      CUDA tensors: NU = 33 (H = 3) and 65 (H = 4) at the long-context
-     slice's shapes, NU = 5 and 40 (three entry tiles) at the smoke shapes;
+     slice's shapes, NU = 33 at granite-moe's (64, 128), NU = 5 and 40
+     (three entry tiles) at the smoke shapes;
      C = 1, 512 and 5; bf16 / int8 caches; entries all live, some dead,
      all dead, tail only; ring windows and an empty one (slot 0: no live
      window key, live entries: not zero); MRA-2-s, where the view must not
@@ -89,7 +93,33 @@ port's serving path and its training path on the card:
      spec_k = 3 streams equal the plain engine's at H = 2 and H = 3,
      telemetry on and off serve the same streams, and snapshot -> four
      draft steps -> rewind leaves every cache tensor (the hierarchy's at
-     H = 3) bitwise as it was.
+     H = 3) bitwise as it was;
+ 16. (after phase 5) granite-moe-3b-a800m at full width — the MoE family's
+     serving path: 32 layers, 40 experts top-8, head dim 64, random
+     weights from a seed, fp32 parameters, bf16 activations, phase 4's
+     engine and requests — with tok/s, prefill / decode seconds, peak GiB
+     and the chunk kernel's launches (32 x dispatches) and combines counted
+     over exactly that run; then a torch.profiler breakdown of one decode
+     and one prefill dispatch (the routed FFN's kernels apart, in a
+     ``moe_block`` range);
+ 17. the experts' dropped-assignment share in those prefill dispatches,
+     counted outside the timed run (the same prompts again, one new token
+     each);
+ 18. granite-moe parity: greedy streams kernel vs plain at the smoke size,
+     first tokens at full width (4 layers, fp32), and the whole-prompt
+     ``prefill`` of one 4096-token prompt (the block-sparse forward at
+     (64, 128), its launches counted) against ``prefill_chunk`` over the
+     same prompt: layer 0's K/V and pyramid within 1e-5 of the tensor's
+     largest magnitude, page table and lengths equal, at the served config
+     and where the two are the same function (budgets covering the prompt,
+     capacity_factor = E / top_k so no assignment drops); there the last
+     logits of a one-layer pass within 1e-4, and every layer's cache error
+     of the four-layer pass reported (``phase_moe_parity`` says why later
+     layers part);
+ 19. (after phase 7) bsa_fwd at (64, 128), G = 3, against its plain twin,
+     bf16 and fp32, twice and bit-identical, then timed at n = 4096, B = 1
+     beside its bound and the plain version, with its grid, shared memory
+     and blocks per SM (two or more in bf16, or the phase fails).
 
 One JSON line per phase; then the card line from nvidia-smi, the kernels
 line and, last, ``{"ok": true, "device": {...}}``. Any failed phase raises,
@@ -120,6 +150,11 @@ BF16_FLOP_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
 ATOL, RTOL, TIE = 2e-5, 1e-5, 1e-4
 MAIN = dict(B=4, Hkv=8, G=2, D=128, b=128, nb=32, m=16)  # qwen3-1.7b serving
 SMOKE = dict(B=4, Hkv=2, G=2, D=16, b=16, nb=4, m=2)     # its smoke config
+# granite-moe-3b-a800m serving (head dim 64 at block 128, G = 3), and the
+# query-head groups of qwen2-7b (G = 7) and yi-6b (G = 8) at 4 KV heads
+GRANITE = dict(B=4, Hkv=8, G=3, D=64, b=128, nb=32, m=16)
+GROUPS = (("qwen2-7b", dict(B=4, Hkv=4, G=7, D=128, b=128, nb=32, m=16)),
+          ("yi-6b", dict(B=4, Hkv=4, G=8, D=128, b=128, nb=32, m=16)))
 WIDTHS = ((1, "latency"), (128, "throughput"), (5, "throughput"))
 # the long-context slice (levels=3): 2 slots of 4096-token windows; NU
 # collapsed entries per (batch, kv-head) row: 32 per level + the tail
@@ -127,7 +162,8 @@ UP_MAIN = dict(B=2, Hkv=8, G=2, D=128, b=128, nb=32, m=16)
 # speculative drafts run the serving shapes at the budget m = 1
 DRAFT_MAIN, DRAFT_UP = dict(MAIN, m=1), dict(UP_MAIN, m=1)
 UP_CASES = (("main", UP_MAIN, 33), ("main", UP_MAIN, 65),
-            ("smoke", SMOKE, 5), ("smoke", SMOKE, 40))
+            ("smoke", SMOKE, 5), ("smoke", SMOKE, 40),
+            ("granite", dict(GRANITE, B=2), 33))
 UP_WIDTHS = ((1, "latency"), (512, "throughput"), (5, "throughput"))
 UP_PATTERNS = ("all_live", "some_dead", "all_dead", "tail_only")
 L2_COPIES = 4  # cache copies cycled by the H-level timing (> 50 MB L2)
@@ -141,6 +177,9 @@ BSA_SMOKE = dict(B=2, Hq=4, n=256, d=16, b=16, bpr=2)
 # shapes, and the smoke shapes at a head dim the kernels zero-pad (12 -> 16)
 BSA_EXTRA = (("main-hot", BSA_MAIN, True), ("smoke-d12", dict(BSA_SMOKE, d=12),
                                             False))
+# granite-moe's whole-prompt prefill: the forward alone at (d, b) = (64, 128),
+# 24 query heads over 8 KV heads, one 4096-token prompt
+BSA_GRANITE = dict(B=1, Hq=24, n=4096, d=64, b=128, bpr=4)
 # fp32 sums in another order and FMA contraction: normalized numerator and
 # max-scaled gradients at rtol/atol 1e-4, the stabilizer mt at abs 1e-5
 BSA_TOL, MT_TOL = 1e-4, 1e-5
@@ -150,6 +189,12 @@ TRAIN = dict(seq=4096, batch=2, steps=3)  # train_4k with the batch cut to 2
 # time, still past the 4096-token ring (3968 + 144), so fallback waves run
 SERVE = dict(prompts=(3968, 2500, 1200, 300), new_tokens=192)
 SPEC = dict(spec_k=4, new_tokens=144)
+# granite-moe-3b-a800m at full width: phase 4's engine and requests
+MOE_ARCH = "granite-moe-3b-a800m"
+# whole-prompt prefill vs prefill_chunk (tests/test_torch_transformer.py's
+# tolerances): logits atol, cache entries within this share of the tensor's
+# largest magnitude
+LOGIT_TOL, CACHE_TOL = 1e-4, 1e-5
 
 
 def emit(obj) -> None:
@@ -303,13 +348,21 @@ def phase_device(torch):
           "ptxas_chunk_attn": ptxas_report(
               libs["chunk_attn"].with_suffix(".log").read_text()),
           "ptxas_block_sparse_attn": bsa_ptx})
-    # 18 = bf16 and fp32 x three (D, b) x bsa_fwd, bsa_bwd_dq, bsa_bwd_dkv
+    # 20 = bf16 and fp32 x (three (D, b) x bsa_fwd, bsa_bwd_dq, bsa_bwd_dkv,
+    # and bsa_fwd at (64, 128))
     spills = [k for k in bsa_ptx if k["kernel"].startswith(
         ("bsa_fwd bf16", "bsa_bwd_dq bf16", "bsa_bwd_dkv bf16"))
         and (k["spill_stores"] or k["spill_loads"] or k["registers"] > 255)]
-    if len(bsa_ptx) != 18 or spills:
+    if len(bsa_ptx) != 20 or spills:
         raise AssertionError(f"bsa kernels: {len(bsa_ptx)} built, spilling "
                              f"bf16 tensor-core kernels {spills}")
+    # 19 = three storage types x three (D, b) x two programs, + the combine
+    chunk_ptx = ptxas_report(libs["chunk_attn"].with_suffix(".log").read_text())
+    spills = [k for k in chunk_ptx if k["kernel"].startswith("bf16")
+              and (k["spill_stores"] or k["spill_loads"])]
+    if len(chunk_ptx) != 19 or spills:
+        raise AssertionError(f"chunk_attn kernels: {len(chunk_ptx)} built, "
+                             f"spilling bf16 instantiations {spills}")
     return smi
 
 
@@ -326,7 +379,8 @@ def _kernel_label(name):
     dt = ("bf16" if "bfloat16" in name else
           "int8" if "chunk_attn_kernelIa" in name else "fp32")
     up = "upper" if name.count("Lb1E") else "two_level"
-    return f"{dt} D={dims[0] if dims else '?'} {up}"
+    shape = " ".join(f"{k}={v}" for k, v in zip("Db", dims)) or "D=?"
+    return f"{dt} {shape} {up}"
 
 
 def ptxas_report(log):
@@ -386,6 +440,14 @@ def phase_kernel_vs_plain(torch, tmd, chunk_attn):
     cases += [(("main-m1", DRAFT_MAIN), (5, "throughput"), None)]
     cases += [(("long-m1", DRAFT_UP), (C, mode), None)
               for C, mode in ((1, "latency"), (5, "throughput"))]
+    # granite-moe (64, 128), G = 3: decode with the split forced to 1 and
+    # planned, and its prefill chunk; qwen2-7b's and yi-6b's 7 and 8 heads
+    cases += [(("granite", GRANITE), (1, "latency"), ns) for ns in (1, "plan")]
+    cases += [(("granite", GRANITE), (128, "throughput"), None)]
+    cases += [((name, sh), (C, mode), None) for (name, sh), (C, mode)
+              in itertools.product(GROUPS, ((1, "latency"),
+                                            (128, "throughput")))]
+    by_shape = {}
     forced = budget_one = 0
     for (name, sh), (C, mode), nsplit in cases:
         # the drafts run MRA-2 (the background on); tests/test_torch_cuda.py
@@ -416,34 +478,37 @@ def phase_kernel_vs_plain(torch, tmd, chunk_attn):
                               f"{name} C={C} {mode} nsplit={nsplit} {layout} "
                               f"{dtype} {variant}")
             worst, ties, rows = max(worst, err), ties + t, rows + r
+            by_shape[name] = max(by_shape.get(name, 0.0), err)
     emit({"phase": "kernel_vs_plain", "kernel": "chunk_attn", "cases": n,
           "forced_split_cases": forced, "forced_nsplit": [1, 2, "plan"],
           "budget_one_cases": budget_one,
           "atol": ATOL, "rtol": RTOL, "max_abs_err": worst,
+          "max_abs_err_by_shape": by_shape,
           "near_tie_rows": ties, "rows": rows, "tie_margin": TIE})
     if ties > 0.01 * rows:
         raise AssertionError(f"{ties} near-tie rows of {rows} exceed 1%")
-    return worst
+    return worst, by_shape["granite"]
 
 
-def phase_timing(torch, tmd, chunk_attn):
+def phase_timing(torch, tmd, chunk_attn, sh=MAIN, arch="qwen3-1.7b"):
     out = {}
     for label, C, mode in (("decode", 1, "latency"),
                            ("chunk128", 128, "throughput")):
-        pre, k, v, q_pos, ks, vs = kernel_case(torch, tmd, SEED, MAIN, C,
+        pre, k, v, q_pos, ks, vs = kernel_case(torch, tmd, SEED, sh, C,
                                                "dense", "bf16")
-        kw = dict(m=MAIN["m"], include_bg=True, mode=mode)
+        kw = dict(m=sh["m"], include_bg=True, mode=mode)
         ms = time_ms(torch, lambda: chunk_attn.chunk_attention_kernel(
             pre, k, v, q_pos, **kw), 200)
         plain_ms = time_ms(torch, lambda: chunk_attn.chunk_attention_ref(
             pre, k, v, q_pos, **kw), 20)
-        _, grid, pairs = selection_stats(torch, tmd, pre, q_pos, MAIN["m"])
+        _, grid, pairs = selection_stats(torch, tmd, pre, q_pos, sh["m"])
         out[label] = {"C": C, "mode": mode, "ms": ms, "plain_ms": plain_ms,
                       **bound(pre, k, q_pos, ks, grid, pairs),
                       **launch_info(torch, chunk_attn, pre, k, grid, mode,
                                     upper=False)}
-    emit({"phase": "kernel_timing", "kernel": "chunk_attn", "shape": MAIN,
-          "cache": "bf16", "layout": "dense 4096-token slots", **out})
+    emit({"phase": "kernel_timing", "kernel": "chunk_attn", "arch": arch,
+          "shape": sh, "cache": "bf16", "layout": "dense 4096-token slots",
+          **out})
     return out
 
 
@@ -497,14 +562,15 @@ def _top2_recorder(torch, engine_mod, Scheduler, vocab):
             mock.patch.object(Scheduler, "on_sampled", on_sampled)), gaps
 
 
-def phase_engine_full_width(torch, chunk_attn):
+def phase_engine_full_width(torch, chunk_attn, arch="qwen3-1.7b",
+                            phase="engine_full_width"):
     from repro_torch.configs import get_config
     from repro_torch.models import transformer
     from repro_torch.models.params import init_params
     from repro_torch.serve import Engine, EngineConfig, Request, Scheduler
     from repro_torch.serve import engine as engine_mod
 
-    cfg = get_config("qwen3-1.7b")
+    cfg = get_config(arch)
     params = init_params(cfg, seed=SEED, device=DEVICE)
     eng = Engine(cfg, params, EngineConfig(slots=4, max_len=4096, chunk=128),
                  device=DEVICE)
@@ -544,7 +610,7 @@ def phase_engine_full_width(torch, chunk_attn):
             "tok_per_s": st["generated_tokens"] / wall,
             "decode_tokens_per_dispatch": (st["generated_tokens"] - len(done))
             / st["decode_dispatches"]}
-    emit({"phase": "engine_full_width", "arch": cfg.name,
+    emit({"phase": phase, "arch": cfg.name, "family": cfg.family,
           "layers": cfg.num_layers, "activ_dtype": cfg.activ_dtype,
           "param_dtype": cfg.param_dtype, "slots": 4, "max_len": 4096,
           "chunk": 128, "prompts": list(SERVE["prompts"]),
@@ -606,10 +672,11 @@ def _chunk_launches(chunk_attn):
     return fn.launches, fn.upper_launches
 
 
-def _profile(torch, fn, steps, kernels=("chunk_attn",)):
+def _profile(torch, fn, steps, kernels=("chunk_attn",), ranges=()):
     """Wall ms per call without the profiler, then torch.profiler over the
-    same calls: device ms per call, busy share, the named kernels' ms and
-    the top kernels."""
+    same calls: device ms per call, busy share, the named kernels' ms, the
+    device ms of the kernels launched inside each named
+    ``record_function`` range, and the top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -626,27 +693,43 @@ def _profile(torch, fn, steps, kernels=("chunk_attn",)):
             fn()
         torch.cuda.synchronize()
         prof_wall_ms = 1e3 * (time.perf_counter() - t0) / steps
-    rows = []  # kernels only: an operator's row repeats its kernels' time
+    rows = []  # kernels only: an operator's row repeats its kernels' time,
+    # and a range's device-side annotation spans its kernels and the gaps
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0))
-        if e.device_type == DeviceType.CUDA and us > 0:
+        if e.device_type == DeviceType.CUDA and us > 0 and e.key not in ranges:
             rows.append((e.key, us / 1e3 / steps))
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(ms for _, ms in rows)
+    # a range's kernels: the device time under its host-side event
+    spans = {f"{name}_ms": sum(
+        getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
+        for e in prof.key_averages()
+        if e.key == name and e.device_type == DeviceType.CPU) / 1e3 / steps
+        for name in ranges}
     return {"wall_ms": wall_ms, "profiled_wall_ms": prof_wall_ms,
             "device_ms": device_ms,
             "busy_share": device_ms / wall_ms if wall_ms else None,
             **{f"{name}_ms": sum(ms for k, ms in rows if name in k)
-               for name in kernels},
+               for name in kernels}, **spans,
             "top": [[k[:100], ms] for k, ms in rows[:10]]}
 
 
 def phase_profile(torch, eng, C=128, phase="profile"):
     """Where a full-width dispatch's time goes, on the engine's own cache
-    after its run: decode waves of every slot, and C-token prefill chunks."""
+    after its run: decode waves of every slot, and C-token prefill chunks.
+    For an MoE model the routed FFN of every layer runs inside a
+    ``moe_block`` range, whose kernels' device time is reported apart."""
     from repro_torch.models import transformer
     from repro_torch.serve.sampling import greedy_batch
+
+    ranges = ("moe_block",) if eng.cfg.family == "moe" else ()
+    orig_moe = transformer.moe_block
+
+    def moe_block(*a, **kw):
+        with torch.profiler.record_function("moe_block"):
+            return orig_moe(*a, **kw)
 
     B = eng.slots
     toks = torch.arange(1, B + 1, device=DEVICE)
@@ -663,10 +746,13 @@ def phase_profile(torch, eng, C=128, phase="profile"):
     def prefill():
         transformer.prefill_chunk(eng.params, eng.cfg, eng.kv.tree, chunk, nv)
 
-    emit({"phase": phase, "note": "ms per dispatch; device_ms = summed "
-          "kernel time from torch.profiler; busy_share = device_ms / wall_ms",
-          "slots": B, "decode_step": _profile(torch, decode, 10),
-          f"prefill_chunk_{C}": _profile(torch, prefill, 3)})
+    with mock.patch.object(transformer, "moe_block", moe_block):
+        emit({"phase": phase, "note": "ms per dispatch; device_ms = summed "
+              "kernel time from torch.profiler; busy_share = device_ms / "
+              "wall_ms", "arch": eng.cfg.name, "slots": B,
+              "decode_step": _profile(torch, decode, 10, ranges=ranges),
+              f"prefill_chunk_{C}": _profile(torch, prefill, 3,
+                                             ranges=ranges)})
 
 
 def _streams(torch, chunk_attn, cfg, params, ecfg, reqs, plain):
@@ -727,6 +813,161 @@ def phase_engine_parity(torch, chunk_attn):
 
 
 # --------------------------------------------------------------------------- #
+# the MoE family: granite-moe-3b-a800m served at full width, its parity and
+# the whole-prompt prefill
+# --------------------------------------------------------------------------- #
+def phase_moe_drops(torch, eng):
+    """The experts' dropped-assignment share in the prefill dispatches of
+    phase-4 traffic, counted outside the timed run: the same engine config
+    and prompts again with one new token each (the same prefill dispatches,
+    no decode wave), the kept and total assignments of every layer's
+    ``_dispatch`` summed on the device."""
+    from repro_torch.models import moe
+    from repro_torch.serve import Engine, Request
+
+    kept = torch.zeros((), dtype=torch.int64, device=DEVICE)
+    total = torch.zeros((), dtype=torch.int64, device=DEVICE)
+    calls = [0]
+    orig = moe._dispatch
+
+    def counted(x, idx, **kw):
+        buf, meta = orig(x, idx, **kw)
+        kept.add_(meta[3].sum())
+        total.add_(meta[3].numel())
+        calls[0] += 1
+        return buf, meta
+
+    run = Engine(eng.cfg, eng.params, eng.config, device=DEVICE)
+    reqs = _requests(Request, SERVE["prompts"], 1, eng.cfg.vocab)
+    with mock.patch.object(moe, "_dispatch", counted):
+        run.run(reqs)
+    st = run.stats
+    if st["decode_dispatches"] or calls[0] != (eng.cfg.num_layers
+                                               * st["prefill_dispatches"]):
+        raise AssertionError(f"drop count: {calls[0]} dispatch calls over "
+                             f"{st['prefill_dispatches']} prefill and "
+                             f"{st['decode_dispatches']} decode dispatches")
+    spec = eng.cfg.moe
+    T = eng.slots * eng.chunk
+    out = {"prefill_dispatches": st["prefill_dispatches"],
+           "assignments": int(total), "dropped": int(total - kept),
+           "dropped_share": float(total - kept) / float(total),
+           "capacity_per_expert": moe.capacity(T, spec),
+           "tokens_per_dispatch": T}
+    emit({"phase": "moe_drops", "arch": eng.cfg.name, **out})
+    del run
+    return out
+
+
+def phase_moe_parity(torch, chunk_attn, bsa):
+    """granite-moe: greedy streams kernel vs plain at the smoke size, first
+    tokens at full width (4 layers, fp32), and the whole-prompt prefill of
+    one 4096-token prompt against prefill_chunk over the same prompt.
+
+    The prefill comparison: K/V and pyramid of layer 0 (which depend on
+    neither attention nor experts) within CACHE_TOL of the tensor's
+    largest magnitude, page table and lengths equal, one bsa_fwd launch a
+    layer, finite logits — at the served config and where the two are the
+    same function: attention budgets that cover the prompt (MRA-2 selects
+    every causal block, the chunk kernel all 32 pages) and capacity_factor
+    = E / top_k (the expert capacity depends on a call's tokens, so a whole
+    4096-token pass and 128-token chunks drop different assignments
+    otherwise). There the last logits of a one-layer pass are held within
+    LOGIT_TOL, and every layer's cache error of the four-layer pass is
+    reported: a chunk's queries early in block 0 take the stabilizer c
+    from the block's mean key, which includes the chunk's later keys; with
+    the reference's initialization (scores of order 100) exp(s - c) can
+    underflow and the chunk path (the reference's too) zeroes such a row
+    that the whole-prompt pass computes exactly, and layers past 0 carry
+    the difference."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import transformer
+    from repro_torch.models.params import init_params
+    from repro_torch.serve import EngineConfig, Request
+    from repro_torch.serve.cache import RingPagedKVCache
+
+    result = {}
+    small = get_smoke_config(MOE_ARCH, activ_dtype="float32")
+    params = init_params(small, seed=SEED, device=DEVICE)
+    ecfg = EngineConfig(slots=3, max_len=64, chunk=8)
+    streams = [_streams(torch, chunk_attn, small, params, ecfg, _requests(
+        Request, (19, 3, 10, 40, 50), 60, small.vocab), plain)
+        for plain in (False, True)]
+    same = all(np.array_equal(streams[0][n], streams[1][n]) for n in streams[0])
+    result["smoke"] = {"identical_streams": same, "requests": len(streams[0])}
+    if not same:
+        raise AssertionError("MoE smoke-size greedy streams differ kernel vs "
+                             "plain")
+    del params
+
+    full4 = get_config(MOE_ARCH, num_layers=4, activ_dtype="float32")
+    params = init_params(full4, seed=SEED, device=DEVICE)
+    ecfg = EngineConfig(slots=4, max_len=4096, chunk=128)
+    streams = [_streams(torch, chunk_attn, full4, params, ecfg, _requests(
+        Request, SERVE["prompts"], 16, full4.vocab), plain)
+        for plain in (False, True)]
+    first = all(streams[0][n][0] == streams[1][n][0] for n in streams[0])
+    agree = np.mean([np.mean(streams[0][n] == streams[1][n])
+                     for n in streams[0]])
+    result["full_width_4_layers"] = {"first_tokens_match": bool(first),
+                                     "token_agreement": float(agree)}
+    if not first:
+        raise AssertionError("MoE full-width first tokens differ kernel vs "
+                             "plain")
+
+    S, C = 4096, 128
+    toks = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, full4.vocab, (1, S)), device=DEVICE)
+    nb = S // full4.attention.block_size
+    exact = full4.replace(
+        attention=full4.attention.replace(blocks_per_row=nb, decode_blocks=nb),
+        moe=dataclasses.replace(full4.moe, capacity_factor=full4.moe.num_experts
+                                / full4.moe.top_k))
+    prefill = {}
+    one = exact.replace(num_layers=1)
+    one_params = dict(params, layers=params["layers"][:1])
+    for label, cfg, p in (("exact", exact, params), ("served", full4, params),
+                          ("exact_1_layer", one, one_params)):
+        bsa.bsa_fwd.launches = 0
+        whole = RingPagedKVCache(cfg, 1, S, device=DEVICE).tree
+        lw, whole = transformer.prefill(p, cfg, {"tokens": toks}, whole)
+        torch.cuda.synchronize()
+        launches = bsa.bsa_fwd.launches
+        chunked = RingPagedKVCache(cfg, 1, S, device=DEVICE).tree
+        nv = torch.full((1,), C, dtype=torch.int32, device=DEVICE)
+        for c0 in range(0, S, C):
+            lc, chunked = transformer.prefill_chunk(p, cfg, chunked,
+                                                    toks[:, c0:c0 + C], nv)
+        torch.cuda.synchronize()
+        errs = {key: [float((whole[key][i] - chunked[key][i]).abs().max())
+                      / max(1.0, float(chunked[key][i].abs().max()))
+                      for i in range(cfg.num_layers)]
+                for key in ("k", "v", "pyr_k", "pyr_v")}
+        same_tables = (torch.equal(whole["page_blocks"], chunked["page_blocks"])
+                       and torch.equal(whole["lengths"], chunked["lengths"]))
+        logit_err = float((lw - lc).abs().max())
+        prefill[label] = {"layers": cfg.num_layers,
+                          "bsa_fwd_launches": launches,
+                          "cache_normwise_err_by_layer": errs,
+                          "tables_equal": same_tables,
+                          "logit_max_abs_err": logit_err,
+                          "logits_finite": bool(torch.isfinite(lw).all())}
+        layer0 = max(e[0] for e in errs.values())
+        if launches != cfg.num_layers or not same_tables \
+                or layer0 > CACHE_TOL or not prefill[label]["logits_finite"]:
+            raise AssertionError(f"whole-prompt prefill ({label}) != "
+                                 f"prefill_chunk: {prefill[label]}")
+        if label == "exact_1_layer" and logit_err > LOGIT_TOL:
+            raise AssertionError(f"whole-prompt prefill logits differ: "
+                                 f"{logit_err}")
+        del whole, chunked
+    result["prefill_4096"] = {"prompt": S, "chunk": C, **prefill}
+    emit({"phase": "moe_parity", "arch": MOE_ARCH, "dtype": "float32",
+          **result})
+    return prefill
+
+
+# --------------------------------------------------------------------------- #
 # training path: block-sparse attention kernels and the train loop
 # --------------------------------------------------------------------------- #
 BSA_KERNELS = ("bsa_fwd", "bsa_bwd_dq", "bsa_bwd_dkv")
@@ -756,7 +997,7 @@ def bsa_case(torch, sh, G, dtype, seed, edited, hot=False):
     q = r.standard_normal((B, Hkv, G, n, d), np.float32)
     k = r.standard_normal((B, Hkv, n, d), np.float32)
     v = r.standard_normal((B, Hkv, n, d), np.float32)
-    lengths = np.array([n, n - (3 * b) // 2 if edited else n])
+    lengths = np.array([n] + [n - (3 * b) // 2 if edited else n] * (B - 1))
     key_mask = torch.as_tensor(np.arange(n)[None] < lengths[:, None],
                                device=DEVICE)
     q, k, v = (torch.from_numpy(a).to(DEVICE, dtype) for a in (q, k, v))
@@ -956,6 +1197,69 @@ def phase_bsa_timing(torch, bsa):
                   "and (dk, dv) part alone, bwd_pair the whole plain "
                   "backward", **res})
     return res, dense
+
+
+def phase_bsa_granite(torch, bsa):
+    """bsa_fwd at (d, b) = (64, 128), G = 3 (granite-moe's whole-prompt
+    prefill) against its plain twin, bf16 and fp32, twice and bit-identical
+    (B = 2, with and without padded keys / invalid pairs); then its time at
+    n = 4096, B = 1, bf16 beside its bound and the plain version's."""
+    sh, worst, worst_mt, n = BSA_GRANITE, 0.0, 0.0, 0
+    for dtype, edited in itertools.product((torch.bfloat16, torch.float32),
+                                           (False, True)):
+        n += 1
+        q, k, v, c, x, y, fl, km, scale = bsa_case(
+            torch, dict(sh, B=2), 3, dtype, SEED + 300 + n, edited)
+        nb = sh["n"] // sh["b"]
+        pq = bsa.group_by_query(x, y, fl, nb)
+        kw = dict(scale=scale, block_size=sh["b"])
+        runs = [bsa.bsa_fwd(q, k, v, c, pq, km, **kw) for _ in range(2)]
+        ref = bsa.block_sparse_attention_ref(q, k, v, x, y, fl, c, km, **kw)
+        torch.cuda.synchronize()
+        label = f"granite {dtype} edited={edited}"
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            raise AssertionError(f"bsa_fwd not bit-identical: {label}")
+        out, rs, mt = runs[0]
+        alive = rs > 0
+        if not torch.equal(alive, ref[1] > 0):
+            raise AssertionError(f"bsa_fwd live rows differ: {label}")
+        norm_k = torch.where(alive[..., None], out, 0.0) / torch.where(
+            alive, rs, 1.0)[..., None]
+        norm_p = torch.where(alive[..., None], ref[0], 0.0) / torch.where(
+            alive, ref[1], 1.0)[..., None]
+        err = float((norm_k - norm_p).abs().max())
+        mt_err = float((mt - ref[2]).abs().max())
+        if not (bool(torch.isclose(norm_k, norm_p, rtol=BSA_TOL,
+                                   atol=BSA_TOL).all())
+                and bool(torch.isclose(rs, ref[1], rtol=BSA_TOL,
+                                       atol=BSA_TOL).all())
+                and mt_err <= MT_TOL and bool(torch.isfinite(out).all())):
+            raise AssertionError(f"bsa_fwd != plain: {label}: {err}, mt "
+                                 f"{mt_err}")
+        worst, worst_mt = max(worst, err), max(worst_mt, mt_err)
+    q, k, v, c, x, y, fl, km, scale = bsa_case(torch, sh, 3, torch.bfloat16,
+                                               SEED, False)
+    BHG, nseq, d = q.shape
+    b, nb = sh["b"], nseq // sh["b"]
+    pq = bsa.group_by_query(x, y, fl, nb)
+    kw = dict(scale=scale, block_size=b)
+    lists = 3 * BHG * x.shape[1] * 4 + BHG * (nb + 1) * 4
+    timing = {"ms": time_ms(torch, lambda: bsa.bsa_fwd(q, k, v, c, pq, km,
+                                                       **kw), 50),
+              "plain_ms": time_ms(torch, lambda: bsa.block_sparse_attention_ref(
+                  q, k, v, x, y, fl, c, km, **kw), 5),
+              **_bsa_bounds(q, k, fl, nb, BHG * nb * 4 + lists
+                            + BHG * nseq * (d + 2) * 4, 2),
+              **bsa.launch_geometry("fwd", q.dtype, d, b, BHG * nb),
+              "blocks_per_sm": bsa.blocks_per_sm("fwd", q.dtype, d, b)}
+    emit({"phase": "bsa_granite", "kernel": "bsa_fwd", "shape": sh, "G": 3,
+          "cases": n, "rtol": BSA_TOL, "atol": BSA_TOL, "mt_atol": MT_TOL,
+          "max_abs_err": worst, "max_mt_err": worst_mt,
+          "bit_identical_reruns": True, "timing_bf16": timing})
+    if timing["blocks_per_sm"] < 2:
+        raise AssertionError(f"bsa_fwd (64, 128) bf16 holds "
+                             f"{timing['blocks_per_sm']} blocks an SM")
+    return worst, timing
 
 
 def phase_train_full_width(torch, bsa):
@@ -1663,14 +1967,25 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 products in fp32
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_device(torch)
-    max_err = phase_kernel_vs_plain(torch, tmd, chunk_attn)
+    max_err, granite_err = phase_kernel_vs_plain(torch, tmd, chunk_attn)
     timing = phase_timing(torch, tmd, chunk_attn)
+    granite_time = phase_timing(torch, tmd, chunk_attn, GRANITE, MOE_ARCH)
     launches, eng, base = phase_engine_full_width(torch, chunk_attn)
     phase_profile(torch, eng)
     del eng
     phase_engine_parity(torch, chunk_attn)
+    torch.cuda.empty_cache()
+    moe_launches, eng, _ = phase_engine_full_width(
+        torch, chunk_attn, arch=MOE_ARCH, phase="moe_full_width")
+    phase_profile(torch, eng, phase="moe_profile")
+    phase_moe_drops(torch, eng)
+    del eng
+    torch.cuda.empty_cache()
+    prefill = phase_moe_parity(torch, chunk_attn, bsa)
+    torch.cuda.empty_cache()
     bsa_err = phase_bsa_vs_plain(torch, bsa)
     bsa_time, dense_ms = phase_bsa_timing(torch, bsa)
+    granite_bsa_err, granite_bsa = phase_bsa_granite(torch, bsa)
     bsa_launches, state = phase_train_full_width(torch, bsa)
     phase_train_profile(torch, state)
     del state
@@ -1713,6 +2028,36 @@ def main() -> int:
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "bound_ms_fp32_rate",
             "bound_by_fp32_rate", "nsplit", "grid", "smem_bytes",
             "blocks_per_sm", "union_pages_per_tile")
+    gdec = granite_time["decode"]
+    new_shapes = [{
+        "name": "chunk_attn (D=64, b=128)", "route": "cuda",
+        "source": "src/repro_torch/csrc/chunk_attn.cu",
+        "replaces": "src/repro/kernels/chunk_attn.py:93",
+        "launches": moe_launches[0], "combine_launches": moe_launches[1],
+        "max_abs_err": granite_err,
+        "ms": gdec["ms"], "plain_ms": gdec["plain_ms"],
+        "bound_ms": gdec["bound_ms"], "bound_by": gdec["bound_by"],
+        "bound_ms_fp32_rate": gdec["bound_ms_fp32_rate"],
+        "bound_by_fp32_rate": gdec["bound_by_fp32_rate"],
+        "nsplit": gdec["nsplit"], "library_ms": None,
+        "shape": "granite-moe-3b-a800m decode C=1 (latency), B=4, Hkv=8, "
+                 "G=3; chunk128 below; launches from the granite engine run",
+        "chunk128": {k: granite_time["chunk128"][k] for k in keys}}, {
+        "name": "bsa_fwd (d=64, b=128)", "route": "cuda",
+        "source": "src/repro_torch/csrc/block_sparse_attn.cu",
+        "replaces": "src/repro/kernels/block_sparse_attn.py:92",
+        "launches": sum(x["bsa_fwd_launches"] for x in prefill.values()),
+        "max_abs_err": granite_bsa_err,
+        "ms": granite_bsa["ms"], "plain_ms": granite_bsa["plain_ms"],
+        "bound_ms": granite_bsa["bound_ms_bf16"],
+        "bound_by": granite_bsa["bound_by_bf16"], "library_ms": None,
+        "bound_ms_fp32_rate": granite_bsa["bound_ms_fp32"],
+        "bound_by_fp32_rate": granite_bsa["bound_by_fp32"],
+        "shape": "granite-moe-3b-a800m whole-prompt prefill, n=4096, B=1, "
+                 "24 query / 8 KV heads, bf16; launches from the prefill "
+                 "passes of phase 18 (fp32: 4 + 4 + 1 layers)",
+        **{k: granite_bsa[k] for k in ("grid", "threads", "smem_bytes",
+                                       "blocks_per_sm")}}]
     emit({"kernels": [{
         "name": "chunk_attn", "route": "cuda",
         "source": "src/repro_torch/csrc/chunk_attn.cu",
@@ -1744,7 +2089,7 @@ def main() -> int:
         "two_level_ms": up_time["decode"]["two_level_ms"],
         "chunk512": {k: up_time["chunk512"][k] for k in
                      keys + ("two_level_ms",)}},
-        *train_kernels]})
+        *train_kernels, *new_shapes]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,19 +1,23 @@
-"""Architecture registry of the port: the dense archs ported so far."""
+"""Architecture registry of the port: the dense and MoE archs ported so far."""
 from __future__ import annotations
 
 import importlib
 
-from .base import SHAPES, ModelConfig, ShapeCfg
+from .base import SHAPES, ModelConfig, MoESpec, ShapeCfg
 
 _ARCH_MODULES = {
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "qwen2-7b": "qwen2_7b",
     "llama3.2-3b": "llama3_2_3b",
     "qwen3-1.7b": "qwen3_1_7b",
+    "yi-6b": "yi_6b",
 }
 
 ARCHS = tuple(_ARCH_MODULES)
 
-__all__ = ["ARCHS", "SHAPES", "ModelConfig", "ShapeCfg", "get_config",
-           "get_smoke_config"]
+__all__ = ["ARCHS", "SHAPES", "ModelConfig", "MoESpec", "ShapeCfg",
+           "get_config", "get_smoke_config"]
 
 
 def _module(name: str):

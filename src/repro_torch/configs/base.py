@@ -1,12 +1,14 @@
-"""Model and input-shape configuration schema for the dense family.
+"""Model and input-shape configuration schema of the ported families.
 
-Port of ``repro/configs/base.py``: the ``ModelConfig`` fields the dense
-decoder reads, and the ``ShapeCfg`` training input shape. MoE, recurrent,
-encoder and vision fields come with their families.
+Port of ``repro/configs/base.py``: the ``ModelConfig`` fields the dense and
+MoE decoders read (``MoESpec`` and the ``moe`` / ``moe_dispatch`` fields
+with the reference's defaults), and the ``ShapeCfg`` training input shape.
+Recurrent, encoder and vision fields come with their families.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -14,9 +16,23 @@ from repro_torch.core.attention import AttentionSpec
 
 
 @dataclasses.dataclass(frozen=True)
+class MoESpec:
+    """Routed experts of an MoE FFN: ``top_k`` of ``num_experts`` experts of
+    width ``d_ff_expert`` per token, ``capacity_factor`` x the even share of
+    assignments per expert buffer, and the aux losses' coefficients."""
+
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+    router_z_coef: float = 1e-3
+    aux_loss_coef: float = 1e-2
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense (the only family ported yet)
+    family: str  # dense | moe (the ported families)
     num_layers: int
     d_model: int
     num_heads: int
@@ -31,12 +47,17 @@ class ModelConfig:
     act: str = "swiglu"
     pos: str = "rope"
     rope_theta: float = 10000.0
+    moe: Optional[MoESpec] = None
     attention: AttentionSpec = dataclasses.field(default_factory=AttentionSpec)
     # serving-kernel tile shape for every dispatch: "auto" picks per call
     # (decode -> latency, prefill chunks -> throughput)
     attn_kernel_mode: str = "auto"
     pad_vocab_to: int = 256  # embedding table padded so vocab shards over TP
     pad_attn_heads_to: int = 0  # query heads padded (masked) to a multiple
+    # MoE token dispatch: "psum" (replicated tokens, each device its expert
+    # slice) is the reference's default and the only one served, on one
+    # device; its "a2a" exchange comes with distributed serving
+    moe_dispatch: str = "psum"
     param_dtype: str = "float32"
     activ_dtype: str = "bfloat16"
     # the reference keeps this config's layers stacked as (L, ...) arrays;

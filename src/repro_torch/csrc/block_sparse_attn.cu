@@ -82,9 +82,9 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -Xptxas=-v (repro_torch/kernels/build.py); plain C
 //        entry points, loaded with ctypes. The three kernels are instantiated
-//        for (head dim, block size) = (128, 128), (64, 64) and (16, 16), bf16
-//        and fp32; the wrapper zero-pads a head dim to the next multiple of 16
-//        (exact for the products).
+//        for (head dim, block size) = (128, 128), (64, 64) and (16, 16), the
+//        forward also for (64, 128), bf16 and fp32; the wrapper zero-pads a
+//        head dim to the next multiple of 16 (exact for the products).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -983,10 +983,14 @@ struct KernelInfo {
 enum Kernel { kFwd = 0, kDkv = 1, kDq = 2 };
 
 template <typename T, int D, int BS>
+KernelInfo fwd_info() {
+  return {reinterpret_cast<const void*>(bsa_fwd_kernel<T, D, BS>),
+          FwdGeo<T, D, BS>::SMEM, FwdGeo<T, D, BS>::NT, FwdGeo<T, D, BS>::SUB};
+}
+
+template <typename T, int D, int BS>
 KernelInfo info_of(int kernel) {
-  if (kernel == kFwd)
-    return {reinterpret_cast<const void*>(bsa_fwd_kernel<T, D, BS>),
-            FwdGeo<T, D, BS>::SMEM, FwdGeo<T, D, BS>::NT, FwdGeo<T, D, BS>::SUB};
+  if (kernel == kFwd) return fwd_info<T, D, BS>();
   if (kernel == kDq)
     return {reinterpret_cast<const void*>(bsa_bwd_dq_kernel<T, D, BS>),
             DqGeo<T, D, BS>::SMEM, DqGeo<T, D, BS>::NT, DqGeo<T, D, BS>::SUB};
@@ -999,6 +1003,8 @@ KernelInfo info_shape(int kernel, int D, int b) {
   if (D == 128 && b == 128) return info_of<T, 128, 128>(kernel);
   if (D == 64 && b == 64) return info_of<T, 64, 64>(kernel);
   if (D == 16 && b == 16) return info_of<T, 16, 16>(kernel);
+  // the forward alone (whole-prompt prefill at head dim 64, block 128)
+  if (D == 64 && b == 128 && kernel == kFwd) return fwd_info<T, 64, 128>();
   return {nullptr, 0, 0, 0};
 }
 
@@ -1013,7 +1019,7 @@ KernelInfo info(int kernel, int dtype, int D, int b) {
 // Allow the kernel's dynamic shared memory (and the largest carveout, so that
 // two blocks fit on an SM); done once per kernel.
 cudaError_t configure(const KernelInfo& k) {
-  static const void* done[32];  // 18 instantiations
+  static const void* done[32];  // 20 instantiations
   static int ndone = 0;
   for (int i = 0; i < ndone; ++i)
     if (done[i] == k.fn) return cudaSuccess;

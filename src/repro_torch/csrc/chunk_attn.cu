@@ -64,8 +64,11 @@
 //     block normalizes itself and no combine runs.
 //   * At most ~108 KB of shared memory per block (D = b = 128, 32 rows), so
 //     two blocks share an SM. D and b are template parameters, instantiated
-//     for (128, 128) and (16, 16); the fold streams hk / hv through the ring
-//     in tiles of 16 entries, so shared memory does not grow with NU.
+//     for (128, 128), (64, 128) and (16, 16) (the wrapper zero-pads a head
+//     dim to the next multiple of 16, exact for the products); at D = 64
+//     two warps split D (32 columns each) and the other two stage pages and
+//     run the selection. The fold streams hk / hv through the ring in tiles
+//     of 16 entries, so shared memory does not grow with NU.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -Xptxas=-v (repro_torch/kernels/build.py); plain C
@@ -947,15 +950,16 @@ chunk_attn_combine_kernel(const float* __restrict__ part, float* __restrict__ ou
 // ---- host side ----------------------------------------------------------------
 using KernelFn = void (*)(Params);
 
-template <typename T, int D>
+template <typename T, int D, int BS>
 KernelFn pick_upper(bool upper) {
-  return upper ? chunk_attn_kernel<T, D, D, true> : chunk_attn_kernel<T, D, D, false>;
+  return upper ? chunk_attn_kernel<T, D, BS, true> : chunk_attn_kernel<T, D, BS, false>;
 }
 
 template <typename T>
 KernelFn pick_shape(int D, int b, bool upper) {
-  if (D == 128 && b == 128) return pick_upper<T, 128>(upper);
-  if (D == 16 && b == 16) return pick_upper<T, 16>(upper);
+  if (D == 128 && b == 128) return pick_upper<T, 128, 128>(upper);
+  if (D == 64 && b == 128) return pick_upper<T, 64, 128>(upper);
+  if (D == 16 && b == 16) return pick_upper<T, 16, 16>(upper);
   return nullptr;
 }
 
@@ -970,6 +974,7 @@ KernelFn pick(int dtype, int D, int b, bool upper) {
 template <typename T>
 size_t smem_of_shape(int D, int b, int rows, int RP, int nb) {
   if (D == 128 && b == 128) return smem_bytes<T, 128, 128>(rows, RP, nb);
+  if (D == 64 && b == 128) return smem_bytes<T, 64, 128>(rows, RP, nb);
   if (D == 16 && b == 16) return smem_bytes<T, 16, 16>(rows, RP, nb);
   return 0;
 }

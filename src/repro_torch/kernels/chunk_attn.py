@@ -30,6 +30,10 @@ each; the blocks write partials to scratch and ``chunk_attn_combine_kernel``
 merges them (``combine_launches``). ``chunk_attention_split_ref`` is the
 plain version of that split-and-merge arithmetic.
 
+Shapes: the kernel is built for the (head dim, block size) pairs of
+``KERNEL_SHAPES``; the wrapper zero-pads a head dim to the next multiple
+of 16 (``pad_head_dim``) and raises on a pair that is not built.
+
 Dual mode: the kernel runs at two query-tile widths — ``latency``
 (C_tile = 1, decode) and ``throughput`` (C_tile = min(C, 8), chunked
 prefill; fewer for G > 4, so that a tile holds at most 32 query rows) —
@@ -47,9 +51,14 @@ import torch
 from repro_torch.core import mra_decode
 from repro_torch.core.mra import NEG_INF
 
+from .block_sparse_attn import padded_dim
+
 KERNEL_MODES = ("auto", "latency", "throughput")
 THROUGHPUT_C_TILE = 8  # query-tile width of the throughput instantiation
-KERNEL_SHAPES = ((128, 128), (16, 16))  # (head dim D, block size b) built
+# (head dim D padded to a multiple of 16, block size b) the kernel is built
+# for: qwen3-1.7b / llama3.2-3b / qwen2-7b / yi-6b, their smoke configs,
+# granite-moe-3b-a800m
+KERNEL_SHAPES = ((128, 128), (16, 16), (64, 128))
 MAX_TILE_ROWS = 32  # G·C_tile query rows of one tile (two m16 row tiles)
 _MAX_SMEM = 232448  # dynamic shared memory a block may use on sm_90 (227 KB)
 _CACHE_DTYPES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
@@ -274,9 +283,11 @@ def chunk_attention_kernel(pre, k_cache, v_cache, q_pos, *, m: int,
     synchronisation; launch errors raise): the H-level program when
     ``pre.upper`` is set and ``include_bg`` is on, else the two-level one,
     split across blocks (and merged by the combine kernel) where
-    ``split_plan`` says so. A CPU cache takes the plain version
-    ``chunk_attention_ref``. There is no other route: a CUDA tensor never
-    falls back to the plain version.
+    ``split_plan`` says so. A head dim that is not a multiple of 16 is
+    zero-padded to the next one first (exact for every product; the output
+    is cut back), and a padded (D, b) the kernel is not built for raises.
+    A CPU cache takes the plain version ``chunk_attention_ref``. There is
+    no other route: a CUDA tensor never falls back to the plain version.
     """
     B, Hkv, G, C, D = pre.qg.shape
     if (k_scale is None) != (v_scale is None):
@@ -293,8 +304,10 @@ def chunk_attention_kernel(pre, k_cache, v_cache, q_pos, *, m: int,
         return chunk_attention_ref(pre, k_cache, v_cache, q_pos, m=m,
                                    k_scale=k_scale, v_scale=v_scale,
                                    include_bg=include_bg, mode=mode)
-    return _launch(pre, k_cache, v_cache, q_pos, m=m, k_scale=k_scale,
-                   v_scale=v_scale, include_bg=include_bg, mode=mode)
+    pre, k_cache, v_cache = pad_head_dim(pre, k_cache, v_cache)
+    out = _launch(pre, k_cache, v_cache, q_pos, m=m, k_scale=k_scale,
+                  v_scale=v_scale, include_bg=include_bg, mode=mode)
+    return out if out.shape[-1] == D else out[..., :D].contiguous()
 
 
 # launches of the CUDA kernels, never reset here
@@ -315,11 +328,33 @@ def _check(t, name, shape, dtypes, device):
 
 
 def check_shape(D: int, b: int) -> None:
-    """Raise unless the kernel is built for head dim D and block size b."""
+    """Raise unless the kernel is built for head dim D (as launched, after
+    ``pad_head_dim``) and block size b."""
     if (D, b) not in KERNEL_SHAPES:
         raise ValueError(
             f"chunk_attn is built for (head dim, block size) in "
             f"{list(KERNEL_SHAPES)}, not ({D}, {b})")
+
+
+def pad_head_dim(pre, k_cache, v_cache):
+    """(pre, k_cache, v_cache) with every head-dim axis (queries, page and
+    collapsed means, cache rows) zero-padded to ``padded_dim``; as they are
+    when D is a multiple of 16 already. Padding adds zero terms to every
+    dot product and zero output columns, so the kernel's result on the
+    first D columns is unchanged."""
+    D = pre.qg.shape[-1]
+    pad = padded_dim(D) - D
+    if pad == 0:
+        return pre, k_cache, v_cache
+
+    def z(t):
+        return torch.nn.functional.pad(t, (0, pad))
+
+    up = pre.upper
+    if up is not None:
+        up = up._replace(k_mean=z(up.k_mean), v_mean=z(up.v_mean))
+    return (pre._replace(qg=z(pre.qg), k_ds=z(pre.k_ds), v_ds=z(pre.v_ds),
+                         upper=up), z(k_cache), z(v_cache))
 
 
 def _library() -> ctypes.CDLL:

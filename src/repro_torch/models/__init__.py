@@ -1,1 +1,1 @@
-"""Dense decoder model (port of repro/models)."""
+"""Dense and MoE decoder models (port of repro/models)."""

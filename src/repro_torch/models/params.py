@@ -1,10 +1,12 @@
-"""Parameters of the dense decoder: random init and conversion from JAX.
+"""Parameters of the dense and MoE decoders: random init and conversion
+from JAX.
 
-Port of ``repro/models/params.py`` for the dense family. Parameters are a
-plain nested dict of tensors with the reference's names and layouts
-(``embed.tok`` (V, d), ``layers[i].attn.wq`` (d, H, hd), ...); the layers
-are always a per-layer list here, whatever ``cfg.scan_layers`` says about
-the reference's stacked layout.
+Port of ``repro/models/params.py`` for the ported families. Parameters are
+a plain nested dict of tensors with the reference's names and layouts
+(``embed.tok`` (V, d), ``layers[i].attn.wq`` (d, H, hd), an MoE layer's
+``layers[i].moe.wi`` (E, d, f) in place of ``mlp``, ...); the layers are
+always a per-layer list here, whatever ``cfg.scan_layers`` says about the
+reference's stacked layout.
 
 Dtype semantics follow the reference: every tensor is stored at its
 declared dtype (``cfg.param_dtype`` for weights, fp32 for the norm weights
@@ -13,7 +15,7 @@ of ``ln1/ln2/ln_f``), and the layers cast to the activation dtype at use.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -25,14 +27,16 @@ from repro_torch.configs.base import ModelConfig
 class TensorSpec(NamedTuple):
     """A declared tensor: shape, dtype and initializer.
 
-    init: "normal" (truncated-normal fan-in) | "embed" (normal, std 0.02) |
-    "zeros" | "ones" | "fill" (the constant ``fill``).
+    init: "normal" (truncated normal, std ``scale`` or 1/sqrt(fan-in)) |
+    "embed" (normal, std 0.02) | "zeros" | "ones" | "fill" (the constant
+    ``fill``).
     """
 
     shape: tuple
     dtype: torch.dtype
     init: str = "normal"
     fill: float = 0.0
+    scale: Optional[float] = None
 
 
 def _spec(shape, dtype, init="normal"):
@@ -64,20 +68,27 @@ def _layer_specs(cfg: ModelConfig) -> dict:
     if cfg.qk_norm:
         attn["qnorm"] = _spec((hd,), pdt, "ones")
         attn["knorm"] = _spec((hd,), pdt, "ones")
-    return {
+    layer = {
         "ln1": {"w": _spec((d,), f32, "ones")},
         "attn": attn,
         "ln2": {"w": _spec((d,), f32, "ones")},
-        "mlp": {"wi": _spec((d, f), pdt), "wg": _spec((d, f), pdt),
-                "wo": _spec((f, d), pdt)},
     }
+    if cfg.family == "moe" and cfg.moe is not None:
+        from .moe import moe_specs
+
+        layer["moe"] = moe_specs(cfg)
+    else:
+        layer["mlp"] = {"wi": _spec((d, f), pdt), "wg": _spec((d, f), pdt),
+                        "wo": _spec((f, d), pdt)}
+    return layer
 
 
 def param_specs(cfg: ModelConfig) -> dict:
     """The parameter tree as (shape, dtype, init) leaves."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported; only the dense decoder is")
+            f"family {cfg.family!r} is not ported; the dense and moe "
+            "decoders are")
     if cfg.pos != "rope":
         raise NotImplementedError(f"pos={cfg.pos!r}: only RoPE is ported")
     embed = {"tok": _spec((cfg.padded_vocab, cfg.d_model), cfg.pdt, "embed")}
@@ -97,11 +108,12 @@ def _init_one(spec: TensorSpec, gen: torch.Generator, device) -> torch.Tensor:
     x = torch.empty(shape, dtype=torch.float32, device=device)
     if init == "embed":
         return (x.normal_(generator=gen) * 0.02).to(dtype)
-    # truncated-normal fan-in init (fan-in = second-to-last axis, as in the
-    # reference's init_one)
+    # truncated-normal init at std ``scale``, else fan-in (fan-in = the
+    # second-to-last axis, as in the reference's init_one)
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    std = spec.scale if spec.scale is not None else 1.0 / math.sqrt(fan_in)
     torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (x * (1.0 / math.sqrt(fan_in))).to(dtype)
+    return (x * std).to(dtype)
 
 
 def _map(tree, fn):

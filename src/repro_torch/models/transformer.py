@@ -1,22 +1,27 @@
-"""Dense GQA decoder: training forward and loss, serving cache and steps.
+"""Transformer decoders (dense and MoE): training forward and loss,
+serving cache, whole-prompt and chunked prefill, decode.
 
-Port of the dense family of ``repro/models/transformer.py`` (DESIGN.md §9):
-the full-sequence ``forward`` / ``loss_fn`` that training runs (the layers
-are a list here, so the reference's ``scan`` is a loop, each layer under
-the config's remat policy), and the serving half — ``cache_specs``
-(ring-paged layout, with or without the int8 KV cache, and at
-``levels >= 3`` the collapse-up hierarchy of ``core/hier.py``),
-``layer_cache_kinds``, ``prefill_chunk`` and ``decode_step``. The
-whole-prompt ``prefill`` has no port yet.
+Port of the dense and MoE families of ``repro/models/transformer.py``
+(DESIGN.md §9): the full-sequence ``forward`` / ``loss_fn`` that training
+runs (the layers are a list here, so the reference's ``scan`` is a loop,
+each layer under the config's remat policy; an MoE layer's routed FFN,
+``models/moe.py``, adds its load-balance and router-z losses to the aux
+total), and the serving half — ``cache_specs`` (ring-paged layout, with or
+without the int8 KV cache, and at ``levels >= 3`` the collapse-up
+hierarchy of ``core/hier.py``), ``layer_cache_kinds``, the whole-prompt
+``prefill`` (full-sequence attention over the prompt, then the cache
+written at positions [0, S)), ``prefill_chunk`` and ``decode_step``.
 
-Unlike the reference, ``prefill_chunk`` and ``decode_step`` update the
-cache tensors **in place** (and return the same dict): a slot that is
-frozen for the call (``num_valid == 0``, ``active == False``) has every row
-of its K/V, scales, pyramid sums, hierarchy tables and payloads, page-table
-entries and length left bit-identical. In-place updates set the order of
-work at H >= 3: the collapse plan reads the page table before the call
-rewrites it, and each layer carries the evicted pages' sums up the
-hierarchy before its pyramid drops them.
+Unlike the reference, ``prefill``, ``prefill_chunk`` and ``decode_step``
+update the cache tensors **in place** (and return the same dict): a slot
+that is frozen for the call (``num_valid == 0``, ``active == False``) has
+every row of its K/V, scales, pyramid sums, hierarchy tables and payloads,
+page-table entries and length left bit-identical. In-place updates set the
+order of work at H >= 3: the collapse plan reads the page table before the
+call rewrites it, and each layer carries the evicted pages' sums up the
+hierarchy before its pyramid drops them. An MoE layer routes every row of
+a serving call — padded and frozen rows too — and so the capacity counts
+them, as in the reference.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ from repro_torch.core.attention import (
     MRA_KINDS,
     chunk_attention,
     decode_attention,
+    self_attention,
 )
 from repro_torch.core.mra_decode import (
     PyramidState,
@@ -36,33 +42,42 @@ from repro_torch.core.mra_decode import (
 )
 
 from . import layers as L
+from .moe import moe_block
 from .params import TensorSpec
+
+
+def _ffn(x, p, cfg: ModelConfig):
+    """The layer's FFN on its normed input: (out, aux losses dict)."""
+    if "moe" in p:
+        return moe_block(x, p["moe"], cfg)
+    return L.mlp_block(x, p["mlp"], cfg), {}
 
 
 def _layer_fwd(x, p, cfg: ModelConfig, key_mask):
     h = L.apply_norm(x, p["ln1"], cfg)
     x = x + L.attn_block(h, p["attn"], cfg, key_mask=key_mask)
-    h = L.apply_norm(x, p["ln2"], cfg)
-    return x + L.mlp_block(h, p["mlp"], cfg)
+    out, aux = _ffn(L.apply_norm(x, p["ln2"], cfg), p, cfg)
+    return x + out, aux
 
 
 def forward(params, cfg: ModelConfig, batch, *, key_mask=None):
-    """Full-sequence forward of the dense decoder.
+    """Full-sequence forward of the decoder.
 
     batch: {"tokens": (B, S) int}; key_mask: optional (B, S) bool.
-    Returns (logits (B, S, padded_vocab) in the activation dtype, aux loss
-    (a zero fp32 scalar: the dense family has none)).
+    Returns (logits (B, S, padded_vocab) in the activation dtype, aux loss:
+    an fp32 scalar, the MoE layers' losses summed over layers in the
+    reference's order; zero for the dense family).
     """
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported; only the dense decoder is")
     x = L.embed(batch["tokens"], params["embed"], cfg)
     body = L.remat_wrap(_layer_fwd, cfg)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in params["layers"]:
-        x = body(x, p, cfg, key_mask)
+        x, aux = body(x, p, cfg, key_mask)
+        for v in aux.values():
+            aux_total = aux_total + v
     x = L.apply_norm(x, params["ln_f"], cfg)
     logits = L.unembed(x, params["embed"], cfg)
-    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+    return logits, aux_total
 
 
 def loss_fn(params, cfg: ModelConfig, batch, *, key_mask=None):
@@ -132,11 +147,74 @@ def layer_cache_kinds(cfg: ModelConfig):
 
 
 def _residual_attention(x, o, p, cfg: ModelConfig):
+    """The layer after its attention: output projection, residual, FFN
+    (a serving call drops the MoE aux losses)."""
     if cfg.padded_heads != cfg.num_heads:
         o = o * L.head_mask(cfg, o.device)[None, :, None, None].to(o.dtype)
     x = x + torch.einsum("bhsk,hkd->bsd", o, p["attn"]["wo"].to(x.dtype))
-    h = L.apply_norm(x, p["ln2"], cfg)
-    return x + L.mlp_block(h, p["mlp"], cfg)
+    out, _ = _ffn(L.apply_norm(x, p["ln2"], cfg), p, cfg)
+    return x + out
+
+
+@torch.no_grad()
+def prefill(params, cfg: ModelConfig, batch, cache):
+    """Run a whole prompt, fill the cache, return (last logits, cache).
+
+    batch: {"tokens": (B, S) int}, every slot S tokens from position 0.
+    Attention is the full-sequence kind of the config over the prompt
+    (MRA-2: the block-sparse kernels on a card). The cache is written in
+    place at positions [0, S): K/V (int8 codes and scales when the cache
+    has scales), and under the MRA kinds the fp32 pyramid block sums of the
+    S // b written pages, their page-table entries; ``lengths`` becomes S.
+    The prompt must fit the cache window, and under the MRA kinds be a
+    multiple of the block size (raises ValueError otherwise). Returns
+    logits (B, padded_vocab) at position S - 1.
+    """
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    S_phys = cache["k"][0].shape[2]
+    bs = cfg.attention.block_size
+    pyramid = "pyr_k" in cache
+    if S > S_phys:
+        raise ValueError(f"prompt of {S} tokens exceeds the cache window of "
+                         f"{S_phys}")
+    if pyramid and S % bs:
+        raise ValueError(f"prompt of {S} tokens is not a multiple of the "
+                         f"block size {bs} the pyramid sums need")
+    dev = tokens.device
+    x = L.embed(tokens, params["embed"], cfg)
+    positions = torch.arange(S, device=dev)
+    Hkv, hd = cfg.kv_heads, cfg.hd
+    for i, p in enumerate(params["layers"]):
+        h = L.apply_norm(x, p["ln1"], cfg)
+        q, k, v = L.qkv_project(h, p["attn"], cfg, positions)
+        ke, ve = L.expand_kv_slots(k, v, cfg)
+        o = self_attention(q, ke, ve, cfg.attn_spec, causal=cfg.causal)
+        x = _residual_attention(x, o, p, cfg)
+        if "k_scale" in cache:  # int8 KV cache
+            kq, ksc = quantize_kv(k)
+            vq, vsc = quantize_kv(v)
+            cache["k_scale"][i][:, :, :S] = ksc
+            cache["v_scale"][i][:, :, :S] = vsc
+            k_write, v_write = kq, vq
+        else:
+            k_write, v_write = k, v
+        cache["k"][i][:, :, :S] = k_write.to(cache["k"][i].dtype)
+        cache["v"][i][:, :, :S] = v_write.to(cache["v"][i].dtype)
+        if pyramid:
+            nw = S // bs
+            cache["pyr_k"][i][:, :, :nw] = k.reshape(B, Hkv, nw, bs, hd).sum(
+                3, dtype=torch.float32)
+            cache["pyr_v"][i][:, :, :nw] = v.reshape(B, Hkv, nw, bs, hd).sum(
+                3, dtype=torch.float32)
+    if "page_blocks" in cache:
+        pb = cache["page_blocks"]
+        pages = torch.arange(pb.shape[1], dtype=pb.dtype, device=dev)
+        pb.copy_(torch.where(pages < S // bs, pages, pb))
+    cache["lengths"].fill_(S)
+    x = L.apply_norm(x, params["ln_f"], cfg)
+    logits = L.unembed(x[:, -1:], params["embed"], cfg)
+    return logits[:, 0], cache
 
 
 @torch.no_grad()

@@ -16,8 +16,9 @@ Port of ``repro/serve/engine.py`` (DESIGN.md §9). Per engine iteration:
      with greedy streams identical to plain decoding; slots whose round
      would straddle a ring-eviction boundary take a plain wave.
 
-On a card every layer of every dispatch runs MRA chunk/decode attention
-through the CUDA kernel (``kernels/chunk_attn.py``). Observability
+The model comes from the registry (``models/registry.py``: the dense and
+MoE decoders). On a card every layer of every dispatch runs MRA
+chunk/decode attention through the CUDA kernel (``kernels/chunk_attn.py``). Observability
 (``serve/telemetry.py``, DESIGN.md §13): the engine's ``Telemetry`` declares
 its metric set in ``reset_stats`` — typed counters, bounded histograms of
 dispatch wall time and request latencies, occupancy gauges — and traces
@@ -36,7 +37,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.chunk_attn import KERNEL_MODES
-from repro_torch.models import transformer
+from repro_torch.models.registry import get_model
 
 from .cache import RingPagedKVCache
 from .sampling import SamplingParams, sample_batch
@@ -113,9 +114,7 @@ class Engine:
             raise NotImplementedError(
                 f"EngineConfig.draft_level={config.draft_level}: only "
                 "draft_level=1 is ported (ROADMAP.md)")
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"family {cfg.family!r} does not serve in the port yet")
+        self.model = get_model(cfg)  # raises for a family not ported
         self.device = resolve_device(device)
         tok = params["embed"]["tok"]
         if tok.device.type != self.device.type:
@@ -226,7 +225,7 @@ class Engine:
             tokens, num_valid, finishing = plan
             with tel.dispatch("prefill_chunk", hist="prefill_chunk_seconds",
                               tokens=int(num_valid.sum())):
-                logits, _ = transformer.prefill_chunk(
+                logits, _ = self.model.prefill_chunk(
                     self.params, self.cfg, self.kv.tree,
                     self._tensor(tokens, torch.int64),
                     self._tensor(num_valid, torch.int32))
@@ -268,7 +267,7 @@ class Engine:
         """One decode_step + sample dispatch for the ``active`` slots."""
         feed = sched.feed_tokens()
         with self.telemetry.dispatch("decode_step", slots=int(active.sum())):
-            logits, _ = transformer.decode_step(
+            logits, _ = self.model.decode_step(
                 self.params, self.cfg, self.kv.tree,
                 self._tensor(feed, torch.int64),
                 active=self._tensor(active, torch.bool))

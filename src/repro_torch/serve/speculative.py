@@ -33,7 +33,6 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention import MRA_KINDS
-from repro_torch.models import transformer
 
 from .sampling import draft_batch, spec_verify_batch
 
@@ -101,7 +100,7 @@ class SpecDecoder:
         tok, drafts, qs = fed, [], []
         for j in range(K):
             with tel.dispatch("draft", hist="draft_seconds", step=j):
-                logits, _ = transformer.decode_step(
+                logits, _ = engine.model.decode_step(
                     engine.params, self.dcfg, kv.tree, tok, active=act)
                 q, nxt = draft_batch(logits, temp, top_k, top_p, seed,
                                      step0 + j, vocab=vocab)
@@ -116,7 +115,7 @@ class SpecDecoder:
         chunk = torch.stack([fed] + drafts, dim=1)  # (B, K+1)
         num_valid = torch.where(act, K + 1, 0).to(torch.int32)
         with tel.dispatch("verify", hist="verify_seconds", k=K):
-            logits, _, chunk_kv = transformer.prefill_chunk(
+            logits, _, chunk_kv = engine.model.prefill_chunk(
                 engine.params, self.cfg, kv.tree, chunk, num_valid,
                 all_logits=True, collect_kv=True)
             out, n_out, n_acc = spec_verify_batch(

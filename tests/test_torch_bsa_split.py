@@ -305,6 +305,20 @@ def test_training_shapes_plan_two_blocks_an_sm_in_bf16(kernel):
         3 if kernel == "fwd" else 2)
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES.values()), ids=list(DTYPES))
+def test_forward_only_shape_plans_two_blocks_an_sm(dtype):
+    """granite-moe's whole-prompt prefill: the forward at (d, b) = (64, 128),
+    two 64-row blocks a query tile, at least two blocks an SM in bf16 by
+    shared memory; the backward kernels are not built there."""
+    plan = bsa.kernel_plan("fwd", dtype, 64, 128)
+    assert (plan["rows"], plan["sub_tiles"], plan["threads"]) == (64, 2, 128)
+    assert plan["stage"] == (64 if dtype == torch.bfloat16 else 32)
+    assert plan["smem_bytes"] <= 232448 and plan["smem_bytes"] % 16 == 0
+    assert bsa.planned_blocks_per_sm("fwd", dtype, 64, 128) >= 2
+    assert (64, 128) in bsa.built_shapes("fwd")
+    assert (64, 128) not in bsa.built_shapes("dq") + bsa.built_shapes("dkv")
+
+
 def test_launch_geometry_of_the_training_call():
     """BSA_MAIN: 32 BHG rows and 16 KV heads of 32 blocks each, two 64-row
     blocks a tile: 2048 forward, 2048 dq and 1024 dk/dv blocks; dq's block

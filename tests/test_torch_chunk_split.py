@@ -15,9 +15,13 @@ what surrounds it to the plain route, with numpy inputs from a seed:
     ``tests/test_chunk_kernel.py::SWEEP`` (MRA-2 and MRA-2-s, int8, ring and
     ragged layouts), with H-level views of NU = 5 and 40 entries, and with
     splits that get no page;
-  * ``smem_bytes`` stays within 113 KB (two blocks an SM) at the qwen3-1.7b
-    and llama3.2-3b shapes for every storage type, and the wrapper refuses
-    a (head dim, block size) the kernel is not built for.
+  * ``smem_bytes`` stays within 113 KB (two blocks an SM) and a tile within
+    ``MAX_TILE_ROWS`` rows at the qwen3-1.7b, llama3.2-3b, granite-moe
+    (D = 64), qwen2-7b (G = 7) and yi-6b (G = 8) shapes for every storage
+    type; the wrappers refuse a (head dim, block size) a kernel is not
+    built for (kimi-k2's (112, 128); granite's (64, 128) for the
+    block-sparse backward); zero-padding a head dim to a multiple of 16 is
+    exact for the plain version.
 """
 from __future__ import annotations
 
@@ -56,7 +60,9 @@ def test_split_ranges_cover_every_page_once(nb):
 
 @pytest.mark.parametrize("arch,B,C", [("qwen3-1.7b", 4, 128),
                                       ("qwen3-1.7b", 2, 512),
-                                      ("llama3.2-3b", 4, 128)])
+                                      ("llama3.2-3b", 4, 128),
+                                      ("granite-moe-3b-a800m", 4, 128),
+                                      ("qwen2-7b", 4, 128), ("yi-6b", 4, 128)])
 def test_split_plan_leaves_chunked_prefill_whole(arch, B, C):
     cfg = get_config(arch)
     G = cfg.num_heads // cfg.kv_heads
@@ -66,7 +72,8 @@ def test_split_plan_leaves_chunked_prefill_whole(arch, B, C):
 
 
 @pytest.mark.parametrize("B", [2, 4])
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "llama3.2-3b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "llama3.2-3b",
+                                  "granite-moe-3b-a800m"])
 def test_split_plan_fills_the_card_at_decode(arch, B):
     cfg = get_config(arch)
     nb = 4096 // cfg.attention.block_size
@@ -206,13 +213,18 @@ def test_split_combine_with_an_upper_view(nu, pattern, nsplit):
 # shared memory and the shapes the kernel is built for
 # --------------------------------------------------------------------------- #
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8, torch.float32])
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "llama3.2-3b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "llama3.2-3b",
+                                  "granite-moe-3b-a800m", "qwen2-7b", "yi-6b"])
 def test_smem_fits_two_blocks_per_sm(arch, dtype):
+    """G = 2 / 3 (qwen3, llama, granite at D = 64) and 7 / 8 (qwen2-7b,
+    yi-6b): every tile within MAX_TILE_ROWS rows and 113 KB."""
     cfg = get_config(arch)
     G = cfg.num_heads // cfg.kv_heads
     D, b = cfg.head_dim, cfg.attention.block_size
+    chunk_attn.check_shape(D, b)
     for C in (1, 5, 128, 512):
         c_tile = chunk_attn.tile_width("auto", C, G)
+        assert G * c_tile <= chunk_attn.MAX_TILE_ROWS, (C, c_tile)
         smem = chunk_attn.smem_bytes(G, c_tile, D, b, 4096 // b, dtype)
         assert smem <= SMEM_TARGET, (C, smem)
 
@@ -228,3 +240,46 @@ def test_tile_width_keeps_32_rows_and_refuses_unbuilt_shapes():
         chunk_attn.check_shape(D, b)
     with pytest.raises(ValueError, match=r"\(128, 128\), \(16, 16\)"):
         chunk_attn.check_shape(8, 16)
+
+
+def test_unbuilt_head_dims_are_refused_by_name():
+    """kimi-k2's (112, 128) is built for neither kernel; granite's (64, 128)
+    only for the block-sparse forward (its backward comes with MoE
+    training). Each refusal is a ValueError naming the shape."""
+    from repro_torch.kernels import block_sparse_attn as bsa
+
+    with pytest.raises(ValueError, match=r"\(112, 128\)"):
+        chunk_attn.check_shape(112, 128)
+    chunk_attn.check_shape(chunk_attn.padded_dim(56), 128)
+    for kernel in (None, "fwd", "dq", "dkv"):
+        with pytest.raises(ValueError, match=r"\(112, 128\) is not built"):
+            bsa.check_shape(112, 128, kernel)
+    bsa.check_shape(64, 128, "fwd")
+    for kernel in (None, "dq", "dkv"):
+        with pytest.raises(ValueError, match=r"\(64, 128\) is not built"):
+            bsa.check_shape(64, 128, kernel)
+    assert bsa.kernel_plan("fwd", torch.bfloat16, 64, 128)["sub_tiles"] == 2
+    with pytest.raises(ValueError, match="is not built"):
+        bsa.kernel_plan("dq", torch.bfloat16, 64, 128)
+
+
+@pytest.mark.parametrize("D,b", [(56, 128), (12, 16)])
+@pytest.mark.parametrize("quant", [False, True])
+def test_padded_head_dim_is_exact_for_the_plain_version(D, b, quant):
+    """What the CUDA wrapper launches for a head dim off the multiples of 16
+    (``pad_head_dim``: queries, page and collapsed means and cache rows
+    zero-padded to 64 / 16) gives the unpadded plain result on the first D
+    columns and zeros after them, with and without an H-level view."""
+    case = Case(B=2, Hkv=2, S=4 * b, D=D, b=b, m=2, group=3, quant=quant,
+                paged=True, seed=7)
+    for C in (1, 5):
+        for up in (None, _upper(8, 2, 2, D, 5, "some_dead")):
+            pre, k, v, q_pos, ks, vs, m = _prelude(case, C, up)
+            kw = dict(m=m, k_scale=ks, v_scale=vs)
+            want = chunk_attn.chunk_attention_ref(pre, k, v, q_pos, **kw)
+            ppre, pk, pv = chunk_attn.pad_head_dim(pre, k, v)
+            assert ppre.qg.shape[-1] == pk.shape[-1] == chunk_attn.padded_dim(D)
+            got = chunk_attn.chunk_attention_ref(ppre, pk, pv, q_pos, **kw)
+            np.testing.assert_allclose(got[..., :D].numpy(), want.numpy(),
+                                       atol=1e-6, rtol=0)
+            assert not got[..., D:].any()

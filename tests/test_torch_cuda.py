@@ -32,16 +32,28 @@ run on the same CUDA tensors.
     split forced and planned, a verify-width chunk, the H-level view), and
     the speculative engine on the card: greedy streams equal the plain
     engine's at H = 2 and H = 3, the snapshot/rewind bitwise.
+  * ``chunk_attn`` at granite-moe's (D, b) = (64, 128), G = 3 (decode with
+    the split forced and planned, C = 128 and 5, bf16 / int8 / fp32, both
+    programs), at qwen2-7b's and yi-6b's G = 7 / 8 at (128, 128), and at a
+    head dim the wrapper zero-pads (56 -> 64, 12 -> 16), same tolerance and
+    near-tie rule; two blocks an SM for every new shape and storage type.
+  * the MoE family on the card at the smoke size (fp32): greedy streams
+    equal with the plain chunk twin substituted, plain and speculative;
+    the whole-prompt ``prefill`` (the block-sparse forward, once a layer)
+    leaves ``prefill_chunk``'s cache within 1e-5 normwise and its last
+    logits within 1e-4 where both attentions are exact.
   * ``bsa_fwd`` / ``bsa_bwd_dq`` / ``bsa_bwd_dkv`` against
     ``block_sparse_attention_ref`` / ``_bwd_ref``: the normalized numerator
     and the max-scaled gradients at rtol/atol 1e-4, mt at abs 1e-5 (fp32
     sums in another order, split bf16 operands on tensor cores); reruns
     bit-identical; bf16 and fp32 (every operand split) at every built
     (d, b), a padded head dim and a hot key tile; an unbuilt (d, b) is
-    refused before any launch; the plan mirrors the library.
+    refused before any launch; the plan mirrors the library. ``bsa_fwd``
+    also at (64, 128), G = 3, where dq and dk/dv refuse.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 
@@ -511,8 +523,9 @@ def test_chunk_attn_reruns_are_bit_identical(cuda):
 
 @pytest.mark.cuda
 def test_chunk_attn_refuses_an_unbuilt_shape_and_mirrors_smem(cuda):
+    # D = 40 pads to 48, which is not built (D = 8 would pad to a built 16)
     q, k, v, lengths, q_pos, pb, ks, vs = make_inputs(
-        0, B=2, Hkv=2, G=2, D=8, b=16, nb=4, C=1, layout="dense",
+        0, B=2, Hkv=2, G=2, D=40, b=16, nb=4, C=1, layout="dense",
         dtype="bf16", device=cuda)
     pre = tmd._chunk_prelude(q, k, v, lengths, q_pos, MraConfig(block_size=16),
                              2, None, pb)
@@ -528,6 +541,99 @@ def test_chunk_attn_refuses_an_unbuilt_shape_and_mirrors_smem(cuda):
                                          G * c_tile, nb) == want
         if D == 128:
             assert chunk_attn.blocks_per_sm(dt, D, b, True, want) >= 2
+
+
+# ---- head dim 64 at block 128 (granite-moe-3b-a800m, G = 3), the 7 and 8
+# query heads per KV head of qwen2-7b and yi-6b, a padded head dim ----------
+GRANITE = dict(B=4, Hkv=8, G=3, D=64, b=128, nb=32, m=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,mode,nsplit", [
+    (1, "latency", 1), (1, "latency", "plan"), (128, "throughput", None),
+    (5, "throughput", None)])
+@pytest.mark.parametrize("dtype", ["bf16", "int8", "fp32"])
+def test_chunk_attn_granite_shape_matches_plain(cuda, C, mode, nsplit, dtype):
+    """(D, b) = (64, 128), G = 3: two warps split D; decode with the split
+    forced to 1 and planned, the prefill chunk (C_tile = 8: 24 rows) and a
+    verify-width chunk, every storage type, MRA-2 and MRA-2-s."""
+    ties = rows = 0
+    for i, (layout, variant) in enumerate(itertools.product(
+            ("dense", "ring", "ragged"), ("full", "sparse"))):
+        pre, k, v, q_pos, ks, vs = prelude(70 + i, GRANITE, C, layout, dtype,
+                                           cuda, variant)
+        ns = planned(pre) if nsplit == "plan" else nsplit
+        before = chunk_attn.chunk_attention_kernel.launches
+        _, t, n = compare(pre, k, v, q_pos, GRANITE["m"], ks, vs,
+                          variant == "full", mode, nsplit=ns)
+        assert chunk_attn.chunk_attention_kernel.launches == before + 1
+        ties, rows = ties + t, rows + n
+    assert ties <= 0.01 * rows, f"{ties} near-tie rows of {rows}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,mode", [(1, "latency"), (5, "throughput")])
+def test_chunk_attn_upper_granite_shape_matches_plain(cuda, C, mode):
+    """The H-level program at (64, 128) with NU = 33."""
+    sh = GRANITE
+    for i, (layout, dtype, pattern) in enumerate(itertools.product(
+            ("ring", "ragged"), ("bf16", "int8"),
+            ("all_live", "some_dead", "tail_only"))):
+        up = upper_of(80 + i, sh["B"], sh["Hkv"], sh["D"], 33, pattern, cuda)
+        pre, k, v, q_pos, ks, vs = prelude(80 + i, sh, C, layout, dtype, cuda,
+                                           upper=up)
+        before = chunk_attn.chunk_attention_kernel.upper_launches
+        compare(pre, k, v, q_pos, sh["m"], ks, vs, True, mode)
+        assert chunk_attn.chunk_attention_kernel.upper_launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [7, 8])
+@pytest.mark.parametrize("C,mode", [(1, "latency"), (128, "throughput")])
+def test_chunk_attn_qwen2_and_yi_heads_match_plain(cuda, G, C, mode):
+    """qwen2-7b (G = 7) and yi-6b (G = 8) at (128, 128), 4 KV heads: a
+    throughput tile of 4 positions holds 28 / 32 rows."""
+    sh = dict(DECODE["main"], Hkv=4, G=G)
+    ties = rows = 0
+    for i, (layout, dtype) in enumerate(itertools.product(
+            ("dense", "ring", "ragged"), ("bf16", "int8"))):
+        pre, k, v, q_pos, ks, vs = prelude(90 + i, sh, C, layout, dtype, cuda)
+        _, t, n = compare(pre, k, v, q_pos, sh["m"], ks, vs, True, mode)
+        ties, rows = ties + t, rows + n
+    assert ties <= 0.01 * rows, f"{ties} near-tie rows of {rows}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,b", [(56, 128), (12, 16)])
+def test_chunk_attn_pads_the_head_dim(cuda, D, b):
+    """A head dim off the multiples of 16 runs zero-padded (56 -> 64,
+    12 -> 16) and returns the plain version's D columns."""
+    sh = dict(B=2, Hkv=2, G=3, D=D, b=b, nb=8, m=3)
+    for i, ((C, mode), layout, dtype) in enumerate(itertools.product(
+            ((1, "latency"), (5, "throughput")), ("ring", "ragged"),
+            ("bf16", "int8"))):
+        up = upper_of(95 + i, sh["B"], sh["Hkv"], D, 5, "some_dead", cuda)
+        for upper in (None, up):
+            pre, k, v, q_pos, ks, vs = prelude(95 + i, sh, C, layout, dtype,
+                                               cuda, upper=upper)
+            compare(pre, k, v, q_pos, sh["m"], ks, vs, True, mode)
+
+
+@pytest.mark.cuda
+def test_chunk_attn_new_shapes_hold_two_blocks_an_sm(cuda):
+    """granite (G = 3, D = 64), qwen2-7b (G = 7) and yi-6b (G = 8) at
+    4096-token slots: the library's shared memory equals the mirror, and
+    both programs fit two blocks an SM in every storage type."""
+    lib = chunk_attn._library()
+    for (G, D), dt, C, upper in itertools.product(
+            ((3, 64), (7, 128), (8, 128)),
+            (torch.bfloat16, torch.int8, torch.float32), (1, 128),
+            (False, True)):
+        c_tile = chunk_attn.tile_width("auto", C, G)
+        smem = chunk_attn.smem_bytes(G, c_tile, D, 128, 32, dt)
+        assert lib.chunk_attn_smem_bytes(chunk_attn._CACHE_DTYPES[dt], D, 128,
+                                         G * c_tile, 32) == smem
+        assert chunk_attn.blocks_per_sm(dt, D, 128, upper, smem) >= 2
 
 
 def bsa_inputs(seed, *, BHKV, G, n, d, b, m, dtype, device, masked=True,
@@ -699,6 +805,46 @@ def test_bsa_plan_mirrors_the_library(cuda):
         assert bsa.blocks_per_sm(kernel, torch.bfloat16, 128, 128) >= 2
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_bsa_fwd_granite_shape_matches_plain(cuda, dtype):
+    """The forward at (d, b) = (64, 128), G = 3 (granite-moe's whole-prompt
+    prefill): the plain twin's normalized numerator, row sums and mt, reruns
+    bit-identical, two blocks an SM in bf16; dq and dk/dv are not built at
+    that shape and refuse it before launching."""
+    shape = dict(BHKV=4, G=3, n=1024, d=64, b=128, m=20)
+    q, k, v, c, x, y, fl, km = bsa_inputs(5, dtype=dtype, device=cuda, **shape)
+    nb = shape["n"] // shape["b"]
+    kw = dict(scale=0.125, block_size=shape["b"])
+    pq = bsa.group_by_query(x, y, fl, nb)
+    before = bsa.bsa_fwd.launches
+    out, rs, mt = bsa.bsa_fwd(q, k, v, c, pq, km, **kw)
+    again = bsa.bsa_fwd(q, k, v, c, pq, km, **kw)
+    ref = bsa.block_sparse_attention_ref(q, k, v, x, y, fl, c, km, **kw)
+    torch.cuda.synchronize()
+    assert bsa.bsa_fwd.launches == before + 2
+    assert all(torch.equal(a, e) for a, e in zip(again, (out, rs, mt)))
+    assert torch.equal(rs > 0, ref[1] > 0)
+    assert bool(torch.isclose(_normalized(out, rs), _normalized(*ref[:2]),
+                              rtol=1e-4, atol=1e-4).all())
+    assert bool(torch.isclose(rs, ref[1], rtol=1e-4, atol=1e-4).all())
+    assert float((mt - ref[2]).abs().max()) <= 1e-5
+    lib = bsa._library()
+    assert lib.bsa_smem_bytes(0, bsa._DTYPES[dtype], 64, 128) == \
+        bsa.smem_bytes("fwd", dtype, 64, 128)
+    assert bsa.blocks_per_sm("fwd", dtype, 64, 128) >= (
+        2 if dtype == torch.bfloat16 else 1)
+    mt0 = torch.zeros(q.shape[:2], device=cuda)
+    do = torch.zeros(q.shape, device=cuda)
+    for fn, pairs in ((bsa.bsa_bwd_dq, pq),
+                      (bsa.bsa_bwd_dkv, bsa.group_by_key(x, y, fl, 3, nb))):
+        with pytest.raises(ValueError, match=r"\(64, 128\) is not built"):
+            fn(q, k, v, mt0, do, mt0, pairs, km, **kw)
+    for kid in (1, 2):  # the library refuses them too
+        assert lib.bsa_smem_bytes(kid, 0, 64, 128) == 0
+
+
 # ---- speculative serving through the kernel (smoke size, fp32) ------------
 def _smoke_engine_case(levels, cuda):
     from repro_torch.configs import get_smoke_config
@@ -774,3 +920,94 @@ def test_spec_rewind_is_bitwise_on_the_card(cuda, case):
     after = flat(eng.kv.tree)
     for key in before:
         assert torch.equal(after[key], before[key]), key
+
+
+# ---- the MoE family and the whole-prompt prefill on the card --------------
+def _granite_smoke(cuda, **attention):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.params import init_params
+
+    cfg = get_smoke_config("granite-moe-3b-a800m", activ_dtype="float32")
+    if attention:
+        cfg = cfg.replace(attention=cfg.attention.replace(**attention))
+    return cfg, init_params(cfg, seed=0, device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec_k", [0, 3])
+def test_moe_engine_streams_kernel_vs_plain(cuda, spec_k):
+    """granite-moe's smoke config served on the card: greedy streams equal
+    with the plain chunk twin substituted, every dispatch launches the
+    kernel once a layer (plain engine), and speculation keeps the streams."""
+    from unittest import mock
+
+    from repro_torch.serve import Engine, EngineConfig, Request
+
+    cfg, params = _granite_smoke(cuda)
+    r = np.random.default_rng(0)
+    prompts = [(r.integers(0, cfg.vocab, n), t)
+               for n, t in ((19, 60), (3, 4), (10, 9), (40, 6))]
+    ecfg = EngineConfig(slots=3, max_len=64, chunk=8, spec_k=spec_k)
+
+    def run(plain):
+        fn = chunk_attn.chunk_attention_kernel
+        before = fn.launches
+        eng = Engine(cfg, params, ecfg, device=cuda)
+        with contextlib.ExitStack() as stack:
+            if plain:
+                stack.enter_context(mock.patch.object(
+                    chunk_attn, "chunk_attention_kernel",
+                    chunk_attn.chunk_attention_ref))
+            done = eng.run([Request(prompt=p, max_new_tokens=t)
+                            for p, t in prompts])
+        return eng, fn.launches - before, {len(q.prompt): q.out for q in done}
+
+    eng, launches, got = run(False)
+    _, plain_launches, want = run(True)
+    st = eng.stats
+    assert plain_launches == 0
+    if spec_k == 0:
+        assert launches == cfg.num_layers * (st["prefill_dispatches"]
+                                             + st["decode_dispatches"])
+    else:
+        assert st["spec_rounds"] > 0
+    for n in want:
+        np.testing.assert_array_equal(got[n], want[n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+def test_whole_prompt_prefill_matches_prefill_chunk_on_the_card(cuda, quant):
+    """granite-moe's smoke config at a budget that covers the prompt (both
+    attentions exact): ``prefill`` (the block-sparse forward kernel, once a
+    layer) leaves prefill_chunk's cache and last logits; with an int8 cache
+    the prefill attends unrounded K/V, so only layer 0's codes are held."""
+    from repro_torch.models import transformer
+    from repro_torch.serve.cache import RingPagedKVCache
+
+    cfg, params = _granite_smoke(cuda, blocks_per_row=4, decode_blocks=4,
+                                 kv_quant=quant)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 48)), device=cuda)
+    before = bsa.bsa_fwd.launches
+    whole = RingPagedKVCache(cfg, 2, 64, device=cuda).tree
+    lw, whole = transformer.prefill(params, cfg, {"tokens": toks}, whole)
+    assert bsa.bsa_fwd.launches == before + cfg.num_layers
+    chunked = RingPagedKVCache(cfg, 2, 64, device=cuda).tree
+    for c0 in range(0, 48, 16):
+        lc, chunked = transformer.prefill_chunk(
+            params, cfg, chunked, toks[:, c0:c0 + 16],
+            torch.full((2,), 16, dtype=torch.int32, device=cuda))
+    assert torch.equal(whole["page_blocks"], chunked["page_blocks"])
+    assert torch.equal(whole["lengths"], chunked["lengths"])
+    layers = 1 if quant else cfg.num_layers
+    for key in ("k", "v", "pyr_k", "pyr_v"):
+        for i in range(layers):
+            a, b = whole[key][i], chunked[key][i]
+            if a.dtype == torch.int8:
+                assert int((a.int() - b.int()).abs().max()) <= 1, (key, i)
+            else:
+                tol = 1e-5 * max(1.0, float(b.abs().max()))
+                assert float((a - b).abs().max()) <= tol, (key, i)
+    if not quant:
+        assert float((lw - lc).abs().max()) <= 1e-4

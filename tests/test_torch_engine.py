@@ -267,6 +267,16 @@ def test_unported_options_raise(cfgs, params, field, value):
         Engine(tcfg, tp, ECFG.replace(kernel_mode="fast"), device="cpu")
 
 
+@pytest.mark.parametrize("family", ["rwkv6", "recurrentgemma", "hubert"])
+def test_unported_family_raises(cfgs, params, family):
+    """The engine takes its model from the registry: the dense and MoE
+    families serve, a family not ported yet raises naming it."""
+    _, tcfg = cfgs
+    _, tp = params
+    with pytest.raises(NotImplementedError, match=family):
+        Engine(tcfg.replace(family=family), tp, ECFG, device="cpu")
+
+
 # --------------------------------------------------------------------------- #
 # H = 3: serving past the fine window
 # --------------------------------------------------------------------------- #

@@ -49,7 +49,9 @@ def test_scan_sees_the_whole_port():
     names = {p.name for p in _sources()}
     assert {"chunk_attn.py", "engine.py", "transformer.py", "mra_decode.py",
             "hier.py", "block_sparse_attn.py", "mra.py", "adamw.py",
-            "pipeline.py", "ckpt.py", "loop.py", "chip_smoke.py"} <= names
+            "pipeline.py", "ckpt.py", "loop.py", "chip_smoke.py", "moe.py",
+            "registry.py", "granite_moe_3b_a800m.py", "kimi_k2_1t_a32b.py",
+            "qwen2_7b.py", "yi_6b.py"} <= names
 
 
 _SERVE_WITHOUT_JAX = r"""
