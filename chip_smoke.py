@@ -53,8 +53,8 @@ port's serving path and its training path on the card:
      kernels' launches counted over exactly that run, then a torch.profiler
      breakdown of one step;
   9. training parity — the plain versions substituted for the kernels (in
-     this script only): losses over 3 steps at the smoke size, loss and
-     grad norm of one step at full width (4 layers), all fp32;
+     this script only): losses over 3 steps at the smoke size (1e-5), loss
+     and grad norm of one step at full width (4 layers, 1e-4), all fp32;
  10. the chunk kernel's H-level program (``levels >= 3``: collapsed levels +
      tail folded into the background) against its plain twin on the same
      CUDA tensors: NU = 33 (H = 3) and 65 (H = 4) at the long-context
@@ -119,7 +119,26 @@ port's serving path and its training path on the card:
  19. (after phase 7) bsa_fwd at (64, 128), G = 3, against its plain twin,
      bf16 and fp32, twice and bit-identical, then timed at n = 4096, B = 1
      beside its bound and the plain version, with its grid, shared memory
-     and blocks per SM (two or more in bf16, or the phase fails).
+     and blocks per SM (two or more in bf16, or the phase fails);
+ 22. (after phase 19) bsa_bwd_dq and bsa_bwd_dkv at (64, 128), G = 3, the
+     same way, timed at granite-moe's training shape (B = 2, n = 4096);
+ 20. (after phase 9) granite-moe-3b-a800m training at full width — 32
+     layers, 40 experts top-8, head dim 64, the preset's remat="full", seq
+     4096, batch 2 (its peak under the card's 80 GiB, or the phase
+     fails), three steps of ``train()`` from random weights — with
+     loss, aux loss, grad norm, seconds, tok/s, peak GiB and the three
+     kernels' launches counted over exactly that run; then a torch.profiler
+     breakdown of one step (the routed FFN's forward and recompute in a
+     ``moe_block`` range);
+ 21. granite-moe training parity, the plain versions substituted, fp32:
+     losses over 3 smoke steps (1e-5); at full width one batch's loss, grad
+     norm and every gradient leaf (1 layer), loss and grad norm (2 layers)
+     within 1e-4, 4 layers reported beside the plain route against a rerun
+     of itself (``MOE_PARITY`` says why); then remat "none", "full" and "dots" on
+     the kernels at full width cut to 8 layers (one step each: loss and
+     grad norm within 1e-6 of "none"'s, peak GiB, step seconds, launches;
+     "full" twice, to tell whether reruns update every parameter bitwise
+     alike).
 
 One JSON line per phase; then the card line from nvidia-smi, the kernels
 line and, last, ``{"ok": true, "device": {...}}``. Any failed phase raises,
@@ -184,6 +203,17 @@ BSA_GRANITE = dict(B=1, Hq=24, n=4096, d=64, b=128, bpr=4)
 # max-scaled gradients at rtol/atol 1e-4, the stabilizer mt at abs 1e-5
 BSA_TOL, MT_TOL = 1e-4, 1e-5
 TRAIN = dict(seq=4096, batch=2, steps=3)  # train_4k with the batch cut to 2
+# granite-moe-3b-a800m's training parity at full width (phase 21): per
+# depth, what is held to the plain versions within 1e-4. Without qk-norm each
+# layer's backward amplifies the rounding of the one after it: at 4 layers
+# the plain route against a rerun of itself (its scatter-adds summed in
+# another order) parts by nearly 1e-4 in the grad norm and by ~1e-1 in its
+# worst leaf, so 4 layers are reported and not held
+MOE_PARITY = ((1, ("loss_rel", "grad_norm_rel", "leaf_rel")),
+              (2, ("loss_rel", "grad_norm_rel")), (4, ()))
+# phase 21 compares the remat policies at full width with the depth cut to
+# MOE_REMAT_LAYERS
+MOE_REMAT_LAYERS = 8
 # the serving engine's traffic (phase 4), and phase 14's speculative run of
 # the same requests: new tokens cut from 192 to 144 to hold the script's
 # time, still past the 4096-token ring (3968 + 144), so fallback waves run
@@ -197,7 +227,12 @@ MOE_ARCH = "granite-moe-3b-a800m"
 LOGIT_TOL, CACHE_TOL = 1e-4, 1e-5
 
 
+START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:  # seconds since the script started, for its budget
+        obj = {**obj, "elapsed_s": time.perf_counter() - START}
     print(json.dumps(obj), flush=True)
 
 
@@ -348,12 +383,11 @@ def phase_device(torch):
           "ptxas_chunk_attn": ptxas_report(
               libs["chunk_attn"].with_suffix(".log").read_text()),
           "ptxas_block_sparse_attn": bsa_ptx})
-    # 20 = bf16 and fp32 x (three (D, b) x bsa_fwd, bsa_bwd_dq, bsa_bwd_dkv,
-    # and bsa_fwd at (64, 128))
+    # 24 = bf16 and fp32 x four (D, b) x bsa_fwd, bsa_bwd_dq, bsa_bwd_dkv
     spills = [k for k in bsa_ptx if k["kernel"].startswith(
         ("bsa_fwd bf16", "bsa_bwd_dq bf16", "bsa_bwd_dkv bf16"))
         and (k["spill_stores"] or k["spill_loads"] or k["registers"] > 255)]
-    if len(bsa_ptx) != 20 or spills:
+    if len(bsa_ptx) != 24 or spills:
         raise AssertionError(f"bsa kernels: {len(bsa_ptx)} built, spilling "
                              f"bf16 tensor-core kernels {spills}")
     # 19 = three storage types x three (D, b) x two programs, + the combine
@@ -1262,18 +1296,102 @@ def phase_bsa_granite(torch, bsa):
     return worst, timing
 
 
-def phase_train_full_width(torch, bsa):
+def phase_bsa_granite_bwd(torch, bsa):
+    """bsa_bwd_dq and bsa_bwd_dkv at (d, b) = (64, 128), G = 3 (granite-moe's
+    training) against their plain twins, bf16 and fp32, twice and
+    bit-identical (with and without padded keys / invalid pairs); then
+    their time at granite's training shape (B = 2, 24 / 8 heads, n = 4096,
+    bf16) beside the bound and the plain twin, with grid, shared memory and
+    blocks per SM (two or more in bf16, or the phase fails)."""
+    sh = dict(BSA_GRANITE, B=TRAIN["batch"])
+    nb = sh["n"] // sh["b"]
+    worst, n = dict.fromkeys(("bsa_bwd_dq", "bsa_bwd_dkv"), 0.0), 0
+    for dtype, edited in itertools.product((torch.bfloat16, torch.float32),
+                                           (False, True)):
+        n += 1
+        q, k, v, c, x, y, fl, km, scale = bsa_case(torch, sh, 3, dtype,
+                                                   SEED + 400 + n, edited)
+        pq = bsa.group_by_query(x, y, fl, nb)
+        pk = bsa.group_by_key(x, y, fl, 3, nb)
+        kw = dict(scale=scale, block_size=sh["b"])
+        mt = bsa.bsa_fwd(q, k, v, c, pq, km, **kw)[2]
+        r = np.random.default_rng(SEED + 500 + n)
+        do = torch.from_numpy(r.standard_normal(tuple(q.shape), np.float32)).to(DEVICE)
+        dr = torch.from_numpy(r.standard_normal(tuple(q.shape[:2]), np.float32)).to(DEVICE)
+        runs = [(bsa.bsa_bwd_dq(q, k, v, mt, do, dr, pq, km, **kw),
+                 *bsa.bsa_bwd_dkv(q, k, v, mt, do, dr, pk, km, **kw))
+                for _ in range(2)]
+        gref = bsa.block_sparse_attention_bwd_ref(q, k, v, c, x, y, fl, km,
+                                                  do, dr, **kw)
+        torch.cuda.synchronize()
+        label = f"granite {dtype} edited={edited}"
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            raise AssertionError(f"bsa backward not bit-identical: {label}")
+        for kname, got, want in (("bsa_bwd_dq", runs[0][0], gref[0]),
+                                 ("bsa_bwd_dkv", runs[0][1], gref[1]),
+                                 ("bsa_bwd_dkv", runs[0][2], gref[2])):
+            err, ok = _scaled_close(torch, got, want, BSA_TOL)
+            if not ok or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"{kname} != plain: {label}: {err}")
+            worst[kname] = max(worst[kname], err)
+    q, k, v, c, x, y, fl, km, scale = bsa_case(torch, sh, 3, torch.bfloat16,
+                                               SEED, False)
+    BHG, nseq, d = q.shape
+    BHKV = k.shape[0]
+    b = sh["b"]
+    pq = bsa.group_by_query(x, y, fl, nb)
+    pk = bsa.group_by_key(x, y, fl, 3, nb)
+    kw = dict(scale=scale, block_size=b)
+    mt = bsa.bsa_fwd(q, k, v, c, pq, km, **kw)[2]
+    r = np.random.default_rng(SEED)
+    do = torch.from_numpy(r.standard_normal(tuple(q.shape), np.float32)).to(DEVICE)
+    dr = torch.from_numpy(r.standard_normal(tuple(q.shape[:2]), np.float32)).to(DEVICE)
+    lists = 3 * BHG * x.shape[1] * 4 + BHG * (nb + 1) * 4
+    bwd_in = lists + BHG * nseq * (d + 2) * 4  # pair lists, do, dr, mt
+    plain_args = (q, k, v, c, x, y, fl, km, do, dr)
+    timing = {
+        "dq": {"ms": time_ms(torch, lambda: bsa.bsa_bwd_dq(
+            q, k, v, mt, do, dr, pq, km, **kw), 20),
+            "plain_ms": time_ms(torch, lambda: bsa.block_sparse_attention_bwd_dq_ref(
+                *plain_args, **kw), 5),
+            **_bsa_bounds(q, k, fl, nb, bwd_in + BHG * nseq * d * 4, 3),
+            **bsa.launch_geometry("dq", q.dtype, d, b, BHG * nb),
+            "blocks_per_sm": bsa.blocks_per_sm("dq", q.dtype, d, b)},
+        "dkv": {"ms": time_ms(torch, lambda: bsa.bsa_bwd_dkv(
+            q, k, v, mt, do, dr, pk, km, **kw), 20),
+            "plain_ms": time_ms(torch, lambda: bsa.block_sparse_attention_bwd_dkv_ref(
+                *plain_args, **kw), 5),
+            **_bsa_bounds(q, k, fl, nb, bwd_in + 2 * BHKV * nseq * d * 4, 4),
+            **bsa.launch_geometry("dkv", q.dtype, d, b, BHKV * nb),
+            "blocks_per_sm": bsa.blocks_per_sm("dkv", q.dtype, d, b)}}
+    emit({"phase": "bsa_granite_bwd", "shape": sh, "G": 3, "cases": n,
+          "rtol": BSA_TOL, "atol": BSA_TOL, "max_abs_err": worst,
+          "bit_identical_reruns": True, "timing_bf16": timing})
+    for key in ("dq", "dkv"):
+        if timing[key]["blocks_per_sm"] < 2:
+            raise AssertionError(f"bsa {key} (64, 128) bf16 holds "
+                                 f"{timing[key]['blocks_per_sm']} blocks "
+                                 "an SM")
+    return worst, timing
+
+
+def phase_train_full_width(torch, bsa, arch="qwen3-1.7b",
+                           phase="train_full_width", batch=TRAIN["batch"]):
+    """Three steps of ``train()`` at full width from random weights, the
+    block-sparse kernels' launches counted over exactly that run (forward
+    twice a layer a step under the presets' remat="full")."""
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.train import TrainConfig, train
 
-    cfg = get_config("qwen3-1.7b")
+    cfg = get_config(arch)
     shape = dataclasses.replace(SHAPES["train_4k"], seq_len=TRAIN["seq"],
-                                global_batch=TRAIN["batch"])
+                                global_batch=batch)
     tc = TrainConfig(steps=TRAIN["steps"], seed=SEED)
     steps = []
 
     def on_metrics(step, m):
         steps.append({"step": step, "loss": m["loss"],
+                      "aux_loss": m["aux_loss"],
                       "grad_norm": m["grad_norm"], "lr": m["lr"],
                       "seconds": m["step_time_s"],
                       "tokens_per_s": shape.seq_len * shape.global_batch
@@ -1288,27 +1406,42 @@ def phase_train_full_width(torch, bsa):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _bsa_launches(bsa)
-    emit({"phase": "train_full_width", "arch": cfg.name,
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    emit({"phase": phase, "arch": cfg.name, "family": cfg.family,
           "layers": cfg.num_layers, "d_model": cfg.d_model,
-          "param_dtype": cfg.param_dtype, "activ_dtype": cfg.activ_dtype,
+          "head_dim": cfg.hd, "param_dtype": cfg.param_dtype,
+          "activ_dtype": cfg.activ_dtype,
           "remat": cfg.remat, "attention": dataclasses.asdict(cfg.attention),
           "seq_len": shape.seq_len, "batch": shape.global_batch,
-          "steps": steps, "wall_s": wall,
-          "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "steps": steps, "wall_s": wall, "peak_gib": peak,
           "kernel_launches": launches})
     want = {"bsa_fwd": cfg.num_layers * tc.steps * 2,  # forward + remat
             "bsa_bwd_dq": cfg.num_layers * tc.steps,
             "bsa_bwd_dkv": cfg.num_layers * tc.steps}
     if launches != want:
         raise AssertionError(f"bsa launches {launches} != {want}")
-    if not all(np.isfinite([s["loss"], s["grad_norm"]]).all() for s in steps):
+    if not all(np.isfinite([s["loss"], s["grad_norm"], s["aux_loss"]]).all()
+               for s in steps):
         raise AssertionError(f"non-finite loss or grad norm: {steps}")
-    return launches, (cfg, tc, shape, params, opt_state)
+    return launches, peak, (cfg, tc, shape, params, opt_state)
 
 
-def phase_train_profile(torch, state):
-    """Where one full-width training step's time goes (kernel rows only)."""
+def phase_moe_train_full_width(torch, bsa):
+    """granite-moe-3b-a800m's ``train()`` at batch 2; its peak must stay
+    under the card's 80 GiB."""
+    launches, peak, state = phase_train_full_width(
+        torch, bsa, MOE_ARCH, "moe_train_full_width")
+    if peak >= 80.0:
+        raise AssertionError(f"granite training peaked at {peak} GiB")
+    return launches, state
+
+
+def phase_train_profile(torch, state, phase="train_profile"):
+    """Where one full-width training step's time goes (kernel rows only);
+    an MoE model's routed FFN runs inside a ``moe_block`` range (its
+    forward and remat recompute: the backward's kernels fall outside)."""
     from repro_torch.data import make_batch
+    from repro_torch.models import transformer
     from repro_torch.optim import AdamW, cosine_schedule
     from repro_torch.train import make_train_step
 
@@ -1317,22 +1450,28 @@ def phase_train_profile(torch, state):
         tc.lr, tc.warmup, tc.steps))
     batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in
              make_batch(cfg, shape, step=tc.steps, seed=tc.seed).items()}
+    ranges = ("moe_block",) if cfg.family == "moe" else ()
+    orig_moe = transformer.moe_block
+
+    def moe_block(*a, **kw):
+        with torch.profiler.record_function("moe_block"):
+            return orig_moe(*a, **kw)
 
     def step():
         nonlocal params, opt_state
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         float(metrics["loss"])
 
-    emit({"phase": "train_profile", "note": "ms per training step; "
-          "device_ms = summed kernel time from torch.profiler",
-          "train_step": _profile(torch, step, 1, kernels=BSA_KERNELS)})
+    with mock.patch.object(transformer, "moe_block", moe_block):
+        emit({"phase": phase, "arch": cfg.name, "note": "ms per training "
+              "step; device_ms = summed kernel time from torch.profiler",
+              "train_step": _profile(torch, step, 1, kernels=BSA_KERNELS,
+                                     ranges=ranges)})
 
 
-def _train_run(torch, bsa, cfg, shape, steps, plain):
-    """[(loss, grad_norm)] of ``train()``; ``plain`` substitutes the plain
-    versions for the kernels (here only)."""
-    from repro_torch.train import TrainConfig, train
-
+def _plain_twins(bsa):
+    """Substitute the plain versions for the block-sparse kernels (here
+    only)."""
     def fwd(q, k, v, c, x, y, fl, km, scale, block_size):
         return (*bsa.block_sparse_attention_ref(
             q, k, v, x, y, fl, c, km, scale=scale, block_size=block_size), None)
@@ -1341,36 +1480,57 @@ def _train_run(torch, bsa, cfg, shape, steps, plain):
         return bsa.block_sparse_attention_bwd_ref(
             q, k, v, c, x, y, fl, km, do, dr, scale=scale, block_size=block_size)
 
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(bsa, "_forward", fwd))
+    stack.enter_context(mock.patch.object(bsa, "_backward", bwd))
+    return stack
+
+
+def _check_route(bsa, plain, what):
+    launches = sum(_bsa_launches(bsa).values())
+    if (launches == 0) != plain:
+        raise AssertionError(f"plain={plain} {what} made {launches} launches")
+
+
+def _train_run(torch, bsa, cfg, shape, steps, plain):
+    """[(loss, grad_norm)] of ``train()``; ``plain`` substitutes the plain
+    versions for the kernels (here only)."""
+    from repro_torch.train import TrainConfig, train
+
     out = []
     _reset_bsa(bsa)
-    with contextlib.ExitStack() as stack:
-        if plain:
-            stack.enter_context(mock.patch.object(bsa, "_forward", fwd))
-            stack.enter_context(mock.patch.object(bsa, "_backward", bwd))
+    with _plain_twins(bsa) if plain else contextlib.nullcontext():
         train(cfg, shape, TrainConfig(steps=steps, seed=SEED, log_every=10**9),
               device=DEVICE,
               on_metrics=lambda s, m: out.append((m["loss"], m["grad_norm"])))
-    launches = sum(_bsa_launches(bsa).values())
-    if (launches == 0) != plain:
-        raise AssertionError(f"plain={plain} training made {launches} launches")
+    _check_route(bsa, plain, "training")
     return np.array(out)
 
 
-def phase_train_parity(torch, bsa):
-    from repro_torch.configs import SHAPES, get_config, get_smoke_config
+def _rel(a, b):
+    return float(np.max(np.abs(a - b) / np.abs(b)))
 
-    def rel(a, b):
-        return float(np.max(np.abs(a - b) / np.abs(b)))
 
-    small = get_smoke_config("qwen3-1.7b", activ_dtype="float32")
+def _smoke_parity(torch, bsa, arch):
+    """Three ``train()`` steps of the smoke config in fp32, kernels against
+    their plain versions: losses within 1e-5."""
+    from repro_torch.configs import SHAPES, get_smoke_config
+
+    small = get_smoke_config(arch, activ_dtype="float32")
     shape = dataclasses.replace(SHAPES["train_4k"], seq_len=256, global_batch=2)
     k, p = (_train_run(torch, bsa, small, shape, 3, plain) for plain in (False, True))
-    result = {"smoke": {"steps": 3, "loss_kernel": k[:, 0].tolist(),
-                        "loss_plain": p[:, 0].tolist(),
-                        "loss_rel": rel(k[:, 0], p[:, 0]),
-                        "grad_norm_rel": rel(k[:, 1], p[:, 1])}}
-    if result["smoke"]["loss_rel"] > 1e-5:
-        raise AssertionError(f"smoke training losses differ: {result}")
+    result = {"steps": 3, "loss_kernel": k[:, 0].tolist(),
+              "loss_plain": p[:, 0].tolist(), "loss_rel": _rel(k[:, 0], p[:, 0]),
+              "grad_norm_rel": _rel(k[:, 1], p[:, 1])}
+    if result["loss_rel"] > 1e-5:
+        raise AssertionError(f"{arch} smoke training losses differ: {result}")
+    return result
+
+
+def phase_train_parity(torch, bsa):
+    from repro_torch.configs import SHAPES, get_config
+
+    result = {"smoke": _smoke_parity(torch, bsa, "qwen3-1.7b")}
     full4 = get_config("qwen3-1.7b", num_layers=4, activ_dtype="float32")
     shape = dataclasses.replace(SHAPES["train_4k"], seq_len=TRAIN["seq"],
                                 global_batch=TRAIN["batch"])
@@ -1378,11 +1538,141 @@ def phase_train_parity(torch, bsa):
     result["full_width_4_layers"] = {
         "loss_kernel": float(k[0, 0]), "loss_plain": float(p[0, 0]),
         "grad_norm_kernel": float(k[0, 1]), "grad_norm_plain": float(p[0, 1]),
-        "loss_rel": rel(k[:, 0], p[:, 0]), "grad_norm_rel": rel(k[:, 1], p[:, 1])}
+        "loss_rel": _rel(k[:, 0], p[:, 0]), "grad_norm_rel": _rel(k[:, 1], p[:, 1])}
     emit({"phase": "train_parity", "dtype": "float32", **result})
     f = result["full_width_4_layers"]
     if f["loss_rel"] > 1e-4 or f["grad_norm_rel"] > 1e-4:
         raise AssertionError(f"full-width training differs: {f}")
+
+
+def _grads(torch, bsa, cfg, shape, plain):
+    """Loss and every parameter's gradient of the first training batch,
+    from the seed's weights, on the kernels or their plain versions."""
+    from repro_torch.data import make_batch
+    from repro_torch.models.params import init_params, tree_paths
+    from repro_torch.models.registry import get_model
+
+    params = init_params(cfg, seed=SEED, device=DEVICE)
+    paths, leaves = zip(*tree_paths(params))
+    for p in leaves:
+        p.requires_grad_(True)
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in
+             make_batch(cfg, shape, step=0, seed=SEED).items()}
+    _reset_bsa(bsa)
+    with _plain_twins(bsa) if plain else contextlib.nullcontext():
+        loss, _ = get_model(cfg).loss_fn(params, cfg, batch)
+        grads = torch.autograd.grad(loss, leaves)
+    _check_route(bsa, plain, "gradient")
+    return float(loss.detach()), grads, ["/".join(map(str, p)) for p in paths]
+
+
+def _grad_parity(torch, bsa, cfg, shape):
+    """One batch's loss, gradient norm and every gradient leaf on the
+    kernels against the plain versions (run twice: the plain backward's
+    scatter-adds need not sum alike run to run). ``leaf_rel`` is the worst
+    leaf's max |difference| over its largest |entry|."""
+    def norm(gs):
+        return float(torch.sqrt(sum((g.double() ** 2).sum() for g in gs)))
+
+    def leaf_rel(a, b):
+        return [float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
+                for x, y in zip(a, b)]
+
+    runs = [_grads(torch, bsa, cfg, shape, plain) for plain in (False, True)]
+    rels = leaf_rel(runs[0][1], runs[1][1])
+    out = {"layers": cfg.num_layers,
+           "loss_kernel": runs[0][0], "loss_plain": runs[1][0],
+           "grad_norm_kernel": norm(runs[0][1]),
+           "grad_norm_plain": norm(runs[1][1]),
+           "loss_rel": _rel(runs[0][0], runs[1][0]), "leaf_rel": max(rels),
+           "worst_leaf": runs[0][2][int(np.argmax(rels))]}
+    out["grad_norm_rel"] = _rel(out["grad_norm_kernel"], out["grad_norm_plain"])
+    del runs[0]
+    again = _grads(torch, bsa, cfg, shape, True)
+    out["plain_rerun_leaf_rel"] = max(leaf_rel(again[1], runs[0][1]))
+    out["plain_rerun_grad_norm_rel"] = _rel(norm(again[1]),
+                                            out["grad_norm_plain"])
+    return out
+
+
+def _one_step(torch, bsa, cfg, shape):
+    """One ``train()`` step on the kernels: its metrics, peak GiB (states
+    included), launches, and the updated parameters."""
+    from repro_torch.train import TrainConfig, train
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_bsa(bsa)
+    out = []
+    params, _, _ = train(cfg, shape, TrainConfig(steps=1, seed=SEED,
+                                                 log_every=10**9),
+                         device=DEVICE, on_metrics=lambda s, m: out.append(m))
+    torch.cuda.synchronize()
+    return {"loss": out[0]["loss"], "grad_norm": out[0]["grad_norm"],
+            "step_s": out[0]["step_time_s"],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": _bsa_launches(bsa)}, params
+
+
+def phase_moe_train_parity(torch, bsa):
+    """granite-moe's training parity, kernels against their plain versions
+    in fp32: three smoke steps (losses within 1e-5); at full width, one
+    batch's loss, grad norm and every gradient leaf at 1 layer, loss and
+    grad norm at 2 layers, all within 1e-4; 4 layers reported (see
+    MOE_PARITY). Then remat "none", "full" and "dots" on the kernels at full
+    width with the depth cut to MOE_REMAT_LAYERS (one step each, bf16
+    activations): loss and grad norm within 1e-6 of "none"'s, and "full"
+    run twice to tell whether a rerun updates every parameter bitwise
+    alike."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.models.params import tree_leaves
+
+    result = {"smoke": _smoke_parity(torch, bsa, MOE_ARCH)}
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=TRAIN["seq"],
+                                global_batch=TRAIN["batch"])
+    for layers, keys in MOE_PARITY:
+        cfg = get_config(MOE_ARCH, num_layers=layers, activ_dtype="float32")
+        result[f"full_width_{layers}_layers"] = {
+            **_grad_parity(torch, bsa, cfg, shape), "held": list(keys)}
+        torch.cuda.empty_cache()
+    emit({"phase": "moe_train_parity", "arch": MOE_ARCH, "dtype": "float32",
+          "tolerance": 1e-4, **result})
+    for layers, keys in MOE_PARITY:
+        f = result[f"full_width_{layers}_layers"]
+        if any(f[k] > 1e-4 for k in keys):
+            raise AssertionError(f"full-width training differs: {f}")
+    base = get_config(MOE_ARCH, num_layers=MOE_REMAT_LAYERS)
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=TRAIN["seq"],
+                                global_batch=TRAIN["batch"])
+    runs, kept = {}, None
+    for policy in ("none", "full", "dots", "full"):
+        run, params = _one_step(torch, bsa, base.replace(remat=policy), shape)
+        if policy in runs:
+            run["params_bitwise_as_first_run"] = all(
+                torch.equal(a, b) for a, b in zip(kept, tree_leaves(params)))
+            runs["full_rerun"] = run
+        else:
+            runs[policy] = run
+            if policy == "full":
+                kept = tree_leaves(params)
+        del params
+    kept = None
+    worst = max(abs(runs[p][k] - runs["none"][k]) / abs(runs["none"][k])
+                for p in ("full", "dots", "full_rerun")
+                for k in ("loss", "grad_norm"))
+    emit({"phase": "moe_remat_parity", "arch": MOE_ARCH,
+          "layers": MOE_REMAT_LAYERS, "seq_len": shape.seq_len,
+          "batch": shape.global_batch, "activ_dtype": base.activ_dtype,
+          "max_rel_vs_none": worst, **runs})
+    if worst > 1e-6:
+        raise AssertionError(f"remat policies differ: {worst}")
+    L = MOE_REMAT_LAYERS
+    for policy, fwd in (("none", L), ("full", 2 * L), ("dots", 2 * L)):
+        want = {"bsa_fwd": fwd, "bsa_bwd_dq": L, "bsa_bwd_dkv": L}
+        if runs[policy]["launches"] != want:
+            raise AssertionError(f"remat={policy}: launches "
+                                 f"{runs[policy]['launches']} != {want}")
 
 
 # --------------------------------------------------------------------------- #
@@ -1986,11 +2276,18 @@ def main() -> int:
     bsa_err = phase_bsa_vs_plain(torch, bsa)
     bsa_time, dense_ms = phase_bsa_timing(torch, bsa)
     granite_bsa_err, granite_bsa = phase_bsa_granite(torch, bsa)
-    bsa_launches, state = phase_train_full_width(torch, bsa)
+    granite_bwd_err, granite_bwd = phase_bsa_granite_bwd(torch, bsa)
+    bsa_launches, _, state = phase_train_full_width(torch, bsa)
     phase_train_profile(torch, state)
     del state
     torch.cuda.empty_cache()
     phase_train_parity(torch, bsa)
+    torch.cuda.empty_cache()
+    moe_train_launches, state = phase_moe_train_full_width(torch, bsa)
+    phase_train_profile(torch, state, phase="moe_train_profile")
+    del state
+    torch.cuda.empty_cache()
+    phase_moe_train_parity(torch, bsa)
     torch.cuda.empty_cache()
     up_err = phase_upper_vs_plain(torch, tmd, chunk_attn)
     up_time = phase_upper_timing(torch, tmd, chunk_attn)
@@ -2046,7 +2343,9 @@ def main() -> int:
         "name": "bsa_fwd (d=64, b=128)", "route": "cuda",
         "source": "src/repro_torch/csrc/block_sparse_attn.cu",
         "replaces": "src/repro/kernels/block_sparse_attn.py:92",
-        "launches": sum(x["bsa_fwd_launches"] for x in prefill.values()),
+        "launches": moe_train_launches["bsa_fwd"],
+        "prefill_launches": sum(x["bsa_fwd_launches"]
+                                for x in prefill.values()),
         "max_abs_err": granite_bsa_err,
         "ms": granite_bsa["ms"], "plain_ms": granite_bsa["plain_ms"],
         "bound_ms": granite_bsa["bound_ms_bf16"],
@@ -2054,10 +2353,30 @@ def main() -> int:
         "bound_ms_fp32_rate": granite_bsa["bound_ms_fp32"],
         "bound_by_fp32_rate": granite_bsa["bound_by_fp32"],
         "shape": "granite-moe-3b-a800m whole-prompt prefill, n=4096, B=1, "
-                 "24 query / 8 KV heads, bf16; launches from the prefill "
-                 "passes of phase 18 (fp32: 4 + 4 + 1 layers)",
+                 "24 query / 8 KV heads, bf16; launches from the 3-step "
+                 "granite training run (phase 20), prefill_launches from "
+                 "the prefill passes of phase 18 (fp32: 4 + 4 + 1 layers)",
         **{k: granite_bsa[k] for k in ("grid", "threads", "smem_bytes",
                                        "blocks_per_sm")}}]
+    for name, key, line in (("bsa_bwd_dq", "dq", 196),
+                            ("bsa_bwd_dkv", "dkv", 232)):
+        t = granite_bwd[key]
+        new_shapes.append({
+            "name": f"{name} (d=64, b=128)", "route": "cuda",
+            "source": "src/repro_torch/csrc/block_sparse_attn.cu",
+            "replaces": f"src/repro/kernels/block_sparse_attn.py:{line}",
+            "launches": moe_train_launches[name],
+            "max_abs_err": granite_bwd_err[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms_bf16"], "bound_by": t["bound_by_bf16"],
+            "library_ms": None,
+            "bound_ms_fp32_rate": t["bound_ms_fp32"],
+            "bound_by_fp32_rate": t["bound_by_fp32"],
+            "shape": "granite-moe-3b-a800m train_4k, n=4096, B=2, 24 query / "
+                     "8 KV heads, bf16; launches from the 3-step granite "
+                     "training run (phase 20)",
+            **{k: t[k] for k in ("grid", "threads", "smem_bytes",
+                                 "blocks_per_sm")}})
     emit({"kernels": [{
         "name": "chunk_attn", "route": "cuda",
         "source": "src/repro_torch/csrc/chunk_attn.cu",

@@ -1,4 +1,4 @@
 """Checkpointing of the port (port of repro/checkpoint)."""
-from .ckpt import latest_step, restore, save
+from .ckpt import AsyncCheckpointer, latest_step, restore, save
 
-__all__ = ["latest_step", "restore", "save"]
+__all__ = ["AsyncCheckpointer", "latest_step", "restore", "save"]

@@ -1,12 +1,15 @@
 """Checkpoints: one ``.npy`` per leaf plus a JSON manifest, written atomically.
 
-Port of ``repro/checkpoint/ckpt.py`` (DESIGN.md §2), synchronous:
-  * atomic: the leaves and the manifest go to ``<dir>/step_N.tmp``, the
-    manifest is fsynced, then the directory is renamed to ``<dir>/step_N``;
-    a crash mid-write never corrupts the latest checkpoint;
+Port of ``repro/checkpoint/ckpt.py`` (DESIGN.md §2) for one device:
+  * atomic: the leaves and the manifest (with the caller's ``extra``
+    metadata) go to ``<dir>/step_N.tmp``, the manifest is fsynced, then the
+    directory is renamed to ``<dir>/step_N``; a crash mid-write never
+    corrupts the latest checkpoint;
   * restartable: ``latest_step`` / ``restore`` pick up the newest complete
     checkpoint; the data stream's state is the step counter, so a restart
-    resumes bit-identically.
+    resumes bit-identically;
+  * async: ``AsyncCheckpointer`` copies the tree to the host, then writes it
+    in a background thread while training goes on.
 
 A tree is a nested dict / list / NamedTuple of tensors and Python ints
 (parameters, ``AdamWState``). bf16 tensors are stored as their int16 bits
@@ -17,12 +20,13 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import threading
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.models.params import tree_paths, tree_unflatten
+from repro_torch.models.params import tree_leaves, tree_paths, tree_unflatten
 
 
 def _named_leaves(tree):
@@ -41,14 +45,15 @@ def _to_numpy(leaf):
     return arr, "int" if isinstance(leaf, int) else str(arr.dtype)
 
 
-def save(ckpt_dir: str, step: int, tree: Any) -> str:
+def save(ckpt_dir: str, step: int, tree: Any, *,
+         extra: Optional[dict] = None) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step}")
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    manifest = {"step": step, "leaves": []}
+    manifest = {"step": step, "leaves": [], "extra": extra or {}}
     for name, leaf in _named_leaves(tree):
         arr, dtype = _to_numpy(leaf)
         np.save(os.path.join(tmp, name + ".npy"), arr)
@@ -100,3 +105,36 @@ def restore(ckpt_dir: str, step: int, like: Any):
                 f"expected {ref.dtype} {tuple(ref.shape)}")
         leaves.append(t.to(ref.device))
     return tree_unflatten(like, leaves)
+
+
+class AsyncCheckpointer:
+    """Snapshot to the host, then write in a background thread.
+
+    ``save`` returns once every tensor is copied to host memory: the port's
+    AdamW updates parameters and moments in place, and a CPU tensor's
+    ``.cpu()`` is the tensor itself, so the snapshot is always a copy.
+    ``wait`` joins the writer; a second ``save`` waits for the first.
+    """
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self.last_path: Optional[str] = None
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def save(self, ckpt_dir: str, step: int, tree: Any, *,
+             extra: Optional[dict] = None):
+        self.wait()
+        host = tree_unflatten(tree, [
+            leaf.detach().to("cpu", copy=True)
+            if isinstance(leaf, torch.Tensor) else leaf
+            for leaf in tree_leaves(tree)])
+
+        def _write():
+            self.last_path = save(ckpt_dir, step, host, extra=extra)
+
+        self._thread = threading.Thread(target=_write, daemon=False)
+        self._thread.start()

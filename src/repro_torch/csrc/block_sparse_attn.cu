@@ -983,14 +983,10 @@ struct KernelInfo {
 enum Kernel { kFwd = 0, kDkv = 1, kDq = 2 };
 
 template <typename T, int D, int BS>
-KernelInfo fwd_info() {
-  return {reinterpret_cast<const void*>(bsa_fwd_kernel<T, D, BS>),
-          FwdGeo<T, D, BS>::SMEM, FwdGeo<T, D, BS>::NT, FwdGeo<T, D, BS>::SUB};
-}
-
-template <typename T, int D, int BS>
 KernelInfo info_of(int kernel) {
-  if (kernel == kFwd) return fwd_info<T, D, BS>();
+  if (kernel == kFwd)
+    return {reinterpret_cast<const void*>(bsa_fwd_kernel<T, D, BS>),
+            FwdGeo<T, D, BS>::SMEM, FwdGeo<T, D, BS>::NT, FwdGeo<T, D, BS>::SUB};
   if (kernel == kDq)
     return {reinterpret_cast<const void*>(bsa_bwd_dq_kernel<T, D, BS>),
             DqGeo<T, D, BS>::SMEM, DqGeo<T, D, BS>::NT, DqGeo<T, D, BS>::SUB};
@@ -1003,8 +999,7 @@ KernelInfo info_shape(int kernel, int D, int b) {
   if (D == 128 && b == 128) return info_of<T, 128, 128>(kernel);
   if (D == 64 && b == 64) return info_of<T, 64, 64>(kernel);
   if (D == 16 && b == 16) return info_of<T, 16, 16>(kernel);
-  // the forward alone (whole-prompt prefill at head dim 64, block 128)
-  if (D == 64 && b == 128 && kernel == kFwd) return fwd_info<T, 64, 128>();
+  if (D == 64 && b == 128) return info_of<T, 64, 128>(kernel);
   return {nullptr, 0, 0, 0};
 }
 
@@ -1019,7 +1014,7 @@ KernelInfo info(int kernel, int dtype, int D, int b) {
 // Allow the kernel's dynamic shared memory (and the largest carveout, so that
 // two blocks fit on an SM); done once per kernel.
 cudaError_t configure(const KernelInfo& k) {
-  static const void* done[32];  // 20 instantiations
+  static const void* done[32];  // 24 instantiations
   static int ndone = 0;
   for (int i = 0; i < ndone; ++i)
     if (done[i] == k.fn) return cudaSuccess;

@@ -1,4 +1,4 @@
-"""Deterministic synthetic token streams for the dense family (numpy only).
+"""Deterministic synthetic token streams (numpy only) and a prefetching loader.
 
 Port of ``repro/data/pipeline.py`` (DESIGN.md §7), kept as the port's own
 copy because the reference module imports the JAX package: the same
@@ -8,10 +8,15 @@ restart resumes bit-identically with the step counter as the only data
 state. Token streams mix Zipfian unigrams with copy spans, which gives
 attention the locality MRA exploits.
 
-The loader has no prefetch thread: a batch is made when the loop asks.
+The dense and MoE families take LM tokens; the hubert and internvl
+families, whose frontends are not ported (ROADMAP module item 5), raise.
+The ``DataLoader`` makes the next batches in a background thread while the
+loop trains on the current one, as the reference's does.
 """
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Iterator, Optional
 
 import numpy as np
@@ -48,10 +53,10 @@ def make_batch(cfg: ModelConfig, shape: ShapeCfg, *, step: int = 0,
                batch_override: Optional[int] = None) -> dict:
     """One host-local training batch as numpy arrays:
     {"tokens": (B, S) int32, "targets": (B, S) int32}."""
-    if cfg.family != "dense":
+    if cfg.family in ("hubert", "internvl"):
         raise NotImplementedError(
-            f"family {cfg.family!r}: only the dense family's batches are "
-            "ported")
+            f"family {cfg.family!r}: its audio / image batches come with its "
+            "frontend (ROADMAP module item 5)")
     B = (batch_override if batch_override is not None
          else shape.global_batch // num_shards)
     S = shape.seq_len
@@ -61,18 +66,60 @@ def make_batch(cfg: ModelConfig, shape: ShapeCfg, *, step: int = 0,
 
 
 class DataLoader:
-    """Iterator of ``(step, batch)`` over ``make_batch`` from ``start_step``."""
+    """Iterator of ``(step, batch)`` over ``make_batch`` from ``start_step``.
+
+    A worker thread makes the batches ahead into a queue of ``prefetch``
+    entries; ``close()`` stops it and waits for it to end, so call it when
+    done (``train()`` does, in a ``finally``).
+    """
 
     def __init__(self, cfg: ModelConfig, shape: ShapeCfg, *, seed: int = 0,
-                 start_step: int = 0):
-        self.cfg, self.shape, self.seed = cfg, shape, seed
+                 start_step: int = 0, shard: int = 0, num_shards: int = 1,
+                 batch_override: Optional[int] = None, prefetch: int = 2):
+        self.cfg, self.shape = cfg, shape
+        self.seed, self.shard, self.num_shards = seed, shard, num_shards
+        self.batch_override = batch_override
         self._step = start_step
+        self._q: queue.Queue = queue.Queue(maxsize=prefetch)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _worker(self):
+        step = self._step
+        while not self._stop.is_set():
+            try:
+                item = (step, make_batch(
+                    self.cfg, self.shape, step=step, seed=self.seed,
+                    shard=self.shard, num_shards=self.num_shards,
+                    batch_override=self.batch_override))
+            except Exception as err:  # raised again by __next__
+                item = err
+            while not self._stop.is_set():
+                try:
+                    self._q.put(item, timeout=0.5)
+                    break
+                except queue.Full:
+                    continue
+            if isinstance(item, Exception):
+                return
+            step += 1
 
     def __iter__(self) -> Iterator:
         return self
 
     def __next__(self):
-        step = self._step
-        batch = make_batch(self.cfg, self.shape, step=step, seed=self.seed)
-        self._step += 1
-        return step, batch
+        item = self._q.get()
+        if isinstance(item, Exception):
+            raise item
+        return item
+
+    def close(self):
+        """Stop the worker and wait for it; drops the batches made ahead."""
+        self._stop.set()
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join()

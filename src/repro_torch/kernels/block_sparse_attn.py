@@ -23,9 +23,8 @@ Two implementations of each pass, chosen by the tensors' device:
     warp per 16 output rows, output tiles launched heaviest first
     (``tile_order``); ``kernel_plan`` mirrors their geometry and shared
     memory. They are built for the (head dim, block size) pairs of
-    ``KERNEL_SHAPES``, the forward also for ``FWD_ONLY_SHAPES``, a head
-    dim zero-padded to the next multiple of 16; ``check_shape`` refuses any
-    other pair before a launch.
+    ``KERNEL_SHAPES``, a head dim zero-padded to the next multiple of 16;
+    ``check_shape`` refuses any other pair before a launch.
   * ``block_sparse_attention_ref`` / ``block_sparse_attention_bwd_ref`` —
     the plain PyTorch versions of the reference's ``kernels/ref.py``, taken
     for tensors on the CPU and held against the kernels on the card
@@ -43,11 +42,10 @@ import torch
 
 from repro_torch.core.mra import NEG_INF
 
-# (head dim padded to a multiple of 16, block size b) all three kernels are
-# built for, and the pairs only the forward is built for (granite-moe's
-# whole-prompt prefill; its backward comes with the MoE training slice)
-KERNEL_SHAPES = ((128, 128), (64, 64), (16, 16))
-FWD_ONLY_SHAPES = ((64, 128),)
+# (head dim padded to a multiple of 16, block size b) the three kernels are
+# built for: qwen3-1.7b, the reference's (64, 64) and smoke (16, 16) shapes,
+# granite-moe-3b-a800m
+KERNEL_SHAPES = ((128, 128), (64, 64), (16, 16), (64, 128))
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _KERNELS = {"fwd": 0, "dkv": 1, "dq": 2}  # the kernels of the source
 _SM_SMEM = 233472   # shared memory of an SM (228 KB)
@@ -288,27 +286,13 @@ def padded_dim(d: int) -> int:
     return -(-d // 16) * 16
 
 
-def built_shapes(kernel: str | None = None) -> tuple:
-    """(padded head dim, block size) pairs ``kernel`` ("fwd" | "dq" |
-    "dkv") is built for; None: the pairs all three are built for."""
-    if kernel == "fwd":
-        return KERNEL_SHAPES + FWD_ONLY_SHAPES
-    if kernel in (None, "dq", "dkv"):
-        return KERNEL_SHAPES
-    raise ValueError(f"kernel must be one of {tuple(_KERNELS)}, got "
-                     f"{kernel!r}")
-
-
-def check_shape(d: int, block_size: int, kernel: str | None = None) -> None:
-    """Raise ValueError unless ``kernel`` (None: every kernel) is built for
-    (d, block_size)."""
-    shapes = built_shapes(kernel)
-    if (padded_dim(d), block_size) not in shapes:
-        who = f"bsa {kernel}" if kernel else "the kernels"
+def check_shape(d: int, block_size: int) -> None:
+    """Raise ValueError unless the kernels are built for (d, block_size)."""
+    if (padded_dim(d), block_size) not in KERNEL_SHAPES:
         raise ValueError(
             f"(head dim, block size) ({d}, {block_size}) is not built for "
-            f"{who}: it takes (head dim padded to a multiple of 16, block "
-            "size) in " + ", ".join(str(x) for x in shapes))
+            "the kernels: they take (head dim padded to a multiple of 16, "
+            "block size) in " + ", ".join(str(x) for x in KERNEL_SHAPES))
 
 
 def _a16(x: int) -> int:
@@ -321,7 +305,7 @@ def kernel_plan(kernel: str, dtype, d: int, block_size: int) -> dict:
     ``FwdGeo`` / ``DqGeo`` / ``DkvGeo`` in the source. ``rows``: the block's
     query (fwd, dq) or key (dkv) rows, 16 a warp; ``stage``: keys (fwd, dq)
     or queries (dkv) a ring stage."""
-    check_shape(d, block_size, kernel if kernel in _KERNELS else None)
+    check_shape(d, block_size)
     D, b = padded_dim(d), block_size
     terms = 1 if dtype == torch.bfloat16 else 3
     size = 2 if dtype == torch.bfloat16 else 4
@@ -374,7 +358,7 @@ def launch_geometry(kernel: str, dtype, d: int, block_size: int,
 def blocks_per_sm(kernel: str, dtype, d: int, block_size: int) -> int:
     """Blocks of the kernel resident on one SM, from the card's occupancy
     API (registers as ptxas allocated them, threads, shared memory)."""
-    check_shape(d, block_size, kernel)
+    check_shape(d, block_size)
     lib = _library()
     n = ctypes.c_int(0)
     rc = lib.bsa_blocks_per_sm(_KERNELS[kernel], _DTYPES[dtype],
@@ -432,9 +416,9 @@ def _check(t, name, shape, dtypes, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_qkv(q, k, v, block_size, kernel):
+def _check_qkv(q, k, v, block_size):
     """(BHG, BHKV, n, d, device) after checking the shared inputs and that
-    ``kernel`` is built for their shape."""
+    the kernels are built for their shape."""
     if q.ndim != 3 or k.ndim != 3:
         raise ValueError(f"q {tuple(q.shape)} / k {tuple(k.shape)} must be "
                          "(rows, n, d)")
@@ -447,7 +431,7 @@ def _check_qkv(q, k, v, block_size, kernel):
         raise ValueError(f"q rows {BHG} are not a multiple of k rows {BHKV}")
     if block_size <= 0 or n % block_size:
         raise ValueError(f"block size {block_size} must divide n = {n}")
-    check_shape(d, block_size, kernel)
+    check_shape(d, block_size)
     _check(q, "q", (BHG, n, d), tuple(_DTYPES), dev)
     _check(k, "k", (BHKV, n, d), (q.dtype,), dev)
     _check(v, "v", (BHKV, n, d), (q.dtype,), dev)
@@ -481,7 +465,7 @@ def _unpad(d, *ts):
 def bsa_fwd(q, k, v, c, pairs: QueryPairs, key_mask, *, scale: float,
             block_size: int):
     """Launch the forward kernel: (out (BHG,n,d), rowsum, mt (BHG,n)) fp32."""
-    BHG, BHKV, n, d, dev = _check_qkv(q, k, v, block_size, "fwd")
+    BHG, BHKV, n, d, dev = _check_qkv(q, k, v, block_size)
     nb, m = n // block_size, pairs.y.shape[1]
     i32 = (torch.int32,)
     _check(c, "c", (BHG, nb), (torch.float32,), dev)
@@ -510,7 +494,7 @@ def bsa_fwd(q, k, v, c, pairs: QueryPairs, key_mask, *, scale: float,
 def bsa_bwd_dq(q, k, v, mt, do, dr, pairs: QueryPairs, key_mask, *,
                scale: float, block_size: int):
     """Launch the dq kernel: dq (BHG, n, d) fp32."""
-    BHG, BHKV, n, d, dev = _check_qkv(q, k, v, block_size, "dq")
+    BHG, BHKV, n, d, dev = _check_qkv(q, k, v, block_size)
     nb, m = n // block_size, pairs.y.shape[1]
     i32, f32 = (torch.int32,), (torch.float32,)
     _check(mt, "mt", (BHG, n), f32, dev)
@@ -539,7 +523,7 @@ def bsa_bwd_dq(q, k, v, mt, do, dr, pairs: QueryPairs, key_mask, *,
 def bsa_bwd_dkv(q, k, v, mt, do, dr, pairs: KeyPairs, key_mask, *,
                 scale: float, block_size: int):
     """Launch the dk/dv kernel: (dk, dv) (BHKV, n, d) fp32."""
-    BHG, BHKV, n, d, dev = _check_qkv(q, k, v, block_size, "dkv")
+    BHG, BHKV, n, d, dev = _check_qkv(q, k, v, block_size)
     nb, m2 = n // block_size, pairs.y.shape[1]
     i32, f32 = (torch.int32,), (torch.float32,)
     _check(mt, "mt", (BHG, n), f32, dev)

@@ -8,11 +8,16 @@ and norm weights to fp32, as in the reference.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention import AttentionSpec, self_attention
@@ -128,15 +133,45 @@ def lm_nll(logits, targets, cfg: ModelConfig):
     return lse - ll
 
 
+def saves_product(op, args) -> bool:
+    """Whether the ``"dots"`` policy keeps the output of the aten op ``op``
+    on ``args``: a product with no batch dimension (``mm``, ``addmm``, or a
+    ``bmm`` of batch 1, which is what ``einsum`` makes of "bsd,df->bsf").
+    These are the reference's ``checkpoint_dots_with_no_batch_dims``: the
+    q/k/v/o projections, the dense MLP's products and the router logits.
+    A product with a batch (attention scores, the experts' "ecd,edf->ecf")
+    and every other op is recomputed: nothing a CUDA kernel writes through
+    ``ctypes`` into a ``torch.empty`` buffer, which the dispatcher never
+    sees, is kept."""
+    aten = torch.ops.aten
+    return op in (aten.mm.default, aten.addmm.default) or (
+        op is aten.bmm.default and args[0].shape[0] == 1)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if saves_product(op, args)
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def remat_wrap(fn, cfg: ModelConfig):
-    """``fn`` under the config's remat policy: "full" recomputes its forward
-    in the backward (non-reentrant activation checkpointing)."""
+    """``fn`` under the config's remat policy (non-reentrant activation
+    checkpointing): "full" recomputes its whole forward in the backward,
+    "dots" keeps the products ``saves_product`` names and recomputes the
+    rest (the block-sparse attention too, as the reference's policy does
+    around its kernel)."""
     if cfg.remat == "none":
         return fn
     if cfg.remat == "full":
         def wrapped(*args, **kw):
             return checkpoint(fn, *args, use_reentrant=False, **kw)
         return wrapped
-    raise NotImplementedError(
-        f"remat={cfg.remat!r}: only 'none' and 'full' are ported (the "
-        "reference's 'dots' policy has no port yet)")
+    if cfg.remat == "dots":
+        context = functools.partial(create_selective_checkpoint_contexts,
+                                    _dots_policy)
+
+        def wrapped(*args, **kw):
+            return checkpoint(fn, *args, use_reentrant=False,
+                              context_fn=context, **kw)
+        return wrapped
+    raise ValueError(f"remat={cfg.remat!r}: expected 'none', 'full' or "
+                     "'dots'")

@@ -25,6 +25,6 @@ def get_model(cfg: ModelConfig):
         return _FAMILIES[cfg.family]
     if cfg.family in _UNPORTED:
         raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet; the port has "
-            f"{sorted(_FAMILIES)}")
+            f"model family {cfg.family!r} is not ported yet (ROADMAP module "
+            f"item 5); the port has {sorted(_FAMILIES)}")
     raise ValueError(f"unknown model family {cfg.family!r}")

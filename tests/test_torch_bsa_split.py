@@ -307,16 +307,38 @@ def test_training_shapes_plan_two_blocks_an_sm_in_bf16(kernel):
 
 @pytest.mark.parametrize("dtype", list(DTYPES.values()), ids=list(DTYPES))
 def test_forward_only_shape_plans_two_blocks_an_sm(dtype):
-    """granite-moe's whole-prompt prefill: the forward at (d, b) = (64, 128),
-    two 64-row blocks a query tile, at least two blocks an SM in bf16 by
-    shared memory; the backward kernels are not built there."""
-    plan = bsa.kernel_plan("fwd", dtype, 64, 128)
-    assert (plan["rows"], plan["sub_tiles"], plan["threads"]) == (64, 2, 128)
-    assert plan["stage"] == (64 if dtype == torch.bfloat16 else 32)
-    assert plan["smem_bytes"] <= 232448 and plan["smem_bytes"] % 16 == 0
-    assert bsa.planned_blocks_per_sm("fwd", dtype, 64, 128) >= 2
-    assert (64, 128) in bsa.built_shapes("fwd")
-    assert (64, 128) not in bsa.built_shapes("dq") + bsa.built_shapes("dkv")
+    """granite-moe's (d, b) = (64, 128), once built for the forward alone
+    (whole-prompt prefill), now for all three kernels (MoE training): two
+    64-row blocks a tile, at least two blocks an SM by shared memory, three
+    in bf16 for the forward and dq, four for dk/dv."""
+    for kernel in ("fwd", "dq", "dkv"):
+        plan = bsa.kernel_plan(kernel, dtype, 64, 128)
+        assert (plan["rows"], plan["sub_tiles"], plan["threads"]) == (
+            64, 2, 128)
+        assert plan["stage"] == (64 if dtype == torch.bfloat16
+                                 and kernel != "dkv" else 32)
+        assert plan["smem_bytes"] <= 232448 and plan["smem_bytes"] % 16 == 0
+        assert bsa.planned_blocks_per_sm(kernel, dtype, 64, 128) >= 2
+    assert (64, 128) in bsa.KERNEL_SHAPES
+    bsa.check_shape(64, 128)
+    bsa.check_shape(56, 128)  # padded to 64
+
+
+@pytest.mark.parametrize("kernel,dtype,smem,blocks", [
+    ("dq", torch.bfloat16, 57856, 3), ("dq", torch.float32, 106752, 2),
+    ("dkv", torch.bfloat16, 53760, 4), ("dkv", torch.float32, 107008, 2)])
+def test_granite_backward_plan(kernel, dtype, smem, blocks):
+    """dq and dk/dv at (64, 128): the shared memory of ``DqGeo`` /
+    ``DkvGeo`` (two K/V ring slots of 64 keys in bf16, 32 in fp32, and
+    three planes of split do; dk/dv's K/V planes, ring and do planes), the
+    blocks an SM that shared memory allows, and the launch of granite's
+    training call (B = 2, 24 query / 8 KV heads, n = 4096: 1536 query
+    tiles, 512 key tiles, two blocks a tile)."""
+    assert bsa.smem_bytes(kernel, dtype, 64, 128) == smem
+    assert bsa.planned_blocks_per_sm(kernel, dtype, 64, 128) == blocks
+    tiles = 2 * (24 if kernel == "dq" else 8) * 32
+    assert bsa.launch_geometry(kernel, dtype, 64, 128, tiles)["grid"] == (
+        2 * tiles)
 
 
 def test_launch_geometry_of_the_training_call():
@@ -334,7 +356,8 @@ def test_launch_geometry_of_the_training_call():
     assert small["grid"] == 10 and small["threads"] == 32
 
 
-@pytest.mark.parametrize("d,b", [(32, 32), (128, 64), (16, 128), (130, 128)])
+@pytest.mark.parametrize("d,b", [(32, 32), (128, 64), (16, 128), (130, 128),
+                                 (80, 128), (112, 128)])
 def test_unbuilt_shapes_are_refused(d, b):
     with pytest.raises(ValueError, match="is not built"):
         bsa.check_shape(d, b)

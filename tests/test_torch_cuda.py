@@ -48,8 +48,8 @@ run on the same CUDA tensors.
     sums in another order, split bf16 operands on tensor cores); reruns
     bit-identical; bf16 and fp32 (every operand split) at every built
     (d, b), a padded head dim and a hot key tile; an unbuilt (d, b) is
-    refused before any launch; the plan mirrors the library. ``bsa_fwd``
-    also at (64, 128), G = 3, where dq and dk/dv refuse.
+    refused before any launch; the plan mirrors the library. All three
+    also at granite-moe's (64, 128), G = 3.
 """
 from __future__ import annotations
 
@@ -682,7 +682,8 @@ BSA_SHAPES = [dict(BHKV=2, G=2, n=64, d=16, b=16, m=6),
               dict(BHKV=3, G=2, n=320, d=64, b=64, m=9),
               dict(BHKV=2, G=2, n=512, d=128, b=128, m=8),
               dict(BHKV=4, G=2, n=1024, d=128, b=128, m=24),
-              dict(BHKV=2, G=2, n=1024, d=128, b=128, m=16, hot=True)]
+              dict(BHKV=2, G=2, n=1024, d=128, b=128, m=16, hot=True),
+              dict(BHKV=4, G=3, n=1024, d=64, b=128, m=20)]  # granite-moe
 
 
 @pytest.mark.cuda
@@ -811,8 +812,9 @@ def test_bsa_plan_mirrors_the_library(cuda):
 def test_bsa_fwd_granite_shape_matches_plain(cuda, dtype):
     """The forward at (d, b) = (64, 128), G = 3 (granite-moe's whole-prompt
     prefill): the plain twin's normalized numerator, row sums and mt, reruns
-    bit-identical, two blocks an SM in bf16; dq and dk/dv are not built at
-    that shape and refuse it before launching."""
+    bit-identical, two blocks an SM in bf16; dq and dk/dv (granite-moe's
+    training, held in ``test_bsa_kernels_match_plain``) mirror the plan and
+    hold two blocks an SM in bf16 too."""
     shape = dict(BHKV=4, G=3, n=1024, d=64, b=128, m=20)
     q, k, v, c, x, y, fl, km = bsa_inputs(5, dtype=dtype, device=cuda, **shape)
     nb = shape["n"] // shape["b"]
@@ -835,14 +837,12 @@ def test_bsa_fwd_granite_shape_matches_plain(cuda, dtype):
         bsa.smem_bytes("fwd", dtype, 64, 128)
     assert bsa.blocks_per_sm("fwd", dtype, 64, 128) >= (
         2 if dtype == torch.bfloat16 else 1)
-    mt0 = torch.zeros(q.shape[:2], device=cuda)
-    do = torch.zeros(q.shape, device=cuda)
-    for fn, pairs in ((bsa.bsa_bwd_dq, pq),
-                      (bsa.bsa_bwd_dkv, bsa.group_by_key(x, y, fl, 3, nb))):
-        with pytest.raises(ValueError, match=r"\(64, 128\) is not built"):
-            fn(q, k, v, mt0, do, mt0, pairs, km, **kw)
-    for kid in (1, 2):  # the library refuses them too
-        assert lib.bsa_smem_bytes(kid, 0, 64, 128) == 0
+    for kernel in ("dq", "dkv"):  # built there too since MoE training
+        assert lib.bsa_smem_bytes(bsa._KERNELS[kernel], bsa._DTYPES[dtype],
+                                  64, 128) == bsa.smem_bytes(kernel, dtype,
+                                                             64, 128)
+        assert bsa.blocks_per_sm(kernel, dtype, 64, 128) >= (
+            2 if dtype == torch.bfloat16 else 1)
 
 
 # ---- speculative serving through the kernel (smoke size, fp32) ------------
@@ -1011,3 +1011,68 @@ def test_whole_prompt_prefill_matches_prefill_chunk_on_the_card(cuda, quant):
                 assert float((a - b).abs().max()) <= tol, (key, i)
     if not quant:
         assert float((lw - lc).abs().max()) <= 1e-4
+
+
+# ---- MoE training through the block-sparse kernels (smoke size, fp32) -----
+def _plain_bsa():
+    """Patches that route the block-sparse autograd.Function to the plain
+    twins on CUDA tensors (here only)."""
+    from unittest import mock
+
+    def fwd(q, k, v, c, x, y, fl, km, scale, block_size):
+        return (*bsa.block_sparse_attention_ref(
+            q, k, v, x, y, fl, c, km, scale=scale, block_size=block_size),
+            None)
+
+    def bwd(q, k, v, c, mt, pairs, x, y, fl, km, do, dr, scale, block_size):
+        return bsa.block_sparse_attention_bwd_ref(
+            q, k, v, c, x, y, fl, km, do, dr, scale=scale,
+            block_size=block_size)
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(bsa, "_forward", fwd))
+    stack.enter_context(mock.patch.object(bsa, "_backward", bwd))
+    return stack
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", ["none", "dots"])
+def test_granite_train_step_kernel_vs_plain(cuda, remat):
+    """One ``make_train_step`` step of granite-moe's smoke config (two
+    microbatches, bf16 error feedback) on the card: the kernels' loss and
+    grad norm within 1e-5 of the plain twins', every kernel launched once a
+    layer a microbatch (the forward twice under "dots", which recomputes
+    it), and a rerun bitwise equal in loss and grad norm."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.data import make_batch
+    from repro_torch.models.params import init_params, tree_leaves
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.train import TrainConfig, make_train_step
+
+    cfg, _ = _granite_smoke(cuda)
+    cfg = cfg.replace(remat=remat)
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=128,
+                                global_batch=4)
+    tc = TrainConfig(steps=4, microbatches=2, grad_compression="bf16_ef")
+    batch = {k: torch.from_numpy(v).to(cuda)
+             for k, v in make_batch(cfg, shape, step=0).items()}
+
+    def step(plain):
+        params = init_params(cfg, seed=0, device=cuda)
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+        fn = make_train_step(cfg, tc, AdamW(), cosine_schedule(1e-3, 1, 4))
+        before = {n: getattr(bsa, n).launches
+                  for n in ("bsa_fwd", "bsa_bwd_dq", "bsa_bwd_dkv")}
+        with _plain_bsa() if plain else contextlib.nullcontext():
+            _, _, met = fn(params, AdamW().init(params), batch)
+        launches = {n: getattr(bsa, n).launches - before[n] for n in before}
+        return float(met["loss"]), float(met["grad_norm"]), launches
+
+    k1, k2, plain = step(False), step(False), step(True)
+    calls = cfg.num_layers * tc.microbatches
+    assert k1[2] == {"bsa_fwd": calls * (2 if remat == "dots" else 1),
+                     "bsa_bwd_dq": calls, "bsa_bwd_dkv": calls}
+    assert plain[2] == dict.fromkeys(k1[2], 0)
+    assert k1[:2] == k2[:2]
+    np.testing.assert_allclose(k1[:2], plain[:2], rtol=1e-5)

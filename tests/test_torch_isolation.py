@@ -51,7 +51,7 @@ def test_scan_sees_the_whole_port():
             "hier.py", "block_sparse_attn.py", "mra.py", "adamw.py",
             "pipeline.py", "ckpt.py", "loop.py", "chip_smoke.py", "moe.py",
             "registry.py", "granite_moe_3b_a800m.py", "kimi_k2_1t_a32b.py",
-            "qwen2_7b.py", "yi_6b.py"} <= names
+            "qwen2_7b.py", "yi_6b.py", "compression.py"} <= names
 
 
 _SERVE_WITHOUT_JAX = r"""
@@ -136,6 +136,38 @@ def test_port_trains_with_jax_blocked():
                          capture_output=True, text=True, timeout=240)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "trained" in res.stdout
+
+
+_TRAIN_MOE_WITHOUT_JAX = r"""
+import dataclasses, math, sys, tempfile
+for name in ("jax", "jaxlib", "repro"):
+    sys.modules[name] = None
+from repro_torch.configs import SHAPES, get_smoke_config
+from repro_torch.train import TrainConfig, train
+cfg = get_smoke_config("granite-moe-3b-a800m", activ_dtype="float32",
+                       remat="dots")
+shape = dataclasses.replace(SHAPES["train_4k"], seq_len=64, global_batch=2)
+seen = []
+with tempfile.TemporaryDirectory() as d:
+    train(cfg, shape, TrainConfig(steps=2, microbatches=2,
+                                  grad_compression="bf16_ef", ckpt_dir=d,
+                                  ckpt_every=1), device="cpu",
+          on_metrics=lambda s, m: seen.append((m["loss"], m["aux_loss"])))
+assert len(seen) == 2 and all(math.isfinite(x) and a > 0 for x, a in seen)
+assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules
+               if sys.modules[m] is not None)
+print("trained moe", seen)
+"""
+
+
+def test_port_trains_moe_with_jax_blocked():
+    """The MoE family, remat="dots", bf16 error feedback over two
+    microbatches and the checkpointer need nothing of the reference."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", _TRAIN_MOE_WITHOUT_JAX],
+                         env=env, capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "trained moe" in res.stdout
 
 
 def test_chip_smoke_fails_without_a_card():
