@@ -20,8 +20,9 @@ port's serving path and its training path on the card:
      both under MRA-2 (C = 1, the split forced and planned, and C = 5; at
      long context with an H-level view of NU = 33), and granite-moe's
      (D, b) = (64, 128), G = 3 (decode with the split forced to 1 and
-     planned, and C = 128) and the G = 7 / 8 of qwen2-7b / yi-6b at
-     (128, 128) (atol 2e-5 / rtol 1e-5 on rows whose top-m selection is no
+     planned, and C = 128), the G = 7 / 8 of qwen2-7b / yi-6b at
+     (128, 128) and internvl2-1b's G = 7 at (64, 128) (atol 2e-5 / rtol
+     1e-5 on rows whose top-m selection is no
      near tie; near ties under 1% of rows);
   3. kernel timing at the main path's shapes and at granite-moe's (D = 64,
      G = 3), beside its bound at the bf16 tensor-core and the fp32
@@ -138,7 +139,45 @@ port's serving path and its training path on the card:
      the kernels at full width cut to 8 layers (one step each: loss and
      grad norm within 1e-6 of "none"'s, peak GiB, step seconds, launches;
      "full" twice, to tell whether reruns update every parameter bitwise
-     alike).
+     alike);
+ 23. (after phase 22) bsa_fwd, bsa_bwd_dq and bsa_bwd_dkv at hubert-xlarge's
+     (80, 128), G = 1 (B = 2, 16 heads, n = 4096, four blocks a row),
+     non-causal and causal, bf16 and fp32, with and without padded keys /
+     invalid pairs, against their plain twins at phase 22's tolerances,
+     reruns bit-identical; then their times in bf16 beside the bounds and
+     the plain twins, with grid, shared memory, blocks per SM and ptxas'
+     registers and spills (fails under two blocks an SM in bf16 or on any
+     spill of a D = 80 kernel);
+ 24. (after phase 21) hubert-xlarge at full width — 48 layers, 16 MHA heads
+     of 80, non-causal, layernorm, gelu, learned positions, the audio-frame
+     frontend: a forward of a ``make_batch`` frame batch, then three
+     ``train()`` steps at seq 4096 with the batch cut from 256 to
+     ``FAMILY_BATCH`` (the largest power of two that fits), remat="full",
+     launches counted over exactly that run, frames/s, peak GiB and a
+     profiled step; then kernel against plain routes in fp32 at full width
+     on one batch: loss, grad norm and every gradient leaf within 1e-4 at
+     one layer, two layers reported;
+ 26. (after phase 23) bsa_fwd, bsa_bwd_dq and bsa_bwd_dkv at internvl2-1b's
+     training call, (64, 128), G = 7 (B = 4, 14 / 2 heads, n = 4096,
+     causal), bf16 and fp32, with and without padded keys / invalid pairs,
+     against their plain twins at phase 22's tolerances, reruns
+     bit-identical; then their times in bf16 beside the bounds and the
+     plain twins, with grid, shared memory and blocks per SM (two or more
+     in bf16, or the phase fails);
+ 25. internvl2-1b at full width — 24 layers, 14 query / 2 KV heads of 64
+     (G = 7), the vision-patch frontend: the chunk kernel at G = 7 timed
+     (decode and C = 128, as phase 3); three ``train()`` steps at seq 4096
+     (256 patches + 3840 text tokens, batch cut as in phase 24), and kernel
+     against plain routes in fp32 at full width on one batch (loss and
+     grad norm within 1e-4 at one layer; the worst leaf and two layers
+     reported); the whole-prompt ``prefill`` of 4 slots of 256 patches +
+     3840 text tokens then 64 greedy ``decode_step``s, launches counted,
+     kernels against plain twins at 2 layers (streams equal, or part only
+     at a near tie by phase 14's rule), and at 4, 8 and 24 layers reported
+     beside the plain route against a rerun of itself and against itself
+     on patches scaled by 1 + 2^-20; then phase 4's engine and text-only
+     requests (tok/s, prefill / decode seconds, peak GiB, chunk launches
+     and combines).
 
 One JSON line per phase; then the card line from nvidia-smi, the kernels
 line and, last, ``{"ok": true, "device": {...}}``. Any failed phase raises,
@@ -173,6 +212,7 @@ SMOKE = dict(B=4, Hkv=2, G=2, D=16, b=16, nb=4, m=2)     # its smoke config
 # query-head groups of qwen2-7b (G = 7) and yi-6b (G = 8) at 4 KV heads
 GRANITE = dict(B=4, Hkv=8, G=3, D=64, b=128, nb=32, m=16)
 GROUPS = (("qwen2-7b", dict(B=4, Hkv=4, G=7, D=128, b=128, nb=32, m=16)),
+          ("internvl2-1b", dict(B=4, Hkv=2, G=7, D=64, b=128, nb=32, m=16)),
           ("yi-6b", dict(B=4, Hkv=4, G=8, D=128, b=128, nb=32, m=16)))
 WIDTHS = ((1, "latency"), (128, "throughput"), (5, "throughput"))
 # the long-context slice (levels=3): 2 slots of 4096-token windows; NU
@@ -199,6 +239,12 @@ BSA_EXTRA = (("main-hot", BSA_MAIN, True), ("smoke-d12", dict(BSA_SMOKE, d=12),
 # granite-moe's whole-prompt prefill: the forward alone at (d, b) = (64, 128),
 # 24 query heads over 8 KV heads, one 4096-token prompt
 BSA_GRANITE = dict(B=1, Hq=24, n=4096, d=64, b=128, bpr=4)
+# hubert-xlarge's block-sparse call: 16 MHA heads of 80 (G = 1), batch 2,
+# n = 4096, four blocks a row; held non-causal (hubert's) and causal
+BSA_HUBERT = dict(B=2, Hq=16, n=4096, d=80, b=128, bpr=4)
+# internvl2-1b's training call at its batch cut (4): 14 query heads over 2 KV
+# heads (G = 7, the widest dk/dv sum the kernels carry), causal
+BSA_VLM = dict(B=4, Hq=14, n=4096, d=64, b=128, bpr=4)
 # fp32 sums in another order and FMA contraction: normalized numerator and
 # max-scaled gradients at rtol/atol 1e-4, the stabilizer mt at abs 1e-5
 BSA_TOL, MT_TOL = 1e-4, 1e-5
@@ -221,6 +267,31 @@ SERVE = dict(prompts=(3968, 2500, 1200, 300), new_tokens=192)
 SPEC = dict(spec_k=4, new_tokens=144)
 # granite-moe-3b-a800m at full width: phase 4's engine and requests
 MOE_ARCH = "granite-moe-3b-a800m"
+# the hubert encoder and the internvl VLM at full width (phases 24-25):
+# train_4k (seq 4096; internvl: 256 patches + 3840 text tokens) with the
+# batch cut from 256 to the largest power of two whose steps fit the card;
+# the phases show that twice the batch runs out of memory
+HUBERT_ARCH, VLM_ARCH = "hubert-xlarge", "internvl2-1b"
+FAMILY_BATCH = {HUBERT_ARCH: 64, VLM_ARCH: 4}
+# internvl2-1b's serving: 14 query / 2 KV heads (G = 7) at (64, 128)
+VLM_SERVE = dict(B=4, Hkv=2, G=7, D=64, b=128, nb=32, m=16)
+# the whole-prompt prefill of 4 slots of 256 patches + 3840 text tokens,
+# then 64 greedy decode steps in a window one block longer than the prompt
+VLM_PROMPT = dict(slots=4, text=3840, new_tokens=64, max_len=4096 + 128)
+# the depth at which phase 25 holds those greedy streams kernel vs plain,
+# and the deeper ones it reports beside full depth. MRA-2's top-k block
+# and page selections are discrete, so a rounding difference that flips a
+# near-tied selection changes a row by O(1), and at the preset's random
+# initialization that grows layer by layer: from 4 layers on the plain
+# route parts from itself at the first tokens when its patches are scaled
+# by 1 + VLM_PERTURB (under half a bf16 ulp: it moves only the inputs near
+# a rounding boundary), as kernel and plain part there; at 2 layers they
+# part at near ties only
+VLM_PARITY_LAYERS, VLM_REPORT_LAYERS, VLM_PERTURB = 2, (4, 8), 2.0 ** -20
+# internvl's fp32 kernel-vs-plain training parity at one layer holds loss
+# and grad norm; its worst gradient leaf (wk: dk summed over 7 query heads
+# of 4096 positions) is reported
+VLM_PARITY_HELD = ("loss_rel", "grad_norm_rel")
 # whole-prompt prefill vs prefill_chunk (tests/test_torch_transformer.py's
 # tolerances): logits atol, cache entries within this share of the tensor's
 # largest magnitude
@@ -383,11 +454,11 @@ def phase_device(torch):
           "ptxas_chunk_attn": ptxas_report(
               libs["chunk_attn"].with_suffix(".log").read_text()),
           "ptxas_block_sparse_attn": bsa_ptx})
-    # 24 = bf16 and fp32 x four (D, b) x bsa_fwd, bsa_bwd_dq, bsa_bwd_dkv
+    # 30 = bf16 and fp32 x five (D, b) x bsa_fwd, bsa_bwd_dq, bsa_bwd_dkv
     spills = [k for k in bsa_ptx if k["kernel"].startswith(
         ("bsa_fwd bf16", "bsa_bwd_dq bf16", "bsa_bwd_dkv bf16"))
         and (k["spill_stores"] or k["spill_loads"] or k["registers"] > 255)]
-    if len(bsa_ptx) != 24 or spills:
+    if len(bsa_ptx) != 30 or spills:
         raise AssertionError(f"bsa kernels: {len(bsa_ptx)} built, spilling "
                              f"bf16 tensor-core kernels {spills}")
     # 19 = three storage types x three (D, b) x two programs, + the combine
@@ -397,7 +468,7 @@ def phase_device(torch):
     if len(chunk_ptx) != 19 or spills:
         raise AssertionError(f"chunk_attn kernels: {len(chunk_ptx)} built, "
                              f"spilling bf16 instantiations {spills}")
-    return smi
+    return smi, bsa_ptx
 
 
 def _kernel_label(name):
@@ -521,7 +592,7 @@ def phase_kernel_vs_plain(torch, tmd, chunk_attn):
           "near_tie_rows": ties, "rows": rows, "tie_margin": TIE})
     if ties > 0.01 * rows:
         raise AssertionError(f"{ties} near-tie rows of {rows} exceed 1%")
-    return worst, by_shape["granite"]
+    return worst, by_shape
 
 
 def phase_timing(torch, tmd, chunk_attn, sh=MAIN, arch="qwen3-1.7b"):
@@ -1016,9 +1087,10 @@ def _bsa_launches(bsa):
     return {name: getattr(bsa, name).launches for name in BSA_KERNELS}
 
 
-def bsa_case(torch, sh, G, dtype, seed, edited, hot=False):
+def bsa_case(torch, sh, G, dtype, seed, edited, hot=False, causal=True):
     """(q, k, v, c, x, y, flags, km, scale) for one comparison, numpy from
-    ``seed``; pairs from a real causal MRA-2 selection (``select_blocks``).
+    ``seed``; pairs from a real MRA-2 selection (``select_blocks``), causal
+    unless ``causal`` is false.
     ``edited`` pads the keys of batch row 1, invalidates every 7th pair and
     leaves query block 1 of BHG row 0 without pairs. ``hot`` makes the first
     nb pairs of every row (x, 0) for x = 0 .. nb - 1, so key tile 0 of each
@@ -1035,10 +1107,10 @@ def bsa_case(torch, sh, G, dtype, seed, edited, hot=False):
     key_mask = torch.as_tensor(np.arange(n)[None] < lengths[:, None],
                                device=DEVICE)
     q, k, v = (torch.from_numpy(a).to(DEVICE, dtype) for a in (q, k, v))
-    cfg = MraConfig(block_size=b, blocks_per_row=sh["bpr"], causal=True)
+    cfg = MraConfig(block_size=b, blocks_per_row=sh["bpr"], causal=causal)
     scale = d ** -0.5
     sel = select_blocks(q, k, v, key_mask, cfg, scale)
-    c, x, y, flags = kernel_pairs(sel, causal=True)
+    c, x, y, flags = kernel_pairs(sel, causal=causal)
     if edited:
         flags[:, ::7] &= ~1
         x[0] = torch.where(x[0] == 1, 0, x[0])
@@ -1061,68 +1133,20 @@ def _scaled_close(torch, got, want, tol):
 
 
 def phase_bsa_vs_plain(torch, bsa):
-    worst = dict.fromkeys(BSA_KERNELS, 0.0)
-    worst_mt, n, unvisited = 0.0, 0, 0
+    worst, n, unvisited = {}, 0, 0
     dtypes = (torch.bfloat16, torch.float32)
-    cases = [(name, sh, dtype, G, edited, False)
-             for (name, sh), dtype, G, edited in itertools.product(
-                 (("main", BSA_MAIN), ("smoke", BSA_SMOKE)), dtypes, (1, 2),
-                 (False, True))]
-    cases += [(name, sh, dtype, 2, False, hot)
-              for (name, sh, hot), dtype in itertools.product(BSA_EXTRA, dtypes)]
-    for name, sh, dtype, G, edited, hot in cases:
+    cases = [(sh, dtype, G, edited, False)
+             for sh, dtype, G, edited in itertools.product(
+                 (BSA_MAIN, BSA_SMOKE), dtypes, (1, 2), (False, True))]
+    cases += [(sh, dtype, 2, False, hot)
+              for (_, sh, hot), dtype in itertools.product(BSA_EXTRA, dtypes)]
+    for sh, dtype, G, edited, hot in cases:
         n += 1
-        q, k, v, c, x, y, fl, km, scale = bsa_case(torch, sh, G, dtype,
-                                                   SEED + n, edited, hot)
-        b, nb = sh["b"], sh["n"] // sh["b"]
-        pq = bsa.group_by_query(x, y, fl, nb)
-        pk = bsa.group_by_key(x, y, fl, G, nb)
-        kw = dict(scale=scale, block_size=b)
-        runs = [bsa.bsa_fwd(q, k, v, c, pq, km, **kw) for _ in range(2)]
-        ref = bsa.block_sparse_attention_ref(q, k, v, x, y, fl, c, km, **kw)
-        r = np.random.default_rng(SEED + 100 + n)
-        do = torch.from_numpy(r.standard_normal(tuple(q.shape), np.float32)).to(DEVICE)
-        dr = torch.from_numpy(r.standard_normal(tuple(q.shape[:2]), np.float32)).to(DEVICE)
-        mt = runs[0][2]
-        grads = [(bsa.bsa_bwd_dq(q, k, v, mt, do, dr, pq, km, **kw),
-                  *bsa.bsa_bwd_dkv(q, k, v, mt, do, dr, pk, km, **kw))
-                 for _ in range(2)]
-        gref = bsa.block_sparse_attention_bwd_ref(q, k, v, c, x, y, fl, km,
-                                                  do, dr, **kw)
-        torch.cuda.synchronize()
-        label = f"{name} {dtype} G={G} edited={edited}"
-        for a, bb in zip(runs[0] + grads[0], runs[1] + grads[1]):
-            if not torch.equal(a, bb):
-                raise AssertionError(f"bsa kernels not bit-identical: {label}")
-        out, rs, mt = runs[0]
-        alive_k, alive_p = rs > 0, ref[1] > 0
-        if not torch.equal(alive_k, alive_p):
-            raise AssertionError(f"bsa_fwd live rows differ: {label}")
-        dead = ~alive_k
-        if bool(out[dead].any()) or bool(rs[dead].any()):
-            raise AssertionError(f"bsa_fwd dead rows not zero: {label}")
-        unvisited += int(dead.sum())
-        norm_k = torch.where(alive_k[..., None], out, 0.0) / torch.where(
-            alive_k, rs, 1.0)[..., None]
-        norm_p = torch.where(alive_p[..., None], ref[0], 0.0) / torch.where(
-            alive_p, ref[1], 1.0)[..., None]
-        err = float((norm_k - norm_p).abs().max())
-        mt_err = float((mt - ref[2]).abs().max())
-        ok = (bool(torch.isclose(norm_k, norm_p, rtol=BSA_TOL, atol=BSA_TOL).all())
-              and bool(torch.isclose(rs, ref[1], rtol=BSA_TOL, atol=BSA_TOL).all())
-              and mt_err <= MT_TOL)
-        if not ok or not bool(torch.isfinite(out).all()):
-            raise AssertionError(f"bsa_fwd != plain: {label}: normalized "
-                                 f"{err}, mt {mt_err}")
-        worst["bsa_fwd"] = max(worst["bsa_fwd"], err)
-        worst_mt = max(worst_mt, mt_err)
-        for kname, got, want in (("bsa_bwd_dq", grads[0][0], gref[0]),
-                                 ("bsa_bwd_dkv", grads[0][1], gref[1]),
-                                 ("bsa_bwd_dkv", grads[0][2], gref[2])):
-            gerr, gok = _scaled_close(torch, got, want, BSA_TOL)
-            if not gok:
-                raise AssertionError(f"{kname} != plain: {label}: {gerr}")
-            worst[kname] = max(worst[kname], gerr)
+        errs, dead = _bsa_hold(torch, bsa, sh, G, dtype, SEED + n, edited,
+                               hot=hot)
+        worst = {k: max(worst.get(k, 0.0), e) for k, e in errs.items()}
+        unvisited += dead
+    worst_mt = worst.pop("mt")
     emit({"phase": "bsa_vs_plain", "cases": n, "rtol": BSA_TOL,
           "atol": BSA_TOL, "mt_atol": MT_TOL, "max_abs_err": worst,
           "max_mt_err": worst_mt, "unvisited_rows": unvisited,
@@ -1375,11 +1399,166 @@ def phase_bsa_granite_bwd(torch, bsa):
     return worst, timing
 
 
+def _bsa_hold(torch, bsa, sh, G, dtype, seed, edited, hot=False,
+              causal=True):
+    """The three kernels against their plain twins on one ``bsa_case``,
+    each kernel run twice and bit-identical: (max |err| of the normalized
+    numerator, of mt (held at MT_TOL) and of the max-scaled gradients, the
+    rows no pair visits); raises on a disagreement."""
+    q, k, v, c, x, y, fl, km, scale = bsa_case(torch, sh, G, dtype, seed,
+                                               edited, hot=hot, causal=causal)
+    b, nb = sh["b"], sh["n"] // sh["b"]
+    pq = bsa.group_by_query(x, y, fl, nb)
+    pk = bsa.group_by_key(x, y, fl, G, nb)
+    kw = dict(scale=scale, block_size=b)
+    runs = [bsa.bsa_fwd(q, k, v, c, pq, km, **kw) for _ in range(2)]
+    ref = bsa.block_sparse_attention_ref(q, k, v, x, y, fl, c, km, **kw)
+    r = np.random.default_rng(seed + 100)
+    do = torch.from_numpy(r.standard_normal(tuple(q.shape), np.float32)).to(DEVICE)
+    dr = torch.from_numpy(r.standard_normal(tuple(q.shape[:2]), np.float32)).to(DEVICE)
+    mt = runs[0][2]
+    grads = [(bsa.bsa_bwd_dq(q, k, v, mt, do, dr, pq, km, **kw),
+              *bsa.bsa_bwd_dkv(q, k, v, mt, do, dr, pk, km, **kw))
+             for _ in range(2)]
+    gref = bsa.block_sparse_attention_bwd_ref(q, k, v, c, x, y, fl, km,
+                                              do, dr, **kw)
+    torch.cuda.synchronize()
+    label = (f"d={sh['d']} b={b} {dtype} G={G} causal={causal} "
+             f"edited={edited} hot={hot}")
+    for a, bb in zip(runs[0] + grads[0], runs[1] + grads[1]):
+        if not torch.equal(a, bb):
+            raise AssertionError(f"bsa kernels not bit-identical: {label}")
+    out, rs, mt = runs[0]
+    alive = rs > 0
+    if not torch.equal(alive, ref[1] > 0):
+        raise AssertionError(f"bsa_fwd live rows differ: {label}")
+    if bool(out[~alive].any()) or bool(rs[~alive].any()):
+        raise AssertionError(f"bsa_fwd dead rows not zero: {label}")
+    norm_k = torch.where(alive[..., None], out, 0.0) / torch.where(
+        alive, rs, 1.0)[..., None]
+    norm_p = torch.where(alive[..., None], ref[0], 0.0) / torch.where(
+        alive, ref[1], 1.0)[..., None]
+    errs = {"bsa_fwd": float((norm_k - norm_p).abs().max()),
+            "mt": float((mt - ref[2]).abs().max())}
+    if not (bool(torch.isclose(norm_k, norm_p, rtol=BSA_TOL, atol=BSA_TOL).all())
+            and bool(torch.isclose(rs, ref[1], rtol=BSA_TOL, atol=BSA_TOL).all())
+            and errs["mt"] <= MT_TOL and bool(torch.isfinite(out).all())):
+        raise AssertionError(f"bsa_fwd != plain: {label}: {errs}")
+    for kname, got, want in (("bsa_bwd_dq", grads[0][0], gref[0]),
+                             ("bsa_bwd_dkv", grads[0][1], gref[1]),
+                             ("bsa_bwd_dkv", grads[0][2], gref[2])):
+        err, ok = _scaled_close(torch, got, want, BSA_TOL)
+        if not ok or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{kname} != plain: {label}: {err}")
+        errs[kname] = max(errs.get(kname, 0.0), err)
+    return errs, int((~alive).sum())
+
+
+def _bsa_timing(torch, bsa, sh, G, causal):
+    """Each kernel's time in bf16 at ``sh`` beside its plain twin's and its
+    bounds (``_bsa_bounds``), with the launch's grid, block, shared memory
+    and blocks an SM from the card's occupancy API."""
+    q, k, v, c, x, y, fl, km, scale = bsa_case(
+        torch, sh, G, torch.bfloat16, SEED, False, causal=causal)
+    BHG, n, d = q.shape
+    BHKV = k.shape[0]
+    b, nb = sh["b"], n // sh["b"]
+    pq = bsa.group_by_query(x, y, fl, nb)
+    pk = bsa.group_by_key(x, y, fl, G, nb)
+    kw = dict(scale=scale, block_size=b)
+    mt = bsa.bsa_fwd(q, k, v, c, pq, km, **kw)[2]
+    r = np.random.default_rng(SEED)
+    do = torch.from_numpy(r.standard_normal(tuple(q.shape), np.float32)).to(DEVICE)
+    dr = torch.from_numpy(r.standard_normal(tuple(q.shape[:2]), np.float32)).to(DEVICE)
+    lists = 3 * BHG * x.shape[1] * 4 + BHG * (nb + 1) * 4
+    bwd_in = lists + BHG * n * (d + 2) * 4  # pair lists, do, dr, mt
+    plain_args = (q, k, v, c, x, y, fl, km, do, dr)
+    cases = {
+        "fwd": (lambda: bsa.bsa_fwd(q, k, v, c, pq, km, **kw),
+                lambda: bsa.block_sparse_attention_ref(q, k, v, x, y, fl, c,
+                                                       km, **kw),
+                BHG * nb * 4 + lists + BHG * n * (d + 2) * 4, 2, BHG * nb),
+        "dq": (lambda: bsa.bsa_bwd_dq(q, k, v, mt, do, dr, pq, km, **kw),
+               lambda: bsa.block_sparse_attention_bwd_dq_ref(*plain_args, **kw),
+               bwd_in + BHG * n * d * 4, 3, BHG * nb),
+        "dkv": (lambda: bsa.bsa_bwd_dkv(q, k, v, mt, do, dr, pk, km, **kw),
+                lambda: bsa.block_sparse_attention_bwd_dkv_ref(*plain_args,
+                                                               **kw),
+                bwd_in + 2 * BHKV * n * d * 4, 4, BHKV * nb)}
+    return {key: {"ms": time_ms(torch, fn, 20), "plain_ms": time_ms(torch, plain, 3),
+                  **_bsa_bounds(q, k, fl, nb, outputs, products),
+                  **bsa.launch_geometry(key, q.dtype, d, b, tiles),
+                  "blocks_per_sm": bsa.blocks_per_sm(key, q.dtype, d, b)}
+            for key, (fn, plain, outputs, products, tiles) in cases.items()}
+
+
+def phase_bsa_hubert(torch, bsa, ptx):
+    """bsa_fwd, bsa_bwd_dq and bsa_bwd_dkv at (d, b) = (80, 128), G = 1
+    (hubert-xlarge's call) against their plain twins, non-causal and causal,
+    bf16 and fp32, with and without padded keys / invalid pairs, each run
+    twice and bit-identical; then their times in bf16 beside the bounds and
+    the plain twins, with grid, shared memory, blocks per SM and ptxas'
+    registers and spills. Fails below two blocks an SM in bf16 or on any
+    spill of a D = 80 kernel."""
+    sh = BSA_HUBERT
+    worst, n = {}, 0
+    _reset_bsa(bsa)
+    for causal, dtype, edited in itertools.product(
+            (False, True), (torch.bfloat16, torch.float32), (False, True)):
+        n += 1
+        errs, _ = _bsa_hold(torch, bsa, sh, 1, dtype, SEED + 600 + n, edited,
+                            causal=causal)
+        worst = {k: max(worst.get(k, 0.0), e) for k, e in errs.items()}
+    timing = {("non_causal" if not causal else "causal"):
+              _bsa_timing(torch, bsa, sh, 1, causal) for causal in (False, True)}
+    regs = [k for k in ptx if "D=80" in k["kernel"]]
+    emit({"phase": "bsa_hubert", "shape": sh, "G": 1, "cases": n,
+          "rtol": BSA_TOL, "atol": BSA_TOL, "mt_atol": MT_TOL,
+          "max_abs_err": worst, "bit_identical_reruns": True,
+          "phase_launches": _bsa_launches(bsa), "ptxas": regs,
+          "timing_bf16": timing})
+    low = [(c, key) for c, t in timing.items() for key in t
+           if t[key]["blocks_per_sm"] < 2]
+    spills = [k for k in regs if k["spill_stores"] or k["spill_loads"]]
+    if low or spills or len(regs) != 6:
+        raise AssertionError(f"bsa (80, 128): under two blocks an SM {low}, "
+                             f"spills {spills}, {len(regs)} kernels built")
+    return worst, timing
+
+
+def phase_bsa_internvl(torch, bsa):
+    """bsa_fwd, bsa_bwd_dq and bsa_bwd_dkv at (d, b) = (64, 128), G = 7
+    (internvl2-1b's training call: B = 4, 14 query / 2 KV heads, n = 4096,
+    causal) against their plain twins at phase 22's tolerances, bf16 and
+    fp32, with and without padded keys / invalid pairs, each run twice and
+    bit-identical; then their times in bf16 beside the bounds and the plain
+    twins, with grid, shared memory and blocks per SM (two or more in bf16,
+    or the phase fails)."""
+    sh = BSA_VLM
+    worst, n = {}, 0
+    for dtype, edited in itertools.product((torch.bfloat16, torch.float32),
+                                           (False, True)):
+        n += 1
+        errs, _ = _bsa_hold(torch, bsa, sh, 7, dtype, SEED + 700 + n, edited)
+        worst = {k: max(worst.get(k, 0.0), e) for k, e in errs.items()}
+    timing = _bsa_timing(torch, bsa, sh, 7, True)
+    emit({"phase": "bsa_internvl", "shape": sh, "G": 7, "cases": n,
+          "rtol": BSA_TOL, "atol": BSA_TOL, "mt_atol": MT_TOL,
+          "max_abs_err": worst, "bit_identical_reruns": True,
+          "timing_bf16": timing})
+    low = [key for key, t in timing.items() if t["blocks_per_sm"] < 2]
+    if low:
+        raise AssertionError(f"bsa (64, 128) bf16 under two blocks an SM: {low}")
+    return worst, timing
+
+
 def phase_train_full_width(torch, bsa, arch="qwen3-1.7b",
                            phase="train_full_width", batch=TRAIN["batch"]):
     """Three steps of ``train()`` at full width from random weights, the
     block-sparse kernels' launches counted over exactly that run (forward
-    twice a layer a step under the presets' remat="full")."""
+    twice a layer a step under the presets' remat="full"). tokens_per_s
+    counts the positions a step trains (hubert's frames, internvl's patches
+    plus text)."""
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.train import TrainConfig, train
 
@@ -1394,8 +1573,7 @@ def phase_train_full_width(torch, bsa, arch="qwen3-1.7b",
                       "aux_loss": m["aux_loss"],
                       "grad_norm": m["grad_norm"], "lr": m["lr"],
                       "seconds": m["step_time_s"],
-                      "tokens_per_s": shape.seq_len * shape.global_batch
-                      / m["step_time_s"]})
+                      "tokens_per_s": m["tokens_per_s"]})
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1413,6 +1591,9 @@ def phase_train_full_width(torch, bsa, arch="qwen3-1.7b",
           "activ_dtype": cfg.activ_dtype,
           "remat": cfg.remat, "attention": dataclasses.asdict(cfg.attention),
           "seq_len": shape.seq_len, "batch": shape.global_batch,
+          "tokens_per_s_counts": {"hubert": "frames",
+                                  "internvl": "patches+text"}.get(cfg.family,
+                                                                  "tokens"),
           "steps": steps, "wall_s": wall, "peak_gib": peak,
           "kernel_launches": launches})
     want = {"bsa_fwd": cfg.num_layers * tc.steps * 2,  # forward + remat
@@ -1673,6 +1854,278 @@ def phase_moe_train_parity(torch, bsa):
         if runs[policy]["launches"] != want:
             raise AssertionError(f"remat={policy}: launches "
                                  f"{runs[policy]['launches']} != {want}")
+
+
+# --------------------------------------------------------------------------- #
+# the hubert encoder and the internvl VLM at full width
+# --------------------------------------------------------------------------- #
+def _family_shape(arch):
+    from repro_torch.configs import SHAPES
+
+    return dataclasses.replace(SHAPES["train_4k"], seq_len=TRAIN["seq"],
+                               global_batch=FAMILY_BATCH[arch])
+
+
+def _family_train(torch, bsa, arch, name):
+    """``train()`` of the preset at full width, three steps at its batch cut,
+    under the card's 80 GiB, then a profiled step; then one step at twice
+    the batch, which must run out of memory (the cut is the largest power
+    of two that fits)."""
+    from repro_torch.configs import get_config
+    from repro_torch.train import TrainConfig, train
+
+    launches, peak, state = phase_train_full_width(
+        torch, bsa, arch, f"{name}_train_full_width",
+        batch=FAMILY_BATCH[arch])
+    if peak >= 80.0:
+        raise AssertionError(f"{arch} training peaked at {peak} GiB")
+    phase_train_profile(torch, state, phase=f"{name}_train_profile")
+    del state
+    torch.cuda.empty_cache()
+    twice = dataclasses.replace(_family_shape(arch),
+                                global_batch=2 * FAMILY_BATCH[arch])
+    t0 = time.perf_counter()
+    try:
+        train(get_config(arch), twice, TrainConfig(steps=1, seed=SEED,
+                                                   log_every=10**9),
+              device=DEVICE)
+        fits = True
+    except torch.cuda.OutOfMemoryError:
+        fits = False
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    emit({"phase": f"{name}_batch_cut", "arch": arch,
+          "batch": FAMILY_BATCH[arch], "peak_gib": peak,
+          "twice_the_batch": twice.global_batch, "twice_fits": fits,
+          "probe_s": time.perf_counter() - t0})
+    if fits:
+        raise AssertionError(f"{arch}: batch {twice.global_batch} fits too; "
+                             f"the cut to {FAMILY_BATCH[arch]} is not the "
+                             "largest power of two")
+    return launches
+
+
+def phase_hubert(torch, bsa):
+    """hubert-xlarge at full width (48 layers, 16 MHA heads of 80, non-causal
+    MRA-2 at b = 128): a forward of a ``make_batch`` frame batch (finite
+    logits over the 504-unit codebook, one bsa_fwd launch a layer); three
+    ``train()`` steps at seq 4096 (remat="full"); then kernel against plain
+    routes in fp32 at full width on one batch: loss, grad norm and every
+    gradient leaf within 1e-4 at one layer, two layers reported."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.models import transformer
+    from repro_torch.models.params import init_params
+
+    cfg = get_config(HUBERT_ARCH)
+    shape = dataclasses.replace(_family_shape(HUBERT_ARCH), global_batch=2)
+    params = init_params(cfg, seed=SEED, device=DEVICE)
+    batch = {k: torch.from_numpy(v).to(DEVICE)
+             for k, v in make_batch(cfg, shape, seed=SEED).items()}
+    _reset_bsa(bsa)
+    with torch.no_grad():
+        logits, _ = transformer.forward(params, cfg, batch)
+    torch.cuda.synchronize()
+    fwd = {"batch": 2, "seq_len": shape.seq_len,
+           "logits_shape": list(logits.shape),
+           "finite": bool(torch.isfinite(logits).all()),
+           "masked_share": float(batch["mask_positions"].float().mean()),
+           "kernel_launches": _bsa_launches(bsa)}
+    del params, logits
+    torch.cuda.empty_cache()
+    emit({"phase": "hubert_forward", "arch": cfg.name, "layers": cfg.num_layers,
+          "head_dim": cfg.hd, "causal": cfg.causal, **fwd})
+    if (not fwd["finite"] or fwd["logits_shape"] != [2, shape.seq_len,
+                                                     cfg.padded_vocab]
+            or fwd["kernel_launches"] != {"bsa_fwd": cfg.num_layers,
+                                          "bsa_bwd_dq": 0, "bsa_bwd_dkv": 0}):
+        raise AssertionError(f"hubert forward: {fwd}")
+    launches = _family_train(torch, bsa, HUBERT_ARCH, "hubert")
+    _family_parity(torch, bsa, HUBERT_ARCH, "hubert")
+    return launches
+
+
+def _family_parity(torch, bsa, arch, name,
+                   held=("loss_rel", "grad_norm_rel", "leaf_rel")):
+    """Kernel against plain routes in fp32 at full width on one batch of 2
+    at seq 4096: ``held`` within 1e-4 at one layer, the rest and two
+    layers reported."""
+    from repro_torch.configs import get_config
+
+    shape = dataclasses.replace(_family_shape(arch), global_batch=2)
+    result = {}
+    for layers in (1, 2):
+        one = get_config(arch, num_layers=layers, activ_dtype="float32")
+        result[f"full_width_{layers}_layers"] = _grad_parity(torch, bsa, one,
+                                                             shape)
+        torch.cuda.empty_cache()
+    emit({"phase": f"{name}_train_parity", "arch": arch,
+          "dtype": "float32", "batch": shape.global_batch,
+          "seq_len": shape.seq_len, "tolerance": 1e-4,
+          "held_at_1_layer": list(held), **result})
+    f = result["full_width_1_layers"]
+    if any(f[k] > 1e-4 for k in held):
+        raise AssertionError(f"{arch} full-width training differs: {f}")
+
+
+def _vlm_prompt_decode(torch, bsa, chunk_attn, cfg, params, plain,
+                       perturb=0.0):
+    """internvl's whole-prompt prefill of VLM_PROMPT (patches + text), then
+    greedy decode_steps: the tokens, each step's top-2 logit gap and top
+    logit, launches, and the prefill and decode seconds. ``plain``
+    substitutes the plain twins for both kernels (here only); ``perturb``
+    scales the patches by 1 + perturb."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.data import make_batch
+    from repro_torch.models import transformer
+    from repro_torch.serve.cache import RingPagedKVCache
+
+    sp = VLM_PROMPT
+    shape = dataclasses.replace(SHAPES["train_4k"],
+                                seq_len=cfg.num_patches + sp["text"],
+                                global_batch=sp["slots"])
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in
+             make_batch(cfg, shape, seed=SEED + 1).items() if k != "targets"}
+    batch["patches"] *= 1.0 + perturb
+
+    def ref(pre, k_cache, v_cache, q_pos, **kw):
+        return chunk_attn.chunk_attention_ref(pre, k_cache, v_cache, q_pos, **kw)
+
+    _reset_bsa(bsa)
+    _reset_chunk(chunk_attn)
+    cache = RingPagedKVCache(cfg, sp["slots"], sp["max_len"],
+                             device=DEVICE).tree
+    toks, gaps = [], []
+    bad = torch.zeros((), dtype=torch.int64, device=DEVICE)
+    with contextlib.ExitStack() as stack:
+        if plain:
+            stack.enter_context(_plain_twins(bsa))
+            stack.enter_context(mock.patch.object(
+                chunk_attn, "chunk_attention_kernel", ref))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = transformer.prefill(params, cfg, batch, cache)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(sp["new_tokens"] + 1):
+            top2 = torch.topk(logits[:, :cfg.vocab].float(), 2, dim=-1).values
+            gaps.append(torch.stack([top2[:, 0] - top2[:, 1], top2[:, 0]], 1))
+            bad.add_((~torch.isfinite(logits)).sum())
+            tok = torch.argmax(logits[:, :cfg.vocab], dim=-1)
+            toks.append(tok)
+            if i < sp["new_tokens"]:
+                logits, cache = transformer.decode_step(params, cfg, cache, tok)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    return {"tokens": torch.stack(toks, 1).cpu().numpy(),
+            "gaps": torch.stack(gaps, 1).cpu().numpy(),
+            "lengths": cache["lengths"].tolist(), "finite": int(bad) == 0,
+            "prefill_s": t1 - t0, "decode_s": t2 - t1,
+            "bsa": _bsa_launches(bsa),
+            "chunk": _chunk_launches(chunk_attn)[0],
+            "combines": chunk_attn.chunk_attention_kernel.combine_launches
+            if not plain else 0}
+
+
+def _stream_diff(got, want):
+    """Greedy streams of ``got`` against ``want``'s: the share of equal
+    tokens, and per slot the first position where they part with
+    ``want``'s top-2 logit gap there beside phase 14's limit, 4 bf16 ulps
+    of its top logit (the prefixes are equal up to it)."""
+    first = {}
+    for s in range(got["tokens"].shape[0]):
+        diff = np.flatnonzero(got["tokens"][s] != want["tokens"][s])
+        if diff.size:
+            i = int(diff[0])
+            gap, top = want["gaps"][s, i]
+            first[s] = {"position": i, "top2_gap": float(gap),
+                        "limit_4_ulps": 4 * _bf16_ulp(top),
+                        "top_logit": float(top)}
+    return {"token_agreement": float(np.mean(got["tokens"] == want["tokens"])),
+            "identical_streams": not first, "first_divergence": first}
+
+
+def phase_internvl(torch, bsa, chunk_attn):
+    """internvl2-1b at full width (24 layers, 14 query / 2 KV heads of 64,
+    G = 7, causal MRA-2 at b = 128, vocab 151655): (a) three ``train()``
+    steps at seq 4096 (256 patches + 3840 text tokens), then its fp32
+    parity (``_family_parity``); (b) the whole-prompt prefill of 4 slots of
+    patches + text, then 64 greedy decode steps, on the kernels (timed,
+    launches counted); at VLM_PARITY_LAYERS, VLM_REPORT_LAYERS and full
+    depth the streams kernel vs plain, plain vs a rerun of itself and
+    plain vs plain with the patches scaled by 1 + VLM_PERTURB; at
+    VLM_PARITY_LAYERS kernel vs plain held: equal, or parting only where
+    the plain route's top-2 logit gap is under 4 bf16 ulps of its top
+    logit (phase 14's rule); (c) phase 4's engine and text-only
+    requests."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import init_params
+
+    train_launches = _family_train(torch, bsa, VLM_ARCH, "internvl")
+    _family_parity(torch, bsa, VLM_ARCH, "internvl", VLM_PARITY_HELD)
+    cfg = get_config(VLM_ARCH)
+    params = init_params(cfg, seed=SEED, device=DEVICE)
+    # per depth: kernels, plain, plain again, plain on perturbed patches
+    runs = {}
+    for layers in (VLM_PARITY_LAYERS, *VLM_REPORT_LAYERS, cfg.num_layers):
+        c = cfg.replace(num_layers=layers)
+        p = dict(params, layers=params["layers"][:layers])
+        runs[layers] = [_vlm_prompt_decode(torch, bsa, chunk_attn, c, p, plain,
+                                           eps)
+                        for plain, eps in ((False, 0.0), (True, 0.0),
+                                           (True, 0.0), (True, VLM_PERTURB))]
+    del params, p
+    torch.cuda.empty_cache()
+    n = VLM_PROMPT["new_tokens"]
+    S = cfg.num_patches + VLM_PROMPT["text"]
+    split = _splits(chunk_attn, cfg, VLM_PROMPT["slots"], 1,
+                    VLM_PROMPT["max_len"])
+    want_chunk = cfg.num_layers * n
+    kern, plain = runs[cfg.num_layers][:2]
+    streams = {layers: {
+        "kernel_vs_plain": _stream_diff(k, pl),
+        "plain_vs_plain_rerun": _stream_diff(again, pl),
+        "plain_rerun_bitwise": bool(np.array_equal(again["gaps"], pl["gaps"])),
+        "plain_vs_perturbed_plain": _stream_diff(pert, pl)}
+        for layers, (k, pl, again, pert) in runs.items()}
+    emit({"phase": "internvl_prompt_decode", "arch": cfg.name,
+          "slots": VLM_PROMPT["slots"], "patches": cfg.num_patches,
+          "text_tokens": VLM_PROMPT["text"], "new_tokens": n,
+          "max_len": VLM_PROMPT["max_len"], "activ_dtype": cfg.activ_dtype,
+          "prefill_s": kern["prefill_s"], "decode_s": kern["decode_s"],
+          "decode_tok_per_s": VLM_PROMPT["slots"] * n / kern["decode_s"],
+          "plain_prefill_s": plain["prefill_s"],
+          "plain_decode_s": plain["decode_s"],
+          "bsa_launches": kern["bsa"], "chunk_launches": kern["chunk"],
+          "combine_launches": kern["combines"], "decode_split": split,
+          "perturb": VLM_PERTURB, "held_layers": VLM_PARITY_LAYERS,
+          "streams_by_layers": streams})
+    if kern["bsa"] != {"bsa_fwd": cfg.num_layers, "bsa_bwd_dq": 0,
+                       "bsa_bwd_dkv": 0} or kern["chunk"] != want_chunk \
+            or kern["combines"] != (want_chunk if split else 0):
+        raise AssertionError(f"internvl prompt + decode launches: bsa "
+                             f"{kern['bsa']}, chunk {kern['chunk']} != "
+                             f"{want_chunk}, combines {kern['combines']}")
+    for layers, (k, *plains) in runs.items():
+        if (k["bsa"]["bsa_fwd"] != layers or k["chunk"] != layers * n
+                or any(r["bsa"] != dict.fromkeys(BSA_KERNELS, 0) or r["chunk"]
+                       for r in plains)):
+            raise AssertionError(f"{layers} layers: a route launched other "
+                                 "kernels than its own")
+        if any(r["lengths"] != [S + n] * VLM_PROMPT["slots"] or not r["finite"]
+               for r in (k, *plains)):
+            raise AssertionError(f"{layers} layers: lengths != {S + n}, or "
+                                 "non-finite logits")
+    held = streams[VLM_PARITY_LAYERS]["kernel_vs_plain"]
+    for s, f in held["first_divergence"].items():
+        if not f["top2_gap"] < f["limit_4_ulps"]:
+            raise AssertionError(f"slot {s}: kernel stream leaves the plain "
+                                 f"route's at {f} (no near tie)")
+    engine_launches, eng, _ = phase_engine_full_width(
+        torch, chunk_attn, arch=VLM_ARCH, phase="internvl_full_width")
+    del eng
+    torch.cuda.empty_cache()
+    return train_launches, engine_launches
 
 
 # --------------------------------------------------------------------------- #
@@ -2256,8 +2709,8 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 products in fp32
     torch.backends.cudnn.allow_tf32 = False
-    smi = phase_device(torch)
-    max_err, granite_err = phase_kernel_vs_plain(torch, tmd, chunk_attn)
+    smi, bsa_ptx = phase_device(torch)
+    max_err, err_by_shape = phase_kernel_vs_plain(torch, tmd, chunk_attn)
     timing = phase_timing(torch, tmd, chunk_attn)
     granite_time = phase_timing(torch, tmd, chunk_attn, GRANITE, MOE_ARCH)
     launches, eng, base = phase_engine_full_width(torch, chunk_attn)
@@ -2277,6 +2730,8 @@ def main() -> int:
     bsa_time, dense_ms = phase_bsa_timing(torch, bsa)
     granite_bsa_err, granite_bsa = phase_bsa_granite(torch, bsa)
     granite_bwd_err, granite_bwd = phase_bsa_granite_bwd(torch, bsa)
+    hubert_err, hubert_bsa = phase_bsa_hubert(torch, bsa, bsa_ptx)
+    vlm_bsa_err, vlm_bsa = phase_bsa_internvl(torch, bsa)
     bsa_launches, _, state = phase_train_full_width(torch, bsa)
     phase_train_profile(torch, state)
     del state
@@ -2288,6 +2743,10 @@ def main() -> int:
     del state
     torch.cuda.empty_cache()
     phase_moe_train_parity(torch, bsa)
+    torch.cuda.empty_cache()
+    hubert_launches = phase_hubert(torch, bsa)
+    vlm_time = phase_timing(torch, tmd, chunk_attn, VLM_SERVE, VLM_ARCH)
+    vlm_train_launches, vlm_launches = phase_internvl(torch, bsa, chunk_attn)
     torch.cuda.empty_cache()
     up_err = phase_upper_vs_plain(torch, tmd, chunk_attn)
     up_time = phase_upper_timing(torch, tmd, chunk_attn)
@@ -2331,7 +2790,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/chunk_attn.cu",
         "replaces": "src/repro/kernels/chunk_attn.py:93",
         "launches": moe_launches[0], "combine_launches": moe_launches[1],
-        "max_abs_err": granite_err,
+        "max_abs_err": err_by_shape["granite"],
         "ms": gdec["ms"], "plain_ms": gdec["plain_ms"],
         "bound_ms": gdec["bound_ms"], "bound_by": gdec["bound_by"],
         "bound_ms_fp32_rate": gdec["bound_ms_fp32_rate"],
@@ -2375,6 +2834,61 @@ def main() -> int:
             "shape": "granite-moe-3b-a800m train_4k, n=4096, B=2, 24 query / "
                      "8 KV heads, bf16; launches from the 3-step granite "
                      "training run (phase 20)",
+            **{k: t[k] for k in ("grid", "threads", "smem_bytes",
+                                 "blocks_per_sm")}})
+    vdec = vlm_time["decode"]
+    new_shapes.append({
+        "name": "chunk_attn (D=64, b=128, G=7)", "route": "cuda",
+        "source": "src/repro_torch/csrc/chunk_attn.cu",
+        "replaces": "src/repro/kernels/chunk_attn.py:93",
+        "launches": vlm_launches[0], "combine_launches": vlm_launches[1],
+        "max_abs_err": err_by_shape[VLM_ARCH],
+        "ms": vdec["ms"], "plain_ms": vdec["plain_ms"],
+        "bound_ms": vdec["bound_ms"], "bound_by": vdec["bound_by"],
+        "bound_ms_fp32_rate": vdec["bound_ms_fp32_rate"],
+        "bound_by_fp32_rate": vdec["bound_by_fp32_rate"],
+        "nsplit": vdec["nsplit"], "library_ms": None,
+        "shape": "internvl2-1b decode C=1 (latency), B=4, Hkv=2, G=7; "
+                 "chunk128 below; launches from the internvl engine run "
+                 "(phase 25c)",
+        "chunk128": {k: vlm_time["chunk128"][k] for k in keys}})
+    for name, key, line in (("bsa_fwd", "fwd", 92), ("bsa_bwd_dq", "dq", 196),
+                            ("bsa_bwd_dkv", "dkv", 232)):
+        t = hubert_bsa["non_causal"][key]
+        new_shapes.append({
+            "name": f"{name} (d=80, b=128)", "route": "cuda",
+            "source": "src/repro_torch/csrc/block_sparse_attn.cu",
+            "replaces": f"src/repro/kernels/block_sparse_attn.py:{line}",
+            "launches": hubert_launches[name],
+            "max_abs_err": hubert_err[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms_bf16"], "bound_by": t["bound_by_bf16"],
+            "library_ms": None,
+            "bound_ms_fp32_rate": t["bound_ms_fp32"],
+            "bound_by_fp32_rate": t["bound_by_fp32"],
+            "causal_ms": hubert_bsa["causal"][key]["ms"],
+            "shape": "hubert-xlarge train_4k, n=4096, B=2, 16 MHA heads, "
+                     "non-causal, bf16; launches from the 3-step hubert "
+                     "training run (phase 24)",
+            **{k: t[k] for k in ("grid", "threads", "smem_bytes",
+                                 "blocks_per_sm")}})
+    for name, key, line in (("bsa_fwd", "fwd", 92), ("bsa_bwd_dq", "dq", 196),
+                            ("bsa_bwd_dkv", "dkv", 232)):
+        t = vlm_bsa[key]
+        new_shapes.append({
+            "name": f"{name} (d=64, b=128, G=7)", "route": "cuda",
+            "source": "src/repro_torch/csrc/block_sparse_attn.cu",
+            "replaces": f"src/repro/kernels/block_sparse_attn.py:{line}",
+            "launches": vlm_train_launches[name],
+            "max_abs_err": vlm_bsa_err[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms_bf16"], "bound_by": t["bound_by_bf16"],
+            "library_ms": None,
+            "bound_ms_fp32_rate": t["bound_ms_fp32"],
+            "bound_by_fp32_rate": t["bound_by_fp32"],
+            "shape": "internvl2-1b train_4k, n=4096, B=4, 14 query / 2 KV "
+                     "heads, causal, bf16; launches from the 3-step internvl "
+                     "training run (phase 25)",
             **{k: t[k] for k in ("grid", "threads", "smem_bytes",
                                  "blocks_per_sm")}})
     emit({"kernels": [{

@@ -1,4 +1,5 @@
-"""Architecture registry of the port: the dense and MoE archs ported so far."""
+"""Architecture registry of the port: the dense, MoE, hubert and internvl
+archs ported so far."""
 from __future__ import annotations
 
 import importlib
@@ -12,6 +13,8 @@ _ARCH_MODULES = {
     "llama3.2-3b": "llama3_2_3b",
     "qwen3-1.7b": "qwen3_1_7b",
     "yi-6b": "yi_6b",
+    "hubert-xlarge": "hubert_xlarge",
+    "internvl2-1b": "internvl2_1b",
 }
 
 ARCHS = tuple(_ARCH_MODULES)

@@ -1,9 +1,11 @@
 """Model and input-shape configuration schema of the ported families.
 
 Port of ``repro/configs/base.py``: the ``ModelConfig`` fields the dense and
-MoE decoders read (``MoESpec`` and the ``moe`` / ``moe_dispatch`` fields
-with the reference's defaults), and the ``ShapeCfg`` training input shape.
-Recurrent, encoder and vision fields come with their families.
+MoE decoders, the hubert encoder and the internvl VLM read (``MoESpec``,
+the ``moe`` / ``moe_dispatch`` fields, and the frontend, learned-position,
+layernorm and gelu fields, all with the reference's defaults), and the
+``ShapeCfg`` training input shape. The recurrent families' fields come with
+them.
 """
 from __future__ import annotations
 
@@ -13,6 +15,11 @@ from typing import Optional
 import torch
 
 from repro_torch.core.attention import AttentionSpec
+
+
+# the model families the port has (the reference's rwkv6 and
+# recurrentgemma are not ported yet: ROADMAP module item 5)
+FAMILIES = ("dense", "moe", "hubert", "internvl")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,7 +39,7 @@ class MoESpec:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe (the ported families)
+    family: str  # one of FAMILIES
     num_layers: int
     d_model: int
     num_heads: int
@@ -43,15 +50,21 @@ class ModelConfig:
     causal: bool = True
     qkv_bias: bool = False
     qk_norm: bool = False
-    norm: str = "rmsnorm"
-    act: str = "swiglu"
-    pos: str = "rope"
+    norm: str = "rmsnorm"  # rmsnorm | layernorm
+    act: str = "swiglu"  # swiglu | gelu (tanh approximation)
+    pos: str = "rope"  # rope | learned | none
     rope_theta: float = 10000.0
+    max_seq: int = 8192  # learned-positions table size
     moe: Optional[MoESpec] = None
     attention: AttentionSpec = dataclasses.field(default_factory=AttentionSpec)
     # serving-kernel tile shape for every dispatch: "auto" picks per call
     # (decode -> latency, prefill chunks -> throughput)
     attn_kernel_mode: str = "auto"
+    # modality frontends (stubs, as in the reference: precomputed frame or
+    # patch embeddings in, projected to d_model)
+    frontend: Optional[str] = None  # audio_frames | vision_patches
+    frontend_dim: int = 512
+    num_patches: int = 0
     pad_vocab_to: int = 256  # embedding table padded so vocab shards over TP
     pad_attn_heads_to: int = 0  # query heads padded (masked) to a multiple
     # MoE token dispatch: "psum" (replicated tokens, each device its expert

@@ -50,8 +50,9 @@
 //     once. A block is four warps, 64 rows (all b rows when b < 64).
 //   * Operands are staged in their own type by 16-byte cp.async copies into a
 //     two-slot ring: the next stage is in flight while the current one is
-//     computed. A bf16 operand lands in an XOR-swizzled tile that ldmatrix
-//     reads free of bank conflicts; an fp32 one (do, and fp32 q/k/v) is
+//     computed. A bf16 operand lands in a tile that ldmatrix reads free of
+//     bank conflicts (PlaneRow: XOR-swizzled rows, or at D = 80 rows padded
+//     from ten to eleven 16-byte chunks); an fp32 one (do, and fp32 q/k/v) is
 //     split into three bf16 tiles once per block, so the four warps share
 //     the split.
 //   * Forward and dq: the warp's bf16 q fragments stay in registers for the
@@ -81,10 +82,11 @@
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -Xptxas=-v (repro_torch/kernels/build.py); plain C
-//        entry points, loaded with ctypes. The three kernels are instantiated
-//        for (head dim, block size) = (128, 128), (64, 64) and (16, 16), the
-//        forward also for (64, 128), bf16 and fp32; the wrapper zero-pads a
-//        head dim to the next multiple of 16 (exact for the products).
+//        entry points, loaded with ctypes. All three kernels are
+//        instantiated for (head dim, block size) = (128, 128), (64, 64),
+//        (16, 16), (64, 128) and (80, 128), bf16 and fp32 (30 kernels); the
+//        wrapper zero-pads a head dim to the next multiple of 16 (exact for
+//        the products).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -113,26 +115,41 @@ struct Terms<float> {
   static constexpr int n = 3;
 };
 
-// A "plane" is a bf16 tile of rows x D: rows of D / 8 16-byte chunks,
-// XOR-swizzled (swz), read by ldmatrix. A raw tile holds fp32 rows of D
-// floats as they are in device memory.
+// A "plane" is a bf16 tile of rows x D read by ldmatrix, laid out by
+// PlaneRow<D>: rows of D / 8 16-byte chunks, XOR-swizzled where that count
+// is a power of two, else padded to an odd count. A raw tile holds rows as
+// they are in device memory (fp32 rows of D floats).
 
-// copy ROWS rows of RB bytes (device row stride RB) into a tile: swizzled
-// (a bf16 plane) or as they are (raw). A thread copies one 16-byte chunk
-// column of every NT / CPR-th row, so its swizzled column is the same in
-// each row it copies and its addresses step by constants.
-template <int RB, bool SWZ, int NT, int ROWS>
+// copy ROWS rows of RB bytes (device row stride RB) into a tile: as a bf16
+// plane (PLANE, RB = 2·D) or as they are (raw). Where the block's threads
+// cover whole rows, a thread copies one 16-byte chunk column of every
+// NT / CPR-th row, so its plane offset is the same in each row it copies
+// and its addresses step by constants; otherwise (ten chunks a row: D = 80)
+// the threads take the chunks in order. The constant-stride path is kept
+// for registers and speed: with the in-order loop alone the bf16 (128, 128)
+// dq and dk/dv kernels spill at 255 registers and the power-of-two shapes
+// run 6-10% slower (NVIDIA H100 80GB HBM3, 700 W).
+template <int RB, bool PLANE, int NT, int ROWS>
 __device__ __forceinline__ void stage(unsigned char* dst, const void* src) {
-  constexpr int CPR = RB / 16, STEP = NT / CPR;
-  static_assert(NT % CPR == 0 && (!SWZ || STEP % cmin(CPR, 8) == 0),
-                "a thread's chunk column is fixed");
-  const int r0 = threadIdx.x / CPR, ch = threadIdx.x % CPR;
-  unsigned char* d = dst + r0 * RB + (SWZ ? swz<CPR>(r0, ch) : ch) * 16;
-  const char* s = static_cast<const char*>(src) + (size_t)r0 * RB + ch * 16;
+  constexpr int CPR = RB / 16;
+  using P = PlaneRow<RB / 2>;
+  const char* s = static_cast<const char*>(src);
+  if constexpr (NT % CPR == 0 &&
+                (!PLANE || !P::SWZ || (NT / CPR) % cmin(CPR, 8) == 0)) {
+    constexpr int STEP = NT / CPR, DRB = PLANE ? P::BYTES : RB;
+    const int r0 = threadIdx.x / CPR, ch = threadIdx.x % CPR;
+    unsigned char* d = dst + (PLANE ? P::at(r0, ch) : r0 * RB + ch * 16);
+    s += (size_t)r0 * RB + ch * 16;
 #pragma unroll
-  for (int r = 0; r < ROWS; r += STEP)
-    if (ROWS % STEP == 0 || r0 + r < ROWS)
-      cp16(d + r * RB, s + (size_t)r * RB, true);
+    for (int r = 0; r < ROWS; r += STEP)
+      if (ROWS % STEP == 0 || r0 + r < ROWS)
+        cp16(d + r * DRB, s + (size_t)r * RB, true);
+  } else {
+    for (int i = threadIdx.x; i < ROWS * CPR; i += NT) {
+      const int row = i / CPR, ch = i - row * CPR;
+      cp16(dst + (PLANE ? P::at(row, ch) : i * 16), s + (size_t)i * 16, true);
+    }
+  }
 }
 
 // raw fp32 rows (rows x D) -> three planes of rows x D, `pstride` bytes
@@ -140,14 +157,14 @@ __device__ __forceinline__ void stage(unsigned char* dst, const void* src) {
 template <int D, int NT>
 __device__ __forceinline__ void split_rows(unsigned char* planes, int pstride,
                                            const float* raw, int rows) {
-  constexpr int C4 = D / 4, CPR = D / 8;
+  constexpr int C4 = D / 4;
   for (int i = threadIdx.x; i < rows * C4; i += NT) {
     const int row = i / C4, c = i - row * C4;  // floats 4c .. 4c + 3
     const float4 x = reinterpret_cast<const float4*>(raw)[i];
     uint32_t lo[3], hi[3];
     split3(x.x, x.y, lo);
     split3(x.z, x.w, hi);
-    const int off = row * D * 2 + swz<CPR>(row, c >> 1) * 16 + (c & 1) * 8;
+    const int off = PlaneRow<D>::at(row, c >> 1) + (c & 1) * 8;
 #pragma unroll
     for (int j = 0; j < 3; ++j)
       *reinterpret_cast<uint2*>(planes + j * pstride + off) = make_uint2(lo[j], hi[j]);
@@ -159,9 +176,8 @@ __device__ __forceinline__ void split_rows(unsigned char* planes, int pstride,
 template <int D>
 __device__ __forceinline__ void lda(uint32_t* a, uint32_t tile, int r0, int k0,
                                     int lane) {
-  constexpr int RB = D * 2;
   const int i = lane >> 3, row = r0 + ((i & 1) << 3) + (lane & 7);
-  ldsm4(a, tile + row * RB + swz<RB / 16>(row, (k0 >> 3) + (i >> 1)) * 16);
+  ldsm4(a, tile + PlaneRow<D>::at(row, (k0 >> 3) + (i >> 1)));
 }
 
 // B fragments of two n-tiles whose n runs over plane rows n0.. and n0 + 8..,
@@ -185,9 +201,8 @@ __device__ __forceinline__ void ldb(uint32_t* b, uint32_t tile, int n0, int k0,
 template <int D>
 __device__ __forceinline__ void ldbt(uint32_t* b, uint32_t tile, int k0, int n0,
                                      int lane) {
-  constexpr int RB = D * 2;
   const int i = lane >> 3, row = k0 + ((i & 1) << 3) + (lane & 7);
-  ldsm4t(b, tile + row * RB + swz<RB / 16>(row, (n0 >> 3) + (i >> 1)) * 16);
+  ldsm4t(b, tile + PlaneRow<D>::at(row, (n0 >> 3) + (i >> 1)));
 }
 
 // c += Σ_i a_i · b_j for term j of B (B's terms are loaded and applied one
@@ -278,10 +293,11 @@ struct QueryGeo {
   static constexpr int SUB = BS / QR;                     // blocks a query tile
   static constexpr int KT = cmin(NI == 1 ? 64 : 32, BS);  // keys a stage
   static constexpr int SPP = BS / KT;                     // stages a pair
-  static constexpr int RB = D * 2;                        // bytes of a plane row
+  static constexpr int RB = PlaneRow<D>::BYTES;           // bytes of a plane row
   static constexpr int RAW = D * (int)sizeof(T);          // bytes of an input row
+  static constexpr int SROW = NI == 1 ? RB : RAW;         // ... of a staged k/v row
   static constexpr int PLANE = KT * RB;
-  static constexpr int SLOT = (int)align16(2 * KT * RAW + KT * 4);  // k, v, mask
+  static constexpr int SLOT = (int)align16(2 * KT * SROW + KT * 4);  // k, v, mask
   static constexpr int PLANES = NI > 1 ? 2 * NI * PLANE : 0;        // split k, v
   static_assert(D % 16 == 0 && BS % 16 == 0 && BS % QR == 0 && BS % KT == 0,
                 "tile shapes");
@@ -310,9 +326,9 @@ __device__ __forceinline__ void stage_keys(unsigned char* dst, const void* k,
                                            const void* v, const int* km, size_t kb) {
   constexpr int KT = Gm::KT;
   stage<Gm::RAW, Gm::NI == 1, Gm::NT, KT>(dst, static_cast<const T*>(k) + kb * D);
-  stage<Gm::RAW, Gm::NI == 1, Gm::NT, KT>(dst + KT * Gm::RAW,
+  stage<Gm::RAW, Gm::NI == 1, Gm::NT, KT>(dst + KT * Gm::SROW,
                                           static_cast<const T*>(v) + kb * D);
-  stage<KT * 4, false, Gm::NT, 1>(dst + 2 * KT * Gm::RAW, km + kb);
+  stage<KT * 4, false, Gm::NT, 1>(dst + 2 * KT * Gm::SROW, km + kb);
 }
 
 // An fp32 score recomputed with fp32 FMAs in ascending d, one thread: the
@@ -394,8 +410,8 @@ bsa_fwd_kernel(const FwdArgs p) {
     if (!live(st)) continue;  // block-uniform
     const unsigned char* slot = smem + (st & 1) * Gm::SLOT;
     const unsigned char* kp = slot;
-    const unsigned char* vp = slot + KT * Gm::RAW;
-    const int* kms = reinterpret_cast<const int*>(slot + 2 * KT * Gm::RAW);
+    const unsigned char* vp = slot + KT * Gm::SROW;
+    const int* kms = reinterpret_cast<const int*>(slot + 2 * KT * Gm::SROW);
     if constexpr (NI > 1) {
       unsigned char* planes = smem + 2 * Gm::SLOT;
       split_rows<D, Gm::NT>(planes, Gm::PLANE, reinterpret_cast<const float*>(kp), KT);
@@ -561,12 +577,13 @@ struct DkvGeo {
   static constexpr int SUB = BS / KR;               // blocks a key tile
   static constexpr int QT = cmin(32, BS);           // queries a stage
   static constexpr int SPP = BS / QT;               // stages a pair
-  static constexpr int RB = D * 2;                  // bytes of a plane row
+  static constexpr int RB = PlaneRow<D>::BYTES;     // bytes of a plane row
   static constexpr int RAW = D * (int)sizeof(T);    // bytes of an input row
+  static constexpr int SROW = NI == 1 ? RB : RAW;   // ... of a staged q row
   static constexpr int RBF = D * 4;                 // bytes of an fp32 row
   static constexpr int KV = 2 * NI * KR * RB;       // k planes, then v planes
   // a ring slot: q (raw; a plane when bf16), do raw, mt, dr
-  static constexpr int SLOT = (int)align16(QT * RAW + QT * RBF + 2 * QT * 4);
+  static constexpr int SLOT = (int)align16(QT * SROW + QT * RBF + 2 * QT * 4);
   // the ring also holds the raw k / v rows of an fp32 input, once
   static constexpr int RING = cmax(2 * SLOT, NI > 1 ? 2 * KR * RAW : 0);
   static constexpr int QPLANE = QT * RB;
@@ -600,8 +617,8 @@ bsa_bwd_dkv_kernel(const DkvArgs p) {
 
   // the block's k and v rows, once
   if constexpr (NI == 1) {
-    stage<Gm::RB, true, Gm::NT, KR>(kvp, static_cast<const T*>(p.k) + kbase * D);
-    stage<Gm::RB, true, Gm::NT, KR>(kvp + KR * Gm::RB,
+    stage<Gm::RAW, true, Gm::NT, KR>(kvp, static_cast<const T*>(p.k) + kbase * D);
+    stage<Gm::RAW, true, Gm::NT, KR>(kvp + KR * Gm::RB,
                                     static_cast<const T*>(p.v) + kbase * D);
     // committed with the first stage's group below
   } else {
@@ -639,9 +656,9 @@ bsa_bwd_dkv_kernel(const DkvArgs p) {
     const size_t qb = (size_t)p.rows[pi] * p.n + (size_t)p.xs[pi] * BS + (st % SPP) * QT;
     unsigned char* dst = ring + slot * Gm::SLOT;
     stage<Gm::RAW, NI == 1, Gm::NT, QT>(dst, qg + qb * D);
-    stage<Gm::RBF, false, Gm::NT, QT>(dst + QT * Gm::RAW, p.dout + qb * D);
-    stage<QT * 4, false, Gm::NT, 1>(dst + QT * (Gm::RAW + Gm::RBF), p.mt + qb);
-    stage<QT * 4, false, Gm::NT, 1>(dst + QT * (Gm::RAW + Gm::RBF + 4), p.dr + qb);
+    stage<Gm::RBF, false, Gm::NT, QT>(dst + QT * Gm::SROW, p.dout + qb * D);
+    stage<QT * 4, false, Gm::NT, 1>(dst + QT * (Gm::SROW + Gm::RBF), p.mt + qb);
+    stage<QT * 4, false, Gm::NT, 1>(dst + QT * (Gm::SROW + Gm::RBF + 4), p.dr + qb);
   };
 
   const int nst = (p1 - p0) * SPP;
@@ -655,10 +672,10 @@ bsa_bwd_dkv_kernel(const DkvArgs p) {
     if (!live(st)) continue;  // block-uniform
     const unsigned char* slot = ring + (st & 1) * Gm::SLOT;
     const unsigned char* qs = slot;
-    const float* mts = reinterpret_cast<const float*>(slot + QT * (Gm::RAW + Gm::RBF));
+    const float* mts = reinterpret_cast<const float*>(slot + QT * (Gm::SROW + Gm::RBF));
     const float* drs = mts + QT;
     split_rows<D, Gm::NT>(dop, Gm::QPLANE,
-                          reinterpret_cast<const float*>(slot + QT * Gm::RAW), QT);
+                          reinterpret_cast<const float*>(slot + QT * Gm::SROW), QT);
     if constexpr (NI > 1) {
       split_rows<D, Gm::NT>(qpl, Gm::QPLANE, reinterpret_cast<const float*>(qs), QT);
       qs = qpl;
@@ -860,8 +877,8 @@ bsa_bwd_dq_kernel(const DqArgs p) {
     if (!live(st)) continue;  // block-uniform
     const unsigned char* slot = smem + (st & 1) * Gm::SLOT;
     const unsigned char* kp = slot;
-    const unsigned char* vp = slot + KT * Gm::RAW;
-    const int* kms = reinterpret_cast<const int*>(slot + 2 * KT * Gm::RAW);
+    const unsigned char* vp = slot + KT * Gm::SROW;
+    const int* kms = reinterpret_cast<const int*>(slot + 2 * KT * Gm::SROW);
     if constexpr (NI > 1) {
       unsigned char* planes = smem + 2 * Gm::SLOT;
       split_rows<D, Gm::NT>(planes, Gm::PLANE, reinterpret_cast<const float*>(kp), KT);
@@ -1000,6 +1017,7 @@ KernelInfo info_shape(int kernel, int D, int b) {
   if (D == 64 && b == 64) return info_of<T, 64, 64>(kernel);
   if (D == 16 && b == 16) return info_of<T, 16, 16>(kernel);
   if (D == 64 && b == 128) return info_of<T, 64, 128>(kernel);
+  if (D == 80 && b == 128) return info_of<T, 80, 128>(kernel);
   return {nullptr, 0, 0, 0};
 }
 
@@ -1014,7 +1032,7 @@ KernelInfo info(int kernel, int dtype, int D, int b) {
 // Allow the kernel's dynamic shared memory (and the largest carveout, so that
 // two blocks fit on an SM); done once per kernel.
 cudaError_t configure(const KernelInfo& k) {
-  static const void* done[32];  // 24 instantiations
+  static const void* done[32];  // 30 instantiations
   static int ndone = 0;
   for (int i = 0; i < ndone; ++i)
     if (done[i] == k.fn) return cudaSuccess;

@@ -1,4 +1,4 @@
-"""Deterministic synthetic token streams (numpy only) and a prefetching loader.
+"""Deterministic synthetic batches (numpy only) and a prefetching loader.
 
 Port of ``repro/data/pipeline.py`` (DESIGN.md §7), kept as the port's own
 copy because the reference module imports the JAX package: the same
@@ -6,11 +6,13 @@ generator and the same calls, so a (seed, step, shard) gives batches
 bit-identical to the reference's. Streams are keyed by the step, so a
 restart resumes bit-identically with the step counter as the only data
 state. Token streams mix Zipfian unigrams with copy spans, which gives
-attention the locality MRA exploits.
+attention the locality MRA exploits; audio frames (and the stub's vision
+patches) are temporally correlated random walks.
 
-The dense and MoE families take LM tokens; the hubert and internvl
-families, whose frontends are not ported (ROADMAP module item 5), raise.
-The ``DataLoader`` makes the next batches in a background thread while the
+The dense and MoE families take LM tokens, hubert audio frames with an 8%
+mask and masked-unit targets, internvl vision patches and text; the
+recurrent families, not ported yet (ROADMAP module item 5), raise. The
+``DataLoader`` makes the next batches in a background thread while the
 loop trains on the current one, as the reference's does.
 """
 from __future__ import annotations
@@ -21,7 +23,7 @@ from typing import Iterator, Optional
 
 import numpy as np
 
-from repro_torch.configs.base import ModelConfig, ShapeCfg
+from repro_torch.configs.base import FAMILIES, ModelConfig, ShapeCfg
 
 
 def _rng_for_step(seed: int, step: int, shard: int) -> np.random.Generator:
@@ -48,19 +50,49 @@ def _lm_tokens(rng: np.random.Generator, batch: int, seq: int,
     return toks
 
 
+def _audio_frames(rng, batch, seq, dim):
+    steps = rng.standard_normal((batch, seq, dim)).astype(np.float32) * 0.3
+    frames = np.cumsum(steps, axis=1)
+    frames /= np.maximum(np.abs(frames).max(axis=(1, 2), keepdims=True), 1.0)
+    return frames
+
+
 def make_batch(cfg: ModelConfig, shape: ShapeCfg, *, step: int = 0,
                seed: int = 0, shard: int = 0, num_shards: int = 1,
                batch_override: Optional[int] = None) -> dict:
-    """One host-local training batch as numpy arrays:
-    {"tokens": (B, S) int32, "targets": (B, S) int32}."""
-    if cfg.family in ("hubert", "internvl"):
+    """One host-local training batch as numpy arrays, by family:
+
+      dense / moe: {"tokens": (B, S) int32, "targets": (B, S) int32};
+      hubert: {"frames": (B, S, frontend_dim) f32, "mask_positions": (B, S)
+        bool, "targets": (B, S) int32} (targets: the argmax of the frames
+        through a fixed random projection, seeded by ``seed`` alone);
+      internvl: {"tokens": (B, S_text) int32, "patches": (B, P,
+        frontend_dim) f32, "targets": (B, S_text) int32}, P =
+        ``num_patches``, S_text = S - P.
+
+    The rng is drawn in the reference's order, so batches are bitwise its.
+    """
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r}: its audio / image batches come with its "
-            "frontend (ROADMAP module item 5)")
+            f"family {cfg.family!r}: its model and batches are not ported "
+            "yet (ROADMAP module item 5)")
     B = (batch_override if batch_override is not None
          else shape.global_batch // num_shards)
     S = shape.seq_len
     rng = _rng_for_step(seed, step, shard)
+    if cfg.family == "hubert":
+        frames = _audio_frames(rng, B, S, cfg.frontend_dim)
+        mask = rng.random((B, S)) < 0.08
+        proj = _rng_for_step(seed, 0, 0).standard_normal(
+            (cfg.frontend_dim, cfg.vocab))
+        targets = (frames @ proj.astype(np.float32)).argmax(-1).astype(np.int32)
+        return {"frames": frames, "mask_positions": mask, "targets": targets}
+    if cfg.family == "internvl":
+        P = cfg.num_patches
+        toks = _lm_tokens(rng, B, S - P + 1, cfg.vocab)
+        patches = _audio_frames(rng, B, P, cfg.frontend_dim)
+        return {"tokens": toks[:, :-1], "patches": patches,
+                "targets": toks[:, 1:].astype(np.int32)}
     toks = _lm_tokens(rng, B, S + 1, cfg.vocab)
     return {"tokens": toks[:, :-1], "targets": toks[:, 1:].astype(np.int32)}
 

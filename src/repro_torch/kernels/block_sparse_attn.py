@@ -44,8 +44,8 @@ from repro_torch.core.mra import NEG_INF
 
 # (head dim padded to a multiple of 16, block size b) the three kernels are
 # built for: qwen3-1.7b, the reference's (64, 64) and smoke (16, 16) shapes,
-# granite-moe-3b-a800m
-KERNEL_SHAPES = ((128, 128), (64, 64), (16, 16), (64, 128))
+# granite-moe-3b-a800m and internvl2-1b, hubert-xlarge
+KERNEL_SHAPES = ((128, 128), (64, 64), (16, 16), (64, 128), (80, 128))
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _KERNELS = {"fwd": 0, "dkv": 1, "dq": 2}  # the kernels of the source
 _SM_SMEM = 233472   # shared memory of an SM (228 KB)
@@ -299,6 +299,15 @@ def _a16(x: int) -> int:
     return (x + 15) // 16 * 16
 
 
+def plane_row_bytes(D: int) -> int:
+    """Bytes of a bf16 plane row in shared memory (``PlaneRow`` in
+    ``csrc/sm90_mma.cuh``): D / 8 16-byte chunks, XOR-swizzled in place when
+    that count is a power of two, else padded to an odd count (D = 80: ten
+    chunks in a row of eleven)."""
+    chunks = D // 8
+    return 16 * (chunks if chunks & (chunks - 1) == 0 else chunks | 1)
+
+
 def kernel_plan(kernel: str, dtype, d: int, block_size: int) -> dict:
     """Geometry and dynamic shared memory of one block of the forward
     (``"fwd"``), dq (``"dq"``) or dk/dv (``"dkv"``) kernel; mirrors
@@ -308,24 +317,25 @@ def kernel_plan(kernel: str, dtype, d: int, block_size: int) -> dict:
     check_shape(d, block_size)
     D, b = padded_dim(d), block_size
     terms = 1 if dtype == torch.bfloat16 else 3
-    size = 2 if dtype == torch.bfloat16 else 4
+    prb = plane_row_bytes(D)  # a plane row
+    srow = prb if terms == 1 else D * 4  # a staged input row (bf16: a plane)
     rows = min(64, b)
     if kernel in ("fwd", "dq"):
         stage = min(64 if terms == 1 else 32, b)
-        slot = _a16(2 * stage * D * size + stage * 4)  # k, v, key mask
-        planes = 2 * terms * stage * D * 2 if terms > 1 else 0  # split k, v
+        slot = _a16(2 * stage * srow + stage * 4)  # k, v, key mask
+        planes = 2 * terms * stage * prb if terms > 1 else 0  # split k, v
         if kernel == "fwd":
             rest = rows * (D * 4 + 16) if terms > 1 else 0  # fp32 q rows
         else:  # split do (and q) rows
-            rest = (3 + (terms if terms > 1 else 0)) * rows * D * 2
+            rest = (3 + (terms if terms > 1 else 0)) * rows * prb
         smem = 2 * slot + planes + rest
     elif kernel == "dkv":
         stage = min(32, b)
-        kv = 2 * terms * rows * D * 2  # k and v planes
-        slot = _a16(stage * D * size + stage * D * 4 + 2 * stage * 4)
-        ring = max(2 * slot, 2 * rows * D * size if terms > 1 else 0)
-        smem = kv + ring + 3 * stage * D * 2 + (
-            terms * stage * D * 2 if terms > 1 else 0)  # split do (and q)
+        kv = 2 * terms * rows * prb  # k and v planes
+        slot = _a16(stage * srow + stage * D * 4 + 2 * stage * 4)
+        ring = max(2 * slot, 2 * rows * D * 4 if terms > 1 else 0)
+        smem = kv + ring + 3 * stage * prb + (
+            terms * stage * prb if terms > 1 else 0)  # split do (and q)
     else:
         raise ValueError(f"kernel must be one of {tuple(_KERNELS)}, got "
                          f"{kernel!r}")

@@ -1,10 +1,13 @@
-"""Layers of the dense decoder (plain functions on tensors).
+"""Layers of the transformer families (plain functions on tensors).
 
-Port of ``repro/models/layers.py`` for the dense family: RMSNorm, RoPE, the
-GQA projection with optional qkv-bias / qk-norm, the full-sequence
-attention block, the SwiGLU MLP, the token embedding / LM head, the LM
-loss and the remat wrapper. Weights are cast to the activation dtype at use
-and norm weights to fp32, as in the reference.
+Port of ``repro/models/layers.py``: RMSNorm and LayerNorm, RoPE, the GQA
+projection with optional qkv-bias / qk-norm, the full-sequence attention
+block, the SwiGLU and GELU MLPs, the token embedding (with learned
+positions) / LM head, the LM loss and the remat wrapper. Weights are cast
+to the activation dtype at use and norm weights to fp32, as in the
+reference. Two of the reference's defaults differ from torch's and are
+kept: ``jax.nn.gelu`` is the tanh approximation, and LayerNorm takes the
+biased variance in fp32 at ``cfg.norm_eps``.
 """
 from __future__ import annotations
 
@@ -30,10 +33,18 @@ def rms_norm(x, w, eps=1e-6):
     return (y * w.to(torch.float32)).to(dt)
 
 
+def layer_norm(x, w, b, eps=1e-6):
+    dt = x.dtype
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * w.to(torch.float32) + b.to(torch.float32)).to(dt)
+
+
 def apply_norm(x, p, cfg: ModelConfig):
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(
-            f"norm={cfg.norm!r}: layernorm comes with the encoder families")
+    if cfg.norm == "layernorm":
+        return layer_norm(x, p["w"], p["b"], cfg.norm_eps)
     return rms_norm(x, p["w"], cfg.norm_eps)
 
 
@@ -104,16 +115,26 @@ def attn_block(x, p, cfg: ModelConfig, *, spec: Optional[AttentionSpec] = None,
 
 
 def mlp_block(x, p, cfg: ModelConfig):
-    if cfg.act != "swiglu":
-        raise NotImplementedError(f"act={cfg.act!r}: only swiglu is ported")
     adt = x.dtype
-    h = torch.einsum("bsd,df->bsf", x, p["wi"].to(adt))
-    g = torch.einsum("bsd,df->bsf", x, p["wg"].to(adt))
-    return torch.einsum("bsf,fd->bsd", F.silu(g) * h, p["wo"].to(adt))
+    if cfg.act == "swiglu":
+        h = torch.einsum("bsd,df->bsf", x, p["wi"].to(adt))
+        g = torch.einsum("bsd,df->bsf", x, p["wg"].to(adt))
+        return torch.einsum("bsf,fd->bsd", F.silu(g) * h, p["wo"].to(adt))
+    h = torch.einsum("bsd,df->bsf", x, p["wi"].to(adt)) + p["bi"].to(adt)
+    h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
+    return (torch.einsum("bsf,fd->bsd", h, p["wo"].to(adt))
+            + p["bo"].to(adt))
 
 
-def embed(tokens, p, cfg: ModelConfig):
-    return p["tok"][tokens].to(cfg.adt)
+def embed(tokens, p, cfg: ModelConfig, positions=None):
+    """Token embedding, plus the learned position rows (positions: (S,) or
+    (B, S); default 0 .. S - 1) under ``pos="learned"``."""
+    x = p["tok"][tokens].to(cfg.adt)
+    if cfg.pos == "learned":
+        if positions is None:
+            positions = torch.arange(tokens.shape[-1], device=tokens.device)
+        x = x + p["pos"][positions].to(cfg.adt)
+    return x
 
 
 def unembed(x, p, cfg: ModelConfig):

@@ -1,16 +1,20 @@
-"""Parameters of the dense and MoE decoders: random init and conversion
+"""Parameters of the transformer families: random init and conversion
 from JAX.
 
-Port of ``repro/models/params.py`` for the ported families. Parameters are
-a plain nested dict of tensors with the reference's names and layouts
-(``embed.tok`` (V, d), ``layers[i].attn.wq`` (d, H, hd), an MoE layer's
-``layers[i].moe.wi`` (E, d, f) in place of ``mlp``, ...); the layers are
-always a per-layer list here, whatever ``cfg.scan_layers`` says about the
-reference's stacked layout.
+Port of ``repro/models/params.py`` for the ported families (dense, MoE,
+hubert, internvl). Parameters are a plain nested dict of tensors with the
+reference's names and layouts (``embed.tok`` (V, d), ``layers[i].attn.wq``
+(d, H, hd), an MoE layer's ``layers[i].moe.wi`` (E, d, f) in place of
+``mlp``, a gelu MLP's biases ``bi`` / ``bo``, a layernorm's ``b``, learned
+positions ``embed.pos`` (max_seq, d), a frontend's ``frontend.proj``
+(frontend_dim, d) and hubert's ``frontend.mask_embed`` (d,)); the layers
+are always a per-layer list here, whatever ``cfg.scan_layers`` says about
+the reference's stacked layout.
 
 Dtype semantics follow the reference: every tensor is stored at its
 declared dtype (``cfg.param_dtype`` for weights, fp32 for the norm weights
-of ``ln1/ln2/ln_f``), and the layers cast to the activation dtype at use.
+and biases of ``ln1/ln2/ln_f``), and the layers cast to the activation
+dtype at use.
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import FAMILIES, ModelConfig
 
 
 class TensorSpec(NamedTuple):
@@ -51,14 +55,25 @@ def materialize(spec: TensorSpec, device) -> torch.Tensor:
     return torch.full(spec.shape, value, dtype=spec.dtype, device=device)
 
 
+def _norm_specs(cfg: ModelConfig) -> dict:
+    d, f32 = cfg.d_model, torch.float32
+    if cfg.norm == "layernorm":
+        return {"w": _spec((d,), f32, "ones"), "b": _spec((d,), f32, "zeros")}
+    return {"w": _spec((d,), f32, "ones")}
+
+
+def _mlp_specs(cfg: ModelConfig) -> dict:
+    d, f, pdt = cfg.d_model, cfg.d_ff, cfg.pdt
+    if cfg.act == "swiglu":
+        return {"wi": _spec((d, f), pdt), "wg": _spec((d, f), pdt),
+                "wo": _spec((f, d), pdt)}
+    return {"wi": _spec((d, f), pdt), "bi": _spec((f,), pdt, "zeros"),
+            "wo": _spec((f, d), pdt), "bo": _spec((d,), pdt, "zeros")}
+
+
 def _layer_specs(cfg: ModelConfig) -> dict:
-    d, H, Hkv, hd, f = (cfg.d_model, cfg.padded_heads, cfg.kv_heads, cfg.hd,
-                        cfg.d_ff)
-    if cfg.norm != "rmsnorm" or cfg.act != "swiglu":
-        raise NotImplementedError(
-            f"norm={cfg.norm!r} / act={cfg.act!r}: only the rmsnorm + swiglu "
-            "dense decoder is ported")
-    pdt, f32 = cfg.pdt, torch.float32
+    d, H, Hkv, hd = cfg.d_model, cfg.padded_heads, cfg.kv_heads, cfg.hd
+    pdt = cfg.pdt
     attn = {"wq": _spec((d, H, hd), pdt), "wk": _spec((d, Hkv, hd), pdt),
             "wv": _spec((d, Hkv, hd), pdt), "wo": _spec((H, hd, d), pdt)}
     if cfg.qkv_bias:
@@ -68,37 +83,36 @@ def _layer_specs(cfg: ModelConfig) -> dict:
     if cfg.qk_norm:
         attn["qnorm"] = _spec((hd,), pdt, "ones")
         attn["knorm"] = _spec((hd,), pdt, "ones")
-    layer = {
-        "ln1": {"w": _spec((d,), f32, "ones")},
-        "attn": attn,
-        "ln2": {"w": _spec((d,), f32, "ones")},
-    }
+    layer = {"ln1": _norm_specs(cfg), "attn": attn, "ln2": _norm_specs(cfg)}
     if cfg.family == "moe" and cfg.moe is not None:
         from .moe import moe_specs
 
         layer["moe"] = moe_specs(cfg)
     else:
-        layer["mlp"] = {"wi": _spec((d, f), pdt), "wg": _spec((d, f), pdt),
-                        "wo": _spec((f, d), pdt)}
+        layer["mlp"] = _mlp_specs(cfg)
     return layer
 
 
 def param_specs(cfg: ModelConfig) -> dict:
     """The parameter tree as (shape, dtype, init) leaves."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported; the dense and moe "
-            "decoders are")
-    if cfg.pos != "rope":
-        raise NotImplementedError(f"pos={cfg.pos!r}: only RoPE is ported")
-    embed = {"tok": _spec((cfg.padded_vocab, cfg.d_model), cfg.pdt, "embed")}
+            f"family {cfg.family!r} is not ported (ROADMAP module item 5); "
+            f"the port has {FAMILIES}")
+    d, pdt = cfg.d_model, cfg.pdt
+    embed = {"tok": _spec((cfg.padded_vocab, d), pdt, "embed")}
+    if cfg.pos == "learned":
+        embed["pos"] = _spec((cfg.max_seq, d), pdt, "embed")
     if not cfg.tie_embeddings:
-        embed["head"] = _spec((cfg.d_model, cfg.padded_vocab), cfg.pdt)
-    return {
-        "embed": embed,
-        "ln_f": {"w": _spec((cfg.d_model,), torch.float32, "ones")},
-        "layers": [_layer_specs(cfg) for _ in range(cfg.num_layers)],
-    }
+        embed["head"] = _spec((d, cfg.padded_vocab), pdt)
+    p = {"embed": embed, "ln_f": _norm_specs(cfg),
+         "layers": [_layer_specs(cfg) for _ in range(cfg.num_layers)]}
+    if cfg.frontend == "audio_frames":
+        p["frontend"] = {"proj": _spec((cfg.frontend_dim, d), pdt),
+                         "mask_embed": _spec((d,), pdt, "embed")}
+    if cfg.frontend == "vision_patches":
+        p["frontend"] = {"proj": _spec((cfg.frontend_dim, d), pdt)}
+    return p
 
 
 def _init_one(spec: TensorSpec, gen: torch.Generator, device) -> torch.Tensor:
@@ -209,7 +223,7 @@ def params_from_jax(tree, cfg: ModelConfig, device=None) -> dict:
         raise ValueError(
             f"reference tree has {len(layers)} layers, config {cfg.num_layers}")
     specs = param_specs(cfg)
-    out = _map({"embed": tree["embed"], "ln_f": tree["ln_f"],
+    out = _map({**{k: tree[k] for k in specs if k != "layers"},
                 "layers": list(layers)}, lambda a: _to_tensor(a, dev))
 
     def check(spec_tree, got, path):

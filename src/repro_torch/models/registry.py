@@ -1,22 +1,23 @@
 """Model registry: family name -> module implementing the model API.
 
 Port of ``repro/models/registry.py`` for the families the port has: the
-dense and MoE decoders are both ``models/transformer.py``. Each module
-provides the reference's contract — ``forward``, ``loss_fn``,
-``cache_specs``, ``layer_cache_kinds``, ``prefill``, ``prefill_chunk``
-(with ``all_logits`` / ``collect_kv``) and ``decode_step`` (with
-``active``). The reference's other families (hubert, internvl, rwkv6,
-recurrentgemma) raise ``NotImplementedError`` naming the family; an
-unknown name raises ``ValueError`` as in the reference.
+dense and MoE decoders, the hubert encoder and the internvl VLM are all
+``models/transformer.py``. Each module provides the reference's contract —
+``forward``, ``loss_fn``, ``cache_specs``, ``layer_cache_kinds``,
+``prefill``, ``prefill_chunk`` (with ``all_logits`` / ``collect_kv``) and
+``decode_step`` (with ``active``). The reference's recurrent families
+(rwkv6, recurrentgemma) raise ``NotImplementedError`` naming the family
+and ROADMAP module item 5; an unknown name raises ``ValueError`` as in the
+reference.
 """
 from __future__ import annotations
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import FAMILIES, ModelConfig
 
 from . import transformer
 
-_FAMILIES = {"dense": transformer, "moe": transformer}
-_UNPORTED = ("hubert", "internvl", "rwkv6", "recurrentgemma")
+_FAMILIES = dict.fromkeys(FAMILIES, transformer)
+_UNPORTED = ("rwkv6", "recurrentgemma")
 
 
 def get_model(cfg: ModelConfig):

@@ -1,16 +1,22 @@
-"""Transformer decoders (dense and MoE): training forward and loss,
-serving cache, whole-prompt and chunked prefill, decode.
+"""Transformer families (dense and MoE decoders, the hubert encoder, the
+internvl VLM): training forward and loss, serving cache, whole-prompt and
+chunked prefill, decode.
 
-Port of the dense and MoE families of ``repro/models/transformer.py``
-(DESIGN.md §9): the full-sequence ``forward`` / ``loss_fn`` that training
-runs (the layers are a list here, so the reference's ``scan`` is a loop,
-each layer under the config's remat policy; an MoE layer's routed FFN,
+Port of ``repro/models/transformer.py`` (DESIGN.md §9): the input
+embedding of each family (``_input_embed``: tokens; hubert's projected
+audio frames with masked positions replaced by ``mask_embed`` and learned
+positions added; internvl's projected vision patches placed before the
+text), the full-sequence ``forward`` / ``loss_fn`` that training runs (the
+layers are a list here, so the reference's ``scan`` is a loop, each layer
+under the config's remat policy; an MoE layer's routed FFN,
 ``models/moe.py``, adds its load-balance and router-z losses to the aux
-total), and the serving half — ``cache_specs`` (ring-paged layout, with or
-without the int8 KV cache, and at ``levels >= 3`` the collapse-up
-hierarchy of ``core/hier.py``), ``layer_cache_kinds``, the whole-prompt
-``prefill`` (full-sequence attention over the prompt, then the cache
-written at positions [0, S)), ``prefill_chunk`` and ``decode_step``.
+total; hubert's NLL is the mean over its masked positions, internvl's
+over the text after the patches), and the serving half —
+``cache_specs`` (ring-paged layout, with or without the int8 KV cache,
+and at ``levels >= 3`` the collapse-up hierarchy of ``core/hier.py``),
+``layer_cache_kinds``, the whole-prompt ``prefill`` (full-sequence
+attention over the prompt, then the cache written at positions [0, S)),
+``prefill_chunk`` and ``decode_step``.
 
 Unlike the reference, ``prefill``, ``prefill_chunk`` and ``decode_step``
 update the cache tensors **in place** (and return the same dict): a slot
@@ -60,15 +66,43 @@ def _layer_fwd(x, p, cfg: ModelConfig, key_mask):
     return x + out, aux
 
 
-def forward(params, cfg: ModelConfig, batch, *, key_mask=None):
-    """Full-sequence forward of the decoder.
+def _input_embed(params, cfg: ModelConfig, batch):
+    """The first layer's input x (B, S, d) in the activation dtype.
 
-    batch: {"tokens": (B, S) int}; key_mask: optional (B, S) bool.
-    Returns (logits (B, S, padded_vocab) in the activation dtype, aux loss:
-    an fp32 scalar, the MoE layers' losses summed over layers in the
-    reference's order; zero for the dense family).
+    dense / moe: the tokens' embedding. hubert: frames (B, S, Fd) projected
+    by ``frontend.proj``, masked positions (``mask_positions`` (B, S) bool)
+    replaced by ``frontend.mask_embed``, learned positions added. internvl:
+    patches (B, P, Fd) projected, then the text tokens' embedding (S = P +
+    S_text)."""
+    adt = cfg.adt
+    if cfg.family == "hubert":
+        x = torch.einsum("bsf,fd->bsd", batch["frames"].to(adt),
+                         params["frontend"]["proj"].to(adt))
+        mask_emb = params["frontend"]["mask_embed"].to(adt)
+        x = torch.where(batch["mask_positions"][..., None], mask_emb, x)
+        if cfg.pos == "learned":
+            x = x + params["embed"]["pos"][:x.shape[1]].to(adt)
+        return x
+    if cfg.family == "internvl":
+        patches = torch.einsum("bpf,fd->bpd", batch["patches"].to(adt),
+                               params["frontend"]["proj"].to(adt))
+        text = L.embed(batch["tokens"], params["embed"], cfg)
+        return torch.cat([patches, text], dim=1)
+    return L.embed(batch["tokens"], params["embed"], cfg)
+
+
+def forward(params, cfg: ModelConfig, batch, *, key_mask=None):
+    """Full-sequence forward.
+
+    batch: the family's (``_input_embed``): {"tokens": (B, S) int} for
+    dense / moe, {"frames", "mask_positions"} for hubert, {"tokens",
+    "patches"} for internvl; key_mask: optional (B, S) bool. Attention is
+    causal unless the config says otherwise (hubert). Returns (logits (B,
+    S, padded_vocab) in the activation dtype, aux loss: an fp32 scalar, the
+    MoE layers' losses summed over layers in the reference's order; zero
+    for the other families).
     """
-    x = L.embed(batch["tokens"], params["embed"], cfg)
+    x = _input_embed(params, cfg, batch)
     body = L.remat_wrap(_layer_fwd, cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in params["layers"]:
@@ -81,9 +115,19 @@ def forward(params, cfg: ModelConfig, batch, *, key_mask=None):
 
 
 def loss_fn(params, cfg: ModelConfig, batch, *, key_mask=None):
-    """Mean next-token NLL. Returns (loss + aux, {"loss", "aux_loss", "nll"})."""
+    """Mean NLL of the targets: next tokens (dense / moe), the text after
+    the ``num_patches`` patches (internvl), or the masked-unit targets at
+    ``mask_positions`` only, sum / max(count, 1) (hubert). Returns
+    (loss + aux, {"loss", "aux_loss", "nll"})."""
     logits, aux = forward(params, cfg, batch, key_mask=key_mask)
-    loss = L.lm_nll(logits, batch["targets"], cfg).mean()
+    if cfg.family == "internvl":
+        logits = logits[:, cfg.num_patches:]
+    nll = L.lm_nll(logits, batch["targets"], cfg)
+    if cfg.family == "hubert":
+        w = batch["mask_positions"].to(torch.float32)  # predict only masked
+        loss = torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1.0)
+    else:
+        loss = nll.mean()
     metrics = {"loss": loss, "aux_loss": aux, "nll": loss}
     return loss + aux, metrics
 
@@ -160,7 +204,9 @@ def _residual_attention(x, o, p, cfg: ModelConfig):
 def prefill(params, cfg: ModelConfig, batch, cache):
     """Run a whole prompt, fill the cache, return (last logits, cache).
 
-    batch: {"tokens": (B, S) int}, every slot S tokens from position 0.
+    batch: the family's (``_input_embed``), every slot S positions from 0:
+    {"tokens": (B, S) int}, or for internvl {"tokens": (B, S_text),
+    "patches": (B, P, Fd)} with S = P + S_text.
     Attention is the full-sequence kind of the config over the prompt
     (MRA-2: the block-sparse kernels on a card). The cache is written in
     place at positions [0, S): K/V (int8 codes and scales when the cache
@@ -170,8 +216,8 @@ def prefill(params, cfg: ModelConfig, batch, cache):
     multiple of the block size (raises ValueError otherwise). Returns
     logits (B, padded_vocab) at position S - 1.
     """
-    tokens = batch["tokens"]
-    B, S = tokens.shape
+    x = _input_embed(params, cfg, batch)
+    B, S, _ = x.shape
     S_phys = cache["k"][0].shape[2]
     bs = cfg.attention.block_size
     pyramid = "pyr_k" in cache
@@ -181,8 +227,7 @@ def prefill(params, cfg: ModelConfig, batch, cache):
     if pyramid and S % bs:
         raise ValueError(f"prompt of {S} tokens is not a multiple of the "
                          f"block size {bs} the pyramid sums need")
-    dev = tokens.device
-    x = L.embed(tokens, params["embed"], cfg)
+    dev = x.device
     positions = torch.arange(S, device=dev)
     Hkv, hd = cfg.kv_heads, cfg.hd
     for i, p in enumerate(params["layers"]):
@@ -251,7 +296,7 @@ def prefill_chunk(params, cfg: ModelConfig, cache, tokens, num_valid, *,
                                                 device=dev)  # (B, C)
     tv = torch.arange(C, device=dev) < num_valid[:, None]  # token validity
     lengths_new = offsets + num_valid.to(offsets.dtype)
-    x = L.embed(tokens, params["embed"], cfg)
+    x = L.embed(tokens, params["embed"], cfg, positions=positions)
     paged = "page_blocks" in cache
     bs = cfg.attention.block_size
     b_idx = torch.arange(B, device=dev)

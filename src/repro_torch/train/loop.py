@@ -2,7 +2,11 @@
 
 Port of ``repro/train/loop.py`` for one card:
   * the model from the registry (``get_model(cfg)``): the dense and MoE
-    families, the MoE layers' aux losses in the loss;
+    families (the MoE layers' aux losses in the loss), the hubert encoder
+    and the internvl VLM, each batch key (tokens, frames, mask positions,
+    patches, targets) on the device; ``tokens_per_s`` counts the positions
+    a step trains (``batch_positions``: tokens, hubert's frames, internvl's
+    patches plus text tokens);
   * gradient accumulation over microbatches in fp32, or with
     ``grad_compression="bf16_ef"`` in bf16 with an fp32 error-feedback
     residual carried across the microbatches (``optim/compression.py``);
@@ -40,6 +44,17 @@ from repro_torch.optim import AdamW, compress, cosine_schedule, init_ef
 GRAD_COMPRESSION = ("none", "bf16_ef")
 
 
+def batch_positions(batch) -> int:
+    """Sequence positions of a batch: B·S of its frames, or of its tokens
+    plus its patches."""
+    if "frames" in batch:
+        return int(batch["frames"].shape[0] * batch["frames"].shape[1])
+    n = batch["tokens"].numel()
+    if "patches" in batch:
+        n += batch["patches"].shape[0] * batch["patches"].shape[1]
+    return int(n)
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     steps: int = 100
@@ -71,8 +86,8 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, optimizer: AdamW,
     """train_step(params, opt_state, batch) -> (params, opt_state, metrics).
 
     ``params`` leaves must require grad; they and the optimizer state are
-    updated in place. ``batch`` holds (B, S) int tensors on the params'
-    device; B must divide by ``tc.microbatches``.
+    updated in place. ``batch`` holds the family's tensors (``make_batch``)
+    on the params' device; B must divide by ``tc.microbatches``.
     """
     _check_ported(tc)
     model = get_model(cfg)
@@ -165,11 +180,15 @@ def train(cfg: ModelConfig, shape: ShapeCfg, tc: TrainConfig, *, device=None,
                 print(f"[straggler] step {step} took {dt:.3f}s "
                       f"(ewma {ewma:.3f}s)")
             metrics["step_time_s"] = dt
+            metrics["tokens_per_s"] = batch_positions(batch) / dt
             if on_metrics:
                 on_metrics(step, metrics)
             if step % tc.log_every == 0:
+                unit = ("frames" if "frames" in batch else "patches+text"
+                        if "patches" in batch else "tokens")
                 print(f"step {step}: loss={metrics['loss']:.4f} "
-                      f"gnorm={metrics['grad_norm']:.3f} {dt * 1e3:.0f}ms")
+                      f"gnorm={metrics['grad_norm']:.3f} {dt * 1e3:.0f}ms "
+                      f"{metrics['tokens_per_s']:.0f} {unit}/s")
             if tc.ckpt_dir and ((step + 1) % tc.ckpt_every == 0
                                 or preempted["flag"]):
                 ckpter.save(tc.ckpt_dir, step + 1, params)

@@ -356,8 +356,26 @@ def test_launch_geometry_of_the_training_call():
     assert small["grid"] == 10 and small["threads"] == 32
 
 
+@pytest.mark.parametrize("kernel,dtype,smem,blocks", [
+    ("fwd", torch.bfloat16, 45568, 5), ("dq", torch.bfloat16, 79360, 2),
+    ("dkv", torch.bfloat16, 71680, 3), ("fwd", torch.float32, 96512, 2),
+    ("dq", torch.float32, 142592, 1), ("dkv", torch.float32, 142848, 1)])
+def test_head_dim_80_plan(kernel, dtype, smem, blocks):
+    """hubert-xlarge's (80, 128): a bf16 plane row of ten 16-byte chunks is
+    padded to eleven (176 bytes: the same chunk of 8 consecutive rows in 8
+    distinct bank groups, no swizzle), which sets the shared memory of
+    every tile; two or more blocks an SM by shared memory in bf16. The
+    power-of-two rows keep their width."""
+    assert [bsa.plane_row_bytes(D) for D in (16, 64, 80, 128)] == [
+        32, 128, 176, 256]
+    assert (80, 128) in bsa.KERNEL_SHAPES
+    assert bsa.smem_bytes(kernel, dtype, 80, 128) == smem
+    assert bsa.planned_blocks_per_sm(kernel, dtype, 80, 128) == blocks
+    assert bsa.launch_geometry(kernel, dtype, 80, 128, 32 * 32)["grid"] == 2048
+
+
 @pytest.mark.parametrize("d,b", [(32, 32), (128, 64), (16, 128), (130, 128),
-                                 (80, 128), (112, 128)])
+                                 (80, 64), (112, 128)])
 def test_unbuilt_shapes_are_refused(d, b):
     with pytest.raises(ValueError, match="is not built"):
         bsa.check_shape(d, b)

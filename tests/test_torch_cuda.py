@@ -49,7 +49,11 @@ run on the same CUDA tensors.
     bit-identical; bf16 and fp32 (every operand split) at every built
     (d, b), a padded head dim and a hot key tile; an unbuilt (d, b) is
     refused before any launch; the plan mirrors the library. All three
-    also at granite-moe's (64, 128), G = 3.
+    also at granite-moe's (64, 128), G = 3, at internvl2-1b's (64, 128),
+    G = 7, and at hubert-xlarge's (80, 128), G = 1, causal and non-causal
+    (and 72 zero-padded to 80); a one-layer hubert at head dim 80 trains
+    on the kernels as on the plain twins; ``chunk_attn`` at internvl2-1b's
+    G = 7, (64, 128).
 """
 from __future__ import annotations
 
@@ -604,6 +608,22 @@ def test_chunk_attn_qwen2_and_yi_heads_match_plain(cuda, G, C, mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("C,mode", [(1, "latency"), (128, "throughput")])
+def test_chunk_attn_internvl_heads_match_plain(cuda, C, mode):
+    """internvl2-1b's 14 query heads over 2 KV heads (G = 7) at (64, 128):
+    a throughput tile of 4 positions holds 28 of 32 rows, a decode tile 7
+    of 16."""
+    sh = dict(DECODE["main"], Hkv=2, G=7, D=64)
+    ties = rows = 0
+    for i, (layout, dtype) in enumerate(itertools.product(
+            ("dense", "ring", "ragged"), ("bf16", "int8"))):
+        pre, k, v, q_pos, ks, vs = prelude(110 + i, sh, C, layout, dtype, cuda)
+        _, t, n = compare(pre, k, v, q_pos, sh["m"], ks, vs, True, mode)
+        ties, rows = ties + t, rows + n
+    assert ties <= 0.01 * rows, f"{ties} near-tie rows of {rows}"
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("D,b", [(56, 128), (12, 16)])
 def test_chunk_attn_pads_the_head_dim(cuda, D, b):
     """A head dim off the multiples of 16 runs zero-padded (56 -> 64,
@@ -637,9 +657,10 @@ def test_chunk_attn_new_shapes_hold_two_blocks_an_sm(cuda):
 
 
 def bsa_inputs(seed, *, BHKV, G, n, d, b, m, dtype, device, masked=True,
-               hot=False):
+               hot=False, causal=True):
     """Random q/k/v, floor c and m pairs per row: one invalid pair per row,
-    causal flags on diagonal pairs, query block 0 of row 0 unvisited.
+    causal flags on diagonal pairs (none when not ``causal``), query block 0
+    of row 0 unvisited.
     ``hot``: pairs 1 .. nb - 1 of every row are (x, 0) for x = 1 .. nb - 1,
     so key tile 0 walks far more pairs than the rest."""
     r = np.random.default_rng(seed)
@@ -656,7 +677,8 @@ def bsa_inputs(seed, *, BHKV, G, n, d, b, m, dtype, device, masked=True,
         y[:, 1:nb] = 0
     flags = np.ones((BHG, m), np.int32)
     flags[:, -1] = 0
-    flags |= 2 * (x == y)
+    if causal:
+        flags |= 2 * (x == y)
     km = r.integers(0, 2, (BHKV, n)) if masked else np.ones((BHKV, n))
     return (dev(r.standard_normal((BHG, n, d)), dtype),
             dev(r.standard_normal((BHKV, n, d)), dtype),
@@ -683,7 +705,12 @@ BSA_SHAPES = [dict(BHKV=2, G=2, n=64, d=16, b=16, m=6),
               dict(BHKV=2, G=2, n=512, d=128, b=128, m=8),
               dict(BHKV=4, G=2, n=1024, d=128, b=128, m=24),
               dict(BHKV=2, G=2, n=1024, d=128, b=128, m=16, hot=True),
-              dict(BHKV=4, G=3, n=1024, d=64, b=128, m=20)]  # granite-moe
+              dict(BHKV=4, G=3, n=1024, d=64, b=128, m=20),  # granite-moe
+              dict(BHKV=2, G=7, n=1024, d=64, b=128, m=20),  # internvl2-1b
+              # hubert-xlarge (non-causal), causal, and 72 padded to 80
+              dict(BHKV=4, G=1, n=1024, d=80, b=128, m=24, causal=False),
+              dict(BHKV=2, G=1, n=512, d=80, b=128, m=8),
+              dict(BHKV=2, G=2, n=512, d=72, b=128, m=8)]
 
 
 @pytest.mark.cuda
@@ -691,7 +718,8 @@ BSA_SHAPES = [dict(BHKV=2, G=2, n=64, d=16, b=16, m=6),
                          ids=["bf16", "fp32"])
 @pytest.mark.parametrize("shape", BSA_SHAPES,
                          ids=lambda s: "n{n}-d{d}-b{b}-g{G}".format(**s)
-                         + ("-hot" if s.get("hot") else ""))
+                         + ("-hot" if s.get("hot") else "")
+                         + ("-noncausal" if s.get("causal") is False else ""))
 def test_bsa_kernels_match_plain(cuda, shape, dtype):
     q, k, v, c, x, y, fl, km = bsa_inputs(0, dtype=dtype, device=cuda, **shape)
     b, G, nb = shape["b"], shape["G"], shape["n"] // shape["b"]
@@ -843,6 +871,49 @@ def test_bsa_fwd_granite_shape_matches_plain(cuda, dtype):
                                                              64, 128)
         assert bsa.blocks_per_sm(kernel, dtype, 64, 128) >= (
             2 if dtype == torch.bfloat16 else 1)
+
+
+@pytest.mark.cuda
+def test_hubert_head_dim_80_trains_on_the_kernels(cuda):
+    """A one-layer hubert at hubert-xlarge's attention shape (head dim 80,
+    b = 128, non-causal), seq 512, fp32: loss and every gradient on the
+    kernels within 1e-4 of the plain twins' (of the leaf's largest entry),
+    each kernel launched once (no remat)."""
+    from repro_torch.configs import SHAPES, get_smoke_config
+    from repro_torch.core.attention import AttentionSpec
+    from repro_torch.data import make_batch
+    from repro_torch.models import transformer
+    from repro_torch.models.params import init_params, tree_leaves
+
+    cfg = get_smoke_config(
+        "hubert-xlarge", activ_dtype="float32", num_layers=1, head_dim=80,
+        d_model=160, num_heads=2, kv_heads=2,
+        attention=AttentionSpec(kind="mra2", block_size=128, blocks_per_row=2))
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=512,
+                                global_batch=2)
+    batch = {k: torch.from_numpy(v).to(cuda)
+             for k, v in make_batch(cfg, shape, step=0).items()}
+
+    def run(plain):
+        params = init_params(cfg, seed=0, device=cuda)
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        before = {n: getattr(bsa, n).launches
+                  for n in ("bsa_fwd", "bsa_bwd_dq", "bsa_bwd_dkv")}
+        with _plain_bsa() if plain else contextlib.nullcontext():
+            loss, _ = transformer.loss_fn(params, cfg, batch)
+            grads = torch.autograd.grad(loss, leaves)
+        return loss, grads, {n: getattr(bsa, n).launches - before[n]
+                             for n in before}
+
+    (lk, gk, nk), (lp, gp, npl) = run(False), run(True)
+    assert nk == {"bsa_fwd": 1, "bsa_bwd_dq": 1, "bsa_bwd_dkv": 1}
+    assert npl == dict.fromkeys(nk, 0)
+    assert abs(float(lk.detach()) - float(lp.detach())) <= 1e-4 * abs(
+        float(lp.detach()))
+    for a, b in zip(gk, gp):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
 
 
 # ---- speculative serving through the kernel (smoke size, fp32) ------------

@@ -267,14 +267,34 @@ def test_unported_options_raise(cfgs, params, field, value):
         Engine(tcfg, tp, ECFG.replace(kernel_mode="fast"), device="cpu")
 
 
-@pytest.mark.parametrize("family", ["rwkv6", "recurrentgemma", "hubert"])
+@pytest.mark.parametrize("family", ["rwkv6", "recurrentgemma"])
 def test_unported_family_raises(cfgs, params, family):
-    """The engine takes its model from the registry: the dense and MoE
+    """The engine takes its model from the registry: the transformer
     families serve, a family not ported yet raises naming it."""
     _, tcfg = cfgs
     _, tp = params
     with pytest.raises(NotImplementedError, match=family):
         Engine(tcfg.replace(family=family), tp, ECFG, device="cpu")
+
+
+def test_engine_builds_for_hubert_as_the_reference():
+    """hubert is an encoder (no decode shapes of its own), yet the
+    reference's engine builds for it, since the registry gives it the
+    transformer's serving entry points; the port's does too, with the
+    same cache layout."""
+    jcfg = jax_smoke("hubert-xlarge", activ_dtype="float32")
+    tcfg = get_smoke_config("hubert-xlarge", activ_dtype="float32")
+    jp = jax_init(get_model(jcfg).param_specs(jcfg), jax.random.PRNGKey(0))
+    jeng = JEngine(jcfg, jp, JEngineConfig(slots=3, max_len=64, chunk=8))
+    eng = Engine(tcfg, params_from_jax(jax.device_get(jp), tcfg,
+                                       device="cpu"), ECFG, device="cpu")
+    assert eng.model is TT
+    assert TT.layer_cache_kinds(tcfg) == jeng.model.layer_cache_kinds(jcfg)
+    want = {k: [tuple(s.shape) for s in v] if isinstance(v, list)
+            else tuple(v.shape) for k, v in jeng.kv.specs.items()}
+    got = {k: [tuple(t.shape) for t in v] if isinstance(v, list)
+           else tuple(v.shape) for k, v in eng.kv.tree.items()}
+    assert got == want
 
 
 # --------------------------------------------------------------------------- #

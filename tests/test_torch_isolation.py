@@ -4,7 +4,8 @@ An AST scan of every module of ``src/repro_torch`` and of ``chip_smoke.py``
 finds no import of ``jax`` or of the reference package ``repro``; and a
 fresh interpreter with both blocked in ``sys.modules`` imports the port,
 serves a request (also past the window, through the H = 3 hierarchy) and
-trains (with a checkpoint) on the CPU.
+trains (with a checkpoint) on the CPU; the hubert encoder and the internvl
+VLM train, and internvl prefills patches + text and decodes, the same way.
 """
 from __future__ import annotations
 
@@ -51,7 +52,8 @@ def test_scan_sees_the_whole_port():
             "hier.py", "block_sparse_attn.py", "mra.py", "adamw.py",
             "pipeline.py", "ckpt.py", "loop.py", "chip_smoke.py", "moe.py",
             "registry.py", "granite_moe_3b_a800m.py", "kimi_k2_1t_a32b.py",
-            "qwen2_7b.py", "yi_6b.py", "compression.py"} <= names
+            "qwen2_7b.py", "yi_6b.py", "compression.py",
+            "hubert_xlarge.py", "internvl2_1b.py"} <= names
 
 
 _SERVE_WITHOUT_JAX = r"""
@@ -168,6 +170,48 @@ def test_port_trains_moe_with_jax_blocked():
                          env=env, capture_output=True, text=True, timeout=240)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "trained moe" in res.stdout
+
+
+_FAMILIES_WITHOUT_JAX = r"""
+import dataclasses, math, sys
+for name in ("jax", "jaxlib", "repro"):
+    sys.modules[name] = None
+import torch
+from repro_torch.configs import SHAPES, get_smoke_config
+from repro_torch.data import make_batch
+from repro_torch.models import transformer
+from repro_torch.models.params import init_params
+from repro_torch.serve.cache import RingPagedKVCache
+from repro_torch.train import TrainConfig, train
+shape = dataclasses.replace(SHAPES["train_4k"], seq_len=64, global_batch=2)
+for arch in ("hubert-xlarge", "internvl2-1b"):
+    cfg = get_smoke_config(arch, activ_dtype="float32")
+    seen = []
+    train(cfg, shape, TrainConfig(steps=1), device="cpu",
+          on_metrics=lambda s, m: seen.append(m["loss"]))
+    assert len(seen) == 1 and math.isfinite(seen[0]), arch
+cfg = get_smoke_config("internvl2-1b", activ_dtype="float32")
+batch = {k: torch.from_numpy(v) for k, v in make_batch(cfg, shape).items()}
+cache = RingPagedKVCache(cfg, 2, 80, device="cpu").tree
+params = init_params(cfg, seed=0, device="cpu")
+logits, cache = transformer.prefill(params, cfg, batch, cache)
+logits, cache = transformer.decode_step(params, cfg, cache,
+                                        logits.argmax(-1))
+assert cache["lengths"].tolist() == [65, 65]
+assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules
+               if sys.modules[m] is not None)
+print("families ok")
+"""
+
+
+def test_port_families_run_with_jax_blocked():
+    """hubert trains, internvl trains and serves its patches, with nothing
+    of the reference."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", _FAMILIES_WITHOUT_JAX],
+                         env=env, capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "families ok" in res.stdout
 
 
 def test_chip_smoke_fails_without_a_card():

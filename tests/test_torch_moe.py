@@ -282,10 +282,12 @@ def test_greedy_streams_match_the_jax_engine(spec_k):
 # --------------------------------------------------------------------------- #
 # the registry
 # --------------------------------------------------------------------------- #
-@pytest.mark.parametrize("family", ["dense", "moe"])
+@pytest.mark.parametrize("family", ["dense", "moe", "hubert", "internvl"])
 def test_registry_serves_the_ported_families(family):
-    cfg = get_smoke_config("granite-moe-3b-a800m" if family == "moe"
-                           else "qwen3-1.7b")
+    cfg = get_smoke_config({"moe": "granite-moe-3b-a800m",
+                            "hubert": "hubert-xlarge",
+                            "internvl": "internvl2-1b"}.get(family,
+                                                            "qwen3-1.7b"))
     assert cfg.family == family
     model = registry.get_model(cfg)
     assert model is TT
@@ -294,8 +296,7 @@ def test_registry_serves_the_ported_families(family):
         assert callable(getattr(model, name)), name
 
 
-@pytest.mark.parametrize("family", ["rwkv6", "hubert", "internvl",
-                                    "recurrentgemma"])
+@pytest.mark.parametrize("family", ["rwkv6", "recurrentgemma"])
 def test_registry_names_an_unported_family(family):
     cfg = get_smoke_config("qwen3-1.7b").replace(family=family)
     with pytest.raises(NotImplementedError, match=family):

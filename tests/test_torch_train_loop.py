@@ -77,12 +77,26 @@ def test_make_batch_moe_bit_identical(seq, batch, step, seed):
             assert np.array_equal(got[k], want[k])
 
 
-@pytest.mark.parametrize("family", ["hubert", "internvl"])
-def test_make_batch_refuses_the_unported_frontends(family):
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "internvl2-1b"])
+def test_make_batch_frontends_bit_identical(arch):
+    """hubert's frames, mask and targets and internvl's tokens and patches
+    (the reference's rng order)."""
+    jcfg, tcfg = jax_smoke(arch), get_smoke_config(arch)
+    jshape, tshape = _shapes(40, 3)
+    want = jax_make_batch(jcfg, jshape, step=2, seed=4)
+    got = make_batch(tcfg, tshape, step=2, seed=4)
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype
+        assert np.array_equal(got[k], want[k])
+
+
+def test_make_batch_refuses_the_recurrent_families():
     _, tshape = _shapes()
-    cfg = get_smoke_config("qwen3-1.7b").replace(family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP module item 5"):
-        make_batch(cfg, tshape)
+    for family in ("rwkv6", "recurrentgemma"):
+        cfg = get_smoke_config("qwen3-1.7b").replace(family=family)
+        with pytest.raises(NotImplementedError, match="ROADMAP module item 5"):
+            make_batch(cfg, tshape)
 
 
 def test_loader_streams_make_batch_and_closes():
@@ -102,11 +116,11 @@ def test_loader_streams_make_batch_and_closes():
 
 
 def test_loader_hands_on_the_workers_error():
-    cfg = get_smoke_config("qwen3-1.7b").replace(family="hubert")
+    cfg = get_smoke_config("qwen3-1.7b").replace(family="rwkv6")
     _, shape = _shapes()
     loader = DataLoader(cfg, shape)
     try:
-        with pytest.raises(NotImplementedError, match="hubert"):
+        with pytest.raises(NotImplementedError, match="rwkv6"):
             next(loader)
     finally:
         loader.close()
