@@ -1,5 +1,5 @@
-"""Architecture registry of the port: the dense, MoE, hubert and internvl
-archs ported so far."""
+"""Architecture registry of the port: the dense, MoE, hubert, internvl and
+rwkv6 archs ported so far."""
 from __future__ import annotations
 
 import importlib
@@ -15,6 +15,7 @@ _ARCH_MODULES = {
     "yi-6b": "yi_6b",
     "hubert-xlarge": "hubert_xlarge",
     "internvl2-1b": "internvl2_1b",
+    "rwkv6-7b": "rwkv6_7b",
 }
 
 ARCHS = tuple(_ARCH_MODULES)

@@ -1,11 +1,12 @@
 """Model and input-shape configuration schema of the ported families.
 
 Port of ``repro/configs/base.py``: the ``ModelConfig`` fields the dense and
-MoE decoders, the hubert encoder and the internvl VLM read (``MoESpec``,
-the ``moe`` / ``moe_dispatch`` fields, and the frontend, learned-position,
-layernorm and gelu fields, all with the reference's defaults), and the
-``ShapeCfg`` training input shape. The recurrent families' fields come with
-them.
+MoE decoders, the hubert encoder, the internvl VLM and the rwkv6 recurrent
+LM read (``MoESpec``, the ``moe`` / ``moe_dispatch`` fields, the frontend,
+learned-position, layernorm and gelu fields, and rwkv6's head size, chunk
+and decay LoRA width, all with the reference's defaults), and the
+``ShapeCfg`` training input shape. recurrentgemma's fields come with that
+family (ROADMAP module item 5b).
 """
 from __future__ import annotations
 
@@ -17,9 +18,9 @@ import torch
 from repro_torch.core.attention import AttentionSpec
 
 
-# the model families the port has (the reference's rwkv6 and
-# recurrentgemma are not ported yet: ROADMAP module item 5)
-FAMILIES = ("dense", "moe", "hubert", "internvl")
+# the model families the port has (the reference's recurrentgemma is not
+# ported yet: ROADMAP module item 5b)
+FAMILIES = ("dense", "moe", "hubert", "internvl", "rwkv6")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +66,11 @@ class ModelConfig:
     frontend: Optional[str] = None  # audio_frames | vision_patches
     frontend_dim: int = 512
     num_patches: int = 0
+    # rwkv6: head size, wkv chunk (keeps the factored chunk form exact in
+    # fp32) and the data-dependent decay's LoRA width
+    rwkv_head_dim: int = 64
+    rwkv_chunk: int = 16
+    decay_lora: int = 64
     pad_vocab_to: int = 256  # embedding table padded so vocab shards over TP
     pad_attn_heads_to: int = 0  # query heads padded (masked) to a multiple
     # MoE token dispatch: "psum" (replicated tokens, each device its expert
@@ -77,8 +83,7 @@ class ModelConfig:
     # params_from_jax reads that layout (the port always holds a layer list)
     scan_layers: bool = False
     # activation recomputation in training: "none" | "full" (each layer's
-    # forward runs again in the backward); the reference's "dots" policy
-    # has no port yet
+    # forward runs again in the backward) | "dots" (products kept)
     remat: str = "none"
     tie_embeddings: bool = False
     norm_eps: float = 1e-6

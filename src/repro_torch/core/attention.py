@@ -3,14 +3,19 @@
 Port of ``repro/core/attention.py``: models declare an ``AttentionSpec``;
 ``self_attention`` (training, full sequence), ``decode_attention`` and
 ``chunk_attention`` (serving, over the ring-paged cache) route the kinds
-``mra2``, ``mra2_s`` (MRA-2 / MRA-2-s) and ``full`` (exact softmax). The
-``local`` kind and the baselines come with their families.
+``mra2``, ``mra2_s`` (MRA-2 / MRA-2-s) and ``full`` (exact softmax);
+``self_attention`` also routes the paper's baselines (``core/baselines.py``,
+bidirectional approximators with the KV heads expanded G-fold). The
+``local`` kind comes with the recurrentgemma family.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
+import torch
+
+from . import baselines
 from .mra import MraConfig, full_attention, mra2_attention
 from .mra_decode import (
     full_chunk_attention,
@@ -26,8 +31,8 @@ MRA_KINDS = ("mra2", "mra2_s")
 class AttentionSpec:
     """Which attention mechanism a model layer uses.
 
-    kind: "full" | "mra2" | "mra2_s" (served); "local" and the baseline
-      kinds raise until their slices.
+    kind: "full" | "mra2" | "mra2_s" (served), or a ``baselines.REGISTRY``
+      key (sequence attention only); "local" raises until its slice.
     block_size / blocks_per_row: MRA-2 parameters.
     decode_blocks: MRA serving budget (exact KV pages per query).
     coarse_only: MRA draft mode — the budget is the mandatory own block.
@@ -73,14 +78,18 @@ class AttentionSpec:
         return dataclasses.replace(self, **kw)
 
 
-def _unported(kind: str) -> NotImplementedError:
+def _unported(kind: str) -> Exception:
     if kind == "local":
         return NotImplementedError(
             "local (sliding-window) attention comes with the recurrentgemma "
             "family slice")
-    return NotImplementedError(
-        f"attention kind {kind!r} is not served by the port yet (the "
-        "baselines come with the baselines/benchmarks slice)")
+    return ValueError(f"unknown attention kind {kind!r}")
+
+
+def _exact_when_served(kind: str) -> bool:
+    """Serving attends exactly under ``full`` and, as in the reference,
+    under every baseline kind (the baselines approximate full sequences)."""
+    return kind == "full" or kind in baselines.REGISTRY
 
 
 def self_attention(q, k, v, spec: AttentionSpec, *, causal=False,
@@ -93,7 +102,16 @@ def self_attention(q, k, v, spec: AttentionSpec, *, causal=False,
         return full_attention(q, k, v, causal=causal,
                               softmax_scale=spec.softmax_scale,
                               key_mask=key_mask)
-    raise _unported(spec.kind)
+    fn = baselines.REGISTRY.get(spec.kind)
+    if fn is None:
+        raise _unported(spec.kind)
+    # baselines are bidirectional approximators (the paper's protocol); GQA
+    # by expanding the KV heads
+    G = q.shape[1] // k.shape[1]
+    if G > 1:
+        k = torch.repeat_interleave(k, G, dim=1)
+        v = torch.repeat_interleave(v, G, dim=1)
+    return fn(q, k, v, softmax_scale=spec.softmax_scale)
 
 
 def decode_attention(q, k_cache, v_cache, lengths, spec: AttentionSpec, *,
@@ -105,7 +123,7 @@ def decode_attention(q, k_cache, v_cache, lengths, spec: AttentionSpec, *,
             q, k_cache, v_cache, lengths, spec.mra_config(causal=True),
             decode_blocks=spec.budget_blocks, pyramid=pyramid,
             page_blocks=page_blocks, k_scale=k_scale, v_scale=v_scale)
-    if spec.kind == "full":
+    if _exact_when_served(spec.kind):
         return full_decode_attention(q, k_cache, v_cache, lengths,
                                      softmax_scale=spec.softmax_scale)
     raise _unported(spec.kind)
@@ -122,7 +140,7 @@ def chunk_attention(q, k_cache, v_cache, lengths, q_pos, spec: AttentionSpec,
             q, k_cache, v_cache, lengths, q_pos, spec.mra_config(causal=True),
             decode_blocks=spec.budget_blocks, pyramid=pyramid,
             page_blocks=page_blocks, k_scale=k_scale, v_scale=v_scale)
-    if spec.kind == "full":
+    if _exact_when_served(spec.kind):
         return full_chunk_attention(q, k_cache, v_cache, lengths, q_pos,
                                     softmax_scale=spec.softmax_scale)
     raise _unported(spec.kind)

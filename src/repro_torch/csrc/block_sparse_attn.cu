@@ -84,9 +84,9 @@
 //        -Xcompiler -fPIC -Xptxas=-v (repro_torch/kernels/build.py); plain C
 //        entry points, loaded with ctypes. All three kernels are
 //        instantiated for (head dim, block size) = (128, 128), (64, 64),
-//        (16, 16), (64, 128) and (80, 128), bf16 and fp32 (30 kernels); the
-//        wrapper zero-pads a head dim to the next multiple of 16 (exact for
-//        the products).
+//        (16, 16), (64, 128), (80, 128) and (64, 32), bf16 and fp32 (36
+//        kernels); the wrapper zero-pads a head dim to the next multiple of
+//        16 (exact for the products).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1018,6 +1018,7 @@ KernelInfo info_shape(int kernel, int D, int b) {
   if (D == 16 && b == 16) return info_of<T, 16, 16>(kernel);
   if (D == 64 && b == 128) return info_of<T, 64, 128>(kernel);
   if (D == 80 && b == 128) return info_of<T, 80, 128>(kernel);
+  if (D == 64 && b == 32) return info_of<T, 64, 32>(kernel);
   return {nullptr, 0, 0, 0};
 }
 
@@ -1032,7 +1033,7 @@ KernelInfo info(int kernel, int dtype, int D, int b) {
 // Allow the kernel's dynamic shared memory (and the largest carveout, so that
 // two blocks fit on an SM); done once per kernel.
 cudaError_t configure(const KernelInfo& k) {
-  static const void* done[32];  // 30 instantiations
+  static const void* done[40];  // 36 instantiations
   static int ndone = 0;
   for (int i = 0; i < ndone; ++i)
     if (done[i] == k.fn) return cudaSuccess;
@@ -1042,7 +1043,7 @@ cudaError_t configure(const KernelInfo& k) {
   err = cudaFuncSetAttribute(k.fn, cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  if (ndone < 32) done[ndone++] = k.fn;
+  if (ndone < 40) done[ndone++] = k.fn;
   return cudaSuccess;
 }
 

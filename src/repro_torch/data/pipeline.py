@@ -9,9 +9,9 @@ state. Token streams mix Zipfian unigrams with copy spans, which gives
 attention the locality MRA exploits; audio frames (and the stub's vision
 patches) are temporally correlated random walks.
 
-The dense and MoE families take LM tokens, hubert audio frames with an 8%
-mask and masked-unit targets, internvl vision patches and text; the
-recurrent families, not ported yet (ROADMAP module item 5), raise. The
+The dense, MoE and rwkv6 families take LM tokens, hubert audio frames with
+an 8% mask and masked-unit targets, internvl vision patches and text;
+recurrentgemma, not ported yet (ROADMAP module item 5b), raises. The
 ``DataLoader`` makes the next batches in a background thread while the
 loop trains on the current one, as the reference's does.
 """
@@ -62,7 +62,8 @@ def make_batch(cfg: ModelConfig, shape: ShapeCfg, *, step: int = 0,
                batch_override: Optional[int] = None) -> dict:
     """One host-local training batch as numpy arrays, by family:
 
-      dense / moe: {"tokens": (B, S) int32, "targets": (B, S) int32};
+      dense / moe / rwkv6: {"tokens": (B, S) int32, "targets": (B, S)
+        int32};
       hubert: {"frames": (B, S, frontend_dim) f32, "mask_positions": (B, S)
         bool, "targets": (B, S) int32} (targets: the argmax of the frames
         through a fixed random projection, seeded by ``seed`` alone);
@@ -75,7 +76,7 @@ def make_batch(cfg: ModelConfig, shape: ShapeCfg, *, step: int = 0,
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r}: its model and batches are not ported "
-            "yet (ROADMAP module item 5)")
+            "yet (ROADMAP module item 5b)")
     B = (batch_override if batch_override is not None
          else shape.global_batch // num_shards)
     S = shape.seq_len

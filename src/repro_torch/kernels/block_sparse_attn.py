@@ -44,8 +44,10 @@ from repro_torch.core.mra import NEG_INF
 
 # (head dim padded to a multiple of 16, block size b) the three kernels are
 # built for: qwen3-1.7b, the reference's (64, 64) and smoke (16, 16) shapes,
-# granite-moe-3b-a800m and internvl2-1b, hubert-xlarge
-KERNEL_SHAPES = ((128, 128), (64, 64), (16, 16), (64, 128), (80, 128))
+# granite-moe-3b-a800m and internvl2-1b, hubert-xlarge, and the
+# H-Transformer-1D baseline (core/baselines.py: head dim 64, block 32)
+KERNEL_SHAPES = ((128, 128), (64, 64), (16, 16), (64, 128), (80, 128),
+                 (64, 32))
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _KERNELS = {"fwd": 0, "dkv": 1, "dq": 2}  # the kernels of the source
 _SM_SMEM = 233472   # shared memory of an SM (228 KB)
@@ -118,11 +120,18 @@ def _recompute(q, k, c, x_idx, y_idx, flags, key_mask, *, scale, block_size):
 
 
 def _segment_add(values, idx, nb: int):
-    """Sum (R, m, ...) block values into (R, nb, ...) by block id."""
+    """Sum (R, m, ...) block values into (R, nb, ...) by block id.
+
+    A product with the (R, m, nb) one-hot map of ``idx``: the sum runs in
+    the GEMM's fixed order (the zero terms add exactly nothing), so a rerun
+    on the card is bitwise equal, where ``scatter_add``'s CUDA atomics sum
+    in whatever order they land. fp32 values need fp32 products (TF32 off,
+    torch's default)."""
     R, m = idx.shape
-    out = values.new_zeros((R, nb) + tuple(values.shape[2:]))
-    index = idx.long().reshape(R, m, *([1] * (values.ndim - 2))).expand_as(values)
-    return out.scatter_add(1, index, values)
+    onehot = (idx.long()[..., None]
+              == torch.arange(nb, device=idx.device)).to(values.dtype)
+    out = torch.bmm(onehot.transpose(1, 2), values.reshape(R, m, -1))
+    return out.reshape((R, nb) + tuple(values.shape[2:]))
 
 
 def block_sparse_attention_ref(q, k, v, x_idx, y_idx, flags, c,

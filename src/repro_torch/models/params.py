@@ -1,8 +1,8 @@
-"""Parameters of the transformer families: random init and conversion
-from JAX.
+"""Parameters of the ported families: random init and conversion from JAX.
 
 Port of ``repro/models/params.py`` for the ported families (dense, MoE,
-hubert, internvl). Parameters are a plain nested dict of tensors with the
+hubert, internvl, and rwkv6, whose tree ``models/rwkv6.py`` declares).
+Parameters are a plain nested dict of tensors with the
 reference's names and layouts (``embed.tok`` (V, d), ``layers[i].attn.wq``
 (d, H, hd), an MoE layer's ``layers[i].moe.wi`` (E, d, f) in place of
 ``mlp``, a gelu MLP's biases ``bi`` / ``bo``, a layernorm's ``b``, learned
@@ -47,15 +47,24 @@ def _spec(shape, dtype, init="normal"):
     return TensorSpec(tuple(shape), dtype, init)
 
 
-def materialize(spec: TensorSpec, device) -> torch.Tensor:
-    """A constant-initialized tensor (zeros / ones / fill) for ``spec``."""
+def fill_value(spec: TensorSpec) -> float:
+    """The constant a ``zeros`` / ``ones`` / ``fill`` spec initializes to
+    (a state cache's slot reset rewrites its rows with it, so a reset
+    equals a fresh init bit for bit)."""
     value = {"zeros": 0.0, "ones": 1.0, "fill": spec.fill}.get(spec.init)
     if value is None:
-        raise ValueError(f"init {spec.init!r} is random; use init_params")
-    return torch.full(spec.shape, value, dtype=spec.dtype, device=device)
+        raise ValueError(f"init {spec.init!r} is random: it has no constant "
+                         "(use init_params)")
+    return value
 
 
-def _norm_specs(cfg: ModelConfig) -> dict:
+def materialize(spec: TensorSpec, device) -> torch.Tensor:
+    """A constant-initialized tensor (zeros / ones / fill) for ``spec``."""
+    return torch.full(spec.shape, fill_value(spec), dtype=spec.dtype,
+                      device=device)
+
+
+def norm_specs(cfg: ModelConfig) -> dict:
     d, f32 = cfg.d_model, torch.float32
     if cfg.norm == "layernorm":
         return {"w": _spec((d,), f32, "ones"), "b": _spec((d,), f32, "zeros")}
@@ -83,7 +92,7 @@ def _layer_specs(cfg: ModelConfig) -> dict:
     if cfg.qk_norm:
         attn["qnorm"] = _spec((hd,), pdt, "ones")
         attn["knorm"] = _spec((hd,), pdt, "ones")
-    layer = {"ln1": _norm_specs(cfg), "attn": attn, "ln2": _norm_specs(cfg)}
+    layer = {"ln1": norm_specs(cfg), "attn": attn, "ln2": norm_specs(cfg)}
     if cfg.family == "moe" and cfg.moe is not None:
         from .moe import moe_specs
 
@@ -93,19 +102,30 @@ def _layer_specs(cfg: ModelConfig) -> dict:
     return layer
 
 
-def param_specs(cfg: ModelConfig) -> dict:
-    """The parameter tree as (shape, dtype, init) leaves."""
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported (ROADMAP module item 5); "
-            f"the port has {FAMILIES}")
+def embed_specs(cfg: ModelConfig) -> dict:
+    """The token table, the learned positions under ``pos="learned"`` and
+    the LM head unless tied."""
     d, pdt = cfg.d_model, cfg.pdt
     embed = {"tok": _spec((cfg.padded_vocab, d), pdt, "embed")}
     if cfg.pos == "learned":
         embed["pos"] = _spec((cfg.max_seq, d), pdt, "embed")
     if not cfg.tie_embeddings:
         embed["head"] = _spec((d, cfg.padded_vocab), pdt)
-    p = {"embed": embed, "ln_f": _norm_specs(cfg),
+    return embed
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The parameter tree as (shape, dtype, init) leaves."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported (ROADMAP module item 5b); "
+            f"the port has {FAMILIES}")
+    if cfg.family == "rwkv6":
+        from .rwkv6 import param_specs as rwkv6_specs
+
+        return rwkv6_specs(cfg)
+    d, pdt = cfg.d_model, cfg.pdt
+    p = {"embed": embed_specs(cfg), "ln_f": norm_specs(cfg),
          "layers": [_layer_specs(cfg) for _ in range(cfg.num_layers)]}
     if cfg.frontend == "audio_frames":
         p["frontend"] = {"proj": _spec((cfg.frontend_dim, d), pdt),

@@ -1,4 +1,5 @@
-from .cache import CacheBackend, RingPagedKVCache
+from .cache import (CacheBackend, RecurrentStateCache, RingPagedKVCache,
+                    make_cache)
 from .engine import Engine, EngineConfig
 from .sampling import SamplingParams, filtered_logits, greedy_batch, sample_batch
 from .scheduler import Request, Scheduler, SlotState
@@ -10,6 +11,7 @@ __all__ = [
     "Engine",
     "EngineConfig",
     "MetricsRegistry",
+    "RecurrentStateCache",
     "Request",
     "RingPagedKVCache",
     "SamplingParams",
@@ -20,5 +22,6 @@ __all__ = [
     "UndeclaredMetric",
     "filtered_logits",
     "greedy_batch",
+    "make_cache",
     "sample_batch",
 ]

@@ -79,6 +79,7 @@ class RingPagedKVCache(CacheBackend):
         self.capacity = max_len
         self.specs = transformer.cache_specs(cfg, slots, max_len)
         self.paged = "page_blocks" in self.specs
+        self.supports_spec = self.paged
         self.block = cfg.attention.block_size if self.paged else None
         self.pages = max_len // cfg.attention.block_size if self.paged else None
         self.quantized = "k_scale" in self.specs

@@ -3,7 +3,7 @@
 Port of ``repro/serve/engine.py`` (DESIGN.md §9). Per engine iteration:
 
   1. admission — pending requests bind to FREE slots; the slot's cache rows
-     are reset bit-exactly (``RingPagedKVCache.reset_slots``).
+     are reset bit-exactly (``CacheBackend.reset_slots``).
   2. chunked prefill — ONE ``prefill_chunk`` dispatch advances every
      PREFILL slot by up to ``chunk`` prompt tokens (ragged ``num_valid``).
      Slots whose prompt completes sample their first token from the
@@ -16,9 +16,13 @@ Port of ``repro/serve/engine.py`` (DESIGN.md §9). Per engine iteration:
      with greedy streams identical to plain decoding; slots whose round
      would straddle a ring-eviction boundary take a plain wave.
 
-The model comes from the registry (``models/registry.py``: the dense and
-MoE decoders). On a card every layer of every dispatch runs MRA
-chunk/decode attention through the CUDA kernel (``kernels/chunk_attn.py``). Observability
+The model comes from the registry (``models/registry.py``) and the cache
+from the model's per-layer cache kinds (``serve/cache.make_cache``): the
+transformer families serve over the ring-paged KV cache, where on a card
+every layer of every dispatch runs MRA chunk/decode attention through the
+CUDA kernel (``kernels/chunk_attn.py``); rwkv6 over its recurrent state,
+which has no admission capacity (a stream may run past ``max_len``) and no
+speculation. Observability
 (``serve/telemetry.py``, DESIGN.md §13): the engine's ``Telemetry`` declares
 its metric set in ``reset_stats`` — typed counters, bounded histograms of
 dispatch wall time and request latencies, occupancy gauges — and traces
@@ -39,7 +43,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.chunk_attn import KERNEL_MODES
 from repro_torch.models.registry import get_model
 
-from .cache import RingPagedKVCache
+from .cache import make_cache
 from .sampling import SamplingParams, sample_batch
 from .scheduler import Request, Scheduler, SlotState
 from .telemetry import StatsView, Telemetry
@@ -57,7 +61,8 @@ class EngineConfig:
       must fit and generation beyond it evicts the oldest background pages;
       at ``levels >= 3`` evicted pages collapse up the hierarchy and prompts
       of any length stream through. For dense attention it is a hard
-      prompt + generation cap.
+      prompt + generation cap. The recurrent state does not grow with the
+      stream: there it caps nothing but the chunk.
     chunk: prefill chunk size (tokens per slot per prefill dispatch),
       clamped to ``max_len`` and to the cache's ``chunk_cap`` (one block
       short of the window at ``levels >= 3``).
@@ -67,7 +72,8 @@ class EngineConfig:
       prefill -> throughput), or "latency" / "throughput" for every
       dispatch. Token streams are the same in all three.
     spec_k: speculative draft length (0 = plain decode); needs an MRA
-      attention kind (the ring-paged cache) and ``spec_k + 1 <= max_len``.
+      attention kind and the ring-paged cache (a recurrent state raises),
+      and ``spec_k + 1 <= max_len``.
     draft_level: background resolution of the drafts; only 1 (per-page
       means) is ported — any other value raises.
     mesh: tensor-parallel serving; not ported yet — any value but None
@@ -127,8 +133,8 @@ class Engine:
         self.params = params
         self.slots = config.slots
         self.max_len = config.max_len
-        self.kv = RingPagedKVCache(cfg, self.slots, self.max_len,
-                                   device=self.device)
+        self.kv = make_cache(cfg, self.model, self.slots, self.max_len,
+                             device=self.device)
         self.chunk = min(config.chunk, self.max_len)
         if self.kv.chunk_cap is not None:
             self.chunk = min(self.chunk, self.kv.chunk_cap)
@@ -141,6 +147,11 @@ class Engine:
                 raise ValueError(f"spec_k {self.spec_k} + 1 exceeds the cache "
                                  f"window {self.max_len}")
             self._spec = SpecDecoder(cfg, self.spec_k)
+            if not self.kv.supports_spec:
+                raise NotImplementedError(
+                    "speculative decoding needs the ring-paged MRA cache; "
+                    f"{type(self.kv).__name__} has no snapshot/rewind "
+                    "(DESIGN.md §12)")
         self.reset_stats()
 
     def reset_stats(self) -> None:

@@ -2,8 +2,8 @@
 
 Port of ``repro/train/loop.py`` for one card:
   * the model from the registry (``get_model(cfg)``): the dense and MoE
-    families (the MoE layers' aux losses in the loss), the hubert encoder
-    and the internvl VLM, each batch key (tokens, frames, mask positions,
+    families (the MoE layers' aux losses in the loss), the hubert encoder,
+    the internvl VLM and the rwkv6 recurrent LM, each batch key (tokens, frames, mask positions,
     patches, targets) on the device; ``tokens_per_s`` counts the positions
     a step trains (``batch_positions``: tokens, hubert's frames, internvl's
     patches plus text tokens);
@@ -21,7 +21,8 @@ Port of ``repro/train/loop.py`` for one card:
     the EWMA of step times is logged.
 
 The MRA-2 attention of every layer runs the block-sparse kernels on the
-card (``kernels/block_sparse_attn.py``). Meshes and sharded attention are
+card (``kernels/block_sparse_attn.py``); rwkv6 has no attention and runs
+plain PyTorch, as its reference is plain jnp. Meshes and sharded attention are
 not ported (ROADMAP module item 6) and raise.
 """
 from __future__ import annotations

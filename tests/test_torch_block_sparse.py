@@ -184,3 +184,21 @@ def test_pair_lists_follow_reference_prepare(case):
             for blk in range(nb):
                 seg = ids[r, int(ptr[r, blk]):int(ptr[r, blk + 1])]
                 assert bool((seg == blk).all())
+
+
+@pytest.mark.parametrize("tail", [(), (5,), (4, 3)], ids=["rows", "vec", "blk"])
+def test_segment_sum_equals_scatter_add(tail):
+    """The plain twin's fixed-order segment sum (a one-hot product) equals
+    ``scatter_add`` over the same block ids, repeated ids included, within
+    1e-6; it runs in one order, so it reruns bitwise."""
+    r = np.random.default_rng(7)
+    R, m, nb = 6, 9, 4
+    values = torch.from_numpy(r.standard_normal((R, m) + tail, np.float32))
+    idx = torch.from_numpy(r.integers(0, nb, (R, m)).astype(np.int32))
+    want = values.new_zeros((R, nb) + tail).scatter_add(
+        1, idx.long().reshape(R, m, *([1] * len(tail))).expand_as(values),
+        values)
+    got = bsa._segment_add(values, idx, nb)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=1e-6)
+    assert torch.equal(got, bsa._segment_add(values, idx, nb))

@@ -53,7 +53,13 @@ run on the same CUDA tensors.
     G = 7, and at hubert-xlarge's (80, 128), G = 1, causal and non-causal
     (and 72 zero-padded to 80); a one-layer hubert at head dim 80 trains
     on the kernels as on the plain twins; ``chunk_attn`` at internvl2-1b's
-    G = 7, (64, 128).
+    G = 7, (64, 128). The three also at the H-Transformer-1D baseline's
+    (64, 32), non-causal.
+  * the plain block-sparse twins rerun bitwise on the card (their segment
+    sums run in a fixed order); the paper's baselines on the card equal
+    the same calls on the CPU within 1e-4 (H-Transformer-1D through
+    ``bsa_fwd``); the rwkv6 engine's greedy streams on the card equal the
+    CPU's at the smoke size in fp32.
 """
 from __future__ import annotations
 
@@ -710,7 +716,9 @@ BSA_SHAPES = [dict(BHKV=2, G=2, n=64, d=16, b=16, m=6),
               # hubert-xlarge (non-causal), causal, and 72 padded to 80
               dict(BHKV=4, G=1, n=1024, d=80, b=128, m=24, causal=False),
               dict(BHKV=2, G=1, n=512, d=80, b=128, m=8),
-              dict(BHKV=2, G=2, n=512, d=72, b=128, m=8)]
+              dict(BHKV=2, G=2, n=512, d=72, b=128, m=8),
+              # the H-Transformer-1D baseline's (64, 32), non-causal
+              dict(BHKV=4, G=1, n=512, d=64, b=32, m=30, causal=False)]
 
 
 @pytest.mark.cuda
@@ -1147,3 +1155,67 @@ def test_granite_train_step_kernel_vs_plain(cuda, remat):
     assert plain[2] == dict.fromkeys(k1[2], 0)
     assert k1[:2] == k2[:2]
     np.testing.assert_allclose(k1[:2], plain[:2], rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_plain_block_sparse_twins_rerun_bitwise(cuda):
+    """The plain forward and backward sum by block id through a fixed-order
+    product (no atomics): reruns on the card are bitwise equal, with many
+    pairs landing on each query and key tile."""
+    shape = dict(BHKV=4, G=3, n=1024, d=64, b=128, m=40)
+    q, k, v, c, x, y, fl, km = bsa_inputs(9, dtype=torch.float32, device=cuda,
+                                          **shape)
+    kw = dict(scale=0.125, block_size=shape["b"])
+    r = np.random.default_rng(2)
+    do = torch.as_tensor(r.standard_normal(tuple(q.shape)), dtype=torch.float32,
+                         device=cuda)
+    dr = torch.as_tensor(r.standard_normal(tuple(q.shape[:2])),
+                         dtype=torch.float32, device=cuda)
+
+    def run():
+        return (*bsa.block_sparse_attention_ref(q, k, v, x, y, fl, c, km, **kw),
+                *bsa.block_sparse_attention_bwd_ref(q, k, v, c, x, y, fl, km,
+                                                    do, dr, **kw))
+
+    first = run()
+    for _ in range(3):
+        assert all(torch.equal(a, b) for a, b in zip(run(), first))
+
+
+@pytest.mark.cuda
+def test_baselines_on_the_card_equal_the_cpu(cuda):
+    from repro_torch.core import baselines
+
+    r = np.random.default_rng(4)
+    cpu = [torch.from_numpy(r.standard_normal((1, 4, 256, 64)).astype(
+        np.float32)) for _ in range(3)]
+    card = [a.to(cuda) for a in cpu]
+    for kind, fn in baselines.REGISTRY.items():
+        before = bsa.bsa_fwd.launches
+        got = fn(*card)
+        torch.cuda.synchronize()
+        assert bsa.bsa_fwd.launches - before == (kind == "h_transformer_1d")
+        want = fn(*cpu)
+        assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(
+            want.abs().max()), kind
+
+
+@pytest.mark.cuda
+def test_rwkv6_engine_streams_on_the_card_equal_the_cpu(cuda):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.params import (init_params, tree_leaves,
+                                           tree_unflatten)
+    from repro_torch.serve import Engine, EngineConfig, Request
+
+    cfg = get_smoke_config("rwkv6-7b", activ_dtype="float32")
+    host = init_params(cfg, seed=0, device="cpu")
+    card = tree_unflatten(host, [p.to(cuda) for p in tree_leaves(host)])
+    out = {}
+    for dev, params in (("cpu", host), ("cuda", card)):
+        reqs = [Request(prompt=np.arange(1, n) % cfg.vocab, max_new_tokens=12)
+                for n in (40, 17, 3)]
+        done = Engine(cfg, params, EngineConfig(slots=2, max_len=16, chunk=8),
+                      device=dev).run(reqs)
+        out[dev] = {len(q.prompt): np.asarray(q.out) for q in done}
+    for n, want in out["cpu"].items():
+        np.testing.assert_array_equal(out["cuda"][n], want)

@@ -269,10 +269,15 @@ def test_unported_options_raise(cfgs, params, field, value):
 
 @pytest.mark.parametrize("family", ["rwkv6", "recurrentgemma"])
 def test_unported_family_raises(cfgs, params, family):
-    """The engine takes its model from the registry: the transformer
-    families serve, a family not ported yet raises naming it."""
+    """The engine takes its model and its cache from the registry: rwkv6
+    (ported) builds over the recurrent state, a family not ported yet
+    raises naming it."""
     _, tcfg = cfgs
     _, tp = params
+    if family == "rwkv6":
+        eng = Engine(tcfg.replace(family=family), tp, ECFG, device="cpu")
+        assert type(eng.kv).__name__ == "RecurrentStateCache"
+        return
     with pytest.raises(NotImplementedError, match=family):
         Engine(tcfg.replace(family=family), tp, ECFG, device="cpu")
 

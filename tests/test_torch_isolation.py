@@ -225,3 +225,46 @@ def test_chip_smoke_fails_without_a_card():
                          cwd=str(ROOT))
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+_RWKV_BASELINES_WITHOUT_JAX = r"""
+import dataclasses, math, sys
+for name in ("jax", "jaxlib", "repro"):
+    sys.modules[name] = None
+import numpy as np
+import torch
+from repro_torch.configs import SHAPES, get_smoke_config
+from repro_torch.core import baselines
+from repro_torch.core.attention import AttentionSpec, self_attention
+from repro_torch.models.params import init_params
+from repro_torch.serve import Engine, EngineConfig, Request
+from repro_torch.train import TrainConfig, train
+cfg = get_smoke_config("rwkv6-7b", activ_dtype="float32")
+shape = dataclasses.replace(SHAPES["train_4k"], seq_len=32, global_batch=2)
+seen = []
+train(cfg.replace(remat="full"), shape, TrainConfig(steps=1), device="cpu",
+      on_metrics=lambda s, m: seen.append(m["loss"]))
+assert len(seen) == 1 and math.isfinite(seen[0])
+params = init_params(cfg, seed=0, device="cpu")
+reqs = [Request(prompt=np.arange(1, 30), max_new_tokens=20)]
+Engine(cfg, params, EngineConfig(slots=1, max_len=16, chunk=8),
+       device="cpu").run(reqs)
+assert len(reqs[0].out) == 20
+q, k, v = torch.randn(3, 1, 2, 64, 16).unbind(0)
+for kind in baselines.REGISTRY:
+    out = self_attention(q, k, v, AttentionSpec(kind=kind, block_size=16))
+    assert out.shape == q.shape and bool(torch.isfinite(out).all()), kind
+assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules
+               if sys.modules[m] is not None)
+print("rwkv6 and baselines ok")
+"""
+
+
+def test_rwkv6_and_baselines_run_with_jax_blocked():
+    """rwkv6 trains and serves past max_len, and every baseline kind runs
+    through ``self_attention``, with nothing of the reference."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", _RWKV_BASELINES_WITHOUT_JAX],
+                         env=env, capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "rwkv6 and baselines ok" in res.stdout

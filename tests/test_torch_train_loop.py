@@ -92,11 +92,18 @@ def test_make_batch_frontends_bit_identical(arch):
 
 
 def test_make_batch_refuses_the_recurrent_families():
+    """recurrentgemma (not ported) raises; rwkv6 takes LM batches, the
+    dense family's (tests/test_torch_rwkv6.py holds them to the
+    reference's)."""
     _, tshape = _shapes()
-    for family in ("rwkv6", "recurrentgemma"):
-        cfg = get_smoke_config("qwen3-1.7b").replace(family=family)
-        with pytest.raises(NotImplementedError, match="ROADMAP module item 5"):
-            make_batch(cfg, tshape)
+    cfg = get_smoke_config("qwen3-1.7b").replace(family="recurrentgemma")
+    with pytest.raises(NotImplementedError, match="ROADMAP module item 5b"):
+        make_batch(cfg, tshape)
+    dense = get_smoke_config("qwen3-1.7b")
+    got = make_batch(dense.replace(family="rwkv6"), tshape, step=1, seed=2)
+    want = make_batch(dense, tshape, step=1, seed=2)
+    assert set(got) == set(want) == {"tokens", "targets"}
+    assert all(np.array_equal(got[k], want[k]) for k in want)
 
 
 def test_loader_streams_make_batch_and_closes():
@@ -116,11 +123,11 @@ def test_loader_streams_make_batch_and_closes():
 
 
 def test_loader_hands_on_the_workers_error():
-    cfg = get_smoke_config("qwen3-1.7b").replace(family="rwkv6")
+    cfg = get_smoke_config("qwen3-1.7b").replace(family="recurrentgemma")
     _, shape = _shapes()
     loader = DataLoader(cfg, shape)
     try:
-        with pytest.raises(NotImplementedError, match="rwkv6"):
+        with pytest.raises(NotImplementedError, match="recurrentgemma"):
             next(loader)
     finally:
         loader.close()
