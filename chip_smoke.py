@@ -208,7 +208,39 @@ port's serving path and its training path on the card:
      (seq 4096, batch 2, the preset's remat="full", three ``train()``
      steps: seconds, tok/s, peak GiB; a profiled step; one layer more must
      run out of memory), and in fp32 at one full-width layer the chunked
-     route's loss and grad norm against ``use_scan=True`` within 1e-4.
+     route's loss and grad norm against ``use_scan=True`` within 1e-4;
+ 31. (after phase 1) bsa_fwd, bsa_bwd_dq and bsa_bwd_dkv at
+     recurrentgemma's (256, 128), G = 16 (B = 2, 16 query heads over one
+     KV head, n = 4096, causal), bf16 and fp32, with and without padded
+     keys / invalid pairs, against
+     their plain twins at phase 22's tolerances, reruns bit-identical;
+     then timed in bf16 beside the bounds and the plain twins, with grid,
+     threads, shared memory, blocks per SM and ptxas per D = 256 kernel (a
+     bf16 spill fails it);
+ 32. recurrentgemma-9b at full width — 38 layers in the (rglru, rglru,
+     local) pattern, d_model 4096, 16 query heads over one KV head of 256,
+     window 2048, vocab 256000, 8.53 B fp32 parameters from a seed, bf16
+     activations — served by phase 4's engine and requests through the
+     window ring + RG-LRU state (the two longest prompts wrap the ring):
+     tok/s, prefill / decode seconds, peak GiB, occupancy; then a
+     torch.profiler breakdown of one decode and one prefill dispatch;
+ 33. (after phase 31, before phase 2: its peak leaves the least room, so
+     it runs on an unfragmented cache, with expandable segments) its MRA-2
+     variant (b = 128, four blocks a row) through ``train()`` at full width
+     with the depth cut to RGEMMA_TRAIN_GROUPS whole groups
+     (seq 4096, batch 2, remat="full", three steps, launches exact); a
+     profiled step; one group more must run out of memory; one step of the
+     preset's ``local`` kind (no kernel launched); kernel against plain
+     routes in fp32 on one batch: loss, grad norm and every gradient leaf
+     within 1e-4 at one group, two groups reported;
+ 34. recurrentgemma against itself: the RG-LRU doubling scan against a
+     sequential loop at (B, T, W) = (2, 4096, 4096) (1e-4 of the largest
+     magnitude), both timed; the whole-prompt ``prefill`` then stepwise
+     ``decode_step`` at one group (the reference test's tolerances, fp32
+     held, bf16 reported); the MRA-2 variant's whole-prompt ``prefill``
+     of a 4096-token prompt on one bsa_fwd launch against the plain twin
+     (1e-4); card vs CPU greedy streams of a one-group fp32 engine with
+     the window cut to 128 (equal, or parting only at an fp32 near tie).
 
 One JSON line per phase; then the card line from nvidia-smi, the kernels
 line and, last, ``{"ok": true, "device": {...}}``. Any failed phase raises,
@@ -225,6 +257,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 from unittest import mock
 
@@ -319,18 +352,19 @@ VLM_PROMPT = dict(slots=4, text=3840, new_tokens=64, max_len=4096 + 128)
 # a rounding boundary), as kernel and plain part there; at 2 layers they
 # part at near ties only
 VLM_PARITY_LAYERS, VLM_REPORT_LAYERS, VLM_PERTURB = 2, (4, 8), 2.0 ** -20
-# internvl's fp32 kernel-vs-plain training parity at one layer holds loss
-# and grad norm; its worst gradient leaf (wk: dk summed over 7 query heads
-# of 4096 positions) is reported
-VLM_PARITY_HELD = ("loss_rel", "grad_norm_rel")
+# internvl's fp32 kernel-vs-plain training parity at one layer holds loss,
+# grad norm and every gradient leaf (the leaf held once the fp32 kernels'
+# scores took the plain product's order: 1.19e-4 before, 3.08e-6 after)
+VLM_PARITY_HELD = ("loss_rel", "grad_norm_rel", "leaf_rel")
 # whole-prompt prefill vs prefill_chunk (tests/test_torch_transformer.py's
 # tolerances): logits atol, cache entries within this share of the tensor's
 # largest magnitude
 LOGIT_TOL, CACHE_TOL = 1e-4, 1e-5
-# dispatches a serving profile averages (phases 4, 16, 12, 28): cut from
-# 10 decode / 3 prefill in PR 21 to keep the script inside its time limit
-# (the profiler's event processing, not the dispatches, takes the time)
-PROFILE_STEPS = dict(decode=4, prefill=2)
+# dispatches a serving profile averages (phases 4, 16, 12, 28, 32): cut from
+# 10 decode / 3 prefill, then from 4 / 2, to keep the script inside its
+# time limit (the profiler's event processing, not the dispatches, takes
+# the time)
+PROFILE_STEPS = dict(decode=2, prefill=1)
 # the paper's baselines (phase 27) on the reference's Fig. 4 / Tab. 7
 # inputs, the deterministic three's rel_error rows of BENCH_063798c.json,
 # and the block-sparse kernels at H-Transformer-1D's call (head dim 64,
@@ -353,6 +387,22 @@ RWKV_WKV = dict(B=2, H=64, dh=64, T=4096, chunk=16)
 RWKV_TRAIN_LAYERS = 18
 RWKV_SCAN_SEQ = 1024
 RWKV_STREAMS = dict(prompts=(301, 160, 64, 17), new_tokens=16)
+# recurrentgemma-9b (phases 31-34). Its MRA-2 variant takes the MRA presets'
+# parameters (b = 128, four blocks a row): its local layers run the
+# block-sparse kernels at (256, 128), 16 query heads over one KV head
+RGEMMA_ARCH = "recurrentgemma-9b"
+RGEMMA_MRA = dict(kind="mra2", block_size=128, blocks_per_row=4)
+BSA_RGEMMA = dict(B=2, Hq=16, n=4096, d=256, b=128, bpr=4)
+# training's depth cut: the most whole (rglru, rglru, local) groups whose
+# fp32 weights, gradients and AdamW moments (16 bytes a parameter) fit
+# beside the embeddings (2.10 B parameters) and the 256,000-wide logits
+# (with expandable segments: see _expandable_segments)
+RGEMMA_TRAIN_GROUPS = 2
+RGEMMA_PARITY_BATCH = 1  # fp32 parity: two gradient sets beside the logits
+RGEMMA_SCAN = dict(B=2, T=4096, W=4096)  # the RG-LRU scan at full width
+RGEMMA_PREFILL = 4096  # the MRA-2 variant's whole-prompt prefill
+# card vs CPU streams at one group, the window cut so the prompts wrap it
+RGEMMA_STREAMS = dict(prompts=(301, 160, 64, 17), new_tokens=16, window=128)
 
 
 START = time.perf_counter()
@@ -511,11 +561,11 @@ def phase_device(torch):
           "ptxas_chunk_attn": ptxas_report(
               libs["chunk_attn"].with_suffix(".log").read_text()),
           "ptxas_block_sparse_attn": bsa_ptx})
-    # 30 = bf16 and fp32 x five (D, b) x bsa_fwd, bsa_bwd_dq, bsa_bwd_dkv
+    # 42 = bf16 and fp32 x seven (D, b) x bsa_fwd, bsa_bwd_dq, bsa_bwd_dkv
     spills = [k for k in bsa_ptx if k["kernel"].startswith(
         ("bsa_fwd bf16", "bsa_bwd_dq bf16", "bsa_bwd_dkv bf16"))
         and (k["spill_stores"] or k["spill_loads"] or k["registers"] > 255)]
-    if len(bsa_ptx) != 36 or spills:
+    if len(bsa_ptx) != 42 or spills:
         raise AssertionError(f"bsa kernels: {len(bsa_ptx)} built, spilling "
                              f"bf16 tensor-core kernels {spills}")
     # 19 = three storage types x three (D, b) x two programs, + the combine
@@ -849,7 +899,11 @@ def _profile(torch, fn, steps, kernels=("chunk_attn",), ranges=()):
         fn()
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0) / steps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # host activity only where a range is asked for: the host's operator
+    # events outnumber the kernels and most of the profiler's time goes to
+    # processing them
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if ranges else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             fn()
@@ -1612,17 +1666,28 @@ def phase_bsa_internvl(torch, bsa):
     return worst, timing
 
 
+def _attention_layers(cfg):
+    """The layers that run the model's attention: every layer, or
+    recurrentgemma's local ones (the rest are RG-LRU blocks)."""
+    if cfg.family == "recurrentgemma":
+        from repro_torch.models.recurrentgemma import layer_cache_kinds
+
+        return layer_cache_kinds(cfg).count("window")
+    return cfg.num_layers
+
+
 def phase_train_full_width(torch, bsa, arch="qwen3-1.7b",
-                           phase="train_full_width", batch=TRAIN["batch"]):
-    """Three steps of ``train()`` at full width from random weights, the
-    block-sparse kernels' launches counted over exactly that run (forward
-    twice a layer a step under the presets' remat="full"). tokens_per_s
-    counts the positions a step trains (hubert's frames, internvl's patches
-    plus text)."""
+                           phase="train_full_width", batch=TRAIN["batch"],
+                           cfg=None):
+    """Three steps of ``train()`` at full width from random weights (the
+    preset of ``arch``, or ``cfg``), the block-sparse kernels' launches
+    counted over exactly that run (forward twice an attention layer a step
+    under the presets' remat="full"). tokens_per_s counts the positions a
+    step trains (hubert's frames, internvl's patches plus text)."""
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.train import TrainConfig, train
 
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     shape = dataclasses.replace(SHAPES["train_4k"], seq_len=TRAIN["seq"],
                                 global_batch=batch)
     tc = TrainConfig(steps=TRAIN["steps"], seed=SEED)
@@ -1630,7 +1695,7 @@ def phase_train_full_width(torch, bsa, arch="qwen3-1.7b",
 
     def on_metrics(step, m):
         steps.append({"step": step, "loss": m["loss"],
-                      "aux_loss": m["aux_loss"],
+                      "aux_loss": m.get("aux_loss", 0.0),  # none: recurrent
                       "grad_norm": m["grad_norm"], "lr": m["lr"],
                       "seconds": m["step_time_s"],
                       "tokens_per_s": m["tokens_per_s"]})
@@ -1656,9 +1721,10 @@ def phase_train_full_width(torch, bsa, arch="qwen3-1.7b",
                                                                   "tokens"),
           "steps": steps, "wall_s": wall, "peak_gib": peak,
           "kernel_launches": launches})
-    want = {"bsa_fwd": cfg.num_layers * tc.steps * 2,  # forward + remat
-            "bsa_bwd_dq": cfg.num_layers * tc.steps,
-            "bsa_bwd_dkv": cfg.num_layers * tc.steps}
+    n_attn = _attention_layers(cfg)
+    want = {"bsa_fwd": n_attn * tc.steps * 2,  # forward + remat
+            "bsa_bwd_dq": n_attn * tc.steps,
+            "bsa_bwd_dkv": n_attn * tc.steps}
     if launches != want:
         raise AssertionError(f"bsa launches {launches} != {want}")
     if not all(np.isfinite([s["loss"], s["grad_norm"], s["aux_loss"]]).all()
@@ -3145,6 +3211,345 @@ def phase_rwkv_train(torch):
         raise AssertionError(f"chunked vs scan training differs: {parity}")
 
 
+# --------------------------------------------------------------------------- #
+# the recurrentgemma family (phases 31-34)
+# --------------------------------------------------------------------------- #
+@contextlib.contextmanager
+def _expandable_segments(torch):
+    """The caching allocator with ``expandable_segments`` for the duration:
+    segments grow in place, so whether a step fits is a matter of the
+    bytes it holds, not of how the cache happens to be split (near the
+    card's limit, the default allocator's fragmentation decided it one
+    way or the other from run to run)."""
+    from torch.cuda.memory import _set_allocator_settings
+
+    def switch(on):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # a private setting
+            _set_allocator_settings(f"expandable_segments:{on}")
+
+    switch(True)
+    try:
+        yield
+    finally:
+        switch(False)
+
+
+def _rgemma_mra(cfg):
+    """The MRA-2 variant of a recurrentgemma config: its local layers
+    through ``mra2_attention`` (the block-sparse kernels at (256, 128))."""
+    from repro_torch.core.attention import AttentionSpec
+
+    return cfg.replace(attention=AttentionSpec(**RGEMMA_MRA))
+
+
+def phase_bsa_rgemma(torch, bsa, ptx):
+    """bsa_fwd, bsa_bwd_dq and bsa_bwd_dkv at (d, b) = (256, 128), G = 16
+    (recurrentgemma's MRA-2 training call: B = 2, 16 query heads over one
+    KV head, n = 4096, causal), bf16 and fp32, with and without padded keys
+    / invalid pairs, against their plain twins at phase 22's tolerances,
+    reruns bit-identical; then their times in bf16 beside the bounds and
+    the plain twins, with grid, threads, shared memory, blocks per SM and
+    ptxas' registers and spills. Fails on a spill of a bf16 D = 256
+    kernel."""
+    sh = BSA_RGEMMA
+    G = sh["Hq"]  # one KV head
+    worst, n = {}, 0
+    _reset_bsa(bsa)
+    for dtype, edited in itertools.product((torch.bfloat16, torch.float32),
+                                           (False, True)):
+        n += 1
+        errs, _ = _bsa_hold(torch, bsa, sh, G, dtype, SEED + 800 + n, edited)
+        worst = {k: max(worst.get(k, 0.0), e) for k, e in errs.items()}
+    timing = _bsa_timing(torch, bsa, sh, G, True)
+    regs = [k for k in ptx if "D=256" in k["kernel"]]
+    emit({"phase": "bsa_rgemma", "shape": sh, "G": G, "cases": n,
+          "rtol": BSA_TOL, "atol": BSA_TOL, "mt_atol": MT_TOL,
+          "max_abs_err": worst, "bit_identical_reruns": True,
+          "ptxas": regs, "timing_bf16": timing})
+    spills = [k for k in regs if " bf16 " in k["kernel"]
+              and (k["spill_stores"] or k["spill_loads"])]
+    if spills or len(regs) != 6:
+        raise AssertionError(f"bsa (256, 128): spilling bf16 kernels "
+                             f"{spills}, {len(regs)} kernels built")
+    return worst, timing
+
+
+def phase_rgemma_full_width(torch):
+    """recurrentgemma-9b at full width (38 layers, 8.53 B fp32 parameters
+    from a seed, bf16 activations) served by phase 4's engine and requests
+    through the window ring + RG-LRU state (the 3968- and 2500-token
+    prompts wrap the 2048-entry ring): tok/s, prefill / decode seconds,
+    peak GiB, occupancy; every logit finite, every stream full length."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import recurrentgemma
+    from repro_torch.models.params import init_params
+    from repro_torch.serve import Engine, EngineConfig, Request
+
+    cfg = get_config(RGEMMA_ARCH)
+    params = init_params(cfg, seed=SEED, device=DEVICE)
+    eng = Engine(cfg, params, EngineConfig(slots=4, max_len=4096, chunk=128),
+                 device=DEVICE)
+    reqs = _requests(Request, SERVE["prompts"], SERVE["new_tokens"], cfg.vocab)
+    bad = torch.zeros((), dtype=torch.int64, device=DEVICE)
+
+    def finite(fn):
+        def wrapped(*a, **kw):
+            logits, cache = fn(*a, **kw)
+            bad.add_((~torch.isfinite(logits)).sum())
+            return logits, cache
+        return wrapped
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(recurrentgemma, "prefill_chunk",
+                           finite(recurrentgemma.prefill_chunk)), \
+            mock.patch.object(recurrentgemma, "decode_step",
+                              finite(recurrentgemma.decode_step)):
+        t0 = time.perf_counter()
+        done = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    st = eng.stats
+    lengths = eng.kv.lengths
+    occ = eng.kv.occupancy()
+    emit({"phase": "rgemma_full_width", "arch": cfg.name,
+          "family": cfg.family, "layers": cfg.num_layers,
+          "pattern": list(cfg.block_pattern), "d_model": cfg.d_model,
+          "heads": cfg.num_heads, "kv_heads": cfg.kv_heads,
+          "head_dim": cfg.hd, "lru_width": cfg.lru_width, "d_ff": cfg.d_ff,
+          "vocab": cfg.vocab, "local_window": cfg.local_window,
+          "attention": cfg.attention.kind, "params": _param_count(params),
+          "param_dtype": cfg.param_dtype, "activ_dtype": cfg.activ_dtype,
+          "cache": type(eng.kv).__name__, "chunk_cap": eng.kv.chunk_cap,
+          "slots": 4, "max_len": 4096, "chunk": eng.chunk,
+          "prompts": list(SERVE["prompts"]), "new_tokens": SERVE["new_tokens"],
+          "wall_s": wall, "generated_tokens": st["generated_tokens"],
+          "tok_per_s": st["generated_tokens"] / wall,
+          "prefill_tokens": st["prefill_tokens"],
+          "prefill_dispatches": st["prefill_dispatches"],
+          "prefill_s": _dispatch_seconds(eng, "prefill_chunk_seconds"),
+          "decode_dispatches": st["decode_dispatches"],
+          "decode_s": _dispatch_seconds(eng, "decode_step_seconds"),
+          "final_lengths": lengths.tolist(), "occupancy": occ,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+    if int(bad) != 0:
+        raise AssertionError(f"{int(bad)} non-finite logits")
+    if (type(eng.kv).__name__ != "HybridWindowCache"
+            or eng.kv.chunk_cap != cfg.local_window
+            or int((lengths > cfg.local_window).sum()) < 2
+            or occ["tokens_evicted"] <= 0):
+        raise AssertionError(f"{type(eng.kv).__name__}: the ring did not "
+                             f"wrap ({lengths.tolist()}, {occ})")
+    if any(len(r.out) != SERVE["new_tokens"] or int(r.out.min()) < 0
+           or int(r.out.max()) >= cfg.vocab for r in done):
+        raise AssertionError("a stream is short or holds an out-of-vocab token")
+    return eng
+
+
+def phase_rgemma_train(torch, bsa):
+    """recurrentgemma-9b's MRA-2 variant through ``train()`` at full width,
+    the depth cut to RGEMMA_TRAIN_GROUPS whole (rglru, rglru, local) groups:
+    three steps at seq 4096, batch 2, the preset's remat="full", the
+    kernels' launches counted over exactly that run (the local layers:
+    bsa_fwd twice a step, dq and dk/dv once), then a profiled step; one
+    group more must run out of memory; one step of the preset's ``local``
+    kind at the same depth (no kernel launched); then kernel against plain
+    routes in fp32 on one batch (of RGEMMA_PARITY_BATCH sequences): loss,
+    grad norm and every gradient leaf within 1e-4 at one group, two groups
+    reported. The depth probe runs two steps: the AdamW moments are made
+    in the first step's update, after its activations are freed."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.train import TrainConfig, train
+
+    groups = RGEMMA_TRAIN_GROUPS
+    cfg = _rgemma_mra(get_config(RGEMMA_ARCH, num_layers=3 * groups))
+    launches, peak, state = phase_train_full_width(
+        torch, bsa, RGEMMA_ARCH, "rgemma_train_full_width", cfg=cfg)
+    if peak >= 80.0:
+        raise AssertionError(f"recurrentgemma training peaked at {peak} GiB")
+    phase_train_profile(torch, state, phase="rgemma_train_profile")
+    shape = state[2]
+    del state
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        train(cfg.replace(num_layers=3 * (groups + 1)), shape,
+              TrainConfig(steps=2, seed=SEED, log_every=10**9), device=DEVICE)
+        fits = True
+    except torch.cuda.OutOfMemoryError:
+        fits = False
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    emit({"phase": "rgemma_depth_cut", "groups": groups,
+          "layers": 3 * groups, "full_depth": 38, "peak_gib": peak,
+          "one_group_more_fits": fits, "probe_s": time.perf_counter() - t0})
+    if fits:
+        raise AssertionError(f"{groups + 1} groups fit too; the cut to "
+                             f"{groups} is not the largest")
+    local = get_config(RGEMMA_ARCH, num_layers=3 * groups)
+    step, params = _one_step(torch, bsa, local, shape)
+    del params
+    torch.cuda.empty_cache()
+    emit({"phase": "rgemma_local_step", "attention": local.attention.kind,
+          "local_window": local.local_window, "layers": local.num_layers,
+          **step})
+    if any(step["launches"].values()) or not np.isfinite(step["loss"]):
+        raise AssertionError(f"the local kind's step: {step}")
+    pshape = dataclasses.replace(SHAPES["train_4k"], seq_len=TRAIN["seq"],
+                                 global_batch=RGEMMA_PARITY_BATCH)
+    result = {}
+    for g in (1, 2):
+        one = _rgemma_mra(get_config(RGEMMA_ARCH, num_layers=3 * g,
+                                     activ_dtype="float32"))
+        result[f"full_width_{g}_groups"] = _grad_parity(torch, bsa, one,
+                                                        pshape)
+        torch.cuda.empty_cache()
+    emit({"phase": "rgemma_train_parity", "dtype": "float32",
+          "batch": RGEMMA_PARITY_BATCH,
+          "seq_len": pshape.seq_len, "tolerance": 1e-4,
+          "held_at_1_group": ["loss_rel", "grad_norm_rel", "leaf_rel"],
+          **result})
+    f = result["full_width_1_groups"]
+    if any(f[k] > 1e-4 for k in ("loss_rel", "grad_norm_rel", "leaf_rel")):
+        raise AssertionError(f"recurrentgemma training differs: {f}")
+    return launches
+
+
+def phase_rgemma_self(torch, bsa):
+    """recurrentgemma on the card against itself: the doubling RG-LRU scan
+    against a sequential loop at the full-width shape (B = 2, T = 4096, W =
+    4096; the reference test's 1e-4), both timed; the whole-prompt
+    ``prefill`` then ``decode_step`` against stepwise decoding at one
+    group (the reference test's tolerances, held in fp32, bf16 reported);
+    the MRA-2 variant's whole-prompt ``prefill`` of a 4096-token prompt at
+    one group on ``bsa_fwd`` (one launch) against the plain twin (last
+    logits within 1e-4 of their largest magnitude, fp32); greedy streams
+    of a one-group full-width fp32 engine with the window cut to 128 on the
+    card against the same engine on the CPU (equal, or parting only at an
+    fp32 near tie). Returns the prefill's bsa_fwd launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import recurrentgemma as RG
+    from repro_torch.models.params import init_params
+    from repro_torch.serve import Engine, EngineConfig, Request, Scheduler
+    from repro_torch.serve import engine as engine_mod
+    from repro_torch.serve.cache import HybridWindowCache
+
+    sh = RGEMMA_SCAN
+    r = np.random.default_rng(SEED)
+    shape = (sh["B"], sh["T"], sh["W"])
+    a = torch.from_numpy((r.random(shape) * 0.9 + 0.05).astype(np.float32)
+                         ).to(DEVICE)
+    bx = torch.from_numpy(r.standard_normal(shape, np.float32)).to(DEVICE)
+
+    def loop():
+        h = torch.zeros_like(bx[:, 0])
+        out = []
+        for at, bt in zip(a.unbind(1), bx.unbind(1)):
+            h = torch.addcmul(bt, at, h)
+            out.append(h)
+        return torch.stack(out, 1)
+
+    with torch.no_grad():
+        _, h = RG._rglru_scan(a, bx)
+        want = loop()
+        scan = {"shape": sh, "rel_err": float((h - want).abs().max()
+                                              / want.abs().max()),
+                "passes": int(np.ceil(np.log2(sh["T"]))),
+                "scan_ms": time_ms(torch, lambda: RG._rglru_scan(a, bx), 5),
+                "loop_ms": time_ms(torch, loop, 1)}
+    del a, bx, h, want
+
+    def cache(cfg, B, S):
+        return HybridWindowCache(cfg, RG, B, S, device=DEVICE).tree
+
+    cont = {}
+    for adt in ("float32", "bfloat16"):
+        cfg = get_config(RGEMMA_ARCH, num_layers=3, activ_dtype=adt)
+        params = init_params(cfg, seed=SEED, device=DEVICE)
+        B, S = 2, 160
+        toks = torch.from_numpy(np.random.default_rng(1).integers(
+            1, cfg.vocab, (B, S)).astype(np.int32)).to(DEVICE)
+        with torch.no_grad():
+            lp, cp = RG.prefill(params, cfg, {"tokens": toks}, cache(cfg, B, S))
+            cd = cache(cfg, B, S)
+            for t in range(S):
+                ld, cd = RG.decode_step(params, cfg, cd, toks[:, t])
+        logit_ok = torch.allclose(lp.float(), ld.float(), atol=0.05, rtol=0.05)
+        cont[adt] = {"logits_max_abs": float((lp.float() - ld.float())
+                                             .abs().max()),
+                     "h_max_abs": float((cp["h"] - cd["h"]).abs().max()),
+                     "within_reference_tolerances": bool(logit_ok)}
+        del params, cp, cd
+    torch.cuda.empty_cache()
+
+    cfg = _rgemma_mra(get_config(RGEMMA_ARCH, num_layers=3,
+                                 activ_dtype="float32"))
+    params = init_params(cfg, seed=SEED, device=DEVICE)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        1, cfg.vocab, (2, RGEMMA_PREFILL)).astype(np.int32)).to(DEVICE)
+    runs = {}
+    for plain in (False, True):
+        _reset_bsa(bsa)
+        with (_plain_twins(bsa) if plain else contextlib.nullcontext()), \
+                torch.no_grad():
+            logits, _ = RG.prefill(params, cfg, {"tokens": toks},
+                                   cache(cfg, 2, RGEMMA_PREFILL))
+        runs[plain] = (logits.float(), _bsa_launches(bsa))
+    prefill = {"prompt": RGEMMA_PREFILL, "layers": 3,
+               "launches": runs[False][1],
+               "logits_rel": float((runs[False][0] - runs[True][0]).abs().max()
+                                   / runs[True][0].abs().max())}
+    del params, runs
+    torch.cuda.empty_cache()
+
+    cfg = get_config(RGEMMA_ARCH, num_layers=3, activ_dtype="float32",
+                     local_window=RGEMMA_STREAMS["window"])
+    card = init_params(cfg, seed=SEED, device=DEVICE)
+    ecfg = EngineConfig(slots=4, max_len=4096, chunk=128)
+    streams = {}
+    (p_sample, p_sched), gaps = _top2_recorder(torch, engine_mod, Scheduler,
+                                               cfg.vocab)
+    for where, params in (("cpu", _on(card, "cpu")), (DEVICE, card)):
+        reqs = _requests(Request, RGEMMA_STREAMS["prompts"],
+                         RGEMMA_STREAMS["new_tokens"], cfg.vocab)
+        with (p_sample if where == DEVICE else contextlib.nullcontext()), \
+                (p_sched if where == DEVICE else contextlib.nullcontext()):
+            done = Engine(cfg, params, ecfg, device=where).run(reqs)
+        streams[where] = {len(q.prompt): np.asarray(q.out) for q in done}
+        del params
+    parts = {}
+    for n, want in streams["cpu"].items():
+        got = streams[DEVICE][n]
+        diff = np.flatnonzero(got != want)
+        if len(diff):
+            j = int(diff[0])
+            gap, top = (float(x) for x in gaps[n][j])
+            parts[n] = {"token": j, "gap": gap, "top": top,
+                        "near_tie": gap <= 1e-4 * max(abs(top), 1.0)}
+    emit({"phase": "rgemma_self", "arch": RGEMMA_ARCH, "scan": scan,
+          "prefill_vs_stepwise_1_group": cont,
+          "mra2_prefill_kernel_vs_plain": prefill,
+          "streams_card_vs_cpu": {"layers": 3, "activ_dtype": "float32",
+                                  "local_window": RGEMMA_STREAMS["window"],
+                                  "prompts": list(RGEMMA_STREAMS["prompts"]),
+                                  "new_tokens": RGEMMA_STREAMS["new_tokens"],
+                                  "equal": not parts, "parts": parts}})
+    if scan["rel_err"] > 1e-4:
+        raise AssertionError(f"the RG-LRU scan vs its loop: {scan}")
+    if not cont["float32"]["within_reference_tolerances"]:
+        raise AssertionError(f"prefill vs stepwise decode: {cont}")
+    if (prefill["launches"] != {"bsa_fwd": 1, "bsa_bwd_dq": 0,
+                                "bsa_bwd_dkv": 0}
+            or prefill["logits_rel"] > 1e-4):
+        raise AssertionError(f"the MRA-2 whole-prompt prefill: {prefill}")
+    if any(not p["near_tie"] for p in parts.values()):
+        raise AssertionError(f"card and CPU streams part: {parts}")
+    return prefill["launches"]["bsa_fwd"]
+
+
 def main() -> int:
     import torch
 
@@ -3160,6 +3565,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 products in fp32
     torch.backends.cudnn.allow_tf32 = False
     smi, bsa_ptx = phase_device(torch)
+    # recurrentgemma's training peaks at 70.67 GiB of the card's 79.18: it
+    # runs first, before the other phases' allocations fragment the cache
+    rg_err, rg_bsa = phase_bsa_rgemma(torch, bsa, bsa_ptx)
+    torch.cuda.empty_cache()
+    with _expandable_segments(torch):
+        rg_launches = phase_rgemma_train(torch, bsa)
     max_err, err_by_shape = phase_kernel_vs_plain(torch, tmd, chunk_attn)
     timing = phase_timing(torch, tmd, chunk_attn)
     granite_time = phase_timing(torch, tmd, chunk_attn, GRANITE, MOE_ARCH)
@@ -3221,6 +3632,12 @@ def main() -> int:
     phase_rwkv_self(torch)
     torch.cuda.empty_cache()
     phase_rwkv_train(torch)
+    torch.cuda.empty_cache()
+    eng = phase_rgemma_full_width(torch)
+    phase_profile(torch, eng, phase="rgemma_profile", kernels=())
+    del eng
+    torch.cuda.empty_cache()
+    rg_prefill = phase_rgemma_self(torch, bsa)
     dec = timing["decode"]
     print(smi, flush=True)
     train_kernels = []
@@ -3366,6 +3783,28 @@ def main() -> int:
                  "the baselines run (phase 27, fp32 inputs)",
         **{k: t[k] for k in ("grid", "threads", "smem_bytes",
                              "blocks_per_sm")}})
+    for name, key, line in (("bsa_fwd", "fwd", 92), ("bsa_bwd_dq", "dq", 196),
+                            ("bsa_bwd_dkv", "dkv", 232)):
+        t = rg_bsa[key]
+        new_shapes.append({
+            "name": f"{name} (d=256, b=128)", "route": "cuda",
+            "source": "src/repro_torch/csrc/block_sparse_attn.cu",
+            "replaces": f"src/repro/kernels/block_sparse_attn.py:{line}",
+            "launches": rg_launches[name],
+            **({"prefill_launches": rg_prefill} if key == "fwd" else {}),
+            "max_abs_err": rg_err[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms_bf16"], "bound_by": t["bound_by_bf16"],
+            "library_ms": None,
+            "bound_ms_fp32_rate": t["bound_ms_fp32"],
+            "bound_by_fp32_rate": t["bound_by_fp32"],
+            "shape": "recurrentgemma-9b MRA-2 local layers, train_4k, n=4096, "
+                     "B=2, 16 query / 1 KV head, causal, bf16; launches from "
+                     f"the 3-step training run at {RGEMMA_TRAIN_GROUPS} "
+                     "groups (phase 33), prefill_launches from phase 34's "
+                     "whole-prompt prefill",
+            **{k: t[k] for k in ("grid", "threads", "smem_bytes",
+                                 "blocks_per_sm")}})
     emit({"kernels": [{
         "name": "chunk_attn", "route": "cuda",
         "source": "src/repro_torch/csrc/chunk_attn.cu",

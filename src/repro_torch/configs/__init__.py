@@ -1,5 +1,5 @@
-"""Architecture registry of the port: the dense, MoE, hubert, internvl and
-rwkv6 archs ported so far."""
+"""Architecture registry of the port: the dense, MoE, hubert, internvl,
+rwkv6 and recurrentgemma archs (every one of the reference's)."""
 from __future__ import annotations
 
 import importlib
@@ -16,6 +16,7 @@ _ARCH_MODULES = {
     "hubert-xlarge": "hubert_xlarge",
     "internvl2-1b": "internvl2_1b",
     "rwkv6-7b": "rwkv6_7b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 ARCHS = tuple(_ARCH_MODULES)

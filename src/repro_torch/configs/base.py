@@ -1,26 +1,25 @@
 """Model and input-shape configuration schema of the ported families.
 
 Port of ``repro/configs/base.py``: the ``ModelConfig`` fields the dense and
-MoE decoders, the hubert encoder, the internvl VLM and the rwkv6 recurrent
-LM read (``MoESpec``, the ``moe`` / ``moe_dispatch`` fields, the frontend,
-learned-position, layernorm and gelu fields, and rwkv6's head size, chunk
-and decay LoRA width, all with the reference's defaults), and the
-``ShapeCfg`` training input shape. recurrentgemma's fields come with that
-family (ROADMAP module item 5b).
+MoE decoders, the hubert encoder, the internvl VLM, the rwkv6 recurrent LM
+and the recurrentgemma hybrid read (``MoESpec``, the ``moe`` /
+``moe_dispatch`` fields, the frontend, learned-position, layernorm and gelu
+fields, rwkv6's head size, chunk and decay LoRA width, and recurrentgemma's
+block pattern, local window, RG-LRU width and conv width, all with the
+reference's defaults), and the ``ShapeCfg`` training input shape.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.core.attention import AttentionSpec
 
 
-# the model families the port has (the reference's recurrentgemma is not
-# ported yet: ROADMAP module item 5b)
-FAMILIES = ("dense", "moe", "hubert", "internvl", "rwkv6")
+# the model families of the port (all of the reference's)
+FAMILIES = ("dense", "moe", "hubert", "internvl", "rwkv6", "recurrentgemma")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +65,13 @@ class ModelConfig:
     frontend: Optional[str] = None  # audio_frames | vision_patches
     frontend_dim: int = 512
     num_patches: int = 0
+    # recurrentgemma: the repeating block pattern (empty: rglru, rglru,
+    # local), the local layers' sliding window, the RG-LRU width (0: d_model)
+    # and its causal conv's width
+    block_pattern: Tuple[str, ...] = ()
+    local_window: int = 2048
+    lru_width: int = 0
+    conv1d_width: int = 4
     # rwkv6: head size, wkv chunk (keeps the factored chunk form exact in
     # fp32) and the data-dependent decay's LoRA width
     rwkv_head_dim: int = 64

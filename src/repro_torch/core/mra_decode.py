@@ -305,11 +305,12 @@ def mra2_chunk_attention(q, k_cache, v_cache, lengths, q_pos, cfg: MraConfig,
 
 
 def full_chunk_attention(q, k_cache, v_cache, lengths, q_pos, *,
-                         softmax_scale: Optional[float] = None):
+                         softmax_scale: Optional[float] = None,
+                         local_window: Optional[int] = None):
     """Exact chunked-prefill attention oracle: C queries vs. a dense cache.
 
-    Each query at position p attends keys at positions <= p, in fp32.
-    O(C*S) per chunk.
+    Each query at position p attends keys at positions <= p (and, with
+    ``local_window``, above p - local_window), in fp32. O(C*S) per chunk.
     """
     B, Hq, C, D = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
@@ -320,6 +321,8 @@ def full_chunk_attention(q, k_cache, v_cache, lengths, q_pos, *,
     kp = torch.arange(S, device=q.device)
     ok = ((kp[None, None, :] <= q_pos[:, :, None])
           & (kp[None, None, :] < lengths[:, None, None]))
+    if local_window is not None:
+        ok = ok & (kp[None, None, :] > q_pos[:, :, None] - local_window)
     s = torch.where(ok[:, None, None], s, NEG_INF)  # (B,1,1,C,S) broadcast
     p = torch.softmax(s, dim=-1)
     has = ok.any(-1)[:, None, None]  # all-masked rows -> zeros

@@ -42,12 +42,26 @@
 //     products per pair (S = q·kᵀ; P·v with P split), dq 1 + 3 + 3 (S;
 //     dP = do·vᵀ with do split; dq += dS·k with dS split), dk/dv
 //     1 + 3 + 6 + 3 (Sᵀ = k·qᵀ; dPᵀ = v·doᵀ with do split; dv += aᵀ·do, both
-//     split; dk += dsᵀ·q with ds split). With fp32 q/k/v every operand is
-//     split.
+//     split; dk += dsᵀ·q with ds split). With fp32 q/k/v every operand of
+//     those output products is split, and the scores S and dP (below) run
+//     on CUDA cores.
 //   * One warp owns 16 rows outright (query rows in the forward and dq, key
 //     rows in dk/dv), so its softmax weights and its accumulators never leave
 //     its registers: no exchange between warps, and each output is written
 //     once. A block is four warps, 64 rows (all b rows when b < 64).
+//   * Above D = 128 (recurrentgemma's D = 256) a warp's accumulators over the
+//     whole D would not fit its 255 registers (o 128, dq 128, dk and dv 256
+//     a thread), so DS = D / 128 warps share each 16 rows: each owns 128
+//     columns of o / dq / dk / dv, and each computes the rows' scores (S,
+//     dP) over the whole D itself, from q in shared-memory planes (not
+//     registers). The DS warps run the same instructions on the same data,
+//     so their weights and stabilizers are the same bits, and no partial
+//     product crosses warps: no atomics, no exchange, results bitwise the
+//     same from run to run. The price is the score products done DS times
+//     (the forward 5 bf16 products a pair where 4 would do, dq 11 for 7,
+//     dk/dv 17 for 13). A bf16 block is 64 rows (eight warps, one block an
+//     SM); an fp32 one is 32 rows with 16-key (16-query) stages, the most
+//     whose split planes fit a block's shared memory.
 //   * Operands are staged in their own type by 16-byte cp.async copies into a
 //     two-slot ring: the next stage is in flight while the current one is
 //     computed. A bf16 operand lands in a tile that ldmatrix reads free of
@@ -67,14 +81,20 @@
 //     into A fragments in registers (as FlashAttention-2's backward) and
 //     never go through shared memory; dk and dv accumulate in registers over
 //     the whole pair list (128 of a thread's <= 255) and are written once.
-//   * Precision of the stabilizer. The tensor cores' fp32 accumulation is
-//     not rounded to nearest at each step, so the forward's scores (and dq's,
-//     which recompute the weights from the forward's mt) take each k-step's
-//     products from zero and add them in fp32. At fp32 inputs the
-//     reference's own fp32 rounding comes close to the 1e-5 that mt is held
-//     to, so there the forward recomputes the few scores near each stage's
-//     maximum with sequential fp32 FMAs over d, as a plain fp32 product sums
-//     them.
+//   * Precision of the scores. The tensor cores' fp32 accumulation is not
+//     rounded to nearest at each step, so the bf16 scores take each k-step's
+//     products from zero and add them in fp32. Above D = 128 (256 terms a
+//     score) that rounding comes close to the 1e-5 that mt is held to, so
+//     there the forward recomputes the few scores near each stage's maximum
+//     with sequential fp32 FMAs over d. fp32 inputs are the parity route:
+//     there every score S (and dP = do·vᵀ in the backward) is a sequential
+//     fp32 FMA sum over d, the order a plain fp32 product sums it in, so
+//     the weights exp(s − mt) and ds = a ⊙ (dP + dr) carry the reference's
+//     own rounding. Through the exponent an error in s scales the weight by
+//     e^err: at the logits of a saturated softmax (|s·scale| in the
+//     hundreds, recurrentgemma's MQA keys at its initialization) the
+//     truncating split products moved the row sums by 4e-3 and the
+//     gradients by 3e-3 (NVIDIA H100 80GB HBM3, 700 W).
 //   * A stage that holds no live score of the block's rows (an invalid pair,
 //     or the keys above every row of a diagonal block) is neither loaded nor
 //     computed: it would add exactly zero. In dq a warp also skips a stage
@@ -84,9 +104,9 @@
 //        -Xcompiler -fPIC -Xptxas=-v (repro_torch/kernels/build.py); plain C
 //        entry points, loaded with ctypes. All three kernels are
 //        instantiated for (head dim, block size) = (128, 128), (64, 64),
-//        (16, 16), (64, 128), (80, 128) and (64, 32), bf16 and fp32 (36
-//        kernels); the wrapper zero-pads a head dim to the next multiple of
-//        16 (exact for the products).
+//        (16, 16), (64, 128), (80, 128), (64, 32) and (256, 128), bf16 and
+//        fp32 (42 kernels); the wrapper zero-pads a head dim to the next
+//        multiple of 16 (exact for the products).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -281,17 +301,51 @@ struct FwdArgs {
   float scale;
 };
 
+// Warps that share one 16-row slab (D > 128): each owns D / DS columns of
+// the slab's accumulators (o, dq, dk and dv) and computes the slab's scores
+// over the whole D itself, so no partial product crosses warps.
+template <int D>
+__host__ __device__ constexpr int col_split() { return D > 128 ? D / 128 : 1; }
+
+// Rows a block (query rows of the forward and dq, key rows of dk/dv): 64,
+// or all b when b < 64; 32 for fp32 inputs at D > 128, where the split
+// planes of 64 rows would not fit a block's shared memory.
+template <typename T, int D, int BS>
+__host__ __device__ constexpr int block_rows() {
+  return col_split<D>() > 1 && Terms<T>::n > 1 ? 32 : cmin(64, BS);
+}
+
+// Keys a stage of the forward (FWD) or dq: 64 in bf16, 32 in fp32, and at
+// D > 128 what shared memory holds beside the q and do planes.
+template <typename T, int D, int BS, bool FWD>
+__host__ __device__ constexpr int stage_keys_of() {
+  return col_split<D>() == 1 ? cmin(Terms<T>::n == 1 ? 64 : 32, BS)
+         : Terms<T>::n > 1   ? 16
+         : FWD               ? 64
+                             : 32;
+}
+
+// Blocks an SM the launch bounds ask for: two of up to 128 threads (255
+// registers a thread), one of 256 threads (a two-block bound would cap a
+// thread at 128 registers)
+__host__ __device__ constexpr int min_blocks(int threads) {
+  return threads > 128 ? 1 : 2;
+}
+
 // Tile geometry of the kernels that walk a query tile's pairs over K/V
 // stages (forward and dq); FwdGeo / DqGeo add their own shared memory, and
 // the wrapper's kernel_plan() mirrors them.
-template <typename T, int D, int BS>
+template <typename T, int D, int BS, int KT_>
 struct QueryGeo {
   static constexpr int NI = Terms<T>::n;                  // terms of q, k, v
-  static constexpr int QR = cmin(64, BS);                 // query rows a block
-  static constexpr int NW = QR / 16;                      // warps, 16 rows each
+  static constexpr int DS = col_split<D>();               // warps a 16-row slab
+  static constexpr int DW = D / DS;                       // columns a warp owns
+  static constexpr bool QREG = DS == 1;                   // q fragments in registers
+  static constexpr int QR = block_rows<T, D, BS>();       // query rows a block
+  static constexpr int NW = QR / 16 * DS;                 // warps
   static constexpr int NT = 32 * NW;                      // threads
   static constexpr int SUB = BS / QR;                     // blocks a query tile
-  static constexpr int KT = cmin(NI == 1 ? 64 : 32, BS);  // keys a stage
+  static constexpr int KT = KT_;                          // keys a stage
   static constexpr int SPP = BS / KT;                     // stages a pair
   static constexpr int RB = PlaneRow<D>::BYTES;           // bytes of a plane row
   static constexpr int RAW = D * (int)sizeof(T);          // bytes of an input row
@@ -299,16 +353,21 @@ struct QueryGeo {
   static constexpr int PLANE = KT * RB;
   static constexpr int SLOT = (int)align16(2 * KT * SROW + KT * 4);  // k, v, mask
   static constexpr int PLANES = NI > 1 ? 2 * NI * PLANE : 0;        // split k, v
-  static_assert(D % 16 == 0 && BS % 16 == 0 && BS % QR == 0 && BS % KT == 0,
+  static constexpr int RPLANE = QR * RB;  // a plane of the block's rows
+  static_assert(D % 16 == 0 && BS % 16 == 0 && BS % QR == 0 && BS % KT == 0 &&
+                    DW % 16 == 0,
                 "tile shapes");
 };
 
+// shared memory: the K/V ring, split k and v (fp32), the fp32 q rows
+// (fp32), then the q planes when q is not held in registers (D > 128)
 template <typename T, int D, int BS>
-struct FwdGeo : QueryGeo<T, D, BS> {
-  using G = QueryGeo<T, D, BS>;
+struct FwdGeo : QueryGeo<T, D, BS, stage_keys_of<T, D, BS, true>()> {
+  using G = QueryGeo<T, D, BS, stage_keys_of<T, D, BS, true>()>;
   static constexpr int QROW = D * 4 + 16;  // padded fp32 row of the q tile
   static constexpr int QTILE = G::NI > 1 ? G::QR * QROW : 0;  // fp32 q (recompute)
-  static constexpr int SMEM = 2 * G::SLOT + G::PLANES + QTILE;
+  static constexpr int QP = G::QREG ? 0 : G::NI * G::RPLANE;  // q planes
+  static constexpr int SMEM = 2 * G::SLOT + G::PLANES + QTILE + QP;
 };
 
 // a stage of a query tile's pair list with no live score of the block's
@@ -348,12 +407,58 @@ __device__ __forceinline__ float dot_rows(const float* a, const float* b) {
   return s;
 }
 
+// S[n], S[n + 1] += q·kᵀ of one 16-wide k-step ks (the forward's scores):
+// the k-step's products summed from zero, then added in fp32
+template <int NI, int D>
+__device__ __forceinline__ void score_kstep(float (*s)[4], const uint32_t (&qa)[NI][4],
+                                            uint32_t kp_s, int plane, int n, int ks,
+                                            int lane) {
+  float t[2][4] = {};
+#pragma unroll
+  for (int j = NI - 1; j >= 0; --j) {
+    uint32_t b[4];
+    ldb<D>(b, kp_s + j * plane, n * 8, ks * 16, lane);
+    mma_plane<NI>(t[0], qa, b, j, 0);
+    mma_plane<NI>(t[1], qa, b, j, 1);
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    s[n][e] += t[0][e];
+    s[n + 1][e] += t[1][e];
+  }
+}
+
+// The same from rows qr and kr of two bf16 planes: the bf16 products are
+// exact in fp32, so this sums what a plain fp32 product of the bf16 inputs
+// sums, in ascending d.
+__device__ __forceinline__ float bf_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+template <int D>
+__device__ __forceinline__ float dot_planes(const unsigned char* qp, int qr,
+                                            const unsigned char* kp, int kr) {
+  using P = PlaneRow<D>;
+  float s = 0.f;
+#pragma unroll 4
+  for (int ch = 0; ch < D / 8; ++ch) {
+    const uint4 x = *reinterpret_cast<const uint4*>(qp + P::at(qr, ch));
+    const uint4 y = *reinterpret_cast<const uint4*>(kp + P::at(kr, ch));
+    const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      s = fmaf(bf_lo(xs[w]), bf_lo(ys[w]), s);
+      s = fmaf(bf_hi(xs[w]), bf_hi(ys[w]), s);
+    }
+  }
+  return s;
+}
+
 template <typename T, int D, int BS>
-__global__ void __launch_bounds__(FwdGeo<T, D, BS>::NT, 2)
+__global__ void __launch_bounds__(FwdGeo<T, D, BS>::NT, min_blocks(FwdGeo<T, D, BS>::NT))
 bsa_fwd_kernel(const FwdArgs p) {
   using Gm = FwdGeo<T, D, BS>;
   constexpr int NI = Gm::NI, KT = Gm::KT, SPP = Gm::SPP;
-  constexpr int NTK = KT / 8, NTD = D / 8, KSD = D / 16;
+  constexpr int NTK = KT / 8, NTD = Gm::DW / 8, KSD = D / 16;
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -361,16 +466,29 @@ bsa_fwd_kernel(const FwdArgs p) {
   const int tile = p.order[blockIdx.x / Gm::SUB], sub = blockIdx.x % Gm::SUB;
   const int bhg = tile / nb, xb = tile - bhg * nb, kvh = bhg / p.G;
   const int rblk = sub * Gm::QR;    // the block's first row in the query block
-  const int r0 = rblk + warp * 16;  // the warp's
+  const int wr = warp / Gm::DS * 16;  // the warp's first row in the block
+  const int r0 = rblk + wr;           // ... in the query block
+  const int c0 = warp % Gm::DS * Gm::DW;  // the warp's first column of o
   const size_t qbase = (size_t)bhg * p.n + (size_t)xb * BS;
 
-  uint32_t qf[KSD][NI][4];  // the warp's 16 query rows, split into NI terms
+  // bf16 q, the scores' A operand: the warp's 16 rows in registers, or (D >
+  // 128) a plane of the block's rows read a k-step at a time
+  constexpr bool QREG = NI == 1 && Gm::QREG;
+  uint32_t qf[QREG ? KSD : 1][1][4];
+  unsigned char* qpl = smem + 2 * Gm::SLOT + Gm::PLANES + Gm::QTILE;
+  if constexpr (QREG) {
 #pragma unroll
-  for (int ks = 0; ks < KSD; ++ks)
-    row_frag<T, D>(static_cast<const T*>(p.q) + (qbase + r0) * D, ks * 16, g, t,
-                   qf[ks]);
+    for (int ks = 0; ks < KSD; ++ks)
+      row_frag<T, D>(static_cast<const T*>(p.q) + (qbase + r0) * D, ks * 16, g,
+                     t, qf[ks]);
+  } else if constexpr (NI == 1) {
+    stage<Gm::RAW, true, Gm::NT, Gm::QR>(
+        qpl, static_cast<const T*>(p.q) + (qbase + rblk) * D);
+    cp_commit();
+  }
+  const uint32_t qpl_s = smem_addr(qpl);
 
-  // fp32 inputs: the block's q rows in fp32, for the winning scores
+  // fp32 inputs: the block's q rows in fp32, the scores' q
   float* qtile = reinterpret_cast<float*>(smem + 2 * Gm::SLOT + Gm::PLANES);
   if constexpr (NI > 1) {
     const float* qsrc = static_cast<const float*>(p.q) + (qbase + rblk) * D;
@@ -412,44 +530,57 @@ bsa_fwd_kernel(const FwdArgs p) {
     const unsigned char* kp = slot;
     const unsigned char* vp = slot + KT * Gm::SROW;
     const int* kms = reinterpret_cast<const int*>(slot + 2 * KT * Gm::SROW);
-    if constexpr (NI > 1) {
+    if constexpr (NI > 1) {  // v split for P·v (the scores read raw k)
       unsigned char* planes = smem + 2 * Gm::SLOT;
-      split_rows<D, Gm::NT>(planes, Gm::PLANE, reinterpret_cast<const float*>(kp), KT);
       split_rows<D, Gm::NT>(planes + NI * Gm::PLANE, Gm::PLANE,
                             reinterpret_cast<const float*>(vp), KT);
       __syncthreads();
-      kp = planes;
       vp = planes + NI * Gm::PLANE;
     }
     const uint32_t kp_s = smem_addr(kp), vp_s = smem_addr(vp);
 
-    // S = q·kᵀ for the warp's 16 rows x KT keys. The tensor cores' fp32
-    // accumulation does not round to nearest at each step, so each k-step's
-    // products are summed from zero and added in fp32: a long mma chain errs
-    // more, and these scores set the stabilizer mt (held to 1e-5 absolute).
+    // S = q·kᵀ for the warp's 16 rows x KT keys. fp32 inputs: every score
+    // with sequential fp32 FMAs over d, the order a plain fp32 product sums
+    // them (see the note at the top). bf16 inputs on tensor cores, whose
+    // fp32 accumulation does not round to nearest at each step: each
+    // k-step's products are summed from zero and added in fp32 (a long mma
+    // chain errs more, and these scores set the stabilizer mt, held to 1e-5
+    // absolute).
     float s[NTK][4];
 #pragma unroll
     for (int n = 0; n < NTK; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    if constexpr (NI > 1) {
 #pragma unroll
-    for (int n = 0; n < NTK; n += 2)
+      for (int h = 0; h < 2; ++h) {
+        const float* qr = reinterpret_cast<const float*>(
+            reinterpret_cast<const unsigned char*>(qtile) + (wr + g + 8 * h) * Gm::QROW);
 #pragma unroll
-      for (int ks = 0; ks < KSD; ++ks) {
-        float t[2][4] = {};
+        for (int n = 0; n < NTK; ++n)
 #pragma unroll
-        for (int j = NI - 1; j >= 0; --j) {
-          uint32_t b[4];
-          ldb<D>(b, kp_s + j * Gm::PLANE, n * 8, ks * 16, lane);
-          mma_plane<NI>(t[0], qf[ks], b, j, 0);
-          mma_plane<NI>(t[1], qf[ks], b, j, 1);
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[n][e] += t[0][e];
-          s[n + 1][e] += t[1][e];
-        }
+          for (int e = 0; e < 2; ++e)
+            s[n][2 * h + e] = dot_rows<D>(
+                qr, reinterpret_cast<const float*>(slot) + (size_t)(n * 8 + 2 * t + e) * D);
       }
+    } else if constexpr (QREG) {
+#pragma unroll
+      for (int n = 0; n < NTK; n += 2)
+#pragma unroll
+        for (int ks = 0; ks < KSD; ++ks)
+          score_kstep<1, D>(s, qf[ks], kp_s, Gm::PLANE, n, ks, lane);
+    } else {
+      // q in shared memory (D > 128): four k-steps unrolled; fully
+      // unrolled, the q and k loads the scheduler hoists spill
+#pragma unroll
+      for (int n = 0; n < NTK; n += 2)
+#pragma unroll 4
+        for (int ks = 0; ks < KSD; ++ks) {
+          uint32_t qa[1][4];
+          lda<D>(qa[0], qpl_s, wr, ks * 16, lane);
+          score_kstep<1, D>(s, qa, kp_s, Gm::PLANE, n, ks, lane);
+        }
+    }
 
     // mask, online rescale: raise the running max, shrink the accumulators,
     // then add this stage at the new stabilizer
@@ -469,26 +600,30 @@ bsa_fwd_kernel(const FwdArgs p) {
           mx = fmaxf(mx, sv);
         }
       mx = quad_max(mx);
-      if constexpr (NI > 1) {
-        // fp32 inputs: the reference's own fp32 rounding of a score reaches
-        // the stabilizer's 1e-5 tolerance, so the scores within a margin of
-        // the stage's maximum (far above the tensor cores' error) are
-        // recomputed with sequential fp32 FMAs over d, and the largest of
-        // them is the stage's maximum
-        const float thr = mx - 1e-5f * (1.f + fabsf(mx));
+      if constexpr (NI == 1 && !Gm::QREG) {
+        // bf16 inputs above D = 128 (256 terms a score): the tensor cores'
+        // rounding of a score reaches the stabilizer's 1e-5 tolerance, so
+        // the scores within a margin of the stage's maximum (far above the
+        // tensor cores' error) are recomputed with sequential fp32 FMAs over
+        // d, and the largest of them is the stage's maximum. A stage whose
+        // maximum stays below the running one by the margin cannot raise
+        // it (the exact scores lie within the margin of these), so it
+        // skips the recompute: the same stabilizer, bit for bit.
+        const float margin = 1e-5f * (1.f + fabsf(mx));
+        const float thr = mx - margin;
         float best = kNegInf;
+        const bool raise = mx >= mrow[h] - margin;  // quad-uniform
+        if (raise) {
 #pragma unroll
-        for (int n = 0; n < NTK; ++n)
+          for (int n = 0; n < NTK; ++n)
 #pragma unroll
-          for (int e = 0; e < 2; ++e)
-            if (s[n][2 * h + e] >= thr) {
-              const float* kr = reinterpret_cast<const float*>(slot) +
-                                (size_t)(n * 8 + 2 * t + e) * D;
-              best = fmaxf(best, dot_rows<D>(reinterpret_cast<const float*>(
-                  reinterpret_cast<const unsigned char*>(qtile) +
-                  (qi - rblk) * Gm::QROW), kr) * p.scale);
-            }
-        mx = quad_max(best);
+            for (int e = 0; e < 2; ++e)
+              if (s[n][2 * h + e] >= thr)
+                best = fmaxf(best, dot_planes<D>(qpl, qi - rblk, kp, n * 8 + 2 * t + e) *
+                                       p.scale);
+        }
+        best = quad_max(best);  // every lane: the shuffle takes the warp
+        if (raise) mx = best;
       }
       const float m_new = fmaxf(mrow[h], mx);
       const float alpha = expf(mrow[h] - m_new);
@@ -521,7 +656,7 @@ bsa_fwd_kernel(const FwdArgs p) {
 #pragma unroll
         for (int j = NI - 1; j >= 0; --j) {
           uint32_t b[4];
-          ldbt<D>(b, vp_s + j * Gm::PLANE, kk * 16, nd * 8, lane);
+          ldbt<D>(b, vp_s + j * Gm::PLANE, kk * 16, c0 + nd * 8, lane);
           mma_plane<3>(o[nd], pa, b, j, 0);
           mma_plane<3>(o[nd + 1], pa, b, j, 1);
         }
@@ -532,11 +667,11 @@ bsa_fwd_kernel(const FwdArgs p) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const size_t row = qbase + r0 + g + 8 * h;
-    float* orow = p.out + row * D + 2 * t;
+    float* orow = p.out + row * D + c0 + 2 * t;
 #pragma unroll
     for (int nd = 0; nd < NTD; ++nd)
       *reinterpret_cast<float2*>(orow + nd * 8) = make_float2(o[nd][2 * h], o[nd][2 * h + 1]);
-    if (t == 0) {
+    if (t == 0 && c0 == 0) {
       p.rowsum[row] = lrow[h];
       p.mt[row] = mrow[h];
     }
@@ -571,11 +706,14 @@ struct DkvArgs {
 template <typename T, int D, int BS>
 struct DkvGeo {
   static constexpr int NI = Terms<T>::n;            // terms of q, k, v
-  static constexpr int KR = cmin(64, BS);           // key rows a block
-  static constexpr int NW = KR / 16;                // warps, 16 rows each
+  static constexpr int DS = col_split<D>();         // warps a 16-row slab
+  static constexpr int DW = D / DS;                 // columns a warp owns
+  static constexpr int KR = block_rows<T, D, BS>(); // key rows a block
+  static constexpr int NW = KR / 16 * DS;           // warps
   static constexpr int NT = 32 * NW;                // threads
   static constexpr int SUB = BS / KR;               // blocks a key tile
-  static constexpr int QT = cmin(32, BS);           // queries a stage
+  // queries a stage (16 for fp32 at D > 128: shared memory)
+  static constexpr int QT = DS > 1 && NI > 1 ? 16 : cmin(32, BS);
   static constexpr int SPP = BS / QT;               // stages a pair
   static constexpr int RB = PlaneRow<D>::BYTES;     // bytes of a plane row
   static constexpr int RAW = D * (int)sizeof(T);    // bytes of an input row
@@ -590,16 +728,17 @@ struct DkvGeo {
   static constexpr int DOP = 3 * QPLANE;            // split do
   static constexpr int QP = NI > 1 ? NI * QPLANE : 0;  // split q (fp32 input)
   static constexpr int SMEM = KV + RING + DOP + QP;
-  static_assert(D % 16 == 0 && BS % 16 == 0 && BS % KR == 0 && BS % QT == 0,
+  static_assert(D % 16 == 0 && BS % 16 == 0 && BS % KR == 0 && BS % QT == 0 &&
+                    DW % 16 == 0,
                 "tile shapes");
 };
 
 template <typename T, int D, int BS>
-__global__ void __launch_bounds__(DkvGeo<T, D, BS>::NT, 2)
+__global__ void __launch_bounds__(DkvGeo<T, D, BS>::NT, min_blocks(DkvGeo<T, D, BS>::NT))
 bsa_bwd_dkv_kernel(const DkvArgs p) {
   using Gm = DkvGeo<T, D, BS>;
   constexpr int NI = Gm::NI, QT = Gm::QT, SPP = Gm::SPP, KR = Gm::KR;
-  constexpr int NTD = D / 8, KSD = D / 16;
+  constexpr int NTD = Gm::DW / 8, KSD = D / 16;
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* kvp = smem;
   unsigned char* ring = smem + Gm::KV;
@@ -611,27 +750,18 @@ bsa_bwd_dkv_kernel(const DkvArgs p) {
   const int tile = p.order[blockIdx.x / Gm::SUB], sub = blockIdx.x % Gm::SUB;
   const int kvh = tile / nb, yb = tile - kvh * nb;
   const int kr0 = sub * KR;     // the block's first row in the key block
-  const int wr = warp * 16;     // the warp's first row in the block
+  const int wr = warp / Gm::DS * 16;      // the warp's first row in the block
+  const int c0 = warp % Gm::DS * Gm::DW;  // its first column of dk and dv
   const size_t kbase = (size_t)kvh * p.n + (size_t)yb * BS + kr0;
   const T* qg = static_cast<const T*>(p.q);
 
-  // the block's k and v rows, once
+  // the block's k and v rows, once, as planes (bf16); fp32 scores read the
+  // warp's own rows from device memory
   if constexpr (NI == 1) {
     stage<Gm::RAW, true, Gm::NT, KR>(kvp, static_cast<const T*>(p.k) + kbase * D);
     stage<Gm::RAW, true, Gm::NT, KR>(kvp + KR * Gm::RB,
                                     static_cast<const T*>(p.v) + kbase * D);
     // committed with the first stage's group below
-  } else {
-    stage<Gm::RAW, false, Gm::NT, KR>(ring, static_cast<const T*>(p.k) + kbase * D);
-    stage<Gm::RAW, false, Gm::NT, KR>(ring + KR * Gm::RAW,
-                                      static_cast<const T*>(p.v) + kbase * D);
-    cp_commit();
-    cp_wait_all();
-    __syncthreads();
-    split_rows<D, Gm::NT>(kvp, KR * Gm::RB, reinterpret_cast<const float*>(ring), KR);
-    split_rows<D, Gm::NT>(kvp + NI * KR * Gm::RB, KR * Gm::RB,
-                          reinterpret_cast<const float*>(ring + KR * Gm::RAW), KR);
-    __syncthreads();  // the ring is free
   }
   bool kok[2];
 #pragma unroll
@@ -672,6 +802,8 @@ bsa_bwd_dkv_kernel(const DkvArgs p) {
     if (!live(st)) continue;  // block-uniform
     const unsigned char* slot = ring + (st & 1) * Gm::SLOT;
     const unsigned char* qs = slot;
+    const float* qraw = reinterpret_cast<const float*>(slot);  // fp32 q rows
+    const float* doraw = reinterpret_cast<const float*>(slot + QT * Gm::SROW);
     const float* mts = reinterpret_cast<const float*>(slot + QT * (Gm::SROW + Gm::RBF));
     const float* drs = mts + QT;
     split_rows<D, Gm::NT>(dop, Gm::QPLANE,
@@ -693,27 +825,47 @@ bsa_bwd_dkv_kernel(const DkvArgs p) {
       for (int n = 0; n < 2; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-      // four k-steps unrolled: fully unrolled, the loads the scheduler
-      // hoists push the kernel past 255 registers and it spills
+      if constexpr (NI > 1) {
+        // fp32 inputs: Sᵀ and dPᵀ with sequential fp32 FMAs over d, the
+        // order of a plain fp32 product (the note at the top); one key row
+        // at a time beside dk and dv's 128 registers
+#pragma unroll 1
+        for (int h = 0; h < 2; ++h) {
+          const size_t row = (kbase + wr + g + 8 * h) * D;
+          const float* kr = static_cast<const float*>(p.k) + row;
+          const float* vr = static_cast<const float*>(p.v) + row;
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const size_t col = (size_t)(kk * 16 + n * 8 + 2 * t + e) * D;
+              s[n][2 * h + e] = dot_rows<D>(kr, qraw + col);
+              dp[n][2 * h + e] = dot_rows<D>(vr, doraw + col);
+            }
+        }
+      } else {
+        // four k-steps unrolled: fully unrolled, the loads the scheduler
+        // hoists push the kernel past 255 registers and it spills
 #pragma unroll 4
-      for (int ks = 0; ks < KSD; ++ks) {
-        uint32_t ak[NI][4], av[NI][4], b[4];
+        for (int ks = 0; ks < KSD; ++ks) {
+          uint32_t ak[NI][4], av[NI][4], b[4];
 #pragma unroll
-        for (int i = 0; i < NI; ++i) {
-          lda<D>(ak[i], kv_s + i * KR * Gm::RB, wr, ks * 16, lane);
-          lda<D>(av[i], kv_s + (NI + i) * KR * Gm::RB, wr, ks * 16, lane);
-        }
+          for (int i = 0; i < NI; ++i) {
+            lda<D>(ak[i], kv_s + i * KR * Gm::RB, wr, ks * 16, lane);
+            lda<D>(av[i], kv_s + (NI + i) * KR * Gm::RB, wr, ks * 16, lane);
+          }
 #pragma unroll
-        for (int j = NI - 1; j >= 0; --j) {
-          ldb<D>(b, qs_s + j * Gm::QPLANE, kk * 16, ks * 16, lane);
-          mma_plane<NI>(s[0], ak, b, j, 0);
-          mma_plane<NI>(s[1], ak, b, j, 1);
-        }
+          for (int j = NI - 1; j >= 0; --j) {
+            ldb<D>(b, qs_s + j * Gm::QPLANE, kk * 16, ks * 16, lane);
+            mma_plane<NI>(s[0], ak, b, j, 0);
+            mma_plane<NI>(s[1], ak, b, j, 1);
+          }
 #pragma unroll
-        for (int j = 2; j >= 0; --j) {
-          ldb<D>(b, dop_s + j * Gm::QPLANE, kk * 16, ks * 16, lane);
-          mma_plane<NI>(dp[0], av, b, j, 0);
-          mma_plane<NI>(dp[1], av, b, j, 1);
+          for (int j = 2; j >= 0; --j) {
+            ldb<D>(b, dop_s + j * Gm::QPLANE, kk * 16, ks * 16, lane);
+            mma_plane<NI>(dp[0], av, b, j, 0);
+            mma_plane<NI>(dp[1], av, b, j, 1);
+          }
         }
       }
 
@@ -742,7 +894,7 @@ bsa_bwd_dkv_kernel(const DkvArgs p) {
 #pragma unroll
         for (int j = 2; j >= 0; --j) {
           uint32_t b[4];
-          ldbt<D>(b, dop_s + j * Gm::QPLANE, kk * 16, nd * 8, lane);
+          ldbt<D>(b, dop_s + j * Gm::QPLANE, kk * 16, c0 + nd * 8, lane);
           mma_plane<3>(dv[nd], pa, b, j, 0);
           mma_plane<3>(dv[nd + 1], pa, b, j, 1);
         }
@@ -753,7 +905,7 @@ bsa_bwd_dkv_kernel(const DkvArgs p) {
 #pragma unroll
         for (int j = NI - 1; j >= 0; --j) {
           uint32_t b[4];
-          ldbt<D>(b, qs_s + j * Gm::QPLANE, kk * 16, nd * 8, lane);
+          ldbt<D>(b, qs_s + j * Gm::QPLANE, kk * 16, c0 + nd * 8, lane);
           mma_plane<3>(dk[nd], pa, b, j, 0);
           mma_plane<3>(dk[nd + 1], pa, b, j, 1);
         }
@@ -767,7 +919,7 @@ bsa_bwd_dkv_kernel(const DkvArgs p) {
     const size_t row = kbase + wr + g + 8 * h;
 #pragma unroll
     for (int nd = 0; nd < NTD; ++nd) {
-      const size_t i = row * D + nd * 8 + 2 * t;
+      const size_t i = row * D + c0 + nd * 8 + 2 * t;
       *reinterpret_cast<float2*>(p.dk + i) =
           make_float2(dk[nd][2 * h] * p.scale, dk[nd][2 * h + 1] * p.scale);
       *reinterpret_cast<float2*>(p.dv + i) = make_float2(dv[nd][2 * h], dv[nd][2 * h + 1]);
@@ -797,22 +949,21 @@ struct DqArgs {
 };
 
 // shared memory: the K/V ring, split k and v (fp32), then three planes of
-// split do and NI of split q (fp32)
+// split do and NI of q (split fp32, or bf16 when not held in registers)
 template <typename T, int D, int BS>
-struct DqGeo : QueryGeo<T, D, BS> {
-  using G = QueryGeo<T, D, BS>;
-  static constexpr int RPLANE = G::QR * G::RB;  // a plane of the block's rows
-  static constexpr int DOP = 3 * RPLANE;
-  static constexpr int QP = G::NI > 1 ? G::NI * RPLANE : 0;
+struct DqGeo : QueryGeo<T, D, BS, stage_keys_of<T, D, BS, false>()> {
+  using G = QueryGeo<T, D, BS, stage_keys_of<T, D, BS, false>()>;
+  static constexpr int DOP = 3 * G::RPLANE;
+  static constexpr int QP = G::NI > 1 || !G::QREG ? G::NI * G::RPLANE : 0;
   static constexpr int SMEM = 2 * G::SLOT + G::PLANES + DOP + QP;
 };
 
 template <typename T, int D, int BS>
-__global__ void __launch_bounds__(DqGeo<T, D, BS>::NT, 2)
+__global__ void __launch_bounds__(DqGeo<T, D, BS>::NT, min_blocks(DqGeo<T, D, BS>::NT))
 bsa_bwd_dq_kernel(const DqArgs p) {
   using Gm = DqGeo<T, D, BS>;
   constexpr int NI = Gm::NI, KT = Gm::KT, SPP = Gm::SPP;
-  constexpr int NTK = KT / 8, NTD = D / 8, KSD = D / 16;
+  constexpr int NTK = KT / 8, NTD = Gm::DW / 8, KSD = D / 16;
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* dop = smem + 2 * Gm::SLOT + Gm::PLANES;
   unsigned char* qpl = dop + Gm::DOP;
@@ -822,8 +973,9 @@ bsa_bwd_dq_kernel(const DqArgs p) {
   const int tile = p.order[blockIdx.x / Gm::SUB], sub = blockIdx.x % Gm::SUB;
   const int bhg = tile / nb, xb = tile - bhg * nb, kvh = bhg / p.G;
   const int rblk = sub * Gm::QR;    // the block's first row in the query block
-  const int wr = warp * 16;         // the warp's first row in the block
-  const int r0 = rblk + wr;         // ... in the query block
+  const int wr = warp / Gm::DS * 16;      // the warp's first row in the block
+  const int r0 = rblk + wr;               // ... in the query block
+  const int c0 = warp % Gm::DS * Gm::DW;  // the warp's first column of dq
   const size_t qbase = (size_t)bhg * p.n + (size_t)xb * BS + rblk;
 
   const int p0 = p.row_ptr[(size_t)bhg * (nb + 1) + xb];
@@ -843,23 +995,26 @@ bsa_bwd_dq_kernel(const DqArgs p) {
   for (int nd = 0; nd < NTD; ++nd)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dq[nd][e] = 0.f;
-  // bf16 q: the warp's fragments stay in registers; fp32 q is split once
-  // into three planes (as do), so its 96 registers of terms are not held
-  uint32_t qf[NI == 1 ? KSD : 1][1][4];
+  // bf16 q: the warp's fragments stay in registers (up to D = 128; above,
+  // one bf16 plane of the block's rows), and do is split once into three
+  // planes; fp32 scores and dP read the raw q and do rows
+  constexpr bool QREG = NI == 1 && Gm::QREG;
+  uint32_t qf[QREG ? KSD : 1][1][4];
   float mtr[2], drr[2];
   if (nst > 0) {
     if (live(0)) load(0, 0);
     cp_commit();
-    if constexpr (NI == 1) {
+    if constexpr (QREG) {
 #pragma unroll
       for (int ks = 0; ks < KSD; ++ks)
         row_frag<T, D>(static_cast<const T*>(p.q) + (qbase + wr) * D, ks * 16, g,
                        t, qf[ks]);
-    } else {
-      split_rows<D, Gm::NT>(qpl, Gm::RPLANE,
-                            static_cast<const float*>(p.q) + qbase * D, Gm::QR);
+    } else if constexpr (NI == 1) {
+      stage<Gm::RAW, true, Gm::NT, Gm::QR>(qpl, static_cast<const T*>(p.q) + qbase * D);
+      cp_commit();
     }
-    split_rows<D, Gm::NT>(dop, Gm::RPLANE, p.dout + qbase * D, Gm::QR);
+    if constexpr (NI == 1)
+      split_rows<D, Gm::NT>(dop, Gm::RPLANE, p.dout + qbase * D, Gm::QR);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const size_t row = qbase + wr + g + 8 * h;
@@ -879,14 +1034,13 @@ bsa_bwd_dq_kernel(const DqArgs p) {
     const unsigned char* kp = slot;
     const unsigned char* vp = slot + KT * Gm::SROW;
     const int* kms = reinterpret_cast<const int*>(slot + 2 * KT * Gm::SROW);
-    if constexpr (NI > 1) {
+    const float* kraw = reinterpret_cast<const float*>(kp);  // fp32 rows
+    const float* vraw = reinterpret_cast<const float*>(vp);
+    if constexpr (NI > 1) {  // k split for dq += dS·k (S and dP read raw rows)
       unsigned char* planes = smem + 2 * Gm::SLOT;
-      split_rows<D, Gm::NT>(planes, Gm::PLANE, reinterpret_cast<const float*>(kp), KT);
-      split_rows<D, Gm::NT>(planes + NI * Gm::PLANE, Gm::PLANE,
-                            reinterpret_cast<const float*>(vp), KT);
+      split_rows<D, Gm::NT>(planes, Gm::PLANE, kraw, KT);
       __syncthreads();
       kp = planes;
-      vp = planes + NI * Gm::PLANE;
     }
     const uint32_t kp_s = smem_addr(kp), vp_s = smem_addr(vp);
     const int fl = flr[p0 + st / SPP], k0 = (st % SPP) * KT;
@@ -895,49 +1049,69 @@ bsa_bwd_dq_kernel(const DqArgs p) {
     // the warp
     if ((fl & 2) && r0 + 15 < k0) continue;
 
-    // S = q·kᵀ and dP = do·vᵀ for the warp's 16 rows x KT keys
+    // S = q·kᵀ and dP = do·vᵀ for the warp's 16 rows x KT keys: fp32 inputs
+    // with sequential fp32 FMAs over d (the order of a plain fp32 product),
+    // bf16 ones on tensor cores
     float s[NTK][4], dp[NTK][4];
 #pragma unroll
     for (int n = 0; n < NTK; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    if constexpr (NI > 1) {
 #pragma unroll
-    for (int ks = 0; ks < KSD; ++ks) {
-      uint32_t qa[NI][4], da[3][4];
-      if constexpr (NI == 1) {
+      for (int h = 0; h < 2; ++h) {
+        const size_t row = (qbase + wr + g + 8 * h) * D;
+        const float* qr = static_cast<const float*>(p.q) + row;
+        const float* dor = p.dout + row;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) qa[0][e] = qf[ks][0][e];
-      } else {
+        for (int n = 0; n < NTK; ++n)
 #pragma unroll
-        for (int i = 0; i < NI; ++i)
-          lda<D>(qa[i], qpl_s + i * Gm::RPLANE, wr, ks * 16, lane);
+          for (int e = 0; e < 2; ++e) {
+            const size_t j = (size_t)(n * 8 + 2 * t + e) * D;
+            s[n][2 * h + e] = dot_rows<D>(qr, kraw + j);
+            dp[n][2 * h + e] = dot_rows<D>(dor, vraw + j);
+          }
       }
+    } else {
+      // four k-steps unrolled above D = 128 (as in the forward)
+#pragma unroll (DqGeo<T, D, BS>::QREG ? D / 16 : 4)
+      for (int ks = 0; ks < KSD; ++ks) {
+        uint32_t qa[NI][4], da[3][4];
+        if constexpr (QREG) {
 #pragma unroll
-      for (int i = 0; i < 3; ++i)
-        lda<D>(da[i], dop_s + i * Gm::RPLANE, wr, ks * 16, lane);
+          for (int e = 0; e < 4; ++e) qa[0][e] = qf[ks][0][e];
+        } else {
 #pragma unroll
-      for (int n = 0; n < NTK; n += 2) {
-        // the scores' products from zero at each k-step, added in fp32 (as
-        // the forward's, which set mt)
-        float tt[2][4] = {};
-#pragma unroll
-        for (int j = NI - 1; j >= 0; --j) {
-          uint32_t b[4];
-          ldb<D>(b, kp_s + j * Gm::PLANE, n * 8, ks * 16, lane);
-          mma_plane<NI>(tt[0], qa, b, j, 0);
-          mma_plane<NI>(tt[1], qa, b, j, 1);
+          for (int i = 0; i < NI; ++i)
+            lda<D>(qa[i], qpl_s + i * Gm::RPLANE, wr, ks * 16, lane);
         }
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[n][e] += tt[0][e];
-          s[n + 1][e] += tt[1][e];
-        }
+        for (int i = 0; i < 3; ++i)
+          lda<D>(da[i], dop_s + i * Gm::RPLANE, wr, ks * 16, lane);
 #pragma unroll
-        for (int j = NI - 1; j >= 0; --j) {
-          uint32_t b[4];
-          ldb<D>(b, vp_s + j * Gm::PLANE, n * 8, ks * 16, lane);
-          mma_plane<3>(dp[n], da, b, j, 0);
-          mma_plane<3>(dp[n + 1], da, b, j, 1);
+        for (int n = 0; n < NTK; n += 2) {
+          // the scores' products from zero at each k-step, added in fp32 (as
+          // the forward's, which set mt)
+          float tt[2][4] = {};
+#pragma unroll
+          for (int j = NI - 1; j >= 0; --j) {
+            uint32_t b[4];
+            ldb<D>(b, kp_s + j * Gm::PLANE, n * 8, ks * 16, lane);
+            mma_plane<NI>(tt[0], qa, b, j, 0);
+            mma_plane<NI>(tt[1], qa, b, j, 1);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[n][e] += tt[0][e];
+            s[n + 1][e] += tt[1][e];
+          }
+#pragma unroll
+          for (int j = NI - 1; j >= 0; --j) {
+            uint32_t b[4];
+            ldb<D>(b, vp_s + j * Gm::PLANE, n * 8, ks * 16, lane);
+            mma_plane<3>(dp[n], da, b, j, 0);
+            mma_plane<3>(dp[n + 1], da, b, j, 1);
+          }
         }
       }
     }
@@ -969,7 +1143,7 @@ bsa_bwd_dq_kernel(const DqArgs p) {
 #pragma unroll
         for (int j = NI - 1; j >= 0; --j) {
           uint32_t b[4];
-          ldbt<D>(b, kp_s + j * Gm::PLANE, kk * 16, nd * 8, lane);
+          ldbt<D>(b, kp_s + j * Gm::PLANE, kk * 16, c0 + nd * 8, lane);
           mma_plane<3>(dq[nd], pa, b, j, 0);
           mma_plane<3>(dq[nd + 1], pa, b, j, 1);
         }
@@ -979,7 +1153,7 @@ bsa_bwd_dq_kernel(const DqArgs p) {
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    float* row = p.dq + (qbase + wr + g + 8 * h) * D + 2 * t;
+    float* row = p.dq + (qbase + wr + g + 8 * h) * D + c0 + 2 * t;
 #pragma unroll
     for (int nd = 0; nd < NTD; ++nd)
       *reinterpret_cast<float2*>(row + nd * 8) =
@@ -1019,6 +1193,7 @@ KernelInfo info_shape(int kernel, int D, int b) {
   if (D == 64 && b == 128) return info_of<T, 64, 128>(kernel);
   if (D == 80 && b == 128) return info_of<T, 80, 128>(kernel);
   if (D == 64 && b == 32) return info_of<T, 64, 32>(kernel);
+  if (D == 256 && b == 128) return info_of<T, 256, 128>(kernel);
   return {nullptr, 0, 0, 0};
 }
 
@@ -1030,10 +1205,14 @@ KernelInfo info(int kernel, int dtype, int D, int b) {
   return {nullptr, 0, 0, 0};
 }
 
+// the instantiations: three kernels x two types x the (D, b) of info_shape
+constexpr int kShapes = 7;
+constexpr int kInstantiations = 3 * 2 * kShapes;
+
 // Allow the kernel's dynamic shared memory (and the largest carveout, so that
 // two blocks fit on an SM); done once per kernel.
 cudaError_t configure(const KernelInfo& k) {
-  static const void* done[40];  // 36 instantiations
+  static const void* done[kInstantiations];
   static int ndone = 0;
   for (int i = 0; i < ndone; ++i)
     if (done[i] == k.fn) return cudaSuccess;
@@ -1043,7 +1222,7 @@ cudaError_t configure(const KernelInfo& k) {
   err = cudaFuncSetAttribute(k.fn, cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  if (ndone < 40) done[ndone++] = k.fn;
+  if (ndone < kInstantiations) done[ndone++] = k.fn;
   return cudaSuccess;
 }
 

@@ -44,10 +44,11 @@ from repro_torch.core.mra import NEG_INF
 
 # (head dim padded to a multiple of 16, block size b) the three kernels are
 # built for: qwen3-1.7b, the reference's (64, 64) and smoke (16, 16) shapes,
-# granite-moe-3b-a800m and internvl2-1b, hubert-xlarge, and the
-# H-Transformer-1D baseline (core/baselines.py: head dim 64, block 32)
+# granite-moe-3b-a800m and internvl2-1b, hubert-xlarge, the
+# H-Transformer-1D baseline (core/baselines.py: head dim 64, block 32) and
+# recurrentgemma-9b's local layers under MRA-2 (head dim 256)
 KERNEL_SHAPES = ((128, 128), (64, 64), (16, 16), (64, 128), (80, 128),
-                 (64, 32))
+                 (64, 32), (256, 128))
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _KERNELS = {"fwd": 0, "dkv": 1, "dq": 2}  # the kernels of the source
 _SM_SMEM = 233472   # shared memory of an SM (228 KB)
@@ -317,29 +318,42 @@ def plane_row_bytes(D: int) -> int:
     return 16 * (chunks if chunks & (chunks - 1) == 0 else chunks | 1)
 
 
+def column_split(D: int) -> int:
+    """Warps that share a 16-row slab (``col_split`` in the source): above
+    D = 128 each owns 128 columns of the accumulators."""
+    return D // 128 if D > 128 else 1
+
+
 def kernel_plan(kernel: str, dtype, d: int, block_size: int) -> dict:
     """Geometry and dynamic shared memory of one block of the forward
     (``"fwd"``), dq (``"dq"``) or dk/dv (``"dkv"``) kernel; mirrors
     ``FwdGeo`` / ``DqGeo`` / ``DkvGeo`` in the source. ``rows``: the block's
-    query (fwd, dq) or key (dkv) rows, 16 a warp; ``stage``: keys (fwd, dq)
-    or queries (dkv) a ring stage."""
+    query (fwd, dq) or key (dkv) rows, 16 a slab of ``col_split`` warps;
+    ``stage``: keys (fwd, dq) or queries (dkv) a ring stage."""
     check_shape(d, block_size)
     D, b = padded_dim(d), block_size
     terms = 1 if dtype == torch.bfloat16 else 3
+    cs = column_split(D)
+    wide = cs > 1  # q in planes, not registers; fp32 in 32-row blocks
     prb = plane_row_bytes(D)  # a plane row
     srow = prb if terms == 1 else D * 4  # a staged input row (bf16: a plane)
-    rows = min(64, b)
+    rows = 32 if wide and terms > 1 else min(64, b)
     if kernel in ("fwd", "dq"):
-        stage = min(64 if terms == 1 else 32, b)
+        if not wide:
+            stage = min(64 if terms == 1 else 32, b)
+        else:
+            stage = 16 if terms > 1 else (64 if kernel == "fwd" else 32)
         slot = _a16(2 * stage * srow + stage * 4)  # k, v, key mask
         planes = 2 * terms * stage * prb if terms > 1 else 0  # split k, v
-        if kernel == "fwd":
-            rest = rows * (D * 4 + 16) if terms > 1 else 0  # fp32 q rows
-        else:  # split do (and q) rows
-            rest = (3 + (terms if terms > 1 else 0)) * rows * prb
+        q_planes = terms * rows * prb if wide or (
+            kernel == "dq" and terms > 1) else 0
+        if kernel == "fwd":  # fp32 q rows, q planes
+            rest = (rows * (D * 4 + 16) if terms > 1 else 0) + q_planes
+        else:  # split do, q planes
+            rest = 3 * rows * prb + q_planes
         smem = 2 * slot + planes + rest
     elif kernel == "dkv":
-        stage = min(32, b)
+        stage = 16 if wide and terms > 1 else min(32, b)
         kv = 2 * terms * rows * prb  # k and v planes
         slot = _a16(stage * srow + stage * D * 4 + 2 * stage * 4)
         ring = max(2 * slot, 2 * rows * D * 4 if terms > 1 else 0)
@@ -348,8 +362,8 @@ def kernel_plan(kernel: str, dtype, d: int, block_size: int) -> dict:
     else:
         raise ValueError(f"kernel must be one of {tuple(_KERNELS)}, got "
                          f"{kernel!r}")
-    return {"threads": 2 * rows, "rows": rows, "sub_tiles": b // rows,
-            "stage": stage, "smem_bytes": smem}
+    return {"threads": 2 * rows * cs, "rows": rows, "col_split": cs,
+            "sub_tiles": b // rows, "stage": stage, "smem_bytes": smem}
 
 
 def smem_bytes(kernel: str, dtype, d: int, block_size: int) -> int:

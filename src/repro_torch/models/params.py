@@ -1,7 +1,8 @@
 """Parameters of the ported families: random init and conversion from JAX.
 
 Port of ``repro/models/params.py`` for the ported families (dense, MoE,
-hubert, internvl, and rwkv6, whose tree ``models/rwkv6.py`` declares).
+hubert, internvl, and rwkv6 and recurrentgemma, whose trees
+``models/rwkv6.py`` and ``models/recurrentgemma.py`` declare).
 Parameters are a plain nested dict of tensors with the
 reference's names and layouts (``embed.tok`` (V, d), ``layers[i].attn.wq``
 (d, H, hd), an MoE layer's ``layers[i].moe.wi`` (E, d, f) in place of
@@ -9,7 +10,7 @@ reference's names and layouts (``embed.tok`` (V, d), ``layers[i].attn.wq``
 positions ``embed.pos`` (max_seq, d), a frontend's ``frontend.proj``
 (frontend_dim, d) and hubert's ``frontend.mask_embed`` (d,)); the layers
 are always a per-layer list here, whatever ``cfg.scan_layers`` says about
-the reference's stacked layout.
+the reference's stacked layout (``params_from_jax`` unstacks it).
 
 Dtype semantics follow the reference: every tensor is stored at its
 declared dtype (``cfg.param_dtype`` for weights, fp32 for the norm weights
@@ -32,8 +33,8 @@ class TensorSpec(NamedTuple):
     """A declared tensor: shape, dtype and initializer.
 
     init: "normal" (truncated normal, std ``scale`` or 1/sqrt(fan-in)) |
-    "embed" (normal, std 0.02) | "zeros" | "ones" | "fill" (the constant
-    ``fill``).
+    "embed" (normal, std ``scale`` or 0.02) | "zeros" | "ones" | "fill"
+    (the constant ``fill``).
     """
 
     shape: tuple
@@ -71,7 +72,7 @@ def norm_specs(cfg: ModelConfig) -> dict:
     return {"w": _spec((d,), f32, "ones")}
 
 
-def _mlp_specs(cfg: ModelConfig) -> dict:
+def mlp_specs(cfg: ModelConfig) -> dict:
     d, f, pdt = cfg.d_model, cfg.d_ff, cfg.pdt
     if cfg.act == "swiglu":
         return {"wi": _spec((d, f), pdt), "wg": _spec((d, f), pdt),
@@ -80,7 +81,8 @@ def _mlp_specs(cfg: ModelConfig) -> dict:
             "wo": _spec((f, d), pdt), "bo": _spec((d,), pdt, "zeros")}
 
 
-def _layer_specs(cfg: ModelConfig) -> dict:
+def attn_specs(cfg: ModelConfig) -> dict:
+    """The GQA projections (with the optional qkv biases and qk norms)."""
     d, H, Hkv, hd = cfg.d_model, cfg.padded_heads, cfg.kv_heads, cfg.hd
     pdt = cfg.pdt
     attn = {"wq": _spec((d, H, hd), pdt), "wk": _spec((d, Hkv, hd), pdt),
@@ -92,13 +94,18 @@ def _layer_specs(cfg: ModelConfig) -> dict:
     if cfg.qk_norm:
         attn["qnorm"] = _spec((hd,), pdt, "ones")
         attn["knorm"] = _spec((hd,), pdt, "ones")
-    layer = {"ln1": norm_specs(cfg), "attn": attn, "ln2": norm_specs(cfg)}
+    return attn
+
+
+def _layer_specs(cfg: ModelConfig) -> dict:
+    layer = {"ln1": norm_specs(cfg), "attn": attn_specs(cfg),
+             "ln2": norm_specs(cfg)}
     if cfg.family == "moe" and cfg.moe is not None:
         from .moe import moe_specs
 
         layer["moe"] = moe_specs(cfg)
     else:
-        layer["mlp"] = _mlp_specs(cfg)
+        layer["mlp"] = mlp_specs(cfg)
     return layer
 
 
@@ -117,13 +124,16 @@ def embed_specs(cfg: ModelConfig) -> dict:
 def param_specs(cfg: ModelConfig) -> dict:
     """The parameter tree as (shape, dtype, init) leaves."""
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported (ROADMAP module item 5b); "
-            f"the port has {FAMILIES}")
+        raise ValueError(f"unknown model family {cfg.family!r}; the port "
+                         f"has {FAMILIES}")
     if cfg.family == "rwkv6":
         from .rwkv6 import param_specs as rwkv6_specs
 
         return rwkv6_specs(cfg)
+    if cfg.family == "recurrentgemma":
+        from .recurrentgemma import param_specs as rgemma_specs
+
+        return rgemma_specs(cfg)
     d, pdt = cfg.d_model, cfg.pdt
     p = {"embed": embed_specs(cfg), "ln_f": norm_specs(cfg),
          "layers": [_layer_specs(cfg) for _ in range(cfg.num_layers)]}
@@ -141,7 +151,8 @@ def _init_one(spec: TensorSpec, gen: torch.Generator, device) -> torch.Tensor:
         return materialize(spec, device)
     x = torch.empty(shape, dtype=torch.float32, device=device)
     if init == "embed":
-        return (x.normal_(generator=gen) * 0.02).to(dtype)
+        std = spec.scale if spec.scale is not None else 0.02
+        return (x.normal_(generator=gen) * std).to(dtype)
     # truncated-normal init at std ``scale``, else fan-in (fan-in = the
     # second-to-last axis, as in the reference's init_one)
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
@@ -227,18 +238,32 @@ def params_from_jax(tree, cfg: ModelConfig, device=None) -> dict:
     """The reference's parameter tree (numpy leaves, e.g. from
     ``jax.device_get``) as the port's, on ``device`` (default: cuda).
 
-    Takes both reference layouts of the layers: the per-layer list, and the
-    stacked ``(L, ...)`` arrays of ``scan_layers=True`` configs.
+    Takes every reference layout of the layers: the per-layer list, the
+    stacked ``(L, ...)`` arrays of ``scan_layers=True`` configs, and
+    recurrentgemma's ``groups`` (one stacked ``(n_groups, ...)`` tree per
+    position of the block pattern) and unstacked ``tail``, unstacked in the
+    reference's ``_layers_iter`` order: group 0's pattern, group 1's, ...,
+    then the tail.
     """
     dev = resolve_device(device)
-    layers = tree["layers"]
-    if isinstance(layers, dict) != cfg.scan_layers:
-        raise ValueError(
-            f"config {cfg.name} has scan_layers={cfg.scan_layers} but the "
-            f"tree's layers are a {type(layers).__name__}")
-    if cfg.scan_layers:  # stacked (L, ...) leaves
-        layers = [_map(layers, lambda a, i=i: np.asarray(a)[i])
-                  for i in range(cfg.num_layers)]
+    if "groups" in tree:
+        if not cfg.scan_layers:
+            raise ValueError(f"config {cfg.name} has scan_layers=False but "
+                             "the tree holds stacked groups")
+        groups = list(tree["groups"])
+        n_groups = len(np.asarray(tree_leaves(groups[0])[0]))
+        layers = [_map(grp, lambda a, i=i: np.asarray(a)[i])
+                  for i in range(n_groups) for grp in groups]
+        layers += list(tree["tail"])
+    else:
+        layers = tree["layers"]
+        if isinstance(layers, dict) != cfg.scan_layers:
+            raise ValueError(
+                f"config {cfg.name} has scan_layers={cfg.scan_layers} but the "
+                f"tree's layers are a {type(layers).__name__}")
+        if cfg.scan_layers:  # stacked (L, ...) leaves
+            layers = [_map(layers, lambda a, i=i: np.asarray(a)[i])
+                      for i in range(cfg.num_layers)]
     if len(layers) != cfg.num_layers:
         raise ValueError(
             f"reference tree has {len(layers)} layers, config {cfg.num_layers}")

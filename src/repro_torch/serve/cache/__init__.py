@@ -3,21 +3,22 @@
 ``make_cache`` is the engine's one entry point: it reads the model's
 per-layer cache kinds (``layer_cache_kinds``, the registry contract) and
 builds the backend whose state covers them — the ring-paged KV cache for
-``paged_kv`` / ``kv`` layers, the recurrent state for ``wkv``. The engine
-never names a backend.
+``paged_kv`` / ``kv`` layers, the recurrent state for ``wkv``, the hybrid
+window ring + RG-LRU state for ``window`` / ``rglru``. The engine never
+names a backend.
 """
 from __future__ import annotations
 
 from .paged import RingPagedKVCache
 from .protocol import CacheBackend, StateCache
 from .recurrent import RecurrentStateCache
+from .window import HybridWindowCache
 
-__all__ = ["CacheBackend", "RecurrentStateCache", "RingPagedKVCache",
-           "StateCache", "make_cache"]
+__all__ = ["CacheBackend", "HybridWindowCache", "RecurrentStateCache",
+           "RingPagedKVCache", "StateCache", "make_cache"]
 
 # layer kind -> backend; every kind a model declares must land in one
-# backend (the reference's window backend, for recurrentgemma's
-# local / rglru layers, is not ported)
+# backend
 _PAGED_KINDS = frozenset({"paged_kv", "kv"})
 _RECURRENT_KINDS = frozenset({"wkv"})
 _WINDOW_KINDS = frozenset({"window", "rglru"})
@@ -34,9 +35,7 @@ def make_cache(cfg, model, slots: int, max_len: int, *,
     elif ks <= _RECURRENT_KINDS:
         cache = RecurrentStateCache(cfg, model, slots, max_len, device=device)
     elif ks <= _WINDOW_KINDS:
-        raise NotImplementedError(
-            f"layer cache kinds {sorted(ks)} need the sliding-window cache "
-            "of the recurrentgemma family (ROADMAP module item 5b)")
+        cache = HybridWindowCache(cfg, model, slots, max_len, device=device)
     else:
         raise ValueError(
             f"no cache backend serves layer cache kinds {sorted(ks)} "

@@ -22,7 +22,8 @@ transformer families serve over the ring-paged KV cache, where on a card
 every layer of every dispatch runs MRA chunk/decode attention through the
 CUDA kernel (``kernels/chunk_attn.py``); rwkv6 over its recurrent state,
 which has no admission capacity (a stream may run past ``max_len``) and no
-speculation. Observability
+speculation; recurrentgemma over its window ring + RG-LRU state (the same,
+with the chunk clamped to the window). Observability
 (``serve/telemetry.py``, DESIGN.md §13): the engine's ``Telemetry`` declares
 its metric set in ``reset_stats`` — typed counters, bounded histograms of
 dispatch wall time and request latencies, occupancy gauges — and traces

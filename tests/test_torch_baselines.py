@@ -151,7 +151,8 @@ def test_default_draws_are_fixed_by_the_seed():
 def test_serving_attends_exactly_under_baseline_kinds():
     """As in the reference, decode and chunk attention under a baseline
     kind are exact (the baselines approximate full sequences only); an
-    unknown kind raises, ``local`` names its slice."""
+    unknown kind raises, and ``local`` with a window over every key is
+    exact too."""
     r = np.random.default_rng(3)
     B, H, S, D = 2, 2, 32, 16
     q = torch.from_numpy(r.standard_normal((B, H, 1, D)).astype(np.float32))
@@ -164,5 +165,8 @@ def test_serving_attends_exactly_under_baseline_kinds():
     assert torch.equal(got, want)
     with pytest.raises(ValueError, match="unknown attention kind"):
         TA.self_attention(q, kc, vc, TA.AttentionSpec(kind="mamba"))
-    with pytest.raises(NotImplementedError, match="recurrentgemma"):
-        TA.self_attention(q, kc, vc, TA.AttentionSpec(kind="local"))
+    # the local kind is served too: a window covering every key is exact
+    # decode attention
+    local = TA.decode_attention(q, kc, vc, lengths,
+                                TA.AttentionSpec(kind="local", local_window=S))
+    assert torch.allclose(local, want, atol=1e-6)

@@ -7,7 +7,10 @@ to the plain route, with numpy inputs from a seed:
   * a plain emulation of each kernel's arithmetic — operands split into
     bf16 terms (``repro_torch.kernels.split``) with the term products
     i + j <= 2 kept; the forward over its CSR pair list in stages of 64
-    keys (32 for fp32 inputs) with the online rescale from the floor c; dq
+    keys (32 for fp32 inputs; the plan's stages at D = 256) with the
+    online rescale from the floor c, bf16 scores near each stage's maximum
+    taken in fp32 above D = 128, and fp32 inputs' scores (and dP in the
+    backward) as plain fp32 products; dq
     over the same list and stages, its scores summed from zero at each
     16-wide k-step and dS split into three terms; dk/dv
     over ``group_by_key``'s pair order in stages of 32 queries — against
@@ -53,12 +56,26 @@ def _live(fl, key_ok, qi, kj):
     return m if fl & 1 else torch.zeros_like(m)
 
 
+def _stage(kernel, dtype, d, b):
+    """Keys (fwd, dq) or queries (dk/dv) a ring stage: the kernel's plan
+    where the shape is built, else its rule for the shapes below D = 128
+    (64 / 32 keys in bf16 / fp32, 32 queries)."""
+    if (bsa.padded_dim(d), b) in bsa.KERNEL_SHAPES:
+        return bsa.kernel_plan(kernel, dtype, d, b)["stage"]
+    if kernel == "dkv":
+        return min(32, b)
+    return min(64 if dtype == torch.bfloat16 else 32, b)
+
+
 def fwd_emulated(q, k, v, c, pairs, key_mask, *, scale, block_size):
     """bsa_fwd_kernel's arithmetic: (out, rowsum, mt) fp32."""
     BHG, n, d = q.shape
     G, b = BHG // k.shape[0], block_size
     nb = n // b
-    kt = min(64 if q.dtype == torch.bfloat16 else 32, b)
+    kt = _stage("fwd", q.dtype, d, b)
+    exact = q.dtype == torch.float32  # fp32 scores: a plain fp32 product
+    # bf16 inputs above D = 128 recompute the winning scores in fp32
+    recompute = not exact and bsa.padded_dim(d) > 128
     out = torch.zeros((BHG, n, d))
     rowsum, mt = torch.zeros((BHG, n)), torch.zeros((BHG, n))
     rows = torch.arange(b)
@@ -72,11 +89,18 @@ def fwd_emulated(q, k, v, c, pairs, key_mask, *, scale, block_size):
             for k0 in range(0, b, kt):
                 ks = slice(y * b + k0, y * b + k0 + kt)
                 ok = _live(fl, key_mask[r // G, ks] > 0, rows, rows[k0:k0 + kt])
-                s = term_products(q_terms, [t.T for t in operand_terms(
-                    k[r // G, ks])]) * scale
+                if exact:
+                    s = (q[r, qs] @ k[r // G, ks].T) * scale
+                else:
+                    s = term_products(q_terms, [t.T for t in operand_terms(
+                        k[r // G, ks])]) * scale
                 s = torch.where(ok, s, -torch.inf)
-                m_new = torch.maximum(m, torch.where(
-                    ok.any(1), s.amax(1), torch.tensor(-1e9)))
+                mx = torch.where(ok.any(1), s.amax(1), torch.tensor(-1e9))
+                if recompute:  # the scores near the stage's max in fp32
+                    fp32 = (q[r, qs].float() @ k[r // G, ks].float().T) * scale
+                    near = s >= (mx - 1e-5 * (1 + mx.abs()))[:, None]
+                    mx = torch.where(near, fp32, -1e9).amax(1)
+                m_new = torch.maximum(m, mx)
                 a = torch.where(ok, torch.exp(torch.clamp(
                     s - m_new[:, None], max=0.0)), 0.0)
                 alpha = torch.exp(m - m_new)
@@ -94,7 +118,7 @@ def dkv_emulated(q, k, v, mt, do, dr, pairs, key_mask, *, scale, block_size):
     BHG, n, d = q.shape
     BHKV, b = k.shape[0], block_size
     nb = n // b
-    qt = min(32, b)
+    qt = _stage("dkv", q.dtype, d, b)
     dk, dv = torch.zeros((BHKV, n, d)), torch.zeros((BHKV, n, d))
     rows = torch.arange(b)
     for h, y in itertools.product(range(BHKV), range(nb)):
@@ -109,8 +133,12 @@ def dkv_emulated(q, k, v, mt, do, dr, pairs, key_mask, *, scale, block_size):
                 qs = slice(x * b + q0, x * b + q0 + qt)
                 ok = _live(fl, key_ok, rows[q0:q0 + qt], rows).T
                 q_terms, do_terms = operand_terms(q[r, qs]), operand_terms(do[r, qs])
-                st = term_products(k_terms, [t.T for t in q_terms])
-                dpt = term_products(v_terms, [t.T for t in do_terms])
+                if q.dtype == torch.float32:  # Sᵀ, dPᵀ: plain fp32 products
+                    st = k[h, ks] @ q[r, qs].T
+                    dpt = v[h, ks] @ do[r, qs].T
+                else:
+                    st = term_products(k_terms, [t.T for t in q_terms])
+                    dpt = term_products(v_terms, [t.T for t in do_terms])
                 a = torch.where(ok, torch.exp(torch.clamp(
                     st * scale - mt[r, qs][None], max=0.0)), 0.0)
                 ds = a * (dpt + dr[r, qs][None])
@@ -126,7 +154,7 @@ def dq_emulated(q, k, v, mt, do, dr, pairs, key_mask, *, scale, block_size):
     BHG, n, d = q.shape
     G, b = BHG // k.shape[0], block_size
     nb = n // b
-    kt = min(64 if q.dtype == torch.bfloat16 else 32, b)
+    kt = _stage("dq", q.dtype, d, b)
     dq = torch.zeros((BHG, n, d))
     rows = torch.arange(b)
     for r, x in itertools.product(range(BHG), range(nb)):
@@ -139,11 +167,15 @@ def dq_emulated(q, k, v, mt, do, dr, pairs, key_mask, *, scale, block_size):
                 ks = slice(y * b + k0, y * b + k0 + kt)
                 ok = _live(fl, key_mask[r // G, ks] > 0, rows, rows[k0:k0 + kt])
                 k_terms = operand_terms(k[r // G, ks])
-                s = sum(term_products([t[:, c:c + 16] for t in q_terms],
-                                      [t[:, c:c + 16].T for t in k_terms])
-                        for c in range(0, d, 16))
-                dp = term_products(do_terms, [t.T for t in operand_terms(
-                    v[r // G, ks])])
+                if q.dtype == torch.float32:  # S, dP: plain fp32 products
+                    s = q[r, qs] @ k[r // G, ks].T
+                    dp = do[r, qs] @ v[r // G, ks].T
+                else:
+                    s = sum(term_products([t[:, c:c + 16] for t in q_terms],
+                                          [t[:, c:c + 16].T for t in k_terms])
+                            for c in range(0, d, 16))
+                    dp = term_products(do_terms, [t.T for t in operand_terms(
+                        v[r // G, ks])])
                 a = torch.where(ok, torch.exp(torch.clamp(
                     s * scale - mt[r, qs][:, None], max=0.0)), 0.0)
                 ds = a * (dp + dr[r, qs][:, None])
@@ -207,6 +239,8 @@ WIDE = {"d128-b128-g2": dict(BHKV=2, G=2, n=512, d=128, b=128, m=8),
         "d128-b128-g2-unvisited": dict(BHKV=1, G=2, n=512, d=128, b=128,
                                        m=8, unvisited=True),
         "d64-b64-g2": dict(BHKV=1, G=2, n=256, d=64, b=64, m=6),
+        # recurrentgemma's local layers under MRA-2 (16- and 32-key stages)
+        "d256-b128-g4": dict(BHKV=1, G=4, n=256, d=256, b=128, m=4),
         "d12-b16-g2-hot": dict(BHKV=2, G=2, n=96, d=12, b=16, m=9, hot=True)}
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
@@ -289,7 +323,8 @@ BUILT = [(D, b) for D, b in bsa.KERNEL_SHAPES] + [(12, 16)]
 def test_smem_fits_a_block_and_the_plan_is_consistent(kernel, dtype, d, b):
     plan = bsa.kernel_plan(kernel, dtype, d, b)
     assert plan["smem_bytes"] <= 232448 and plan["smem_bytes"] % 16 == 0
-    assert plan["threads"] == 2 * plan["rows"] and plan["rows"] % 16 == 0
+    assert plan["threads"] == 2 * plan["rows"] * plan["col_split"]
+    assert plan["rows"] % 16 == 0 and plan["col_split"] == (2 if d > 128 else 1)
     assert plan["rows"] * plan["sub_tiles"] == b and b % plan["stage"] == 0
     assert bsa.planned_blocks_per_sm(kernel, dtype, d, b) >= 1
 
@@ -374,8 +409,35 @@ def test_head_dim_80_plan(kernel, dtype, smem, blocks):
     assert bsa.launch_geometry(kernel, dtype, 80, 128, 32 * 32)["grid"] == 2048
 
 
+@pytest.mark.parametrize("kernel,dtype,rows,stage,smem", [
+    ("fwd", torch.bfloat16, 64, 64, 164352),
+    ("dq", torch.bfloat16, 64, 32, 196864),
+    ("dkv", torch.bfloat16, 64, 32, 213504),
+    ("fwd", torch.float32, 32, 16, 197248),
+    ("dq", torch.float32, 32, 16, 213120),
+    ("dkv", torch.float32, 32, 16, 213248)])
+def test_head_dim_256_plan(kernel, dtype, rows, stage, smem):
+    """recurrentgemma's (256, 128): two warps share each 16 rows (128
+    columns of the accumulators each), q lies in shared-memory planes; a
+    bf16 block is 64 rows in eight warps, an fp32 one 32 rows in four with
+    16-row stages (the split planes of more would not fit), one block an
+    SM by shared memory either way. The training call (B = 2, 16 query
+    heads over one KV head, n = 4096) launches 1024 query-tile blocks of
+    the forward and dq in bf16 (2048 in fp32) and 64 key-tile blocks of
+    dk/dv (128)."""
+    plan = bsa.kernel_plan(kernel, dtype, 256, 128)
+    assert (plan["rows"], plan["stage"], plan["smem_bytes"]) == (
+        rows, stage, smem)
+    assert plan["col_split"] == 2 and plan["threads"] == 4 * rows
+    assert bsa.planned_blocks_per_sm(kernel, dtype, 256, 128) == 1
+    tiles = 2 * (16 if kernel != "dkv" else 1) * 32
+    assert bsa.launch_geometry(kernel, dtype, 256, 128, tiles)["grid"] == (
+        tiles * 128 // rows)
+    bsa.check_shape(248, 128)  # padded to 256
+
+
 @pytest.mark.parametrize("d,b", [(32, 32), (128, 64), (16, 128), (130, 128),
-                                 (80, 64), (112, 128)])
+                                 (80, 64), (112, 128), (256, 64)])
 def test_unbuilt_shapes_are_refused(d, b):
     with pytest.raises(ValueError, match="is not built"):
         bsa.check_shape(d, b)

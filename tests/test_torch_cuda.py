@@ -718,7 +718,12 @@ BSA_SHAPES = [dict(BHKV=2, G=2, n=64, d=16, b=16, m=6),
               dict(BHKV=2, G=1, n=512, d=80, b=128, m=8),
               dict(BHKV=2, G=2, n=512, d=72, b=128, m=8),
               # the H-Transformer-1D baseline's (64, 32), non-causal
-              dict(BHKV=4, G=1, n=512, d=64, b=32, m=30, causal=False)]
+              dict(BHKV=4, G=1, n=512, d=64, b=32, m=30, causal=False),
+              # recurrentgemma-9b's local layers under MRA-2: head dim 256,
+              # 16 query heads a KV head; a hot key tile; 248 padded to 256
+              dict(BHKV=2, G=16, n=1024, d=256, b=128, m=24),
+              dict(BHKV=1, G=4, n=1024, d=256, b=128, m=16, hot=True),
+              dict(BHKV=1, G=2, n=512, d=248, b=128, m=8)]
 
 
 @pytest.mark.cuda
@@ -1219,3 +1224,50 @@ def test_rwkv6_engine_streams_on_the_card_equal_the_cpu(cuda):
         out[dev] = {len(q.prompt): np.asarray(q.out) for q in done}
     for n, want in out["cpu"].items():
         np.testing.assert_array_equal(out["cuda"][n], want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["local", "mra2"])
+def test_recurrentgemma_group_served_on_the_card_equals_the_cpu(cuda, kind):
+    """One (rglru, rglru, local) group of the recurrentgemma smoke config,
+    fp32, served on the card and on the CPU: the same greedy streams, with
+    prompts past the 32-token window; under MRA-2 the whole-prompt
+    ``prefill`` launches ``bsa_fwd`` once and its last logits equal the
+    CPU's within 1e-4 of their largest magnitude."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.attention import AttentionSpec
+    from repro_torch.models import recurrentgemma as RG
+    from repro_torch.models.params import (init_params, tree_leaves,
+                                           tree_unflatten)
+    from repro_torch.serve import Engine, EngineConfig, Request
+    from repro_torch.serve.cache import HybridWindowCache
+
+    cfg = get_smoke_config("recurrentgemma-9b", activ_dtype="float32")
+    if kind == "mra2":
+        cfg = cfg.replace(attention=AttentionSpec(kind="mra2", block_size=16,
+                                                  blocks_per_row=2))
+    host = init_params(cfg, seed=0, device="cpu")
+    card = tree_unflatten(host, [p.to(cuda) for p in tree_leaves(host)])
+    out = {}
+    for dev, params in (("cpu", host), ("cuda", card)):
+        reqs = [Request(prompt=np.arange(1, n) % cfg.vocab, max_new_tokens=12)
+                for n in (70, 33, 5)]
+        done = Engine(cfg, params, EngineConfig(slots=2, max_len=64, chunk=16),
+                      device=dev).run(reqs)
+        out[dev] = {len(q.prompt): np.asarray(q.out) for q in done}
+    for n, want in out["cpu"].items():
+        np.testing.assert_array_equal(out["cuda"][n], want)
+    if kind == "mra2":
+        toks = torch.from_numpy(np.arange(1, 129, dtype=np.int32)[None] % 500)
+        got = {}
+        for dev, params in (("cpu", host), ("cuda", card)):
+            before = bsa.bsa_fwd.launches
+            with torch.no_grad():
+                logits, _ = RG.prefill(params, cfg, {"tokens": toks.to(dev)},
+                                       HybridWindowCache(cfg, RG, 1, 128,
+                                                         device=dev).tree)
+            got[dev] = (logits.float().cpu(), bsa.bsa_fwd.launches - before)
+        assert got["cuda"][1] == 1 and got["cpu"][1] == 0
+        want = got["cpu"][0]
+        assert float((got["cuda"][0] - want).abs().max()) <= 1e-4 * float(
+            want.abs().max())

@@ -270,16 +270,25 @@ def test_unported_options_raise(cfgs, params, field, value):
 @pytest.mark.parametrize("family", ["rwkv6", "recurrentgemma"])
 def test_unported_family_raises(cfgs, params, family):
     """The engine takes its model and its cache from the registry: rwkv6
-    (ported) builds over the recurrent state, a family not ported yet
-    raises naming it."""
+    builds over the recurrent state, recurrentgemma over the window ring +
+    RG-LRU state with the chunk clamped to the window (every family is
+    ported now); a family the registry does not know raises naming it."""
     _, tcfg = cfgs
     _, tp = params
     if family == "rwkv6":
         eng = Engine(tcfg.replace(family=family), tp, ECFG, device="cpu")
         assert type(eng.kv).__name__ == "RecurrentStateCache"
-        return
-    with pytest.raises(NotImplementedError, match=family):
-        Engine(tcfg.replace(family=family), tp, ECFG, device="cpu")
+    else:
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.models.params import init_params
+
+        cfg = get_smoke_config("recurrentgemma-9b")
+        eng = Engine(cfg, init_params(cfg, seed=0, device="cpu"),
+                     ECFG.replace(max_len=64, chunk=48), device="cpu")
+        assert type(eng.kv).__name__ == "HybridWindowCache"
+        assert eng.chunk == eng.kv.chunk_cap == cfg.local_window
+    with pytest.raises(ValueError, match="mamba"):
+        Engine(tcfg.replace(family="mamba"), tp, ECFG, device="cpu")
 
 
 def test_engine_builds_for_hubert_as_the_reference():

@@ -268,3 +268,44 @@ def test_rwkv6_and_baselines_run_with_jax_blocked():
                          env=env, capture_output=True, text=True, timeout=240)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "rwkv6 and baselines ok" in res.stdout
+
+
+_RGEMMA_WITHOUT_JAX = r"""
+import dataclasses, math, sys
+for name in ("jax", "jaxlib", "repro"):
+    sys.modules[name] = None
+import numpy as np
+from repro_torch.configs import SHAPES, get_smoke_config
+from repro_torch.core.attention import AttentionSpec
+from repro_torch.models.params import init_params
+from repro_torch.serve import Engine, EngineConfig, Request
+from repro_torch.train import TrainConfig, train
+shape = dataclasses.replace(SHAPES["train_4k"], seq_len=32, global_batch=2)
+for attn in (None, AttentionSpec(kind="mra2", block_size=16,
+                                 blocks_per_row=2)):
+    cfg = get_smoke_config("recurrentgemma-9b", activ_dtype="float32")
+    cfg = cfg if attn is None else cfg.replace(attention=attn)
+    seen = []
+    train(cfg.replace(remat="full"), shape, TrainConfig(steps=1),
+          device="cpu", on_metrics=lambda s, m: seen.append(m["loss"]))
+    assert len(seen) == 1 and math.isfinite(seen[0])
+    params = init_params(cfg, seed=0, device="cpu")
+    reqs = [Request(prompt=np.arange(1, 50), max_new_tokens=20)]
+    Engine(cfg, params, EngineConfig(slots=1, max_len=24, chunk=16),
+           device="cpu").run(reqs)
+    assert len(reqs[0].out) == 20
+assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules
+               if sys.modules[m] is not None)
+print("recurrentgemma ok")
+"""
+
+
+def test_recurrentgemma_runs_with_jax_blocked():
+    """recurrentgemma (the ``local`` preset and the MRA-2 variant) trains
+    and serves past its window and max_len with nothing of the
+    reference."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", _RGEMMA_WITHOUT_JAX],
+                         env=env, capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "recurrentgemma ok" in res.stdout

@@ -13,8 +13,9 @@ config on the CPU:
     degenerate requests, and ``spec_k`` refused;
   * the serving contract: the entry points' signatures equal the
     transformer module's, ``layer_cache_kinds`` is ``["wkv"] * L``,
-    ``make_cache`` routes by kind (and refuses the window kinds of the
-    unported recurrentgemma), ``decode_step``'s ``active`` mask freezes a
+    ``make_cache`` routes by kind (recurrentgemma's window kinds to the
+    hybrid window cache) and refuses a mix no backend serves,
+    ``decode_step``'s ``active`` mask freezes a
     slot bitwise, ``prefill_chunk`` with ``num_valid == 0`` is the
     identity, and ``reset_slots`` equals a fresh cache bitwise.
 """
@@ -40,8 +41,8 @@ from repro_torch.models.params import init_params, params_from_jax
 from repro_torch.models.registry import get_model
 from repro_torch.serve import (Engine, EngineConfig, Request, SamplingParams,
                                make_cache)
-from repro_torch.serve.cache import (RecurrentStateCache, RingPagedKVCache,
-                                     StateCache)
+from repro_torch.serve.cache import (HybridWindowCache, RecurrentStateCache,
+                                     RingPagedKVCache, StateCache)
 from repro_torch.serve.cache.protocol import fill_value
 
 ARCH = "rwkv6-7b"
@@ -195,7 +196,9 @@ def test_layer_cache_kinds_well_formed(setup):
 
 
 @pytest.mark.parametrize("arch,backend", [(ARCH, RecurrentStateCache),
-                                          ("qwen3-1.7b", RingPagedKVCache)])
+                                          ("qwen3-1.7b", RingPagedKVCache),
+                                          ("recurrentgemma-9b",
+                                           HybridWindowCache)])
 def test_cache_factory_routes_by_kinds(arch, backend):
     cfg = get_smoke_config(arch)
     model = get_model(cfg)
@@ -210,9 +213,11 @@ def test_cache_factory_routes_by_kinds(arch, backend):
             cache.spec_snapshot(window=4)
 
 
-@pytest.mark.parametrize("kinds,err", [(["window", "rglru"], NotImplementedError),
-                                       (["wkv", "kv"], ValueError)])
-def test_cache_factory_refuses_unserved_kinds(setup, kinds, err):
+@pytest.mark.parametrize("kinds", [["window", "wkv"], ["wkv", "kv"]])
+def test_cache_factory_refuses_unserved_kinds(setup, kinds):
+    """A mix of kinds no one backend holds (the window ring with the wkv
+    state, the wkv state with paged K/V) is refused; the window kinds alone
+    are served (``test_cache_factory_routes_by_kinds``)."""
     cfg, _ = setup
 
     class Model:
@@ -220,8 +225,7 @@ def test_cache_factory_refuses_unserved_kinds(setup, kinds, err):
         def layer_cache_kinds(cfg):
             return kinds
 
-    with pytest.raises(err, match="5b" if err is NotImplementedError
-                       else "no cache backend"):
+    with pytest.raises(ValueError, match="no cache backend"):
         make_cache(cfg, Model, 2, 32, device="cpu")
 
 

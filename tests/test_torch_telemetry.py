@@ -6,7 +6,8 @@ histograms, gauge peaks and the ``StatsView`` facade; token streams
 bitwise equal with telemetry on and off, plain and speculative; monotonic
 lifecycle stamps with TTFT decomposing exactly; a well-formed Chrome trace
 that survives a JSONL round trip; per-slot acceptance series; occupancy
-gauges for the port's cache layouts (ring-paged at H = 2 and H = 3, dense).
+gauges for the port's cache layouts (ring-paged at H = 2 and H = 3, dense)
+and for the state-cache families (rwkv6's state, recurrentgemma's window).
 Beyond it: after the same greedy run the port's snapshot declares the
 reference engine's counter, gauge, histogram and series names with equal
 counter values, dispatch spans reach ``torch.profiler``, and the module's
@@ -293,6 +294,32 @@ def test_cache_occupancy_gauges_all_layouts(cfg, params, layout, evicting):
         assert g["cache_tokens_evicted"]["peak"] == 0.0
     if layout == "h3":
         assert g["cache_level2_tokens"]["peak"] > 0
+
+
+@pytest.mark.parametrize("arch,evicting", [
+    ("rwkv6-7b", False),          # RecurrentStateCache: state absorbs history
+    ("recurrentgemma-9b", True),  # HybridWindowCache: the window slides
+])
+def test_cache_occupancy_gauges_state_families(arch, evicting):
+    """The reference's occupancy case for the state-cache families: a
+    generation past the window evicts from recurrentgemma's ring (ring
+    entries count as pages) and nothing from rwkv6's state."""
+    scfg = get_smoke_config(arch)
+    eng = Engine(scfg, init_params(scfg, seed=0, device="cpu"),
+                 EngineConfig(slots=2, max_len=32, chunk=8), device="cpu")
+    eng.run([Request(prompt=np.arange(1, 9), max_new_tokens=30),
+             Request(prompt=np.array([3, 4, 5]), max_new_tokens=4)])
+    g = eng.telemetry.snapshot()["gauges"]
+    assert g["cache_slots_active"]["peak"] == 2
+    assert g["cache_tokens_live"]["peak"] > 0
+    assert g["slots_free"]["value"] == 2
+    if evicting:
+        assert g["cache_pages_live"]["peak"] > 0
+        assert g["cache_tokens_evicted"]["peak"] > 0
+        assert g["cache_tokens_live"]["peak"] <= 2 * 32  # min(L, W) a slot
+    else:
+        assert g["cache_pages_live"]["peak"] == 0.0
+        assert g["cache_tokens_evicted"]["peak"] == 0.0
 
 
 # --------------------------------------------------------------------------- #

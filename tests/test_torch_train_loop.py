@@ -92,18 +92,18 @@ def test_make_batch_frontends_bit_identical(arch):
 
 
 def test_make_batch_refuses_the_recurrent_families():
-    """recurrentgemma (not ported) raises; rwkv6 takes LM batches, the
-    dense family's (tests/test_torch_rwkv6.py holds them to the
-    reference's)."""
+    """rwkv6 and recurrentgemma take LM batches, the dense family's
+    (tests/test_torch_rwkv6.py and tests/test_torch_recurrentgemma.py hold
+    them to the reference's); a family the port does not know raises."""
     _, tshape = _shapes()
-    cfg = get_smoke_config("qwen3-1.7b").replace(family="recurrentgemma")
-    with pytest.raises(NotImplementedError, match="ROADMAP module item 5b"):
-        make_batch(cfg, tshape)
     dense = get_smoke_config("qwen3-1.7b")
-    got = make_batch(dense.replace(family="rwkv6"), tshape, step=1, seed=2)
     want = make_batch(dense, tshape, step=1, seed=2)
-    assert set(got) == set(want) == {"tokens", "targets"}
-    assert all(np.array_equal(got[k], want[k]) for k in want)
+    for family in ("rwkv6", "recurrentgemma"):
+        got = make_batch(dense.replace(family=family), tshape, step=1, seed=2)
+        assert set(got) == set(want) == {"tokens", "targets"}
+        assert all(np.array_equal(got[k], want[k]) for k in want)
+    with pytest.raises(ValueError, match="unknown model family 'mamba'"):
+        make_batch(dense.replace(family="mamba"), tshape)
 
 
 def test_loader_streams_make_batch_and_closes():
@@ -123,11 +123,11 @@ def test_loader_streams_make_batch_and_closes():
 
 
 def test_loader_hands_on_the_workers_error():
-    cfg = get_smoke_config("qwen3-1.7b").replace(family="recurrentgemma")
+    cfg = get_smoke_config("qwen3-1.7b").replace(family="mamba")
     _, shape = _shapes()
     loader = DataLoader(cfg, shape)
     try:
-        with pytest.raises(NotImplementedError, match="recurrentgemma"):
+        with pytest.raises(ValueError, match="mamba"):
             next(loader)
     finally:
         loader.close()
