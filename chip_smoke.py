@@ -98,7 +98,8 @@ port's serving path and its training path on the card:
  16. (after phase 5) granite-moe-3b-a800m at full width — the MoE family's
      serving path: 32 layers, 40 experts top-8, head dim 64, random
      weights from a seed, fp32 parameters, bf16 activations, phase 4's
-     engine and requests — with tok/s, prefill / decode seconds, peak GiB
+     engine and prompts (``FAMILY_SERVE_TOKENS`` new tokens) — with tok/s,
+     prefill / decode seconds, peak GiB
      and the chunk kernel's launches (32 x dispatches) and combines counted
      over exactly that run; then a torch.profiler breakdown of one decode
      and one prefill dispatch (the routed FFN's kernels apart, in a
@@ -151,7 +152,7 @@ port's serving path and its training path on the card:
      spill of a D = 80 kernel);
  24. (after phase 21) hubert-xlarge at full width — 48 layers, 16 MHA heads
      of 80, non-causal, layernorm, gelu, learned positions, the audio-frame
-     frontend: a forward of a ``make_batch`` frame batch, then three
+     frontend: a forward of a ``make_batch`` frame batch, then two
      ``train()`` steps at seq 4096 with the batch cut from 256 to
      ``FAMILY_BATCH`` (the largest power of two that fits), remat="full",
      launches counted over exactly that run, frames/s, peak GiB and a
@@ -172,13 +173,13 @@ port's serving path and its training path on the card:
      against plain routes in fp32 at full width on one batch (loss and
      grad norm within 1e-4 at one layer; the worst leaf and two layers
      reported); the whole-prompt ``prefill`` of 4 slots of 256 patches +
-     3840 text tokens then 64 greedy ``decode_step``s, launches counted,
+     3840 text tokens then 32 greedy ``decode_step``s, launches counted,
      kernels against plain twins at 2 layers (streams equal, or part only
      at a near tie by phase 14's rule), and at 4, 8 and 24 layers reported
      beside the plain route against a rerun of itself and against itself
      on patches scaled by 1 + 2^-20; then phase 4's engine and text-only
-     requests (tok/s, prefill / decode seconds, peak GiB, chunk launches
-     and combines).
+     prompts, FAMILY_SERVE_TOKENS new tokens each (tok/s, prefill / decode
+     seconds, peak GiB, chunk launches and combines).
  27. the paper's baselines on the reference's Fig. 4 / Tab. 7 inputs
      (``structured_qkv(default_rng(0), B=1, H=8, N=512, D=64)``, this
      script's own copy): each of the six on the card against the same call
@@ -220,8 +221,9 @@ port's serving path and its training path on the card:
  32. recurrentgemma-9b at full width — 38 layers in the (rglru, rglru,
      local) pattern, d_model 4096, 16 query heads over one KV head of 256,
      window 2048, vocab 256000, 8.53 B fp32 parameters from a seed, bf16
-     activations — served by phase 4's engine and requests through the
-     window ring + RG-LRU state (the two longest prompts wrap the ring):
+     activations — served by phase 4's engine and prompts
+     (``FAMILY_SERVE_TOKENS`` new tokens) through the window ring + RG-LRU
+     state (the two longest prompts wrap the ring):
      tok/s, prefill / decode seconds, peak GiB, occupancy; then a
      torch.profiler breakdown of one decode and one prefill dispatch;
  33. (after phase 31, before phase 2: its peak leaves the least room, so
@@ -241,6 +243,39 @@ port's serving path and its training path on the card:
      of a 4096-token prompt on one bsa_fwd launch against the plain twin
      (1e-4); card vs CPU greedy streams of a one-group fp32 engine with
      the window cut to 128 (equal, or parting only at an fp32 near tie).
+
+ 11b. (after phase 11) the H-level program timed the same way at
+     granite-moe's (D, b) = (64, 128), G = 3 (``UP_GRANITE``).
+ 35. (last) a (data, model) = (2, 2) mesh of four ranks spawned on the one
+     card (``launch.mesh.spawn``, gloo: NCCL refuses two ranks on one
+     device; every collective on a CUDA tensor staged through host
+     memory by ``distributed/collectives.py``), after the kernels are
+     built and the one-device references computed here: the collective
+     probe (backend, staged ops, each collective's value on CUDA tensors);
+     qwen3-1.7b at full width, 2 layers, fp32: one batch's loss and grad
+     norm within 1e-4 of one device and every gradient block within 5e-3
+     (the reference's shard-tier bound), and phase 4's requests through
+     the mesh engine (``MESH_NEW_TOKENS`` new tokens) with streams equal
+     to the one-device engine's;
+ 36. qwen3-1.7b's bf16 ``train()`` on the mesh at MESH_TRAIN_LAYERS layers
+     (seq 4096, batch 2: one row a data rank, remat="full",
+     MESH_TRAIN_STEPS steps): per rank the step seconds, peak GiB, the
+     kernels' launches (exact) with the local shape of every launch (4 of
+     8 KV heads), the collectives' bytes a step and the share of wall
+     time their host staging takes; the last step's loss and grad norm
+     agree across the ranks and, after the ZeRO-1 updates (moment shards,
+     then the parameter slices all-gathered over "data"), every parameter
+     block's bit checksum agrees across the data ranks that hold it; then the full-depth mesh engine on
+     phase 4's requests (launches = 28 x dispatches a rank, 2 slots and 4
+     KV heads a launch), its streams against phase 4's (the first token
+     where they part, reported);
+ 37. granite-moe-3b-a800m on the mesh (40 experts: 20 a model rank): one
+     fp32 MoE layer's forward and backward under ``psum`` and ``a2a``
+     within 1e-3 of the local path (capacity E / top_k: nothing drops),
+     phase 4's requests through a 2-layer fp32 mesh engine with that
+     capacity (streams equal to one device's), and one of phase 4's
+     prompts through its full-depth mesh engine (its stream against phase
+     16's, reported: capacity counts each data rank's rows).
 
 One JSON line per phase; then the card line from nvidia-smi, the kernels
 line and, last, ``{"ok": true, "device": {...}}``. Any failed phase raises,
@@ -290,6 +325,9 @@ UP_CASES = (("main", UP_MAIN, 33), ("main", UP_MAIN, 65),
 UP_WIDTHS = ((1, "latency"), (512, "throughput"), (5, "throughput"))
 UP_PATTERNS = ("all_live", "some_dead", "all_dead", "tail_only")
 L2_COPIES = 4  # cache copies cycled by the H-level timing (> 50 MB L2)
+# granite-moe's long-context slice, (D, b) = (64, 128): the H-level
+# program's second built shape, timed as UP_MAIN is (phase 11b)
+UP_GRANITE = dict(GRANITE, B=2)
 LONG = dict(slots=2, max_len=4096, chunk=512, prompts=(65536, 6000),
             new_tokens=(8, 64))
 # block-sparse attention of qwen3-1.7b train_4k (batch cut to 2) and of its
@@ -328,6 +366,9 @@ MOE_REMAT_LAYERS = 8
 # the same requests: new tokens cut from 192 to 144 to hold the script's
 # time, still past the 4096-token ring (3968 + 144), so fallback waves run
 SERVE = dict(prompts=(3968, 2500, 1200, 300), new_tokens=192)
+# the other families' engines on the same prompts (granite-moe, internvl,
+# recurrentgemma): new tokens cut from 192 for the script's time
+FAMILY_SERVE_TOKENS = 96
 SPEC = dict(spec_k=4, new_tokens=144)
 # granite-moe-3b-a800m at full width: phase 4's engine and requests
 MOE_ARCH = "granite-moe-3b-a800m"
@@ -337,11 +378,13 @@ MOE_ARCH = "granite-moe-3b-a800m"
 # the phases show that twice the batch runs out of memory
 HUBERT_ARCH, VLM_ARCH = "hubert-xlarge", "internvl2-1b"
 FAMILY_BATCH = {HUBERT_ARCH: 64, VLM_ARCH: 4}
+# train() steps at the batch cut (hubert's ~12 s steps cut from three)
+FAMILY_STEPS = {HUBERT_ARCH: 2, VLM_ARCH: TRAIN["steps"]}
 # internvl2-1b's serving: 14 query / 2 KV heads (G = 7) at (64, 128)
 VLM_SERVE = dict(B=4, Hkv=2, G=7, D=64, b=128, nb=32, m=16)
 # the whole-prompt prefill of 4 slots of 256 patches + 3840 text tokens,
-# then 64 greedy decode steps in a window one block longer than the prompt
-VLM_PROMPT = dict(slots=4, text=3840, new_tokens=64, max_len=4096 + 128)
+# then 32 greedy decode steps in a window one block longer than the prompt
+VLM_PROMPT = dict(slots=4, text=3840, new_tokens=32, max_len=4096 + 128)
 # the depth at which phase 25 holds those greedy streams kernel vs plain,
 # and the deeper ones it reports beside full depth. MRA-2's top-k block
 # and page selections are discrete, so a rounding difference that flips a
@@ -418,7 +461,7 @@ def emit(obj) -> None:
 # kernel inputs, selection margins and bounds
 # --------------------------------------------------------------------------- #
 def kernel_case(torch, tmd, seed, sh, C, layout, dtype):
-    """(pre, k, v, q_pos, ks, vs) for one comparison, numpy from ``seed``.
+    """(pre, k, v, q_pos, ks, vs) for one comparison, from ``seed``.
 
     Keys carry a random per-page offset so coarse scores spread like real
     attention. layout: dense (full slots) | ring (a 1.5x-capacity stream
@@ -429,10 +472,18 @@ def kernel_case(torch, tmd, seed, sh, C, layout, dtype):
     r = np.random.default_rng(seed)
     B, Hkv, G, D, b, nb = (sh[k] for k in ("B", "Hkv", "G", "D", "b", "nb"))
     S = nb * b
-    k = r.standard_normal((B, Hkv, S, D), np.float32) + np.repeat(
-        r.standard_normal((B, Hkv, nb, D), np.float32), b, axis=2)
-    v = r.standard_normal((B, Hkv, S, D), np.float32)
-    q = r.standard_normal((B, Hkv * G, C, D), np.float32)
+    cu = DEVICE
+    # the normals drawn on the device from the seed (numpy's took most of
+    # phase 2's time); the layouts' integers from numpy's
+    g = torch.Generator(device=cu)
+    g.manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device=cu, dtype=torch.float32)
+
+    k = normal(B, Hkv, S, D) + normal(B, Hkv, nb, D).repeat_interleave(b, 2)
+    v = normal(B, Hkv, S, D)
+    q = normal(B, Hkv * G, C, D)
     pb = np.tile(np.arange(nb, dtype=np.int32), (B, 1))
     if layout == "ring":
         lengths = np.full((B,), S + S // 2)
@@ -442,8 +493,6 @@ def kernel_case(torch, tmd, seed, sh, C, layout, dtype):
     else:
         lengths = np.full((B,), S)
     q_pos = np.maximum(lengths[:, None] - C, 0) + np.arange(C)
-    cu = DEVICE
-    k, v = torch.from_numpy(k).to(cu), torch.from_numpy(v).to(cu)
     lengths = torch.as_tensor(lengths, dtype=torch.int32, device=cu)
     pb = torch.from_numpy(pb).to(cu)
     ks = vs = None
@@ -458,7 +507,7 @@ def kernel_case(torch, tmd, seed, sh, C, layout, dtype):
     pyr = tmd.PyramidState((kf * mask).reshape(B, Hkv, nb, b, D).sum(3),
                            (vf * mask).reshape(B, Hkv, nb, b, D).sum(3))
     q_pos = torch.as_tensor(q_pos, dtype=torch.int32, device=cu)
-    pre = tmd._chunk_prelude(torch.from_numpy(q).to(cu), k, v, lengths, q_pos,
+    pre = tmd._chunk_prelude(q, k, v, lengths, q_pos,
                              MraConfig(block_size=b), sh["m"], pyr, pb)
     return pre, k, v, q_pos, ks, vs
 
@@ -775,7 +824,8 @@ def _top2_recorder(torch, engine_mod, Scheduler, vocab):
 
 
 def phase_engine_full_width(torch, chunk_attn, arch="qwen3-1.7b",
-                            phase="engine_full_width"):
+                            phase="engine_full_width",
+                            new_tokens=SERVE["new_tokens"]):
     from repro_torch.configs import get_config
     from repro_torch.models import transformer
     from repro_torch.models.params import init_params
@@ -786,7 +836,7 @@ def phase_engine_full_width(torch, chunk_attn, arch="qwen3-1.7b",
     params = init_params(cfg, seed=SEED, device=DEVICE)
     eng = Engine(cfg, params, EngineConfig(slots=4, max_len=4096, chunk=128),
                  device=DEVICE)
-    reqs = _requests(Request, SERVE["prompts"], SERVE["new_tokens"], cfg.vocab)
+    reqs = _requests(Request, SERVE["prompts"], new_tokens, cfg.vocab)
     bad = torch.zeros((), dtype=torch.int64, device=DEVICE)
     orig = (transformer.prefill_chunk, transformer.decode_step)
 
@@ -826,7 +876,7 @@ def phase_engine_full_width(torch, chunk_attn, arch="qwen3-1.7b",
           "layers": cfg.num_layers, "activ_dtype": cfg.activ_dtype,
           "param_dtype": cfg.param_dtype, "slots": 4, "max_len": 4096,
           "chunk": 128, "prompts": list(SERVE["prompts"]),
-          "new_tokens": SERVE["new_tokens"],
+          "new_tokens": new_tokens,
           "wall_s": wall, "generated_tokens": st["generated_tokens"],
           "tok_per_s": base["tok_per_s"],
           "prefill_tokens": st["prefill_tokens"],
@@ -846,10 +896,10 @@ def phase_engine_full_width(torch, chunk_attn, arch="qwen3-1.7b",
         raise AssertionError(f"{combines} combine launches != {want_comb}")
     if int(bad) != 0:
         raise AssertionError(f"{int(bad)} non-finite logits")
-    if any(len(o) != SERVE["new_tokens"] or int(o.min()) < 0
+    if any(len(o) != new_tokens or int(o.min()) < 0
            or int(o.max()) >= cfg.vocab for o in outs):
         raise AssertionError("a stream is short or holds an out-of-vocab token")
-    if any(len(g) != SERVE["new_tokens"] for g in base["gaps"].values()):
+    if any(len(g) != new_tokens for g in base["gaps"].values()):
         raise AssertionError("a stream's top-2 gaps were not all recorded")
     return (launches, combines), eng, base
 
@@ -884,15 +934,18 @@ def _chunk_launches(chunk_attn):
     return fn.launches, fn.upper_launches
 
 
-def _profile(torch, fn, steps, kernels=("chunk_attn",), ranges=()):
+def _profile(torch, fn, steps, kernels=("chunk_attn",), ranges=(),
+             warm=False):
     """Wall ms per call without the profiler, then torch.profiler over the
     same calls: device ms per call, busy share, the named kernels' ms, the
     device ms of the kernels launched inside each named
-    ``record_function`` range, and the top kernels."""
+    ``record_function`` range, and the top kernels. One call warms up
+    first unless ``warm`` (the caller just ran the same work)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if not warm:
+        fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
@@ -1678,7 +1731,7 @@ def _attention_layers(cfg):
 
 def phase_train_full_width(torch, bsa, arch="qwen3-1.7b",
                            phase="train_full_width", batch=TRAIN["batch"],
-                           cfg=None):
+                           cfg=None, steps=TRAIN["steps"]):
     """Three steps of ``train()`` at full width from random weights (the
     preset of ``arch``, or ``cfg``), the block-sparse kernels' launches
     counted over exactly that run (forward twice an attention layer a step
@@ -1690,7 +1743,7 @@ def phase_train_full_width(torch, bsa, arch="qwen3-1.7b",
     cfg = cfg or get_config(arch)
     shape = dataclasses.replace(SHAPES["train_4k"], seq_len=TRAIN["seq"],
                                 global_batch=batch)
-    tc = TrainConfig(steps=TRAIN["steps"], seed=SEED)
+    tc = TrainConfig(steps=steps, seed=SEED)
     steps = []
 
     def on_metrics(step, m):
@@ -1773,7 +1826,7 @@ def phase_train_profile(torch, state, phase="train_profile"):
         emit({"phase": phase, "arch": cfg.name, "note": "ms per training "
               "step; device_ms = summed kernel time from torch.profiler",
               "train_step": _profile(torch, step, 1, kernels=BSA_KERNELS,
-                                     ranges=ranges)})
+                                     ranges=ranges, warm=True)})
 
 
 def _plain_twins(bsa):
@@ -2017,7 +2070,7 @@ def _family_train(torch, bsa, arch, name):
 
     launches, peak, state = phase_train_full_width(
         torch, bsa, arch, f"{name}_train_full_width",
-        batch=FAMILY_BATCH[arch])
+        batch=FAMILY_BATCH[arch], steps=FAMILY_STEPS[arch])
     if peak >= 80.0:
         raise AssertionError(f"{arch} training peaked at {peak} GiB")
     phase_train_profile(torch, state, phase=f"{name}_train_profile")
@@ -2191,7 +2244,7 @@ def phase_internvl(torch, bsa, chunk_attn):
     G = 7, causal MRA-2 at b = 128, vocab 151655): (a) three ``train()``
     steps at seq 4096 (256 patches + 3840 text tokens), then its fp32
     parity (``_family_parity``); (b) the whole-prompt prefill of 4 slots of
-    patches + text, then 64 greedy decode steps, on the kernels (timed,
+    patches + text, then 32 greedy decode steps, on the kernels (timed,
     launches counted); at VLM_PARITY_LAYERS, VLM_REPORT_LAYERS and full
     depth the streams kernel vs plain, plain vs a rerun of itself and
     plain vs plain with the patches scaled by 1 + VLM_PERTURB; at
@@ -2263,7 +2316,8 @@ def phase_internvl(torch, bsa, chunk_attn):
             raise AssertionError(f"slot {s}: kernel stream leaves the plain "
                                  f"route's at {f} (no near tie)")
     engine_launches, eng, _ = phase_engine_full_width(
-        torch, chunk_attn, arch=VLM_ARCH, phase="internvl_full_width")
+        torch, chunk_attn, arch=VLM_ARCH, phase="internvl_full_width",
+        new_tokens=FAMILY_SERVE_TOKENS)
     del eng
     torch.cuda.empty_cache()
     return train_launches, engine_launches
@@ -2376,24 +2430,27 @@ def phase_upper_vs_plain(torch, tmd, chunk_attn):
     return worst
 
 
-def phase_upper_timing(torch, tmd, chunk_attn):
+def phase_upper_timing(torch, tmd, chunk_attn, sh=UP_MAIN,
+                       phase="upper_timing"):
     """The H-level program (NU = 33) and the two-level one on the same
-    4096-token bf16 windows of the long-context slice, beside the bound and
-    the plain version. The two slots' K/V (33.5 MB) would stay in the 50 MB
-    L2 across repeated calls, while the engine reads each layer's cache
-    once per dispatch: every call here takes the next of ``L2_COPIES``
-    copies of the cache (134 MB in all), so each finds its pages cold. The
-    programs are timed in the order two-level, H-level, H-level, two-level
-    and each keeps the mean of its two runs."""
+    4096-token bf16 windows of the long-context slice (``sh``: qwen3-1.7b's
+    (128, 128), or granite-moe's (64, 128) with ``UP_GRANITE``), beside the
+    bound and the plain version. The two slots' K/V (33.5 MB at D = 128)
+    would stay in the 50 MB L2 across repeated calls, while the engine
+    reads each layer's cache once per dispatch: every call here takes the
+    next of ``L2_COPIES`` copies of the cache (134 MB in all at D = 128), so
+    each finds its pages cold. The programs are timed in the order
+    two-level, H-level, H-level, two-level and each keeps the mean of its
+    two runs."""
     fn = chunk_attn.chunk_attention_kernel
     out = {}
     nu = 33
     for label, C, mode in (("decode", 1, "latency"),
                            ("chunk512", 512, "throughput")):
-        pre2, k, v, q_pos, ks, vs = kernel_case(torch, tmd, SEED, UP_MAIN, C,
+        pre2, k, v, q_pos, ks, vs = kernel_case(torch, tmd, SEED, sh, C,
                                                 "dense", "bf16")
-        pre = pre2._replace(upper=upper_view(torch, SEED, UP_MAIN["B"],
-                                             UP_MAIN["Hkv"], UP_MAIN["D"], nu,
+        pre = pre2._replace(upper=upper_view(torch, SEED, sh["B"],
+                                             sh["Hkv"], sh["D"], nu,
                                              "all_live"))
         caches = [(k, v)] + [(k.clone(), v.clone())
                              for _ in range(L2_COPIES - 1)]
@@ -2405,7 +2462,7 @@ def phase_upper_timing(torch, tmd, chunk_attn):
                 return f(p, kc, vc, q_pos, **kw)
             return call
 
-        kw = dict(m=UP_MAIN["m"], include_bg=True, mode=mode)
+        kw = dict(m=sh["m"], include_bg=True, mode=mode)
         iters = 200 if C == 1 else 20
         runs = [time_ms(torch, cold(fn, p), iters)
                 for p in (pre2, pre, pre, pre2)]
@@ -2413,7 +2470,7 @@ def phase_upper_timing(torch, tmd, chunk_attn):
         plain_ms = time_ms(torch, cold(chunk_attn.chunk_attention_ref, pre),
                            10)
         del caches
-        _, grid, pairs = selection_stats(torch, tmd, pre, q_pos, UP_MAIN["m"])
+        _, grid, pairs = selection_stats(torch, tmd, pre, q_pos, sh["m"])
         two = bound(pre, k, q_pos, ks, grid, pairs)
         out[label] = {"C": C, "mode": mode, "ms": ms, "two_level_ms": two_ms,
                       "runs_ms": runs, "l2_copies": L2_COPIES,
@@ -2424,8 +2481,8 @@ def phase_upper_timing(torch, tmd, chunk_attn):
                       "union_pages": int(grid.any(3).any(2).sum()),
                       **launch_info(torch, chunk_attn, pre, k, grid, mode,
                                     upper=True)}
-    emit({"phase": "upper_timing", "kernel": "chunk_attn_upper",
-          "shape": UP_MAIN, "nu": nu, "cache": "bf16",
+    emit({"phase": phase, "kernel": "chunk_attn_upper",
+          "shape": sh, "nu": nu, "cache": "bf16",
           "layout": "dense 4096-token slots, L2-cold", **out})
     return out
 
@@ -3292,7 +3349,7 @@ def phase_rgemma_full_width(torch):
     params = init_params(cfg, seed=SEED, device=DEVICE)
     eng = Engine(cfg, params, EngineConfig(slots=4, max_len=4096, chunk=128),
                  device=DEVICE)
-    reqs = _requests(Request, SERVE["prompts"], SERVE["new_tokens"], cfg.vocab)
+    reqs = _requests(Request, SERVE["prompts"], FAMILY_SERVE_TOKENS, cfg.vocab)
     bad = torch.zeros((), dtype=torch.int64, device=DEVICE)
 
     def finite(fn):
@@ -3325,7 +3382,7 @@ def phase_rgemma_full_width(torch):
           "param_dtype": cfg.param_dtype, "activ_dtype": cfg.activ_dtype,
           "cache": type(eng.kv).__name__, "chunk_cap": eng.kv.chunk_cap,
           "slots": 4, "max_len": 4096, "chunk": eng.chunk,
-          "prompts": list(SERVE["prompts"]), "new_tokens": SERVE["new_tokens"],
+          "prompts": list(SERVE["prompts"]), "new_tokens": FAMILY_SERVE_TOKENS,
           "wall_s": wall, "generated_tokens": st["generated_tokens"],
           "tok_per_s": st["generated_tokens"] / wall,
           "prefill_tokens": st["prefill_tokens"],
@@ -3343,7 +3400,7 @@ def phase_rgemma_full_width(torch):
             or occ["tokens_evicted"] <= 0):
         raise AssertionError(f"{type(eng.kv).__name__}: the ring did not "
                              f"wrap ({lengths.tolist()}, {occ})")
-    if any(len(r.out) != SERVE["new_tokens"] or int(r.out.min()) < 0
+    if any(len(r.out) != FAMILY_SERVE_TOKENS or int(r.out.min()) < 0
            or int(r.out.max()) >= cfg.vocab for r in done):
         raise AssertionError("a stream is short or holds an out-of-vocab token")
     return eng
@@ -3550,6 +3607,595 @@ def phase_rgemma_self(torch, bsa):
     return prefill["launches"]["bsa_fwd"]
 
 
+# --------------------------------------------------------------------------- #
+# phases 35-37: a (data, model) = (2, 2) mesh of four ranks on the one card
+# --------------------------------------------------------------------------- #
+MESH_SHAPE = (2, 2)
+MESH_PARITY_LAYERS = 2  # the fp32 step and engine held to one device
+MESH_TRAIN_LAYERS = 28  # the bf16 step's depth: all of qwen3-1.7b's
+MESH_TRAIN_STEPS = 2  # the second reads what the first ZeRO-1 update wrote
+MESH_NEW_TOKENS = 8  # a mesh engine request's new tokens (phase 4: 192)
+MESH_GRANITE_PROMPT = 2  # the one of phase 4's prompts served at full depth
+MESH_MOE = dict(B=2, S=2048)  # granite-moe's one-layer tokens
+MESH_TIMEOUT = 900
+
+
+def _mesh_shapes(torch, bsa, chunk_attn):
+    """(context, record): while the context is open, every block-sparse
+    and chunk kernel launch records its operands' local shapes (counts by
+    (kernel, q shape, k shape, dtype))."""
+    record = {}
+    check, launch = bsa._check_qkv, chunk_attn._launch
+
+    def note(key):
+        record[key] = record.get(key, 0) + 1
+
+    def check_qkv(q, k, v, block_size):
+        note(("bsa", tuple(q.shape), tuple(k.shape), str(q.dtype)))
+        return check(q, k, v, block_size)
+
+    def launch_chunk(pre, k_cache, *a, **kw):
+        note(("chunk_attn", tuple(pre.qg.shape), tuple(k_cache.shape),
+              str(k_cache.dtype)))
+        return launch(pre, k_cache, *a, **kw)
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(bsa, "_check_qkv", check_qkv))
+    stack.enter_context(mock.patch.object(chunk_attn, "_launch",
+                                          launch_chunk))
+    return stack, record
+
+
+def _shape_list(record):
+    return [{"kernel": k[0], "q": list(k[1]), "kv": list(k[2]),
+             "dtype": k[3], "calls": n} for k, n in sorted(record.items())]
+
+
+def _mesh_probe(torch, mesh):
+    """Each collective ``collectives.py`` uses, on CUDA tensors, against
+    its value computed from the ranks' known inputs."""
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives as C
+
+    dev, rank, M = mesh.device, dist.get_rank(), MESH_SHAPE[1]
+    d, m = mesh.index("data"), mesh.index("model")
+
+    def x_of(r):
+        return torch.arange(12.0, device=dev).reshape(4, 3) + 100 * r
+
+    model_ranks = [d * M + j for j in range(M)]
+    data_ranks = [i * M + m for i in range(MESH_SHAPE[0])]
+    ok = {}
+    got = C.all_reduce(x_of(rank), mesh, "model")
+    ok["all_reduce_sum"] = bool(torch.equal(got, sum(x_of(r)
+                                                     for r in model_ranks)))
+    got = C.all_reduce(x_of(rank), mesh, "data", "max")
+    ok["all_reduce_max"] = bool(torch.equal(got, x_of(max(data_ranks))))
+    got = C.all_gather(x_of(rank), mesh, "data", 0)
+    ok["all_gather"] = bool(torch.equal(got, torch.cat([x_of(r) for r in
+                                                        data_ranks])))
+    got = C.all_to_all(x_of(rank), mesh, "model", 0, 1)
+    want = torch.cat([x_of(r).chunk(M, 0)[m] for r in model_ranks], 1)
+    ok["all_to_all"] = bool(torch.equal(got, want))
+    y = x_of(rank).requires_grad_()
+    (C.copy_to(y, mesh, "model") * (rank + 1)).sum().backward()
+    ok["copy_to_backward"] = bool(torch.equal(
+        y.grad, torch.full_like(y, float(sum(r + 1 for r in model_ranks)))))
+    snap = C.STATS.snapshot()
+    return {"backend": mesh.backend, "device": str(dev), "checks": ok,
+            "staged_ops": snap["staged_ops"], "ops": snap["ops"]}
+
+
+def _qwen3_small():
+    from repro_torch.configs import get_config
+
+    return get_config("qwen3-1.7b", num_layers=MESH_PARITY_LAYERS,
+                      activ_dtype="float32")
+
+
+def _granite_small():
+    """granite-moe at 2 full-width layers, fp32, with the no-drop capacity
+    of ``_moe_cfg``: the mesh and one device serve the same function."""
+    return _moe_cfg("psum").replace(num_layers=MESH_PARITY_LAYERS)
+
+
+def _mesh_grad_parity(torch, bsa, mesh, ref_path):
+    """qwen3-1.7b at full width, 2 layers, fp32: one batch's loss, global
+    grad norm and gradient blocks (averaged over the data axis) on the
+    mesh, against the one-device values in ``ref_path``."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.data import make_batch
+    from repro_torch.distributed import mesh_utils
+    from repro_torch.distributed.sharding import (
+        batch_pspec,
+        local_block,
+        param_placements,
+    )
+    from repro_torch.models.params import init_params, tree_leaves
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.adamw import global_norm, tree_leaves_pspec, zero_plan
+    from repro_torch.train.loop import data_mean
+
+    cfg = _qwen3_small()
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=TRAIN["seq"],
+                                global_batch=TRAIN["batch"])
+    params = init_params(cfg, seed=SEED, device=mesh.device, mesh=mesh)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    batch = {k: local_block(torch.from_numpy(v), batch_pspec(mesh, v.ndim),
+                            mesh).to(mesh.device)
+             for k, v in make_batch(cfg, shape, step=0, seed=SEED).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_bsa(bsa)
+    with mesh_utils.use_mesh(mesh):
+        loss, _ = get_model(cfg).loss_fn(params, cfg, batch)
+        grads = torch.autograd.grad(loss, leaves)
+    launches = _bsa_launches(bsa)
+    grads = data_mean(grads, mesh)
+    loss = float(data_mean([loss.detach()], mesh)[0])
+    placements = param_placements(cfg, mesh)
+    gnorm = float(global_norm(grads, zero_plan(params, placements, mesh)))
+    ref = torch.load(ref_path, mmap=True)
+    worst_abs = worst_rel = 0.0
+    for g, w, ps in zip(grads, ref["grads"], tree_leaves_pspec(placements)):
+        w = local_block(w, ps, mesh).to(g.device)
+        err = float((g - w).abs().max())
+        worst_abs = max(worst_abs, err)
+        worst_rel = max(worst_rel, err / max(float(w.abs().max()), 1e-30))
+    return {"layers": cfg.num_layers, "loss": loss, "loss_ref": ref["loss"],
+            "loss_rel": abs(loss - ref["loss"]) / abs(ref["loss"]),
+            "grad_norm": gnorm, "grad_norm_ref": ref["grad_norm"],
+            "grad_norm_rel": abs(gnorm - ref["grad_norm"]) / ref["grad_norm"],
+            "leaf_max_abs": worst_abs, "leaf_rel": worst_rel,
+            "launches": launches,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def _moe_weights(torch, cfg, device):
+    """One granite-moe layer's experts and an input batch, drawn from the
+    seed on ``device`` (the same on every rank and in the parent)."""
+    from repro_torch.models.moe import moe_specs
+
+    g = torch.Generator(device=device)
+    g.manual_seed(SEED)
+    w = {}
+    for key, spec in sorted(moe_specs(cfg).items()):
+        std = spec.scale or spec.shape[-2] ** -0.5
+        w[key] = torch.randn(spec.shape, generator=g, device=device) * std
+    x = torch.randn((MESH_MOE["B"], MESH_MOE["S"], cfg.d_model), generator=g,
+                    device=device)
+    return w, x
+
+
+def _moe_cfg(dispatch):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MOE_ARCH, activ_dtype="float32", moe_dispatch=dispatch)
+    # capacity E / top_k of the even share: no assignment drops at any token
+    # count, so the mesh (capacity from each data rank's tokens, as in the
+    # reference) and one device compute the same function
+    return cfg.replace(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+
+
+def _moe_grads(torch, cfg, w, x):
+    from repro_torch.models.moe import moe_block
+
+    leaves = [x] + [w[k] for k in sorted(w)]
+    for t in leaves:
+        t.requires_grad_(True)
+    out, aux = moe_block(x, w, cfg)
+    grads = torch.autograd.grad((out.float() ** 2).sum(), leaves)
+    return out.detach(), grads
+
+
+def _mesh_moe(torch, mesh, ref_path):
+    """granite-moe's layer at full width on the mesh (20 of 40 experts a
+    model rank): forward and backward under psum and a2a against the
+    one-device values in ``ref_path``."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import mesh_utils
+    from repro_torch.distributed.sharding import (
+        local_block,
+        logical_to_pspec,
+        shard_tree,
+    )
+    from repro_torch.models.moe import moe_specs
+
+    ref = torch.load(ref_path, mmap=True)
+    out = {}
+    for dispatch in ("psum", "a2a"):
+        cfg = _moe_cfg(dispatch)
+        w, x = _moe_weights(torch, cfg, mesh.device)
+        wl = shard_tree(w, moe_specs(cfg), mesh)
+        xl = local_block(x, ("data", None, None), mesh).clone()
+        C.STATS.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mesh_utils.use_mesh(mesh):
+            o, grads = _moe_grads(torch, cfg, wl, xl)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        comm = C.STATS.snapshot()
+        r = ref[dispatch]
+        errs, rels = {}, {}
+
+        def held(name, got, want):
+            err = float((got - want).abs().max())
+            errs[name] = err
+            rels[name] = err / max(float(want.abs().max()), 1e-30)
+
+        rows = ("data", None, None)
+        held("out", o, local_block(r["out"], rows, mesh).to(o.device))
+        held("dx", grads[0], local_block(r["grads"][0], rows, mesh).to(
+            o.device))
+        specs = moe_specs(cfg)
+        for key, g, rg in zip(sorted(wl), grads[1:], r["grads"][1:]):
+            s = specs[key]
+            g = C.all_reduce(g, mesh, "data")  # the data ranks' shares
+            held(f"d{key}", g, local_block(
+                rg, logical_to_pspec(s.shape, s.axes, mesh), mesh).to(
+                    g.device))
+        out[dispatch] = {"max_abs_err": errs, "rel_err": rels, "wall_s": wall,
+                         "experts_local": int(wl["wi"].shape[0]),
+                         "comm": comm}
+    return out
+
+
+def _mesh_engine(torch, chunk_attn, mesh, cfg, new_tokens, pick=None):
+    """Phase 4's requests (``new_tokens`` each; only the ``pick``-th when
+    given) through ``Engine`` on the mesh: streams, launches, the local
+    shapes of every launch, wall seconds and the collectives' bytes and
+    seconds."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.kernels import block_sparse_attn as bsa
+    from repro_torch.models.params import init_params
+    from repro_torch.serve import Engine, EngineConfig, Request
+
+    params = init_params(cfg, seed=SEED, device=mesh.device, mesh=mesh)
+    eng = Engine(cfg, params, EngineConfig(slots=4, max_len=4096, chunk=128,
+                                           mesh=mesh), device=DEVICE)
+    reqs = _requests(Request, SERVE["prompts"], new_tokens, cfg.vocab)
+    if pick is not None:
+        reqs = [reqs[pick]]
+    ctx, shapes = _mesh_shapes(torch, bsa, chunk_attn)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    C.STATS.reset()
+    with ctx:
+        _reset_chunk(chunk_attn)
+        t0 = time.perf_counter()
+        done = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, upper = _chunk_launches(chunk_attn)
+    st = eng.stats
+    comm = C.STATS.snapshot()
+    return {"layers": cfg.num_layers, "activ_dtype": cfg.activ_dtype,
+            "streams": {len(r.prompt): np.asarray(r.out).tolist()
+                        for r in done},
+            "wall_s": wall, "generated_tokens": st["generated_tokens"],
+            "tok_per_s": st["generated_tokens"] / wall,
+            "dispatches": st["prefill_dispatches"] + st["decode_dispatches"],
+            "kernel_launches": launches, "upper_launches": upper,
+            "launch_shapes": _shape_list(shapes),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "comm_s": sum(v["seconds"] for v in comm["ops"].values()),
+            "staging_s": sum(v["staging_seconds"]
+                             for v in comm["ops"].values()),
+            "comm": comm}
+
+
+def _bits_checksum(torch, t, chunk=1 << 24) -> int:
+    """A tensor's 32-bit words (its bytes when they do not pack into
+    words), each times its position + 1, summed in wrapping int64 chunks:
+    equal blocks give equal sums, and a changed or moved entry changes
+    them (a plain sum would miss a permutation)."""
+    t = t.detach().contiguous().view(-1)
+    w = (t.view(torch.int32) if (t.numel() * t.element_size()) % 4 == 0
+         else t.view(torch.uint8))
+    total = 0
+    for i in range(0, w.numel(), chunk):
+        c = w[i:i + chunk].to(torch.int64)
+        total += int((c * torch.arange(i + 1, i + 1 + c.numel(),
+                                       device=c.device)).sum())
+    return total
+
+
+def _mesh_train(torch, bsa, chunk_attn, mesh):
+    """qwen3-1.7b's ``train()`` on the mesh at MESH_TRAIN_LAYERS layers,
+    bf16 activations, remat="full", seq 4096, batch 2 (one row a data
+    rank), MESH_TRAIN_STEPS steps: metrics, launches and their local
+    shapes, peak memory, the collectives' bytes, seconds and host
+    staging seconds per step, and a bit checksum of every parameter block
+    after the last update (``_bits_checksum``)."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.distributed import collectives as C
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train import TrainConfig, train
+
+    cfg = get_config("qwen3-1.7b", num_layers=MESH_TRAIN_LAYERS)
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=TRAIN["seq"],
+                                global_batch=TRAIN["batch"])
+    tc = TrainConfig(steps=MESH_TRAIN_STEPS, seed=SEED, log_every=10**9)
+    steps = []
+    ctx, shapes = _mesh_shapes(torch, bsa, chunk_attn)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    C.STATS.reset()
+    _reset_bsa(bsa)
+    with ctx:
+        t0 = time.perf_counter()
+        params, _, _ = train(
+            cfg, shape, tc, device=DEVICE, mesh=mesh,
+            on_metrics=lambda s, m: steps.append(
+                {"step": s, "loss": m["loss"], "grad_norm": m["grad_norm"],
+                 "seconds": m["step_time_s"],
+                 "tokens_per_s": m["tokens_per_s"]}))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    comm = C.STATS.snapshot()
+    checksums = [_bits_checksum(torch, p) for p in tree_leaves(params)]
+    del params
+    free, total = torch.cuda.mem_get_info()
+    return {"layers": cfg.num_layers, "remat": cfg.remat,
+            "activ_dtype": cfg.activ_dtype, "param_dtype": cfg.param_dtype,
+            "seq_len": shape.seq_len, "batch": shape.global_batch,
+            "steps": steps, "wall_s": wall,
+            "kernel_launches": _bsa_launches(bsa),
+            "launch_shapes": _shape_list(shapes),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "reserved_gib": torch.cuda.max_memory_reserved() / 2**30,
+            "card_used_gib_after": (total - free) / 2**30,
+            "param_checksums": checksums,
+            "comm_bytes_per_step": {k: v["bytes"] / MESH_TRAIN_STEPS
+                                    for k, v in comm["ops"].items()},
+            "comm_s": sum(v["seconds"] for v in comm["ops"].values()),
+            "staging_s": sum(v["staging_seconds"]
+                             for v in comm["ops"].values()),
+            "comm": comm}
+
+
+def mesh_rank(rank, job):
+    """One rank of phases 35-37 (``launch.mesh.spawn``; every rank on
+    cuda:0, gloo): the collective probe, qwen3-1.7b's fp32 gradients and
+    engine at 2 layers, granite-moe's MoE layer, qwen3-1.7b's bf16
+    ``train()`` and engine at full depth, granite-moe's engine."""
+    import torch
+
+    from repro_torch.kernels import block_sparse_attn as bsa
+    from repro_torch.kernels import chunk_attn
+    from repro_torch.launch.mesh import make_local_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_local_mesh(*MESH_SHAPE)
+    out = {"rank": rank, "index": {a: mesh.index(a) for a in mesh.shape}}
+    out["probe"] = _mesh_probe(torch, mesh)
+    out["grad_parity"] = _mesh_grad_parity(torch, bsa, mesh, job["qwen3"])
+    torch.cuda.empty_cache()
+    out["engine_fp32"] = _mesh_engine(torch, chunk_attn, mesh,
+                                      _qwen3_small(), MESH_NEW_TOKENS)
+    torch.cuda.empty_cache()
+    out["moe"] = _mesh_moe(torch, mesh, job["moe"])
+    torch.cuda.empty_cache()
+    out["train"] = _mesh_train(torch, bsa, chunk_attn, mesh)
+    torch.cuda.empty_cache()
+    from repro_torch.configs import get_config
+
+    out["engine"] = _mesh_engine(torch, chunk_attn, mesh,
+                                 get_config("qwen3-1.7b"), MESH_NEW_TOKENS)
+    torch.cuda.empty_cache()
+    out["granite_engine"] = _mesh_engine(torch, chunk_attn, mesh,
+                                         get_config(MOE_ARCH),
+                                         MESH_NEW_TOKENS, MESH_GRANITE_PROMPT)
+    torch.cuda.empty_cache()
+    out["granite_engine_fp32"] = _mesh_engine(torch, chunk_attn, mesh,
+                                              _granite_small(),
+                                              MESH_NEW_TOKENS)
+    return out
+
+
+def _first_part(got, want):
+    """{prompt length: index of the first token where ``got`` leaves
+    ``want`` (None: equal over ``got``'s length)}."""
+    out = {}
+    for n, g in got.items():
+        w = np.asarray(want[n])[:len(g)]
+        diff = np.flatnonzero(np.asarray(g) != w)
+        out[n] = int(diff[0]) if len(diff) else None
+    return out
+
+
+def _mesh_references(torch, bsa, job):
+    """The one-device references of phases 35-37: qwen3-1.7b's fp32
+    gradients at 2 layers and granite-moe's MoE layer (saved to ``job``'s
+    files for the ranks), and the 2-layer fp32 engines' streams
+    (returned)."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.models.params import init_params
+    from repro_torch.serve import Engine, EngineConfig, Request
+
+    cfg = _qwen3_small()
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=TRAIN["seq"],
+                                global_batch=TRAIN["batch"])
+    loss, grads, _ = _grads(torch, bsa, cfg, shape, plain=False)
+    gnorm = float(torch.sqrt(sum((g.double() ** 2).sum() for g in grads)))
+    torch.save({"loss": loss, "grad_norm": gnorm,
+                "grads": [g.cpu() for g in grads]}, job["qwen3"])
+    del grads
+    streams = {}
+    for name, scfg in (("qwen3", cfg), ("granite", _granite_small())):
+        params = init_params(scfg, seed=SEED, device=DEVICE)
+        eng = Engine(scfg, params, EngineConfig(slots=4, max_len=4096,
+                                                chunk=128), device=DEVICE)
+        done = eng.run(_requests(Request, SERVE["prompts"], MESH_NEW_TOKENS,
+                                 scfg.vocab))
+        streams[name] = {len(r.prompt): np.asarray(r.out) for r in done}
+        del eng, params
+    moe_ref = {}
+    for dispatch in ("psum", "a2a"):
+        mcfg = _moe_cfg(dispatch)
+        w, x = _moe_weights(torch, mcfg, DEVICE)
+        o, g = _moe_grads(torch, mcfg, w, x)
+        moe_ref[dispatch] = {"out": o.cpu(), "grads": [t.cpu() for t in g]}
+        del w, x, o, g
+    torch.save(moe_ref, job["moe"])
+    del moe_ref
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return streams
+
+
+def phase_mesh(torch, bsa, chunk_attn, base, moe_base):
+    """Phases 35-37: the one-device references first (qwen3-1.7b's fp32
+    gradients and engine streams at 2 layers, granite-moe's MoE layer),
+    then four ranks spawned on the card, a (2, 2) mesh over gloo. Every
+    rank's failure fails the phase; nothing falls back to one rank or to
+    the CPU."""
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        job = {"qwen3": f"{tmp}/qwen3.pt", "moe": f"{tmp}/moe.pt"}
+        small_streams = _mesh_references(torch, bsa, job)
+        t0 = time.perf_counter()
+        ranks = spawn(mesh_rank, MESH_SHAPE[0] * MESH_SHAPE[1], job,
+                      device=DEVICE, timeout=MESH_TIMEOUT)
+        wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    emit({"phase": "mesh_probe", "mesh": dict(zip(("data", "model"),
+                                                  MESH_SHAPE)),
+          "ranks": len(ranks), "ranks_wall_s": wall,
+          **{k: r0["probe"][k] for k in ("backend", "device", "staged_ops")},
+          "checks": {r["rank"]: r["probe"]["checks"] for r in ranks}})
+    gp = {r["rank"]: r["grad_parity"] for r in ranks}
+    emit({"phase": "mesh_qwen3_parity", "dtype": "float32",
+          "layers": MESH_PARITY_LAYERS, "by_rank": gp})
+    e32 = {r["rank"]: _first_part(r["engine_fp32"]["streams"],
+                                  small_streams["qwen3"]) for r in ranks}
+    g32 = {r["rank"]: _first_part(r["granite_engine_fp32"]["streams"],
+                                  small_streams["granite"]) for r in ranks}
+    emit({"phase": "mesh_qwen3_engine_parity", "dtype": "float32",
+          "layers": MESH_PARITY_LAYERS, "new_tokens": MESH_NEW_TOKENS,
+          "first_part_by_rank": e32,
+          "by_rank": {r["rank"]: {k: v for k, v in r["engine_fp32"].items()
+                                  if k not in ("streams", "comm")}
+                      for r in ranks}})
+    tr = {r["rank"]: {k: v for k, v in r["train"].items()
+                      if k not in ("comm", "param_checksums")}
+          for r in ranks}
+    by_rank = {r["rank"]: r for r in ranks}
+    # each rank's peer: data index 0, the same model index (rank d * M + m)
+    peers = {r["rank"]: by_rank[r["index"]["model"]] for r in ranks}
+    blocks_agree = {k: r["train"]["param_checksums"]
+                    == peers[k]["train"]["param_checksums"]
+                    for k, r in by_rank.items()}
+    train_wall = r0["train"]["wall_s"]
+    emit({"phase": "mesh_qwen3_train", "by_rank": tr,
+          "card_peak_gib_sum": sum(t["peak_gib"] for t in tr.values()),
+          "card_reserved_gib_sum": sum(t["reserved_gib"] for t in tr.values()),
+          "staging_share": {k: t["staging_s"] / t["wall_s"]
+                            for k, t in tr.items()},
+          "comm_share": {k: t["comm_s"] / t["wall_s"] for k, t in tr.items()},
+          "param_leaves": len(r0["train"]["param_checksums"]),
+          "param_blocks_agree_with_data_peer": blocks_agree,
+          "train_wall_s_rank0": train_wall})
+    full = {r["rank"]: _first_part(r["engine"]["streams"], base["streams"])
+            for r in ranks}
+    emit({"phase": "mesh_qwen3_engine", "layers": r0["engine"]["layers"],
+          "new_tokens": MESH_NEW_TOKENS, "first_part_vs_phase4": full,
+          "streams_equal_across_ranks": all(
+              r["engine"]["streams"] == r0["engine"]["streams"]
+              for r in ranks),
+          "by_rank": {r["rank"]: {k: v for k, v in r["engine"].items()
+                                  if k not in ("streams", "comm")}
+                      for r in ranks}})
+    emit({"phase": "mesh_granite_moe", "dtype": "float32", "tokens":
+          MESH_MOE, "by_rank": {r["rank"]: r["moe"] for r in ranks}})
+    gran = {r["rank"]: _first_part(r["granite_engine"]["streams"],
+                                   moe_base["streams"]) for r in ranks}
+    emit({"phase": "mesh_granite_engine",
+          "layers": r0["granite_engine"]["layers"],
+          "new_tokens": MESH_NEW_TOKENS, "first_part_vs_phase16": gran,
+          "fp32_no_drop_layers": MESH_PARITY_LAYERS,
+          "fp32_no_drop_first_part_by_rank": g32,
+          "by_rank": {r["rank"]: {k: v for k, v in
+                                  r["granite_engine"].items()
+                                  if k not in ("streams", "comm")}
+                      for r in ranks}})
+    # holds
+    # NCCL with a card a rank, gloo when the ranks share the card
+    backend = ("nccl" if torch.cuda.device_count() >= len(ranks)
+               else "gloo")
+    if r0["probe"]["backend"] != backend or not all(
+            all(r["probe"]["checks"].values()) for r in ranks):
+        raise AssertionError(f"collective probe: {[r['probe'] for r in ranks]}")
+    L2 = MESH_PARITY_LAYERS  # forward twice a layer: the preset's remat
+    for k, g in gp.items():
+        if (g["loss_rel"] > 1e-4 or g["grad_norm_rel"] > 1e-4
+                or g["leaf_max_abs"] > 5e-3):
+            raise AssertionError(f"rank {k}: mesh gradients vs one device {g}")
+        if g["launches"] != {"bsa_fwd": 2 * L2, "bsa_bwd_dq": L2,
+                             "bsa_bwd_dkv": L2}:
+            raise AssertionError(f"rank {k}: launches {g['launches']}")
+    for name, parts in (("qwen3", e32), ("granite", g32)):
+        if any(p is not None for r in parts.values() for p in r.values()):
+            raise AssertionError(f"fp32 mesh {name} engine streams part: "
+                                 f"{parts}")
+    L = MESH_TRAIN_LAYERS
+    want = {"bsa_fwd": 2 * L * MESH_TRAIN_STEPS,
+            "bsa_bwd_dq": L * MESH_TRAIN_STEPS,
+            "bsa_bwd_dkv": L * MESH_TRAIN_STEPS}
+    hkv_local = 8 // MESH_SHAPE[1]
+    for k, t in tr.items():
+        if t["kernel_launches"] != want:
+            raise AssertionError(f"rank {k}: train launches {t} != {want}")
+        if not all(s["kv"][0] == hkv_local * TRAIN["batch"] // MESH_SHAPE[0]
+                   for s in t["launch_shapes"]):
+            raise AssertionError(f"rank {k}: launch shapes {t}")
+        if not all(np.isfinite([s["loss"], s["grad_norm"]]).all()
+                   for s in t["steps"]):
+            raise AssertionError(f"rank {k}: non-finite step {t['steps']}")
+    # the last step read what the earlier ZeRO-1 updates wrote: its loss
+    # and grad norm agree on every rank, and every parameter block is the
+    # same on the data ranks that hold it (same model index)
+    last = {k: t["steps"][-1] for k, t in tr.items()}
+    if len(tr[0]["steps"]) != MESH_TRAIN_STEPS or any(
+            abs(s[key] - last[0][key]) > 1e-6 * abs(last[0][key])
+            for s in last.values() for key in ("loss", "grad_norm")):
+        raise AssertionError(f"mesh train: last steps differ {last}")
+    if not all(blocks_agree.values()):
+        raise AssertionError(f"mesh train: parameter blocks differ across "
+                             f"the data ranks {blocks_agree}")
+    for name in ("engine_fp32", "engine", "granite_engine",
+                 "granite_engine_fp32"):
+        for r in ranks:
+            e = r[name]
+            if (e["kernel_launches"] != e["layers"] * e["dispatches"]
+                    or e["kernel_launches"] == 0):
+                raise AssertionError(f"rank {r['rank']} {name}: launches {e}")
+            if not all(s["kv"][:2] == [4 // MESH_SHAPE[0], hkv_local]
+                       for s in e["launch_shapes"]
+                       if s["kernel"] == "chunk_attn"):
+                raise AssertionError(f"rank {r['rank']} {name}: shapes "
+                                     f"{e['launch_shapes']}")
+            if r[name]["streams"] != r0[name]["streams"]:
+                raise AssertionError(f"{name}: rank streams differ")
+    # the output within 1e-3 (the reference's bound); each gradient within
+    # 1e-3 of its largest entry (a sum over 4096 tokens a rank)
+    for k, m in ((r["rank"], r["moe"]) for r in ranks):
+        for dispatch, res in m.items():
+            if (res["max_abs_err"]["out"] > 1e-3
+                    or max(res["rel_err"].values()) > 1e-3):
+                raise AssertionError(f"rank {k} moe {dispatch}: {res}")
+    return {"train": tr, "engine": r0["engine"], "ranks": ranks}
+
+
 def main() -> int:
     import torch
 
@@ -3579,8 +4225,9 @@ def main() -> int:
     del eng
     phase_engine_parity(torch, chunk_attn)
     torch.cuda.empty_cache()
-    moe_launches, eng, _ = phase_engine_full_width(
-        torch, chunk_attn, arch=MOE_ARCH, phase="moe_full_width")
+    moe_launches, eng, moe_base = phase_engine_full_width(
+        torch, chunk_attn, arch=MOE_ARCH, phase="moe_full_width",
+        new_tokens=FAMILY_SERVE_TOKENS)
     phase_profile(torch, eng, phase="moe_profile")
     phase_moe_drops(torch, eng)
     del eng
@@ -3611,6 +4258,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     up_err = phase_upper_vs_plain(torch, tmd, chunk_attn)
     up_time = phase_upper_timing(torch, tmd, chunk_attn)
+    up_granite = phase_upper_timing(torch, tmd, chunk_attn, UP_GRANITE,
+                                    "upper_timing_granite")
     up_launches, eng = phase_long_context(torch, chunk_attn)
     phase_profile(torch, eng, C=LONG["chunk"], phase="long_context_profile")
     del eng
@@ -3638,6 +4287,8 @@ def main() -> int:
     del eng
     torch.cuda.empty_cache()
     rg_prefill = phase_rgemma_self(torch, bsa)
+    torch.cuda.empty_cache()
+    mesh = phase_mesh(torch, bsa, chunk_attn, base, moe_base)
     dec = timing["decode"]
     print(smi, flush=True)
     train_kernels = []
@@ -3655,7 +4306,10 @@ def main() -> int:
             "bound_ms_fp32_rate": t["bound_ms_fp32"],
             "bound_by_fp32_rate": t["bound_by_fp32"],
             "dense_sdpa_ms": dense_ms,
-            "shape": "qwen3-1.7b train_4k, B=2, bf16, G=2",
+            "mesh_launches_per_rank": mesh["train"][0]["kernel_launches"][name],
+            "shape": "qwen3-1.7b train_4k, B=2, bf16, G=2; "
+                     "mesh_launches_per_rank from phase 36's (2, 2) mesh "
+                     "train() (local blocks: B=1, 8 query / 4 KV heads)",
             **{k: t[k] for k in ("grid", "threads", "smem_bytes",
                                  "blocks_per_sm", "pairs_per_tile")}})
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "bound_ms_fp32_rate",
@@ -3745,7 +4399,7 @@ def main() -> int:
             "bound_by_fp32_rate": t["bound_by_fp32"],
             "causal_ms": hubert_bsa["causal"][key]["ms"],
             "shape": "hubert-xlarge train_4k, n=4096, B=2, 16 MHA heads, "
-                     "non-causal, bf16; launches from the 3-step hubert "
+                     "non-causal, bf16; launches from the 2-step hubert "
                      "training run (phase 24)",
             **{k: t[k] for k in ("grid", "threads", "smem_bytes",
                                  "blocks_per_sm")}})
@@ -3819,7 +4473,10 @@ def main() -> int:
         "bound_ms_fp32_rate": dec["bound_ms_fp32_rate"],
         "bound_by_fp32_rate": dec["bound_by_fp32_rate"],
         "nsplit": dec["nsplit"], "library_ms": None,
-        "shape": "decode C=1 (latency), B=4; chunk128 below",
+        "mesh_launches_per_rank": mesh["engine"]["kernel_launches"],
+        "shape": "decode C=1 (latency), B=4; chunk128 below; "
+                 "mesh_launches_per_rank from phase 36's (2, 2) mesh engine "
+                 "(local blocks: 2 slots, 4 KV heads)",
         "chunk128": {k: timing["chunk128"][k] for k in keys}}, {
         "name": "chunk_attn_upper", "route": "cuda",
         "source": "src/repro_torch/csrc/chunk_attn.cu",
@@ -3835,7 +4492,15 @@ def main() -> int:
         "shape": "decode C=1 (latency), B=2, NU=33, L2-cold; chunk512 below",
         "two_level_ms": up_time["decode"]["two_level_ms"],
         "chunk512": {k: up_time["chunk512"][k] for k in
-                     keys + ("two_level_ms",)}},
+                     keys + ("two_level_ms",)},
+        "granite_d64_b128": {
+            "shape": "granite-moe-3b-a800m's (64, 128), B=2, Hkv=8, G=3, "
+                     "NU=33, L2-cold (phase 11b); held against the plain "
+                     "twin in phase 10",
+            "decode": {k: up_granite["decode"][k] for k in
+                       keys + ("two_level_ms",)},
+            "chunk512": {k: up_granite["chunk512"][k] for k in
+                         keys + ("two_level_ms",)}}},
         *train_kernels, *new_shapes]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -79,9 +79,10 @@ class ModelConfig:
     decay_lora: int = 64
     pad_vocab_to: int = 256  # embedding table padded so vocab shards over TP
     pad_attn_heads_to: int = 0  # query heads padded (masked) to a multiple
-    # MoE token dispatch: "psum" (replicated tokens, each device its expert
-    # slice) is the reference's default and the only one served, on one
-    # device; its "a2a" exchange comes with distributed serving
+    # MoE token dispatch under a mesh (models/moe.py): "psum" (replicated
+    # tokens, each model rank its expert slice, or the expert d_ff slice
+    # when the experts do not divide) or "a2a" (sequence-sharded tokens
+    # exchanged with the expert owners); one device runs every expert
     moe_dispatch: str = "psum"
     param_dtype: str = "float32"
     activ_dtype: str = "bfloat16"

@@ -17,9 +17,26 @@ are a ``scatter_add_`` into a fixed (E + 1,) vector (not ``bincount``,
 which syncs to size its output), dropped assignments go to a trash row and
 column of the buffer that is sliced away, and the combine is a gather and
 a fixed-order sum (no ``index_add_``, whose CUDA atomics would make reruns
-differ in the last bit). The reference's expert-parallel and all-to-all
-dispatches over a mesh are not ported: ``moe_dispatch`` other than
-``"psum"`` raises.
+differ in the last bit).
+
+Under an active mesh with a "model" axis (the reference's three
+``shard_map`` bodies, each rank holding its weight blocks; capacity from
+the rank's own token count, as there):
+
+  * expert-parallel (``E % |model| == 0``): the tokens replicated over
+    "model", each rank runs its experts [e0, e0 + E / |model|) and the
+    partial outputs are summed over "model";
+  * the TP fallback (experts do not divide): every rank runs every expert
+    on its slice of the expert d_ff, and the outputs are summed (when
+    neither divides, every rank runs the whole layer);
+  * ``moe_dispatch="a2a"`` (experts divide, ``S % |model| == 0``): each
+    rank routes its sequence shard, the (E, C, d) buffer goes to the
+    expert owners and back in two all-to-alls, and the shards are
+    gathered; a decode step (S = 1) falls back to the expert-parallel sum.
+
+The router runs replicated; its gates enter the split work through
+``copy_to``. The aux losses are averaged over the data axes (and over
+"model" under a2a, where each rank routed other tokens).
 """
 from __future__ import annotations
 
@@ -27,6 +44,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoESpec
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import mesh_utils
 
 from .params import TensorSpec
 
@@ -37,9 +56,13 @@ def moe_specs(cfg: ModelConfig) -> dict:
     m = cfg.moe
     d, E, f = cfg.d_model, m.num_experts, m.d_ff_expert
     pdt = cfg.pdt
-    return {"router": TensorSpec((d, E), pdt, "normal", scale=0.02),
-            "wi": TensorSpec((E, d, f), pdt), "wg": TensorSpec((E, d, f), pdt),
-            "wo": TensorSpec((E, f, d), pdt)}
+    up = ("experts", "d_model", "expert_ff")
+    return {"router": TensorSpec((d, E), pdt, "normal", scale=0.02,
+                                 axes=("d_model", None)),
+            "wi": TensorSpec((E, d, f), pdt, axes=up),
+            "wg": TensorSpec((E, d, f), pdt, axes=up),
+            "wo": TensorSpec((E, f, d), pdt,
+                             axes=("experts", "expert_ff", "d_model"))}
 
 
 def capacity(T: int, spec: MoESpec) -> int:
@@ -135,17 +158,59 @@ def moe_block(x, p, cfg: ModelConfig):
     """x (B, S, d) -> ((B, S, d), aux losses dict).
 
     T = B·S counts every row, padded and inactive serving rows too: they
-    route and take capacity as in the reference."""
-    if cfg.moe_dispatch != "psum":
-        raise NotImplementedError(
-            f"moe_dispatch={cfg.moe_dispatch!r}: only 'psum' on one device "
-            "is ported")
+    route and take capacity as in the reference. Under a mesh, x is the
+    rank's rows and ``p`` its weight blocks (module docstring)."""
+    if cfg.moe_dispatch not in ("psum", "a2a"):
+        raise ValueError(f"moe_dispatch={cfg.moe_dispatch!r}: expected "
+                         "'psum' or 'a2a'")
     B, S, d = x.shape
     spec = cfg.moe
+    E = spec.num_experts
+    mesh = mesh_utils.get_mesh()
+    ms = C.axis_size(mesh, "model")
+    if ms > 1 and cfg.moe_dispatch == "a2a" and E % ms == 0 and S % ms == 0:
+        return _a2a_block(x, p, cfg, mesh)
     T = B * S
     xt = x.reshape(T, d)
     gates, idx, aux = _route(xt, p["router"], spec)
-    out = _expert_compute(xt, gates, idx, p["wi"], p["wg"], p["wo"], e0=0,
-                          e_local=spec.num_experts,
+    e_local = p["wi"].shape[0]  # E / |model| (expert-parallel) or E
+    if ms == 1 or (e_local == E and p["wi"].shape[-1] == spec.d_ff_expert):
+        out = _expert_compute(xt, gates, idx, p["wi"], p["wg"], p["wo"],
+                              e0=0, e_local=E, capacity=capacity(T, spec))
+        return out.reshape(B, S, d), _data_mean(aux, mesh)
+    out = _expert_compute(C.copy_to(xt, mesh), C.copy_to(gates, mesh), idx,
+                          p["wi"], p["wg"], p["wo"],
+                          e0=mesh.index("model") * e_local
+                          if e_local < E else 0,
+                          e_local=e_local, capacity=capacity(T, spec))
+    return C.reduce_from(out, mesh).reshape(B, S, d), _data_mean(aux, mesh)
+
+
+def _data_mean(aux: dict, mesh) -> dict:
+    """The aux losses averaged over the data axes (gradients pass as they
+    are: the train step averages them over the same axes)."""
+    if C.axis_size(mesh, "data") == 1:
+        return aux
+    return {k: C.mean_from(v, mesh, "data") for k, v in aux.items()}
+
+
+def _a2a_block(x, p, cfg: ModelConfig, mesh):
+    """The all-to-all dispatch: the rank's sequence shard routed, its
+    (E, C, d) buffer exchanged with the expert owners and back."""
+    B, S, d = x.shape
+    spec = cfg.moe
+    ms = mesh.shape["model"]
+    xs = C.slice_to(x, mesh, "model", 1)  # (B, S / ms, d)
+    T = B * (S // ms)
+    xt = xs.reshape(T, d)
+    gates, idx, aux = _route(xt, C.copy_to(p["router"], mesh), spec)
+    buf, meta = _dispatch(xt, idx, e0=0, e_local=spec.num_experts,
                           capacity=capacity(T, spec))
-    return out.reshape(B, S, d), aux
+    recv = C.exchange(buf, mesh, "model", 0, 1)  # (E / ms, ms * C, d)
+    y = _expert_ffn(recv, p["wi"], p["wg"], p["wo"])
+    back = C.exchange(y, mesh, "model", 1, 0)  # (E, C, d)
+    out = _combine(back, meta, gates, T).reshape(xs.shape)
+    # over "model" each rank routed other tokens: the mean's gradient
+    # reaches each rank's router block at 1 / ms (copy_to sums them)
+    aux = {k: C.reduce_from(v / ms, mesh) for k, v in aux.items()}
+    return C.gather_from(out, mesh, "model", 1), _data_mean(aux, mesh)

@@ -30,11 +30,14 @@ from repro_torch.configs.base import FAMILIES, ModelConfig
 
 
 class TensorSpec(NamedTuple):
-    """A declared tensor: shape, dtype and initializer.
+    """A declared tensor: shape, dtype, initializer and logical axes.
 
     init: "normal" (truncated normal, std ``scale`` or 1/sqrt(fan-in)) |
     "embed" (normal, std ``scale`` or 0.02) | "zeros" | "ones" | "fill"
-    (the constant ``fill``).
+    (the constant ``fill``). axes: one logical axis name (or None) per
+    dimension, the reference's ``ParamSpec.axes``, which
+    ``distributed/sharding.py`` resolves against a mesh; None = all
+    replicated.
     """
 
     shape: tuple
@@ -42,10 +45,34 @@ class TensorSpec(NamedTuple):
     init: str = "normal"
     fill: float = 0.0
     scale: Optional[float] = None
+    axes: Optional[tuple] = None
 
 
-def _spec(shape, dtype, init="normal"):
-    return TensorSpec(tuple(shape), dtype, init)
+def _spec(shape, dtype, init="normal", axes=None):
+    return TensorSpec(tuple(shape), dtype, init,
+                      axes=None if axes is None else tuple(axes))
+
+
+def spec_paths(tree, path=()):
+    """(path, TensorSpec) pairs of a nested dict / list spec tree, in
+    ``tree_paths`` order (a TensorSpec is a leaf here)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from spec_paths(tree[k], path + (str(k),))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from spec_paths(v, path + (str(i),))
+    else:
+        yield path, tree
+
+
+def map_specs(tree, fn):
+    """``fn`` on every TensorSpec of a nested dict / list tree."""
+    if isinstance(tree, dict):
+        return {k: map_specs(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_specs(v, fn) for v in tree]
+    return fn(tree)
 
 
 def fill_value(spec: TensorSpec) -> float:
@@ -66,34 +93,42 @@ def materialize(spec: TensorSpec, device) -> torch.Tensor:
 
 
 def norm_specs(cfg: ModelConfig) -> dict:
-    d, f32 = cfg.d_model, torch.float32
+    d, f32, ax = cfg.d_model, torch.float32, ("d_model",)
     if cfg.norm == "layernorm":
-        return {"w": _spec((d,), f32, "ones"), "b": _spec((d,), f32, "zeros")}
-    return {"w": _spec((d,), f32, "ones")}
+        return {"w": _spec((d,), f32, "ones", ax),
+                "b": _spec((d,), f32, "zeros", ax)}
+    return {"w": _spec((d,), f32, "ones", ax)}
 
 
 def mlp_specs(cfg: ModelConfig) -> dict:
     d, f, pdt = cfg.d_model, cfg.d_ff, cfg.pdt
+    di, do = ("d_model", "d_ff"), ("d_ff", "d_model")
     if cfg.act == "swiglu":
-        return {"wi": _spec((d, f), pdt), "wg": _spec((d, f), pdt),
-                "wo": _spec((f, d), pdt)}
-    return {"wi": _spec((d, f), pdt), "bi": _spec((f,), pdt, "zeros"),
-            "wo": _spec((f, d), pdt), "bo": _spec((d,), pdt, "zeros")}
+        return {"wi": _spec((d, f), pdt, axes=di),
+                "wg": _spec((d, f), pdt, axes=di),
+                "wo": _spec((f, d), pdt, axes=do)}
+    return {"wi": _spec((d, f), pdt, axes=di),
+            "bi": _spec((f,), pdt, "zeros", ("d_ff",)),
+            "wo": _spec((f, d), pdt, axes=do),
+            "bo": _spec((d,), pdt, "zeros", ("d_model",))}
 
 
 def attn_specs(cfg: ModelConfig) -> dict:
     """The GQA projections (with the optional qkv biases and qk norms)."""
     d, H, Hkv, hd = cfg.d_model, cfg.padded_heads, cfg.kv_heads, cfg.hd
     pdt = cfg.pdt
-    attn = {"wq": _spec((d, H, hd), pdt), "wk": _spec((d, Hkv, hd), pdt),
-            "wv": _spec((d, Hkv, hd), pdt), "wo": _spec((H, hd, d), pdt)}
+    q_ax, kv_ax = ("d_model", "heads", None), ("d_model", "kv_heads", None)
+    attn = {"wq": _spec((d, H, hd), pdt, axes=q_ax),
+            "wk": _spec((d, Hkv, hd), pdt, axes=kv_ax),
+            "wv": _spec((d, Hkv, hd), pdt, axes=kv_ax),
+            "wo": _spec((H, hd, d), pdt, axes=("heads", None, "d_model"))}
     if cfg.qkv_bias:
-        attn["bq"] = _spec((H, hd), pdt, "zeros")
-        attn["bk"] = _spec((Hkv, hd), pdt, "zeros")
-        attn["bv"] = _spec((Hkv, hd), pdt, "zeros")
+        attn["bq"] = _spec((H, hd), pdt, "zeros", ("heads", None))
+        attn["bk"] = _spec((Hkv, hd), pdt, "zeros", ("kv_heads", None))
+        attn["bv"] = _spec((Hkv, hd), pdt, "zeros", ("kv_heads", None))
     if cfg.qk_norm:
-        attn["qnorm"] = _spec((hd,), pdt, "ones")
-        attn["knorm"] = _spec((hd,), pdt, "ones")
+        attn["qnorm"] = _spec((hd,), pdt, "ones", (None,))
+        attn["knorm"] = _spec((hd,), pdt, "ones", (None,))
     return attn
 
 
@@ -113,11 +148,14 @@ def embed_specs(cfg: ModelConfig) -> dict:
     """The token table, the learned positions under ``pos="learned"`` and
     the LM head unless tied."""
     d, pdt = cfg.d_model, cfg.pdt
-    embed = {"tok": _spec((cfg.padded_vocab, d), pdt, "embed")}
+    embed = {"tok": _spec((cfg.padded_vocab, d), pdt, "embed",
+                          ("vocab", "d_model"))}
     if cfg.pos == "learned":
-        embed["pos"] = _spec((cfg.max_seq, d), pdt, "embed")
+        embed["pos"] = _spec((cfg.max_seq, d), pdt, "embed",
+                             (None, "d_model"))
     if not cfg.tie_embeddings:
-        embed["head"] = _spec((d, cfg.padded_vocab), pdt)
+        embed["head"] = _spec((d, cfg.padded_vocab), pdt,
+                              axes=("d_model", "vocab"))
     return embed
 
 
@@ -138,10 +176,13 @@ def param_specs(cfg: ModelConfig) -> dict:
     p = {"embed": embed_specs(cfg), "ln_f": norm_specs(cfg),
          "layers": [_layer_specs(cfg) for _ in range(cfg.num_layers)]}
     if cfg.frontend == "audio_frames":
-        p["frontend"] = {"proj": _spec((cfg.frontend_dim, d), pdt),
-                         "mask_embed": _spec((d,), pdt, "embed")}
+        p["frontend"] = {"proj": _spec((cfg.frontend_dim, d), pdt,
+                                       axes=(None, "d_model")),
+                         "mask_embed": _spec((d,), pdt, "embed",
+                                             ("d_model",))}
     if cfg.frontend == "vision_patches":
-        p["frontend"] = {"proj": _spec((cfg.frontend_dim, d), pdt)}
+        p["frontend"] = {"proj": _spec((cfg.frontend_dim, d), pdt,
+                                       axes=(None, "d_model"))}
     return p
 
 
@@ -211,19 +252,31 @@ def tree_unflatten(like, leaves):
     return build(like)
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
+def init_params(cfg: ModelConfig, seed: int = 0, device=None, *,
+                mesh=None) -> dict:
     """Random parameters from ``seed``, made on ``device`` (default: cuda).
 
     One ``torch.Generator`` on the target device draws every leaf in tree
     order, so a seed gives the same weights on every run on that device
     (not the reference's bits: the tests carry JAX weights over with
     ``params_from_jax`` instead). Every leaf is a leaf tensor that takes
-    ``requires_grad_()`` for training.
+    ``requires_grad_()`` for training. With ``mesh``, each leaf is drawn
+    whole and cut to the calling rank's block before the next is drawn:
+    the blocks of the one-device tree.
     """
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return _map(param_specs(cfg), lambda s: _init_one(s, gen, dev))
+    if mesh is None:
+        return _map(param_specs(cfg), lambda s: _init_one(s, gen, dev))
+    from repro_torch.distributed.sharding import local_block, logical_to_pspec
+
+    def one(s):
+        pspec = logical_to_pspec(s.shape, s.axes or (None,) * len(s.shape),
+                                 mesh)
+        return local_block(_init_one(s, gen, dev), pspec, mesh).clone()
+
+    return _map(param_specs(cfg), one)
 
 
 def _to_tensor(a, device) -> torch.Tensor:

@@ -51,23 +51,23 @@ def _pattern(cfg: ModelConfig):
 # --------------------------------------------------------------------------- #
 # specs
 # --------------------------------------------------------------------------- #
-def _w(shape, dtype, init="normal", scale=None):
-    return TensorSpec(tuple(shape), dtype, init, 0.0, scale)
+def _w(shape, dtype, axes, init="normal", scale=None):
+    return TensorSpec(tuple(shape), dtype, init, 0.0, scale, tuple(axes))
 
 
 def _rglru_specs(cfg: ModelConfig) -> dict:
     d, w, pdt = cfg.d_model, cfg.lru_width or cfg.d_model, cfg.pdt
     return {
-        "wx": _w((d, w), pdt),
-        "wy": _w((d, w), pdt),
-        "conv_w": _w((cfg.conv1d_width, w), pdt, scale=0.1),
-        "conv_b": _w((w,), pdt, "zeros"),
-        "wa": _w((w, w), pdt, scale=0.01),
-        "ba": _w((w,), pdt, "zeros"),
-        "wi": _w((w, w), pdt, scale=0.01),
-        "bi": _w((w,), pdt, "zeros"),
-        "lam": _w((w,), pdt, "embed", scale=0.5),
-        "wo": _w((w, d), pdt),
+        "wx": _w((d, w), pdt, ("d_model", None)),
+        "wy": _w((d, w), pdt, ("d_model", None)),
+        "conv_w": _w((cfg.conv1d_width, w), pdt, (None, None), scale=0.1),
+        "conv_b": _w((w,), pdt, (None,), "zeros"),
+        "wa": _w((w, w), pdt, (None, None), scale=0.01),
+        "ba": _w((w,), pdt, (None,), "zeros"),
+        "wi": _w((w, w), pdt, (None, None), scale=0.01),
+        "bi": _w((w,), pdt, (None,), "zeros"),
+        "lam": _w((w,), pdt, (None,), "embed", scale=0.5),
+        "wo": _w((w, d), pdt, (None, "d_model")),
     }
 
 
@@ -221,14 +221,18 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     w = cfg.lru_width or cfg.d_model
     W = min(cfg.local_window, max_len)
     kv = (n_attn, batch, cfg.kv_heads, W, cfg.hd)
+    kv_ax = (None, "batch", None, None, None)
     return {
-        "k": TensorSpec(kv, cfg.adt, "zeros"),
-        "v": TensorSpec(kv, cfg.adt, "zeros"),
-        "kv_pos": TensorSpec((n_attn, batch, W), torch.int32, "fill", -1.0),
-        "h": TensorSpec((n_rec, batch, w), torch.float32, "zeros"),
+        "k": TensorSpec(kv, cfg.adt, "zeros", axes=kv_ax),
+        "v": TensorSpec(kv, cfg.adt, "zeros", axes=kv_ax),
+        "kv_pos": TensorSpec((n_attn, batch, W), torch.int32, "fill", -1.0,
+                             axes=(None, "batch", None)),
+        "h": TensorSpec((n_rec, batch, w), torch.float32, "zeros",
+                        axes=(None, "batch", None)),
         "conv": TensorSpec((n_rec, batch, cfg.conv1d_width - 1, w), cfg.adt,
-                           "zeros"),
-        "lengths": TensorSpec((batch,), torch.int32, "zeros"),
+                           "zeros", axes=(None, "batch", None, None)),
+        "lengths": TensorSpec((batch,), torch.int32, "zeros",
+                              axes=("batch",)),
     }
 
 

@@ -47,34 +47,35 @@ def _decay_clamp(chunk: int) -> float:
 # --------------------------------------------------------------------------- #
 # specs
 # --------------------------------------------------------------------------- #
-def _w(shape, dtype, init="normal", scale=None):
-    return TensorSpec(tuple(shape), dtype, init, 0.0, scale)
+def _w(shape, dtype, axes, init="normal", scale=None):
+    return TensorSpec(tuple(shape), dtype, init, 0.0, scale, tuple(axes))
 
 
 def layer_specs(cfg: ModelConfig) -> dict:
     d, dh, f, lora, pdt = (cfg.d_model, cfg.rwkv_head_dim, cfg.d_ff,
                            cfg.decay_lora, cfg.pdt)
     H = d // dh
+    hx = ("d_model", "heads", None)
     tm = {
-        "mu": _w((5, d), pdt, "embed"),
-        "w0": _w((d,), pdt, "embed"),
-        "wA": _w((d, lora), pdt, scale=0.01),
-        "wB": _w((lora, d), pdt, scale=0.01),
-        "wr": _w((d, H, dh), pdt),
-        "wk": _w((d, H, dh), pdt),
-        "wv": _w((d, H, dh), pdt),
-        "wg": _w((d, H, dh), pdt),
-        "u": _w((H, dh), pdt, "embed"),
-        "wo": _w((H, dh, d), pdt),
-        "gn_w": _w((H, dh), pdt, "ones"),
-        "gn_b": _w((H, dh), pdt, "zeros"),
+        "mu": _w((5, d), pdt, (None, "d_model"), "embed"),
+        "w0": _w((d,), pdt, ("d_model",), "embed"),
+        "wA": _w((d, lora), pdt, ("d_model", None), scale=0.01),
+        "wB": _w((lora, d), pdt, (None, "d_model"), scale=0.01),
+        "wr": _w((d, H, dh), pdt, hx),
+        "wk": _w((d, H, dh), pdt, hx),
+        "wv": _w((d, H, dh), pdt, hx),
+        "wg": _w((d, H, dh), pdt, hx),
+        "u": _w((H, dh), pdt, ("heads", None), "embed"),
+        "wo": _w((H, dh, d), pdt, ("heads", None, "d_model")),
+        "gn_w": _w((H, dh), pdt, ("heads", None), "ones"),
+        "gn_b": _w((H, dh), pdt, ("heads", None), "zeros"),
     }
     cm = {
-        "mu_k": _w((d,), pdt, "embed"),
-        "mu_r": _w((d,), pdt, "embed"),
-        "wk": _w((d, f), pdt),
-        "wv": _w((f, d), pdt),
-        "wr": _w((d, d), pdt),
+        "mu_k": _w((d,), pdt, ("d_model",), "embed"),
+        "mu_r": _w((d,), pdt, ("d_model",), "embed"),
+        "wk": _w((d, f), pdt, ("d_model", "d_ff")),
+        "wv": _w((f, d), pdt, ("d_ff", "d_model")),
+        "wr": _w((d, d), pdt, ("d_model", None)),
     }
     return {"ln1": norm_specs(cfg), "tm": tm, "ln2": norm_specs(cfg),
             "cm": cm}
@@ -265,10 +266,14 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     d, dh, Lx = cfg.d_model, cfg.rwkv_head_dim, cfg.num_layers
     H = d // dh
     return {
-        "state": TensorSpec((Lx, batch, H, dh, dh), torch.float32, "zeros"),
-        "tm_x": TensorSpec((Lx, batch, d), cfg.adt, "zeros"),
-        "cm_x": TensorSpec((Lx, batch, d), cfg.adt, "zeros"),
-        "lengths": TensorSpec((batch,), torch.int32, "zeros"),
+        "state": TensorSpec((Lx, batch, H, dh, dh), torch.float32, "zeros",
+                            axes=(None, "batch", "heads", None, None)),
+        "tm_x": TensorSpec((Lx, batch, d), cfg.adt, "zeros",
+                           axes=(None, "batch", "d_model")),
+        "cm_x": TensorSpec((Lx, batch, d), cfg.adt, "zeros",
+                           axes=(None, "batch", "d_model")),
+        "lengths": TensorSpec((batch,), torch.int32, "zeros",
+                              axes=("batch",)),
     }
 
 

@@ -46,6 +46,8 @@ from repro_torch.core.mra_decode import (
     quantize_kv,
     ring_pyramid_update,
 )
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import mesh_utils
 
 from . import layers as L
 from .moe import moe_block
@@ -91,6 +93,20 @@ def _input_embed(params, cfg: ModelConfig, batch):
     return L.embed(batch["tokens"], params["embed"], cfg)
 
 
+def _forward(params, cfg: ModelConfig, batch, key_mask):
+    """``forward`` with the logits as ``unembed`` leaves them (the rank's
+    vocab columns under a vocab-split mesh)."""
+    x = _input_embed(params, cfg, batch)
+    body = L.remat_wrap(_layer_fwd, cfg)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p in params["layers"]:
+        x, aux = body(x, p, cfg, key_mask)
+        for v in aux.values():
+            aux_total = aux_total + v
+    x = L.apply_norm(x, params["ln_f"], cfg)
+    return L.unembed(x, params["embed"], cfg), aux_total
+
+
 def forward(params, cfg: ModelConfig, batch, *, key_mask=None):
     """Full-sequence forward.
 
@@ -101,31 +117,36 @@ def forward(params, cfg: ModelConfig, batch, *, key_mask=None):
     S, padded_vocab) in the activation dtype, aux loss: an fp32 scalar, the
     MoE layers' losses summed over layers in the reference's order; zero
     for the other families).
+
+    Under an active mesh ``params`` are the rank's blocks
+    (``shard_params``) and ``batch`` its rows (``batch_pspec``); the logits
+    are the rank's rows over the whole vocab.
     """
-    x = _input_embed(params, cfg, batch)
-    body = L.remat_wrap(_layer_fwd, cfg)
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p in params["layers"]:
-        x, aux = body(x, p, cfg, key_mask)
-        for v in aux.values():
-            aux_total = aux_total + v
-    x = L.apply_norm(x, params["ln_f"], cfg)
-    logits = L.unembed(x, params["embed"], cfg)
-    return logits, aux_total
+    logits, aux_total = _forward(params, cfg, batch, key_mask)
+    return L.gather_vocab(logits, cfg), aux_total
 
 
 def loss_fn(params, cfg: ModelConfig, batch, *, key_mask=None):
     """Mean NLL of the targets: next tokens (dense / moe), the text after
     the ``num_patches`` patches (internvl), or the masked-unit targets at
     ``mask_positions`` only, sum / max(count, 1) (hubert). Returns
-    (loss + aux, {"loss", "aux_loss", "nll"})."""
-    logits, aux = forward(params, cfg, batch, key_mask=key_mask)
+    (loss + aux, {"loss", "aux_loss", "nll"}).
+
+    Under an active mesh the batch is the rank's rows and the loss its
+    share: the mean of the ranks' losses over the data axes is the whole
+    batch's (hubert's count of masked positions is summed over them)."""
+    logits, aux = _forward(params, cfg, batch, key_mask)
     if cfg.family == "internvl":
         logits = logits[:, cfg.num_patches:]
     nll = L.lm_nll(logits, batch["targets"], cfg)
     if cfg.family == "hubert":
         w = batch["mask_positions"].to(torch.float32)  # predict only masked
-        loss = torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1.0)
+        count = torch.sum(w)
+        mesh = mesh_utils.get_mesh()
+        dp = C.axis_size(mesh, "data")
+        if dp > 1:
+            count = C.all_reduce(count, mesh, "data") / dp
+        loss = torch.sum(nll * w) / torch.clamp(count, min=1.0 / dp)
     else:
         loss = nll.mean()
     metrics = {"loss": loss, "aux_loss": aux, "nll": loss}
@@ -150,37 +171,49 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     hd, Hkv, Lx = cfg.hd, cfg.kv_heads, cfg.num_layers
     mra = cfg.attention.kind in MRA_KINDS
     quant = cfg.attention.kv_quant and mra
+    bh = ("batch", "kv_heads")
     kv = TensorSpec((batch, Hkv, max_len, hd),
-                    torch.int8 if quant else cfg.adt, "zeros")
+                    torch.int8 if quant else cfg.adt, "zeros",
+                    axes=bh + ("kv_seq", None))
     c = {"k": [kv] * Lx, "v": [kv] * Lx,
-         "lengths": TensorSpec((batch,), torch.int32, "zeros")}
+         "lengths": TensorSpec((batch,), torch.int32, "zeros",
+                               axes=("batch",))}
     if quant:
-        sc = TensorSpec((batch, Hkv, max_len), torch.float32, "zeros")
+        sc = TensorSpec((batch, Hkv, max_len), torch.float32, "zeros",
+                        axes=bh + ("kv_seq",))
         c["k_scale"] = [sc] * Lx
         c["v_scale"] = [sc] * Lx
     if mra:
         nb = max_len // cfg.attention.block_size
-        pyr = TensorSpec((batch, Hkv, nb, hd), torch.float32, "zeros")
+        pyr = TensorSpec((batch, Hkv, nb, hd), torch.float32, "zeros",
+                         axes=bh + (None, None))
         c["pyr_k"] = [pyr] * Lx
         c["pyr_v"] = [pyr] * Lx
-        c["page_blocks"] = TensorSpec((batch, nb), torch.int32, "fill", -1)
+        c["page_blocks"] = TensorSpec((batch, nb), torch.int32, "fill", -1,
+                                      axes=("batch", None))
         if cfg.attention.levels >= 3:
             n = cfg.attention.hier_pages or nb
-            hmean = TensorSpec((batch, Hkv, n, hd), torch.int8, "zeros")
-            hscale = TensorSpec((batch, Hkv, n), torch.float32, "zeros")
+            hmean = TensorSpec((batch, Hkv, n, hd), torch.int8, "zeros",
+                               axes=bh + (None, None))
+            hscale = TensorSpec((batch, Hkv, n), torch.float32, "zeros",
+                                axes=bh + (None,))
             for lvl in range(2, cfg.attention.levels):
                 c[f"hier_k{lvl}"] = [hmean] * Lx
                 c[f"hier_v{lvl}"] = [hmean] * Lx
                 c[f"hier_ks{lvl}"] = [hscale] * Lx
                 c[f"hier_vs{lvl}"] = [hscale] * Lx
                 c[f"hier_own{lvl}"] = TensorSpec((batch, n), torch.int32,
-                                                 "fill", -1)
+                                                 "fill", -1,
+                                                 axes=("batch", None))
                 c[f"hier_cnt{lvl}"] = TensorSpec((batch, n), torch.int32,
-                                                 "zeros")
-            tail = TensorSpec((batch, Hkv, hd), torch.float32, "zeros")
+                                                 "zeros",
+                                                 axes=("batch", None))
+            tail = TensorSpec((batch, Hkv, hd), torch.float32, "zeros",
+                              axes=bh + (None,))
             c["tail_k"] = [tail] * Lx
             c["tail_v"] = [tail] * Lx
-            c["tail_cnt"] = TensorSpec((batch,), torch.int32, "zeros")
+            c["tail_cnt"] = TensorSpec((batch,), torch.int32, "zeros",
+                                       axes=("batch",))
     return c
 
 
@@ -190,14 +223,22 @@ def layer_cache_kinds(cfg: ModelConfig):
     return [kind] * cfg.num_layers
 
 
-def _residual_attention(x, o, p, cfg: ModelConfig):
+def _residual_attention(x, o, p, cfg: ModelConfig, tp):
     """The layer after its attention: output projection, residual, FFN
     (a serving call drops the MoE aux losses)."""
-    if cfg.padded_heads != cfg.num_heads:
-        o = o * L.head_mask(cfg, o.device)[None, :, None, None].to(o.dtype)
-    x = x + torch.einsum("bhsk,hkd->bsd", o, p["attn"]["wo"].to(x.dtype))
+    x = x + L.attn_output(o, p["attn"], cfg, tp)
     out, _ = _ffn(L.apply_norm(x, p["ln2"], cfg), p, cfg)
     return x + out
+
+
+def _project(x, p, cfg: ModelConfig, positions):
+    """A serving layer's q / k / v (the rank's heads) and its attention
+    weights as ``_residual_attention`` takes them."""
+    tp = L.tp_layout(cfg)
+    pa = L.attn_params(p["attn"], cfg, tp)
+    h = L.attn_input(L.apply_norm(x, p["ln1"], cfg), tp)
+    q, k, v = L.qkv_project(h, pa, cfg, positions)
+    return q, k, v, dict(p, attn=pa), tp
 
 
 @torch.no_grad()
@@ -215,6 +256,12 @@ def prefill(params, cfg: ModelConfig, batch, cache):
     The prompt must fit the cache window, and under the MRA kinds be a
     multiple of the block size (raises ValueError otherwise). Returns
     logits (B, padded_vocab) at position S - 1.
+
+    Under an active mesh (here and in ``prefill_chunk`` / ``decode_step``)
+    ``params``, ``cache`` and the per-slot inputs are the rank's blocks
+    (the cache's ``rows`` cuts them), and the logits come back over the
+    whole vocab for the rank's slots (the cache's ``whole`` gathers them
+    over every slot).
     """
     x = _input_embed(params, cfg, batch)
     B, S, _ = x.shape
@@ -229,13 +276,13 @@ def prefill(params, cfg: ModelConfig, batch, cache):
                          f"block size {bs} the pyramid sums need")
     dev = x.device
     positions = torch.arange(S, device=dev)
-    Hkv, hd = cfg.kv_heads, cfg.hd
+    hd = cfg.hd
     for i, p in enumerate(params["layers"]):
-        h = L.apply_norm(x, p["ln1"], cfg)
-        q, k, v = L.qkv_project(h, p["attn"], cfg, positions)
+        q, k, v, p, tp = _project(x, p, cfg, positions)
+        Hkv = k.shape[1]
         ke, ve = L.expand_kv_slots(k, v, cfg)
         o = self_attention(q, ke, ve, cfg.attn_spec, causal=cfg.causal)
-        x = _residual_attention(x, o, p, cfg)
+        x = _residual_attention(x, o, p, cfg, tp)
         if "k_scale" in cache:  # int8 KV cache
             kq, ksc = quantize_kv(k)
             vq, vsc = quantize_kv(v)
@@ -259,7 +306,7 @@ def prefill(params, cfg: ModelConfig, batch, cache):
     cache["lengths"].fill_(S)
     x = L.apply_norm(x, params["ln_f"], cfg)
     logits = L.unembed(x[:, -1:], params["embed"], cfg)
-    return logits[:, 0], cache
+    return L.gather_vocab(logits[:, 0], cfg), cache
 
 
 @torch.no_grad()
@@ -336,8 +383,7 @@ def prefill_chunk(params, cfg: ModelConfig, cache, tokens, num_valid, *,
         pb.copy_(torch.where(touched, blk_new.to(pb.dtype), pb))
 
     for i, p in enumerate(params["layers"]):
-        h = L.apply_norm(x, p["ln1"], cfg)
-        q, k_new, v_new = L.qkv_project(h, p["attn"], cfg, positions)
+        q, k_new, v_new, p, tp = _project(x, p, cfg, positions)
         ks = vs = None
         if "k_scale" in cache:  # int8 KV cache
             kq, ksc = quantize_kv(k_new)
@@ -371,7 +417,7 @@ def prefill_chunk(params, cfg: ModelConfig, cache, tokens, num_valid, *,
         o = chunk_attention(
             q, kc, vc, lengths_new, positions, cfg.attn_spec, pyramid=pyramid,
             page_blocks=cache.get("page_blocks"), k_scale=ks, v_scale=vs)
-        x = _residual_attention(x, o, p, cfg)
+        x = _residual_attention(x, o, p, cfg, tp)
     x = L.apply_norm(x, params["ln_f"], cfg)
     if all_logits:
         logits = L.unembed(x, params["embed"], cfg)  # (B, C, V)
@@ -379,6 +425,7 @@ def prefill_chunk(params, cfg: ModelConfig, cache, tokens, num_valid, *,
         last = torch.clamp(num_valid.to(torch.long) - 1, 0, C - 1)
         x_last = x[torch.arange(B, device=dev), last]  # (B, d)
         logits = L.unembed(x_last[:, None], params["embed"], cfg)[:, 0]
+    logits = L.gather_vocab(logits, cfg)
     cache["lengths"].copy_(lengths_new)
     if collect_kv:
         return logits, cache, (torch.stack(chunk_k), torch.stack(chunk_v))
@@ -421,8 +468,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, active=None):
                                          device=dev), evict)
         hier.cache_store_tables(cache, upd)
     for i, p in enumerate(params["layers"]):
-        h = L.apply_norm(x, p["ln1"], cfg)
-        q, k_new, v_new = L.qkv_project(h, p["attn"], cfg, pos[:, None])
+        q, k_new, v_new, p, tp = _project(x, p, cfg, pos[:, None])
         kc, vc = cache["k"][i], cache["v"][i]
         widx = pos % kc.shape[2]
         ks = vs = None
@@ -456,8 +502,8 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, active=None):
                              pyramid=pyramid,
                              page_blocks=cache.get("page_blocks"),
                              k_scale=ks, v_scale=vs)
-        x = _residual_attention(x, o, p, cfg)
+        x = _residual_attention(x, o, p, cfg, tp)
     x = L.apply_norm(x, params["ln_f"], cfg)
-    logits = L.unembed(x, params["embed"], cfg)[:, 0]
+    logits = L.gather_vocab(L.unembed(x, params["embed"], cfg)[:, 0], cfg)
     cache["lengths"].copy_(lengths)
     return logits, cache

@@ -25,13 +25,20 @@ _WINDOW_KINDS = frozenset({"window", "rglru"})
 
 
 def make_cache(cfg, model, slots: int, max_len: int, *,
-               device=None) -> CacheBackend:
+               device=None, mesh=None) -> CacheBackend:
     """Build the cache backend serving ``model``'s per-layer kinds on
-    ``device`` (default: cuda)."""
+    ``device`` (default: cuda); under ``mesh`` the rank's blocks (the
+    ring-paged cache only: the state caches come with ROADMAP module item
+    6b and raise)."""
     kinds = tuple(model.layer_cache_kinds(cfg))
     ks = set(kinds)
+    if mesh is not None and not ks <= _PAGED_KINDS:
+        raise NotImplementedError(
+            f"cache kinds {sorted(ks)} under a mesh come with ROADMAP module "
+            "item 6b (rwkv6 and recurrentgemma, sharded_window_attention)")
     if ks <= _PAGED_KINDS:
-        cache = RingPagedKVCache(cfg, slots, max_len, device=device)
+        cache = RingPagedKVCache(cfg, slots, max_len, device=device,
+                                 mesh=mesh)
     elif ks <= _RECURRENT_KINDS:
         cache = RecurrentStateCache(cfg, model, slots, max_len, device=device)
     elif ks <= _WINDOW_KINDS:

@@ -32,6 +32,13 @@ prefill), ``chunk_cap`` keeps every chunk one block short of the window
 per-level gauges. The snapshot then also copies the hierarchy, and the
 rewind restores it whole before replaying, in ascending block order, the
 collapses the kept writes performed.
+
+Under a mesh (``mesh=``) the tree holds the rank's blocks
+(``place_specs``: slots over the data axis, kv heads over "model"); the
+engine-facing calls take and return every slot's values, and the engine
+cuts each model call's per-slot inputs to the rank's rows (``rows``) and
+gathers its logits over every slot (``whole``), so the scheduler and the
+speculative rounds run unchanged on every rank.
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import hier
 from repro_torch.core.attention import MRA_KINDS
+from repro_torch.distributed import collectives as C
 from repro_torch.models import transformer
 from repro_torch.models.params import materialize
 
@@ -52,6 +60,28 @@ from .protocol import CacheBackend
 __all__ = ["RingPagedKVCache"]
 
 _HIER_LAYER_KEYS = ("hier_k", "hier_v", "hier_ks", "hier_vs")
+
+
+def place_specs(specs: dict, mesh) -> dict:
+    """The cache specs of the rank's blocks on ``mesh``: every tensor placed
+    by its axes (batch -> data, kv-heads -> model), the sequence axis kept
+    whole (the reference's ``kv_seq`` data split, taken only when the slots
+    do not divide the data axis, is not ported: the slots are then
+    replicated over it)."""
+    from repro_torch.distributed.sharding import (
+        ShardingRules,
+        local_shape,
+        logical_to_pspec,
+    )
+
+    rules = ShardingRules().override(kv_seq=())
+
+    def one(s):
+        pspec = logical_to_pspec(s.shape, s.axes, mesh, rules)
+        return s._replace(shape=local_shape(s.shape, pspec, mesh))
+
+    return {k: [one(x) for x in v] if isinstance(v, list) else one(v)
+            for k, v in specs.items()}
 
 
 def _window_indices(lengths, W: int, S: int):
@@ -67,7 +97,7 @@ class RingPagedKVCache(CacheBackend):
     (default: cuda)."""
 
     def __init__(self, cfg: ModelConfig, slots: int, max_len: int, *,
-                 device=None):
+                 device=None, mesh=None):
         if cfg.attention.kind in MRA_KINDS:
             if max_len % cfg.attention.block_size != 0:
                 raise ValueError(
@@ -89,10 +119,31 @@ class RingPagedKVCache(CacheBackend):
         if self.hier_lids:
             self.capacity = None
             self.chunk_cap = max_len - self.block
+        self.mesh = mesh
+        if mesh is not None:  # the rank's blocks (see place_specs)
+            self.specs = place_specs(self.specs, mesh)
+            self.row_split = self.specs["lengths"].shape[0] != slots
         self.tree = {
             k: ([materialize(s, self.device) for s in v] if isinstance(v, list)
                 else materialize(v, self.device))
             for k, v in self.specs.items()}
+
+    # ---- the rank's slots under a mesh ------------------------------------ #
+    def rows(self, x):
+        n = self.specs["lengths"].shape[0]
+        if self.mesh is None or not self.row_split or x.shape[0] == n:
+            return x
+        i = self.mesh.index("data")
+        return x[i * n:(i + 1) * n]
+
+    def whole(self, t):
+        if self.mesh is None or not self.row_split:
+            return t
+        return C.all_gather(t, self.mesh, "data", 0)
+
+    @property
+    def lengths(self) -> np.ndarray:
+        return self.whole(self.tree["lengths"]).cpu().numpy()
 
     @torch.no_grad()
     def reset_slots(self, mask: np.ndarray) -> None:
@@ -104,7 +155,8 @@ class RingPagedKVCache(CacheBackend):
         once no live page or entry count points at them, so they stay — as
         in the reference.
         """
-        m = torch.as_tensor(np.asarray(mask, bool), device=self.device)
+        m = torch.as_tensor(self.rows(np.asarray(mask, bool)),
+                            device=self.device)
         t = self.tree
         t["lengths"].masked_fill_(m, 0)
         if self.paged:
@@ -139,7 +191,8 @@ class RingPagedKVCache(CacheBackend):
         t = self.tree
         S = t["k"][0].shape[2]
         _, widx, b2 = _window_indices(t["lengths"], window, S)
-        snap = {"window": window, "lengths": t["lengths"].clone(),
+        # every slot's lengths: the round adds every slot's counts to them
+        snap = {"window": window, "lengths": self.whole(t["lengths"].clone()),
                 "page_blocks": t["page_blocks"].clone(),
                 "win": {key: [a[b2, :, widx] for a in t[key]]
                         for key in self._window_keys()}}
@@ -170,9 +223,10 @@ class RingPagedKVCache(CacheBackend):
         t = self.tree
         dev = self.device
         W, block = snap["window"], self.block
-        L0 = snap["lengths"]
-        Lt = torch.as_tensor(target_lengths, device=dev).to(L0.dtype)
-        gate = torch.as_tensor(gate, device=dev).to(torch.bool)
+        L0 = self.rows(snap["lengths"])
+        Lt = self.rows(torch.as_tensor(target_lengths, device=dev)).to(
+            L0.dtype)
+        gate = self.rows(torch.as_tensor(gate, device=dev)).to(torch.bool)
         cur = t["lengths"]
         need = gate & (Lt < cur)
         S = t["k"][0].shape[2]
@@ -266,24 +320,27 @@ class RingPagedKVCache(CacheBackend):
             occ["pages_live"] = float(self.live_pages().sum())
             occ["tokens_evicted"] = float(start.sum())
         for lvl in self.hier_lids:
-            cnt = self.tree[f"hier_cnt{lvl}"].cpu().numpy()
+            cnt = self.whole(self.tree[f"hier_cnt{lvl}"]).cpu().numpy()
             occ[f"level{lvl}_entries"] = float((cnt > 0).sum())
             occ[f"level{lvl}_tokens"] = float(cnt.sum())
         if self.hier_lids:
-            occ["tail_tokens"] = float(self.tree["tail_cnt"].cpu().numpy().sum())
+            occ["tail_tokens"] = float(
+                self.whole(self.tree["tail_cnt"]).cpu().numpy().sum())
         return occ
 
     def live_pages(self) -> Optional[np.ndarray]:
         """(B,) live (non-evicted) page count per slot; None when dense."""
         if not self.paged:
             return None
-        return (self.tree["page_blocks"].cpu().numpy() >= 0).sum(-1)
+        return (self.whole(self.tree["page_blocks"]).cpu().numpy()
+                >= 0).sum(-1)
 
     def window_start(self) -> np.ndarray:
         """(B,) oldest position still attendable (0 until eviction kicks in)."""
         if not self.paged:
             return np.zeros((self.slots,), np.int64)
-        pb = self.tree["page_blocks"].cpu().numpy().astype(np.int64)
+        pb = self.whole(self.tree["page_blocks"]).cpu().numpy().astype(
+            np.int64)
         oldest = np.where(pb >= 0, pb, np.iinfo(np.int64).max).min(-1)
         oldest = np.where((pb >= 0).any(-1), oldest, 0)
         return oldest * self.block

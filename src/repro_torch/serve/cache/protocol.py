@@ -18,6 +18,9 @@ introspection:
   kinds          the model's per-layer cache kinds (``make_cache`` sets it)
   reset_slots    bit-exact per-slot reset on (re)admission
   lengths        (slots,) host view of per-slot stream lengths
+  rows / whole   the rank's rows of a per-slot input / a per-slot output
+                 gathered over every slot: the one place that knows how
+                 the slots are split over a mesh (the identity otherwise)
 
 Which backend serves a model is decided from the model's per-layer
 ``layer_cache_kinds(cfg)`` (``make_cache`` in __init__.py). The fixed-size
@@ -47,6 +50,14 @@ class CacheBackend:
 
     def reset_slots(self, mask: np.ndarray) -> None:
         raise NotImplementedError
+
+    def rows(self, x):
+        """The rank's rows of a per-slot array (every slot's, (slots, ...))."""
+        return x
+
+    def whole(self, t):
+        """A per-slot array of the rank's slots gathered over every slot."""
+        return t
 
     @property
     def lengths(self) -> np.ndarray:

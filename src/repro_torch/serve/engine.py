@@ -28,8 +28,19 @@ with the chunk clamped to the window). Observability
 its metric set in ``reset_stats`` — typed counters, bounded histograms of
 dispatch wall time and request latencies, occupancy gauges — and traces
 each request's lifecycle; ``Engine.stats`` is a typed view over it.
-``EngineConfig(telemetry=False)`` keeps only the counters. Mesh serving
-comes with a later slice.
+``EngineConfig(telemetry=False)`` keeps only the counters.
+
+Mesh serving (``EngineConfig.mesh``, a ``launch.mesh.Mesh``; every rank
+of the process group builds the same engine and runs the same requests):
+the parameters are cut to the rank's blocks (``shard_params``), the cache
+tree is placed by its specs' axes (slots over "data", kv heads over
+"model"), so attention runs on the rank's (batch, kv-head) block. Each
+model call takes the rank's slots (``kv.rows``) and its logits, over the
+whole vocab, are gathered over every slot (``kv.whole``), so sampling and
+the scheduler run alike on every rank and every rank returns the same
+streams. The speculative engine
+(``draft_level=1``) rides through unchanged. The recurrent families come
+with ROADMAP module item 6b and raise.
 """
 from __future__ import annotations
 
@@ -41,6 +52,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import mesh_utils
+from repro_torch.distributed.sharding import shard_params
 from repro_torch.kernels.chunk_attn import KERNEL_MODES
 from repro_torch.models.registry import get_model
 
@@ -77,8 +90,8 @@ class EngineConfig:
       and ``spec_k + 1 <= max_len``.
     draft_level: background resolution of the drafts; only 1 (per-page
       means) is ported — any other value raises.
-    mesh: tensor-parallel serving; not ported yet — any value but None
-      raises.
+    mesh: a ``launch.mesh.Mesh`` for DP x TP serving (None: one device);
+      ``params`` may be whole or the rank's blocks.
     telemetry: request-lifecycle tracing, latency histograms, occupancy
       gauges and profiler annotations (``serve/telemetry.py``). False keeps
       only the counters; token streams are the same either way.
@@ -113,10 +126,6 @@ class Engine:
         if config.kernel_mode not in KERNEL_MODES:
             raise ValueError(f"EngineConfig.kernel_mode must be one of "
                              f"{KERNEL_MODES}, got {config.kernel_mode!r}")
-        if config.mesh is not None:
-            raise NotImplementedError(
-                f"EngineConfig.mesh={config.mesh!r}: distributed serving is "
-                "not ported yet")
         if config.draft_level != 1:
             raise NotImplementedError(
                 f"EngineConfig.draft_level={config.draft_level}: only "
@@ -129,13 +138,15 @@ class Engine:
                 f"params are on {tok.device}, the engine runs on {self.device}")
         if config.kernel_mode != "auto":
             cfg = cfg.replace(attn_kernel_mode=config.kernel_mode)
+        self.mesh = config.mesh
         self.config = config
         self.cfg = cfg
-        self.params = params
         self.slots = config.slots
         self.max_len = config.max_len
         self.kv = make_cache(cfg, self.model, self.slots, self.max_len,
-                             device=self.device)
+                             device=self.device, mesh=self.mesh)
+        self.params = (params if self.mesh is None
+                       else shard_params(params, cfg, self.mesh))
         self.chunk = min(config.chunk, self.max_len)
         if self.kv.chunk_cap is not None:
             self.chunk = min(self.chunk, self.kv.chunk_cap)
@@ -218,8 +229,9 @@ class Engine:
                           telemetry=self.telemetry)
         for r in requests:
             sched.submit(r)
-        while sched.busy():
-            self._iterate(sched)
+        with mesh_utils.use_mesh(self.mesh):
+            while sched.busy():
+                self._iterate(sched)
         self.telemetry.metrics.inc("requests_completed", len(sched.done))
         return sched.done
 
@@ -237,10 +249,12 @@ class Engine:
             tokens, num_valid, finishing = plan
             with tel.dispatch("prefill_chunk", hist="prefill_chunk_seconds",
                               tokens=int(num_valid.sum())):
+                kv = self.kv
                 logits, _ = self.model.prefill_chunk(
-                    self.params, self.cfg, self.kv.tree,
-                    self._tensor(tokens, torch.int64),
-                    self._tensor(num_valid, torch.int32))
+                    self.params, self.cfg, kv.tree,
+                    kv.rows(self._tensor(tokens, torch.int64)),
+                    kv.rows(self._tensor(num_valid, torch.int32)))
+                logits = kv.whole(logits)
                 first = None
                 if finishing:
                     first = sample_batch(logits, *sched.sampler_arrays(),
@@ -279,10 +293,12 @@ class Engine:
         """One decode_step + sample dispatch for the ``active`` slots."""
         feed = sched.feed_tokens()
         with self.telemetry.dispatch("decode_step", slots=int(active.sum())):
+            kv = self.kv
             logits, _ = self.model.decode_step(
-                self.params, self.cfg, self.kv.tree,
-                self._tensor(feed, torch.int64),
-                active=self._tensor(active, torch.bool))
+                self.params, self.cfg, kv.tree,
+                kv.rows(self._tensor(feed, torch.int64)),
+                active=kv.rows(self._tensor(active, torch.bool)))
+            logits = kv.whole(logits)
             nxt = sample_batch(logits, *sched.sampler_arrays(),
                                vocab=self.cfg.vocab).cpu().numpy()
         self.telemetry.metrics.inc("decode_dispatches")

@@ -101,7 +101,9 @@ class SpecDecoder:
         for j in range(K):
             with tel.dispatch("draft", hist="draft_seconds", step=j):
                 logits, _ = engine.model.decode_step(
-                    engine.params, self.dcfg, kv.tree, tok, active=act)
+                    engine.params, self.dcfg, kv.tree, kv.rows(tok),
+                    active=kv.rows(act))
+                logits = kv.whole(logits)
                 q, nxt = draft_batch(logits, temp, top_k, top_p, seed,
                                      step0 + j, vocab=vocab)
                 tok = torch.where(act, nxt.to(tok.dtype), tok)
@@ -116,8 +118,9 @@ class SpecDecoder:
         num_valid = torch.where(act, K + 1, 0).to(torch.int32)
         with tel.dispatch("verify", hist="verify_seconds", k=K):
             logits, _, chunk_kv = engine.model.prefill_chunk(
-                engine.params, self.cfg, kv.tree, chunk, num_valid,
-                all_logits=True, collect_kv=True)
+                engine.params, self.cfg, kv.tree, kv.rows(chunk),
+                kv.rows(num_valid), all_logits=True, collect_kv=True)
+            logits = kv.whole(logits)
             out, n_out, n_acc = spec_verify_batch(
                 logits, torch.stack(drafts, dim=1), torch.stack(qs, dim=1),
                 temp, top_k, top_p, seed, step0, act, vocab=vocab)

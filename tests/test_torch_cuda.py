@@ -1271,3 +1271,100 @@ def test_recurrentgemma_group_served_on_the_card_equals_the_cpu(cuda, kind):
         want = got["cpu"][0]
         assert float((got["cuda"][0] - want).abs().max()) <= 1e-4 * float(
             want.abs().max())
+
+
+@pytest.mark.cuda
+def test_sharded_attention_routes_on_a_1x2_mesh_equal_the_one_device_slice(
+        cuda):
+    """Two ranks on the one card (gloo, a (1, 2) mesh: the kv heads split
+    over "model", the batch over a data axis of one): the block-sparse kernels (MRA-2 self-attention, forward
+    and gradients) and the chunk kernel (chunk and decode over a ring page
+    table with int8 scales, both modes) on each rank's (batch, kv-head)
+    block equal the same slice of the one-device kernel call (same
+    tolerances as the kernels against their plain twins)."""
+    import torch_dist_ranks as R
+    from repro_torch.core.attention import (
+        AttentionSpec,
+        chunk_attention,
+        decode_attention,
+        self_attention,
+    )
+    from repro_torch.distributed.sharding import attention_pspec, local_block
+    from repro_torch.launch.mesh import spawn
+
+    r = np.random.default_rng(0)
+    B, Hq, Hkv, N, D, b = 2, 4, 2, 64, 16, 16
+    q = r.standard_normal((B, Hq, N, D)).astype(np.float32)
+    k = r.standard_normal((B, Hkv, N, D)).astype(np.float32)
+    v = r.standard_normal((B, Hkv, N, D)).astype(np.float32)
+    masks = [np.ones((B, N), bool), r.random((B, N)) > 0.25]
+    S, C, nb = 64, 8, 4
+    lengths = np.array([37, 64], np.int32)
+    kv = dict(k=k, v=v, q=r.standard_normal((B, Hq, C, D)).astype(np.float32),
+              q1=r.standard_normal((B, Hq, 1, D)).astype(np.float32),
+              lengths=lengths,
+              q_pos=(np.maximum(lengths[:, None] - C, 0)
+                     + np.arange(C)).astype(np.int32),
+              lengths_ring=np.array([96, 20], np.int32),
+              pb=np.stack([np.roll(np.arange(nb) + nb // 2, nb // 2),
+                           np.arange(nb)]).astype(np.int32))
+    kq, ks = (x.numpy() for x in tmd.quantize_kv(torch.from_numpy(k)))
+    vq, vs = (x.numpy() for x in tmd.quantize_kv(torch.from_numpy(v)))
+    kv.update(kq=kq, ks=ks, vq=vq, vs=vs)
+    cases = [("attention", dict(mesh_shape=(1, 2), q=q, k=k, v=v, masks=masks,
+                                block_size=b, blocks_per_row=2,
+                                device="cuda")),
+             ("kv_routes", dict(mesh_shape=(1, 2), block_size=b,
+                                decode_blocks=2, device="cuda", **kv))]
+    got = spawn(R.run_cases, 2, cases, device="cuda", timeout=600)
+
+    def T(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+
+    spec = AttentionSpec(kind="mra2", block_size=b, blocks_per_row=2)
+    want_attn = []
+    for causal in (False, True):
+        for km in masks:
+            ts = [T(x).requires_grad_() for x in (q, k, v)]
+            o = self_attention(*ts, spec, causal=causal, key_mask=T(km))
+            grads = torch.autograd.grad(torch.tanh(o).sum(), ts)
+            want_attn.append((o.detach().cpu(), [g.cpu() for g in grads]))
+    want_kv = {}
+    for mode in ("latency", "throughput"):
+        sp = AttentionSpec(kind="mra2", block_size=b, decode_blocks=2,
+                           kernel_mode=mode)
+        c = chunk_attention(T(kv["q"]), T(k), T(v), T(lengths), T(kv["q_pos"]),
+                            sp)
+        d = decode_attention(T(kv["q1"]), T(kq), T(vq), T(kv["lengths_ring"]),
+                             sp, page_blocks=T(kv["pb"]), k_scale=T(ks),
+                             v_scale=T(vs))
+        want_kv[mode] = (c.cpu(), d.cpu())
+
+    class Mesh:
+        shape = {"data": 1, "model": 2}
+
+        def __init__(self, m):
+            self.m = m
+
+        def index(self, axis):
+            return self.m if axis == "model" else 0
+
+    for rank, res in enumerate(got):
+        mesh = Mesh(rank)
+        a, c = res["attention"], res["kv_routes"]
+        assert a["parts"] == c["parts"] == ("data", "model")
+        assert a["launches"]["bsa_fwd"] == 4 and a["launches"]["bsa_bwd_dq"] == 4
+        assert c["launches"]["chunk_attn"] == 4
+
+        def blk(t):
+            return local_block(t, attention_pspec(a["parts"], t.dim()),
+                               mesh).numpy()
+
+        for (o, grads), (wo, wg) in zip(a["out"], want_attn):
+            np.testing.assert_allclose(o, blk(wo), rtol=1e-4, atol=1e-4)
+            for g, w in zip(grads, wg):
+                np.testing.assert_allclose(g, blk(w), rtol=1e-4, atol=1e-4)
+        for mode, (wc, wd) in want_kv.items():
+            cg, dg = c["out"][mode]
+            np.testing.assert_allclose(cg, blk(wc), rtol=RTOL, atol=ATOL)
+            np.testing.assert_allclose(dg, blk(wd), rtol=RTOL, atol=ATOL)

@@ -259,10 +259,14 @@ def test_engine_needs_cuda_or_an_explicit_cpu(cfgs, params):
 @pytest.mark.parametrize("field,value", [("mesh", object()),
                                          ("draft_level", 2)])
 def test_unported_options_raise(cfgs, params, field, value):
+    """A mesh serves the transformer families
+    (tests/test_torch_dist_serve.py); the recurrent families' state caches
+    under one (ROADMAP module item 6b) and draft_level > 1 raise."""
     _, tcfg = cfgs
     _, tp = params
+    cfg = get_smoke_config("rwkv6-7b") if field == "mesh" else tcfg
     with pytest.raises(NotImplementedError, match=field):
-        Engine(tcfg, tp, ECFG.replace(**{field: value}), device="cpu")
+        Engine(cfg, tp, ECFG.replace(**{field: value}), device="cpu")
     with pytest.raises(ValueError, match="kernel_mode"):
         Engine(tcfg, tp, ECFG.replace(kernel_mode="fast"), device="cpu")
 

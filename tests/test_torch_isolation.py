@@ -5,7 +5,9 @@ finds no import of ``jax`` or of the reference package ``repro``; and a
 fresh interpreter with both blocked in ``sys.modules`` imports the port,
 serves a request (also past the window, through the H = 3 hierarchy) and
 trains (with a checkpoint) on the CPU; the hubert encoder and the internvl
-VLM train, and internvl prefills patches + text and decodes, the same way.
+VLM train, and internvl prefills patches + text and decodes, the same way;
+and two spawned ranks, each blocking both, train and serve on a (1, 2)
+mesh (``distributed/``, ``launch/mesh.py``).
 """
 from __future__ import annotations
 
@@ -53,7 +55,9 @@ def test_scan_sees_the_whole_port():
             "pipeline.py", "ckpt.py", "loop.py", "chip_smoke.py", "moe.py",
             "registry.py", "granite_moe_3b_a800m.py", "kimi_k2_1t_a32b.py",
             "qwen2_7b.py", "yi_6b.py", "compression.py",
-            "hubert_xlarge.py", "internvl2_1b.py"} <= names
+            "hubert_xlarge.py", "internvl2_1b.py", "sharding.py",
+            "mesh_utils.py", "collectives.py",
+            "mesh.py"} <= names
 
 
 _SERVE_WITHOUT_JAX = r"""
@@ -309,3 +313,58 @@ def test_recurrentgemma_runs_with_jax_blocked():
                          env=env, capture_output=True, text=True, timeout=240)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "recurrentgemma ok" in res.stdout
+
+
+_MESH_RANK = r"""
+import sys
+for name in ("jax", "jaxlib", "repro"):
+    sys.modules[name] = None
+import dataclasses, math
+import numpy as np
+
+
+def rank(r):
+    from repro_torch.configs import SHAPES, get_smoke_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.params import init_params
+    from repro_torch.serve import Engine, EngineConfig, Request
+    from repro_torch.train import TrainConfig, train
+
+    mesh = make_local_mesh(1, 2, device="cpu")
+    cfg = get_smoke_config("qwen3-1.7b", activ_dtype="float32")
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=64, global_batch=2)
+    seen = []
+    train(cfg, shape, TrainConfig(steps=1, log_every=100), device="cpu",
+          mesh=mesh, on_metrics=lambda s, m: seen.append(m["loss"]))
+    eng = Engine(cfg, init_params(cfg, seed=0, device="cpu"),
+                 EngineConfig(slots=2, max_len=32, chunk=8, mesh=mesh),
+                 device="cpu")
+    out = eng.run([Request(prompt=np.arange(1, 12), max_new_tokens=4)])[0].out
+    assert len(seen) == 1 and math.isfinite(seen[0]) and len(out) == 4
+    assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules
+                   if sys.modules[m] is not None)
+    return seen[0], np.asarray(out).tolist()
+"""
+
+_MESH_WITHOUT_JAX = r"""
+import sys
+for name in ("jax", "jaxlib", "repro"):
+    sys.modules[name] = None
+import mesh_rank
+from repro_torch.launch.mesh import spawn
+res = spawn(mesh_rank.rank, 2, device="cpu", threads=1, timeout=200)
+assert res[0] == res[1], res
+print("mesh trained and served", res[0])
+"""
+
+
+def test_port_trains_and_serves_on_a_mesh_with_jax_blocked(tmp_path):
+    """Two gloo ranks on the CPU, JAX and the reference blocked in each."""
+    (tmp_path / "mesh_rank.py").write_text(_MESH_RANK)
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(tmp_path)]))
+    res = subprocess.run([sys.executable, "-c", _MESH_WITHOUT_JAX], env=env,
+                         capture_output=True, text=True, timeout=240,
+                         cwd=tmp_path)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "mesh trained and served" in res.stdout

@@ -190,10 +190,18 @@ def test_forward_and_loss_match_jax(arch):
 
 
 def test_moe_dispatch_other_than_psum_raises():
+    """A dispatch that is neither "psum" nor "a2a" raises; without a mesh
+    "a2a" is the local path (the mesh dispatches:
+    tests/test_torch_dist_train.py)."""
     _, tcfg, _, tp = _setup("granite-moe-3b-a800m")
-    x = torch.zeros((1, 4, tcfg.d_model))
-    with pytest.raises(NotImplementedError, match="moe_dispatch"):
-        TM.moe_block(x, tp["layers"][0]["moe"], tcfg.replace(moe_dispatch="a2a"))
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1, 4, tcfg.d_model)).astype(np.float32))
+    p = tp["layers"][0]["moe"]
+    with pytest.raises(ValueError, match="moe_dispatch"):
+        TM.moe_block(x, p, tcfg.replace(moe_dispatch="gather"))
+    want, _ = TM.moe_block(x, p, tcfg)
+    got, _ = TM.moe_block(x, p, tcfg.replace(moe_dispatch="a2a"))
+    assert torch.equal(got, want)
 
 
 def test_router_init_scale():

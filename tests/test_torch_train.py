@@ -278,10 +278,11 @@ def test_checkpoint_resume_is_bit_identical(tmp_path):
 
 
 def test_unported_options_raise():
-    _, tcfg = _configs()
     _, tshape = _shapes()
-    for tc in (TrainConfig(mesh_shape=(1, 1)),
-               TrainConfig(shard_attention=True)):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP module item 6"):
-            train(tcfg, tshape, tc, device="cpu")
+    for arch in ("rwkv6-7b", "recurrentgemma-9b"):
+        tcfg = get_smoke_config(arch, activ_dtype="float32")
+        for tc in (TrainConfig(mesh_shape=(1, 1)),
+                   TrainConfig(mesh_shape=(2, 2))):
+            with pytest.raises(NotImplementedError,
+                               match="ROADMAP module item 6b"):
+                train(tcfg, tshape, tc, device="cpu")
