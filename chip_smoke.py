@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` (into
-``build/repro_torch/``, one nvcc per source, all at once) and drives the
-port's serving path and its training path on the card:
+``build/repro_torch/``, one nvcc per source, all at once, on a thread while
+phases 28-30, which launch none of them, run first) and drives the port's
+serving path and its training path on the card:
 
   1. device and build — the card's name and power limit, build seconds,
      and ptxas' registers and spill bytes of every chunk_attn and bsa_*
@@ -69,8 +70,8 @@ port's serving path and its training path on the card:
  11. its timing at the slice's shapes (decode and C = 512) beside the
      two-level program on the same window, both bounds, the plain version
      and the launch's split, grid, shared memory and occupancy;
- 12. long-context serving at full width — qwen3-1.7b at ``levels=3``, 28
-     layers, bf16 activations, ``EngineConfig(slots=2, max_len=4096,
+ 12. long-context serving at full width — qwen3-1.7b at ``levels=3``,
+     LONG_LAYERS layers, bf16 activations, ``EngineConfig(slots=2, max_len=4096,
      chunk=512)``, a 65536-token and a 6000-token greedy prompt — with
      the H-level program's launches counted over exactly that run (and
      none of the two-level one; the combine's as in phase 4), the occupancy
@@ -96,11 +97,11 @@ port's serving path and its training path on the card:
      draft steps -> rewind leaves every cache tensor (the hierarchy's at
      H = 3) bitwise as it was;
  16. (after phase 5) granite-moe-3b-a800m at full width — the MoE family's
-     serving path: 32 layers, 40 experts top-8, head dim 64, random
-     weights from a seed, fp32 parameters, bf16 activations, phase 4's
-     engine and prompts (``FAMILY_SERVE_TOKENS`` new tokens) — with tok/s,
-     prefill / decode seconds, peak GiB
-     and the chunk kernel's launches (32 x dispatches) and combines counted
+     serving path: MOE_SERVE_LAYERS of its 32 layers, 40 experts top-8,
+     head dim 64, random weights from a seed, fp32 parameters, bf16
+     activations, phase 4's engine and prompts (``FAMILY_SERVE_TOKENS`` new
+     tokens) — with tok/s, prefill / decode seconds, peak GiB and the chunk
+     kernel's launches (layers x dispatches) and combines counted
      over exactly that run; then a torch.profiler breakdown of one decode
      and one prefill dispatch (the routed FFN's kernels apart, in a
      ``moe_block`` range);
@@ -152,8 +153,8 @@ port's serving path and its training path on the card:
      spill of a D = 80 kernel);
  24. (after phase 21) hubert-xlarge at full width — 48 layers, 16 MHA heads
      of 80, non-causal, layernorm, gelu, learned positions, the audio-frame
-     frontend: a forward of a ``make_batch`` frame batch, then two
-     ``train()`` steps at seq 4096 with the batch cut from 256 to
+     frontend: a forward of a ``make_batch`` frame batch, then one
+     ``train()`` step at seq 4096 with the batch cut from 256 to
      ``FAMILY_BATCH`` (the largest power of two that fits), remat="full",
      launches counted over exactly that run, frames/s, peak GiB and a
      profiled step; then kernel against plain routes in fp32 at full width
@@ -265,17 +266,38 @@ port's serving path and its training path on the card:
      time their host staging takes; the last step's loss and grad norm
      agree across the ranks and, after the ZeRO-1 updates (moment shards,
      then the parameter slices all-gathered over "data"), every parameter
-     block's bit checksum agrees across the data ranks that hold it; then the full-depth mesh engine on
-     phase 4's requests (launches = 28 x dispatches a rank, 2 slots and 4
-     KV heads a launch), its streams against phase 4's (the first token
-     where they part, reported);
+     block's bit checksum agrees across the data ranks that hold it;
+     then the full-depth mesh engine on
+     one of phase 4's requests (MESH_DEEP_PROMPT; launches = 28 x
+     dispatches a rank, 2 slots and 4 KV heads a launch), its stream
+     against phase 4's (the first token where they part, reported);
  37. granite-moe-3b-a800m on the mesh (40 experts: 20 a model rank): one
      fp32 MoE layer's forward and backward under ``psum`` and ``a2a``
      within 1e-3 of the local path (capacity E / top_k: nothing drops),
      phase 4's requests through a 2-layer fp32 mesh engine with that
      capacity (streams equal to one device's), and one of phase 4's
-     prompts through its full-depth mesh engine (its stream against phase
-     16's, reported: capacity counts each data rank's rows).
+     prompts through its mesh engine at phase 16's MOE_SERVE_LAYERS (its
+     stream against phase 16's, reported: capacity counts each data
+     rank's rows).
+ 38. rwkv6-7b on the mesh (the time mix's 64 heads and the channel mix's
+     d_ff split over "model", the wkv state's heads too): at 2 full-width
+     layers in fp32 one batch's loss and grad norm within 1e-4 of one
+     device and every gradient block within 5e-3, and phase 4's requests
+     through the mesh engine with streams equal to one device's; one bf16
+     ``train()`` step at MESH_RWKV_TRAIN_LAYERS layers (step seconds,
+     tok/s, peak GiB a rank and on the card, collective bytes, staging
+     share); the bf16 mesh engine at MESH_RWKV_SERVE_LAYERS layers on
+     MESH_DEEP_PROMPT (its stream against phase 28's, reported);
+ 39. recurrentgemma-9b on the mesh (the RG-LRU whole and its state on the
+     rank's slots, the MLP and vocab split, the one KV head's window ring
+     on the rank's slots): at MESH_RGEMMA_GROUPS full-width group in fp32
+     the gradients held as phase 38's, for the ``local`` kind and the
+     MRA-2 variant, whose bsa_fwd / bsa_bwd_dq / bsa_bwd_dkv launch on every
+     rank's rows at (256, 128) (launches exact) and hold against the plain
+     twins on the mesh (loss, grad norm, every leaf 1e-4); phase 34's
+     requests (the window cut to 128: the two longest wrap the ring)
+     through the fp32 mesh engine, streams equal to one device's; the bf16 mesh engine at
+     MESH_RGEMMA_SERVE_GROUPS groups on MESH_DEEP_PROMPT, reported.
 
 One JSON line per phase; then the card line from nvidia-smi, the kernels
 line and, last, ``{"ok": true, "device": {...}}``. Any failed phase raises,
@@ -330,6 +352,7 @@ L2_COPIES = 4  # cache copies cycled by the H-level timing (> 50 MB L2)
 UP_GRANITE = dict(GRANITE, B=2)
 LONG = dict(slots=2, max_len=4096, chunk=512, prompts=(65536, 6000),
             new_tokens=(8, 64))
+LONG_LAYERS = 14  # the long-context engine's depth (of 28: cut for time)
 # block-sparse attention of qwen3-1.7b train_4k (batch cut to 2) and of its
 # smoke config; Hq query heads, G per KV head
 BSA_MAIN = dict(B=2, Hq=16, n=4096, d=128, b=128, bpr=4)
@@ -372,6 +395,7 @@ FAMILY_SERVE_TOKENS = 96
 SPEC = dict(spec_k=4, new_tokens=144)
 # granite-moe-3b-a800m at full width: phase 4's engine and requests
 MOE_ARCH = "granite-moe-3b-a800m"
+MOE_SERVE_LAYERS = 16  # granite's engines, one device and mesh (of 32: time)
 # the hubert encoder and the internvl VLM at full width (phases 24-25):
 # train_4k (seq 4096; internvl: 256 patches + 3840 text tokens) with the
 # batch cut from 256 to the largest power of two whose steps fit the card;
@@ -379,7 +403,7 @@ MOE_ARCH = "granite-moe-3b-a800m"
 HUBERT_ARCH, VLM_ARCH = "hubert-xlarge", "internvl2-1b"
 FAMILY_BATCH = {HUBERT_ARCH: 64, VLM_ARCH: 4}
 # train() steps at the batch cut (hubert's ~12 s steps cut from three)
-FAMILY_STEPS = {HUBERT_ARCH: 2, VLM_ARCH: TRAIN["steps"]}
+FAMILY_STEPS = {HUBERT_ARCH: 1, VLM_ARCH: TRAIN["steps"]}
 # internvl2-1b's serving: 14 query / 2 KV heads (G = 7) at (64, 128)
 VLM_SERVE = dict(B=4, Hkv=2, G=7, D=64, b=128, nb=32, m=16)
 # the whole-prompt prefill of 4 slots of 256 patches + 3840 text tokens,
@@ -591,21 +615,60 @@ def time_ms(torch, fn, iters):
 # --------------------------------------------------------------------------- #
 # phases
 # --------------------------------------------------------------------------- #
-def phase_device(torch):
+def start_build():
+    """``build.build_all()`` on a thread (each nvcc is a child process), so
+    the phases that launch no kernel of this repo run on the card while it
+    compiles; ``phase_device`` joins it. Until then a kernel wrapper's
+    ``load_library`` raises instead of starting a second nvcc."""
+    import threading
+
     from repro_torch.kernels import build
 
+    job = {"t0": time.perf_counter()}
+
+    def run():
+        try:
+            job["libs"] = build.build_all()
+        except BaseException as e:  # re-raised by phase_device
+            job["error"] = e
+        job["build_s"] = time.perf_counter() - job["t0"]
+
+    def refuse(name):
+        raise RuntimeError(f"{name}: a kernel launched before the build was "
+                           "joined")
+
+    job["thread"] = threading.Thread(target=run, name="nvcc", daemon=True)
+    job["guard"] = mock.patch.object(build, "load_library", refuse)
+    job["guard"].start()
+    job["thread"].start()
+    return job
+
+
+def join_build(job):
+    """Wait for ``start_build``'s compilers and lift the guard."""
+    job["thread"].join()
+    guard = job.pop("guard", None)
+    if guard is not None:
+        guard.stop()
+
+
+def phase_device(torch, job):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     t0 = time.perf_counter()
-    libs = build.build_all()
-    build_s = time.perf_counter() - t0
+    join_build(job)
+    if "error" in job:
+        raise job["error"]
+    libs, build_s = job["libs"], job["build_s"]
+    wait_s = time.perf_counter() - t0
     bsa_ptx = ptxas_report(
         libs["block_sparse_attn"].with_suffix(".log").read_text())
     emit({"phase": "device", "nvidia_smi": smi,
           "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s,
+          "build_wait_s": wait_s,
           "libraries": {n: str(p.relative_to(ROOT)) for n, p in libs.items()},
           "ptxas_chunk_attn": ptxas_report(
               libs["chunk_attn"].with_suffix(".log").read_text()),
@@ -825,14 +888,15 @@ def _top2_recorder(torch, engine_mod, Scheduler, vocab):
 
 def phase_engine_full_width(torch, chunk_attn, arch="qwen3-1.7b",
                             phase="engine_full_width",
-                            new_tokens=SERVE["new_tokens"]):
+                            new_tokens=SERVE["new_tokens"], layers=None):
     from repro_torch.configs import get_config
     from repro_torch.models import transformer
     from repro_torch.models.params import init_params
     from repro_torch.serve import Engine, EngineConfig, Request, Scheduler
     from repro_torch.serve import engine as engine_mod
 
-    cfg = get_config(arch)
+    cfg = get_config(arch, **({} if layers is None else
+                              {"num_layers": layers}))
     params = init_params(cfg, seed=SEED, device=DEVICE)
     eng = Engine(cfg, params, EngineConfig(slots=4, max_len=4096, chunk=128),
                  device=DEVICE)
@@ -1907,7 +1971,10 @@ def phase_train_parity(torch, bsa):
 
 def _grads(torch, bsa, cfg, shape, plain):
     """Loss and every parameter's gradient of the first training batch,
-    from the seed's weights, on the kernels or their plain versions."""
+    from the seed's weights, on the kernels or their plain versions (a
+    config without MRA-2 layers launches none either way)."""
+    from repro_torch.core.attention import MRA_KINDS
+
     from repro_torch.data import make_batch
     from repro_torch.models.params import init_params, tree_paths
     from repro_torch.models.registry import get_model
@@ -1922,7 +1989,8 @@ def _grads(torch, bsa, cfg, shape, plain):
     with _plain_twins(bsa) if plain else contextlib.nullcontext():
         loss, _ = get_model(cfg).loss_fn(params, cfg, batch)
         grads = torch.autograd.grad(loss, leaves)
-    _check_route(bsa, plain, "gradient")
+    _check_route(bsa, plain or cfg.attention.kind not in MRA_KINDS,
+                 "gradient")
     return float(loss.detach()), grads, ["/".join(map(str, p)) for p in paths]
 
 
@@ -2493,7 +2561,7 @@ def phase_long_context(torch, chunk_attn):
     from repro_torch.models.params import init_params
     from repro_torch.serve import Engine, EngineConfig, Request
 
-    cfg = get_config("qwen3-1.7b")
+    cfg = get_config("qwen3-1.7b", num_layers=LONG_LAYERS)
     cfg = cfg.replace(attention=cfg.attention.replace(levels=3))
     params = init_params(cfg, seed=SEED, device=DEVICE)
     eng = Engine(cfg, params, EngineConfig(
@@ -3066,7 +3134,7 @@ def phase_rwkv_full_width(torch):
     if any(len(r.out) != SERVE["new_tokens"] or int(r.out.min()) < 0
            or int(r.out.max()) >= cfg.vocab for r in done):
         raise AssertionError("a stream is short or holds an out-of-vocab token")
-    return eng
+    return eng, {len(r.prompt): np.asarray(r.out) for r in done}
 
 
 def _on(tree, device):
@@ -3612,11 +3680,17 @@ def phase_rgemma_self(torch, bsa):
 # --------------------------------------------------------------------------- #
 MESH_SHAPE = (2, 2)
 MESH_PARITY_LAYERS = 2  # the fp32 step and engine held to one device
-MESH_TRAIN_LAYERS = 28  # the bf16 step's depth: all of qwen3-1.7b's
+MESH_TRAIN_LAYERS = 4  # the bf16 step's depth (of 28: cut for time)
 MESH_TRAIN_STEPS = 2  # the second reads what the first ZeRO-1 update wrote
 MESH_NEW_TOKENS = 8  # a mesh engine request's new tokens (phase 4: 192)
-MESH_GRANITE_PROMPT = 2  # the one of phase 4's prompts served at full depth
+# the one of phase 4's prompts served by the deep bf16 mesh engines (qwen3,
+# granite-moe, rwkv6, recurrentgemma; all four in the fp32 parity engines)
+MESH_DEEP_PROMPT = 2
 MESH_MOE = dict(B=2, S=2048)  # granite-moe's one-layer tokens
+MESH_RWKV_TRAIN_LAYERS = 2  # rwkv6's bf16 step on four ranks (of 32)
+MESH_RWKV_SERVE_LAYERS = 32  # rwkv6's bf16 mesh engine: the whole depth
+MESH_RGEMMA_GROUPS = 1  # recurrentgemma's fp32 parity and engine
+MESH_RGEMMA_SERVE_GROUPS = 2  # its bf16 mesh engine, reported (of 12 + 2)
 MESH_TIMEOUT = 900
 
 
@@ -3699,10 +3773,39 @@ def _granite_small():
     return _moe_cfg("psum").replace(num_layers=MESH_PARITY_LAYERS)
 
 
-def _mesh_grad_parity(torch, bsa, mesh, ref_path):
-    """qwen3-1.7b at full width, 2 layers, fp32: one batch's loss, global
-    grad norm and gradient blocks (averaged over the data axis) on the
-    mesh, against the one-device values in ``ref_path``."""
+def _rwkv_small():
+    from repro_torch.configs import get_config
+
+    return get_config(RWKV_ARCH, num_layers=MESH_PARITY_LAYERS,
+                      activ_dtype="float32")
+
+
+def _rgemma_small(mra, window=None):
+    """recurrentgemma at MESH_RGEMMA_GROUPS full-width groups, fp32: the
+    preset's ``local`` kind, or (``mra``) its MRA-2 variant; ``window``
+    cuts the local window (phase 34's streams)."""
+    from repro_torch.configs import get_config
+
+    cut = {} if window is None else {"local_window": window}
+    cfg = get_config(RGEMMA_ARCH, num_layers=3 * MESH_RGEMMA_GROUPS,
+                     activ_dtype="float32", **cut)
+    return _rgemma_mra(cfg) if mra else cfg
+
+
+def _rgemma_streams_cfg():
+    """The fp32 engine of phase 39's stream parity: one group, the window
+    cut to phase 34's 128 so its prompts wrap the ring."""
+    return _rgemma_small(False, RGEMMA_STREAMS["window"])
+
+
+def _mesh_grad_parity(torch, bsa, mesh, ref_path, cfg=None, plain=False,
+                      keep=False):
+    """``cfg`` (default: qwen3-1.7b at full width, 2 layers, fp32): one
+    batch's loss, global grad norm and gradient blocks (averaged over the
+    data axis) on the mesh, against the one-device values in ``ref_path``;
+    ``plain`` substitutes the plain twins for the kernels, ``keep`` also
+    returns the rank's local gradients (before the data mean) on the
+    host; with ``ref_path`` None only those (and the launches)."""
     from repro_torch.configs import SHAPES
     from repro_torch.data import make_batch
     from repro_torch.distributed import mesh_utils
@@ -3711,12 +3814,13 @@ def _mesh_grad_parity(torch, bsa, mesh, ref_path):
         local_block,
         param_placements,
     )
+    from repro_torch.kernels import chunk_attn
     from repro_torch.models.params import init_params, tree_leaves
     from repro_torch.models.registry import get_model
     from repro_torch.optim.adamw import global_norm, tree_leaves_pspec, zero_plan
     from repro_torch.train.loop import data_mean
 
-    cfg = _qwen3_small()
+    cfg = cfg or _qwen3_small()
     shape = dataclasses.replace(SHAPES["train_4k"], seq_len=TRAIN["seq"],
                                 global_batch=TRAIN["batch"])
     params = init_params(cfg, seed=SEED, device=mesh.device, mesh=mesh)
@@ -3729,28 +3833,68 @@ def _mesh_grad_parity(torch, bsa, mesh, ref_path):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_bsa(bsa)
-    with mesh_utils.use_mesh(mesh):
+    t0 = time.perf_counter()
+    ctx, shapes = _mesh_shapes(torch, bsa, chunk_attn)
+    with ctx, mesh_utils.use_mesh(mesh), (
+            _plain_twins(bsa) if plain else contextlib.nullcontext()):
         loss, _ = get_model(cfg).loss_fn(params, cfg, batch)
         grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
     launches = _bsa_launches(bsa)
+    if plain:
+        _check_route(bsa, plain, "mesh gradient")
+    local = ([g.cpu() for g in grads], float(loss.detach())) if keep else None
+    if ref_path is None:
+        return {"launches": launches, "grad_s": grad_s}, local
+    placements = param_placements(cfg, mesh)
+    plan = zero_plan(params, placements, mesh)
+    # from here on the rank holds its gradients and one reference leaf
+    del params, leaves, batch
     grads = data_mean(grads, mesh)
     loss = float(data_mean([loss.detach()], mesh)[0])
-    placements = param_placements(cfg, mesh)
-    gnorm = float(global_norm(grads, zero_plan(params, placements, mesh)))
+    gnorm = float(global_norm(grads, plan))
     ref = torch.load(ref_path, mmap=True)
+
+    def amax(t):  # max |entry| without a tensor of |entries|
+        return float(torch.maximum(t.max(), t.min().neg()))
+
     worst_abs = worst_rel = 0.0
     for g, w, ps in zip(grads, ref["grads"], tree_leaves_pspec(placements)):
-        w = local_block(w, ps, mesh).to(g.device)
-        err = float((g - w).abs().max())
+        w = local_block(w, ps, mesh).to(g.device, copy=True)
+        w_max = amax(w)
+        err = amax(w.sub_(g))
         worst_abs = max(worst_abs, err)
-        worst_rel = max(worst_rel, err / max(float(w.abs().max()), 1e-30))
-    return {"layers": cfg.num_layers, "loss": loss, "loss_ref": ref["loss"],
-            "loss_rel": abs(loss - ref["loss"]) / abs(ref["loss"]),
-            "grad_norm": gnorm, "grad_norm_ref": ref["grad_norm"],
-            "grad_norm_rel": abs(gnorm - ref["grad_norm"]) / ref["grad_norm"],
-            "leaf_max_abs": worst_abs, "leaf_rel": worst_rel,
-            "launches": launches,
-            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        worst_rel = max(worst_rel, err / max(w_max, 1e-30))
+    out = {"layers": cfg.num_layers, "loss": loss, "loss_ref": ref["loss"],
+           "loss_rel": abs(loss - ref["loss"]) / abs(ref["loss"]),
+           "grad_norm": gnorm, "grad_norm_ref": ref["grad_norm"],
+           "grad_norm_rel": abs(gnorm - ref["grad_norm"]) / ref["grad_norm"],
+           "leaf_max_abs": worst_abs, "leaf_rel": worst_rel,
+           "launches": launches, "launch_shapes": _shape_list(shapes),
+           "grad_s": grad_s,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    return (out, local) if keep else out
+
+
+def _mesh_route_parity(torch, kernel, plain, device):
+    """The rank's local gradients on the kernels against the plain twins
+    (``_mesh_grad_parity(..., keep=True)``'s, on the host): loss, the
+    rank's gradient norm and the worst leaf's max |difference| over its
+    largest |entry|, one pair of leaves at a time on ``device``."""
+    (gk, lk), (gp, lp) = kernel, plain
+    sq, rels = [0.0, 0.0], []
+    for a, b in zip(gk, gp):
+        a, b = a.to(device, copy=True), b.to(device)
+        for i, g in enumerate((a, b)):
+            sq[i] += float(torch.linalg.vector_norm(g, dtype=torch.float64)
+                           ** 2)
+        b_max = float(b.abs().max().clamp_min(1e-30))
+        rels.append(float(a.sub_(b).abs_().max()) / b_max)
+        del a, b
+    norm = [v ** 0.5 for v in sq]
+    return {"loss_kernel": lk, "loss_plain": lp, "loss_rel": _rel(lk, lp),
+            "grad_norm_rel": _rel(norm[0], norm[1]), "leaf_rel": max(rels)}
 
 
 def _moe_weights(torch, cfg, device):
@@ -3844,11 +3988,12 @@ def _mesh_moe(torch, mesh, ref_path):
     return out
 
 
-def _mesh_engine(torch, chunk_attn, mesh, cfg, new_tokens, pick=None):
-    """Phase 4's requests (``new_tokens`` each; only the ``pick``-th when
-    given) through ``Engine`` on the mesh: streams, launches, the local
-    shapes of every launch, wall seconds and the collectives' bytes and
-    seconds."""
+def _mesh_engine(torch, chunk_attn, mesh, cfg, new_tokens, pick=None,
+                 prompts=SERVE["prompts"]):
+    """Phase 4's requests (or ``prompts``; ``new_tokens`` each; only the
+    ``pick``-th when given) through ``Engine`` on the mesh: streams,
+    launches, the local shapes of every launch, wall seconds and the
+    collectives' bytes and seconds."""
     from repro_torch.distributed import collectives as C
     from repro_torch.kernels import block_sparse_attn as bsa
     from repro_torch.models.params import init_params
@@ -3857,7 +4002,7 @@ def _mesh_engine(torch, chunk_attn, mesh, cfg, new_tokens, pick=None):
     params = init_params(cfg, seed=SEED, device=mesh.device, mesh=mesh)
     eng = Engine(cfg, params, EngineConfig(slots=4, max_len=4096, chunk=128,
                                            mesh=mesh), device=DEVICE)
-    reqs = _requests(Request, SERVE["prompts"], new_tokens, cfg.vocab)
+    reqs = _requests(Request, prompts, new_tokens, cfg.vocab)
     if pick is not None:
         reqs = [reqs[pick]]
     ctx, shapes = _mesh_shapes(torch, bsa, chunk_attn)
@@ -3904,22 +4049,23 @@ def _bits_checksum(torch, t, chunk=1 << 24) -> int:
     return total
 
 
-def _mesh_train(torch, bsa, chunk_attn, mesh):
-    """qwen3-1.7b's ``train()`` on the mesh at MESH_TRAIN_LAYERS layers,
-    bf16 activations, remat="full", seq 4096, batch 2 (one row a data
-    rank), MESH_TRAIN_STEPS steps: metrics, launches and their local
-    shapes, peak memory, the collectives' bytes, seconds and host
-    staging seconds per step, and a bit checksum of every parameter block
-    after the last update (``_bits_checksum``)."""
+def _mesh_train(torch, bsa, chunk_attn, mesh, cfg=None,
+                n_steps=MESH_TRAIN_STEPS):
+    """``cfg``'s ``train()`` on the mesh (default: qwen3-1.7b at
+    MESH_TRAIN_LAYERS layers, bf16 activations, remat="full"), seq 4096,
+    batch 2 (one row a data rank), ``n_steps`` steps: metrics, launches
+    and their local shapes, peak memory, the collectives' bytes, seconds
+    and host staging seconds per step, and a bit checksum of every
+    parameter block after the last update (``_bits_checksum``)."""
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.distributed import collectives as C
     from repro_torch.models.params import tree_leaves
     from repro_torch.train import TrainConfig, train
 
-    cfg = get_config("qwen3-1.7b", num_layers=MESH_TRAIN_LAYERS)
+    cfg = cfg or get_config("qwen3-1.7b", num_layers=MESH_TRAIN_LAYERS)
     shape = dataclasses.replace(SHAPES["train_4k"], seq_len=TRAIN["seq"],
                                 global_batch=TRAIN["batch"])
-    tc = TrainConfig(steps=MESH_TRAIN_STEPS, seed=SEED, log_every=10**9)
+    tc = TrainConfig(steps=n_steps, seed=SEED, log_every=10**9)
     steps = []
     ctx, shapes = _mesh_shapes(torch, bsa, chunk_attn)
     torch.cuda.synchronize()
@@ -3951,7 +4097,7 @@ def _mesh_train(torch, bsa, chunk_attn, mesh):
             "reserved_gib": torch.cuda.max_memory_reserved() / 2**30,
             "card_used_gib_after": (total - free) / 2**30,
             "param_checksums": checksums,
-            "comm_bytes_per_step": {k: v["bytes"] / MESH_TRAIN_STEPS
+            "comm_bytes_per_step": {k: v["bytes"] / n_steps
                                     for k, v in comm["ops"].items()},
             "comm_s": sum(v["seconds"] for v in comm["ops"].values()),
             "staging_s": sum(v["staging_seconds"]
@@ -3970,32 +4116,108 @@ def mesh_rank(rank, job):
     from repro_torch.kernels import chunk_attn
     from repro_torch.launch.mesh import make_local_mesh
 
+    from repro_torch.configs import get_config
+
+    # host clock (shared by the ranks and the parent): the spawn's start-up
+    entered = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     mesh = make_local_mesh(*MESH_SHAPE)
-    out = {"rank": rank, "index": {a: mesh.index(a) for a in mesh.shape}}
-    out["probe"] = _mesh_probe(torch, mesh)
-    out["grad_parity"] = _mesh_grad_parity(torch, bsa, mesh, job["qwen3"])
+    out = {"rank": rank, "index": {a: mesh.index(a) for a in mesh.shape},
+           "entered": entered, "mesh_up": time.time()}
+    _timed(torch, out, "probe", lambda: _mesh_probe(torch, mesh))
+    _timed(torch, out, "grad_parity", lambda: _mesh_grad_parity(
+        torch, bsa, mesh, job["qwen3"]))
+    _timed(torch, out, "engine_fp32", lambda: _mesh_engine(
+        torch, chunk_attn, mesh, _qwen3_small(), MESH_NEW_TOKENS))
+    _timed(torch, out, "moe", lambda: _mesh_moe(torch, mesh, job["moe"]))
+    _timed(torch, out, "train", lambda: _mesh_train(
+        torch, bsa, chunk_attn, mesh))
+    _timed(torch, out, "engine", lambda: _mesh_engine(
+        torch, chunk_attn, mesh, get_config("qwen3-1.7b"), MESH_NEW_TOKENS,
+        MESH_DEEP_PROMPT))
+    _timed(torch, out, "granite_engine", lambda: _mesh_engine(
+        torch, chunk_attn, mesh,
+        get_config(MOE_ARCH, num_layers=MOE_SERVE_LAYERS), MESH_NEW_TOKENS,
+        MESH_DEEP_PROMPT))
+    _timed(torch, out, "granite_engine_fp32", lambda: _mesh_engine(
+        torch, chunk_attn, mesh, _granite_small(), MESH_NEW_TOKENS))
+    # phases 38-39 hold the most bytes of a rank: segments that grow in
+    # place keep the four ranks' caches from fragmenting the card
+    with _expandable_segments(torch):
+        _timed(torch, out, "rwkv", lambda: _mesh_rwkv(
+            torch, bsa, chunk_attn, mesh, job))
+        _timed(torch, out, "rgemma", lambda: _mesh_rgemma(
+            torch, bsa, chunk_attn, mesh, job))
+    out["left"] = time.time()
+    return out
+
+
+def _timed(torch, out, key, fn):
+    """``out[key] = fn()``, its wall seconds in ``out["seconds"]``; the
+    cache emptied after."""
+    t0 = time.perf_counter()
+    out[key] = fn()
+    torch.cuda.synchronize()
+    out.setdefault("seconds", {})[key] = time.perf_counter() - t0
     torch.cuda.empty_cache()
-    out["engine_fp32"] = _mesh_engine(torch, chunk_attn, mesh,
-                                      _qwen3_small(), MESH_NEW_TOKENS)
-    torch.cuda.empty_cache()
-    out["moe"] = _mesh_moe(torch, mesh, job["moe"])
-    torch.cuda.empty_cache()
-    out["train"] = _mesh_train(torch, bsa, chunk_attn, mesh)
-    torch.cuda.empty_cache()
+
+
+def _mesh_rwkv(torch, bsa, chunk_attn, mesh, job):
+    """Phase 38 on one rank: rwkv6-7b at full width, its heads and d_ff
+    split over "model" (``models/rwkv6.py``): fp32 gradients at 2 layers
+    against one device, the 2-layer fp32 mesh engine, one bf16 ``train()``
+    step at MESH_RWKV_TRAIN_LAYERS layers and the bf16 mesh engine at
+    MESH_RWKV_SERVE_LAYERS."""
     from repro_torch.configs import get_config
 
-    out["engine"] = _mesh_engine(torch, chunk_attn, mesh,
-                                 get_config("qwen3-1.7b"), MESH_NEW_TOKENS)
-    torch.cuda.empty_cache()
-    out["granite_engine"] = _mesh_engine(torch, chunk_attn, mesh,
-                                         get_config(MOE_ARCH),
-                                         MESH_NEW_TOKENS, MESH_GRANITE_PROMPT)
-    torch.cuda.empty_cache()
-    out["granite_engine_fp32"] = _mesh_engine(torch, chunk_attn, mesh,
-                                              _granite_small(),
-                                              MESH_NEW_TOKENS)
+    out = {}
+    _timed(torch, out, "parity", lambda: _mesh_grad_parity(
+        torch, bsa, mesh, job["rwkv"], _rwkv_small()))
+    _timed(torch, out, "engine_fp32", lambda: _mesh_engine(
+        torch, chunk_attn, mesh, _rwkv_small(), MESH_NEW_TOKENS))
+    _timed(torch, out, "train", lambda: _mesh_train(
+        torch, bsa, chunk_attn, mesh,
+        get_config(RWKV_ARCH, num_layers=MESH_RWKV_TRAIN_LAYERS), 1))
+    _timed(torch, out, "engine", lambda: _mesh_engine(
+        torch, chunk_attn, mesh,
+        get_config(RWKV_ARCH, num_layers=MESH_RWKV_SERVE_LAYERS),
+        MESH_NEW_TOKENS, MESH_DEEP_PROMPT))
+    return out
+
+
+def _mesh_rgemma(torch, bsa, chunk_attn, mesh, job):
+    """Phase 39 on one rank: recurrentgemma-9b at full width (the RG-LRU
+    whole on every rank, the MLP and vocab split, the one KV head's
+    attention on the rank's rows): fp32 gradients at MESH_RGEMMA_GROUPS
+    groups against one device for the ``local`` kind and the MRA-2
+    variant, the latter on the block-sparse kernels (launches counted) and
+    on their plain twins; the fp32 mesh engine at that depth on prompts
+    that wrap the ring; the bf16 mesh engine at MESH_RGEMMA_SERVE_GROUPS
+    groups. (A bf16 ``train()`` step of one group does not fit four ranks
+    on one H100 80GB: 16.5 GiB a rank were held when the vocab-parallel
+    loss asked for 1.95 more.)"""
+    from repro_torch.configs import get_config
+
+    out, local = {}, {}
+    _timed(torch, out, "parity_local", lambda: _mesh_grad_parity(
+        torch, bsa, mesh, job["rgemma_local"], _rgemma_small(False)))
+    for name, ref in (("parity_mra", job["rgemma_mra"]),
+                      ("parity_mra_plain", None)):
+        _timed(torch, out, name, lambda: _mesh_grad_parity(
+            torch, bsa, mesh, ref, _rgemma_small(True), plain=ref is None,
+            keep=True))
+        out[name], local[name] = out[name]
+    _timed(torch, out, "mra_kernel_vs_plain", lambda: _mesh_route_parity(
+        torch, local["parity_mra"], local["parity_mra_plain"], mesh.device))
+    del local
+    _timed(torch, out, "engine_fp32", lambda: _mesh_engine(
+        torch, chunk_attn, mesh, _rgemma_streams_cfg(), MESH_NEW_TOKENS,
+        prompts=RGEMMA_STREAMS["prompts"]))
+    _timed(torch, out, "engine", lambda: _mesh_engine(
+        torch, chunk_attn, mesh,
+        get_config(RGEMMA_ARCH, num_layers=3 * MESH_RGEMMA_SERVE_GROUPS),
+        MESH_NEW_TOKENS, MESH_DEEP_PROMPT))
     return out
 
 
@@ -4011,10 +4233,11 @@ def _first_part(got, want):
 
 
 def _mesh_references(torch, bsa, job):
-    """The one-device references of phases 35-37: qwen3-1.7b's fp32
-    gradients at 2 layers and granite-moe's MoE layer (saved to ``job``'s
-    files for the ranks), and the 2-layer fp32 engines' streams
-    (returned)."""
+    """The one-device references of phases 35-39: the fp32 gradients of
+    qwen3-1.7b and rwkv6-7b at 2 layers and of recurrentgemma-9b's two
+    kinds at MESH_RGEMMA_GROUPS groups, and granite-moe's MoE layer (saved
+    to ``job``'s files for the ranks), and the small fp32 engines'
+    streams (returned)."""
     from repro_torch.configs import SHAPES
     from repro_torch.models.params import init_params
     from repro_torch.serve import Engine, EngineConfig, Request
@@ -4022,17 +4245,25 @@ def _mesh_references(torch, bsa, job):
     cfg = _qwen3_small()
     shape = dataclasses.replace(SHAPES["train_4k"], seq_len=TRAIN["seq"],
                                 global_batch=TRAIN["batch"])
-    loss, grads, _ = _grads(torch, bsa, cfg, shape, plain=False)
-    gnorm = float(torch.sqrt(sum((g.double() ** 2).sum() for g in grads)))
-    torch.save({"loss": loss, "grad_norm": gnorm,
-                "grads": [g.cpu() for g in grads]}, job["qwen3"])
-    del grads
+    for name, gcfg in (("qwen3", cfg), ("rwkv", _rwkv_small()),
+                       ("rgemma_local", _rgemma_small(False)),
+                       ("rgemma_mra", _rgemma_small(True))):
+        loss, grads, _ = _grads(torch, bsa, gcfg, shape, plain=False)
+        gnorm = float(torch.sqrt(sum((g.double() ** 2).sum() for g in grads)))
+        torch.save({"loss": loss, "grad_norm": gnorm,
+                    "grads": [g.cpu() for g in grads]}, job[name])
+        del grads
+        torch.cuda.empty_cache()
     streams = {}
-    for name, scfg in (("qwen3", cfg), ("granite", _granite_small())):
+    for name, scfg, prompts in (
+            ("qwen3", cfg, SERVE["prompts"]),
+            ("granite", _granite_small(), SERVE["prompts"]),
+            ("rwkv", _rwkv_small(), SERVE["prompts"]),
+            ("rgemma", _rgemma_streams_cfg(), RGEMMA_STREAMS["prompts"])):
         params = init_params(scfg, seed=SEED, device=DEVICE)
         eng = Engine(scfg, params, EngineConfig(slots=4, max_len=4096,
                                                 chunk=128), device=DEVICE)
-        done = eng.run(_requests(Request, SERVE["prompts"], MESH_NEW_TOKENS,
+        done = eng.run(_requests(Request, prompts, MESH_NEW_TOKENS,
                                  scfg.vocab))
         streams[name] = {len(r.prompt): np.asarray(r.out) for r in done}
         del eng, params
@@ -4050,27 +4281,38 @@ def _mesh_references(torch, bsa, job):
     return streams
 
 
-def phase_mesh(torch, bsa, chunk_attn, base, moe_base):
-    """Phases 35-37: the one-device references first (qwen3-1.7b's fp32
-    gradients and engine streams at 2 layers, granite-moe's MoE layer),
-    then four ranks spawned on the card, a (2, 2) mesh over gloo. Every
-    rank's failure fails the phase; nothing falls back to one rank or to
-    the CPU."""
+def phase_mesh(torch, bsa, chunk_attn, base, moe_base, rwkv_base):
+    """Phases 35-39: the one-device references first (the fp32 gradients
+    and engine streams of qwen3-1.7b, rwkv6-7b and recurrentgemma-9b at
+    their small depths, granite-moe's MoE layer), then four ranks spawned
+    on the card, a (2, 2) mesh over gloo. Every rank's failure fails the
+    phase; nothing falls back to one rank or to the CPU."""
     import tempfile
 
     from repro_torch.launch.mesh import spawn
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
-        job = {"qwen3": f"{tmp}/qwen3.pt", "moe": f"{tmp}/moe.pt"}
-        small_streams = _mesh_references(torch, bsa, job)
+        job = {name: f"{tmp}/{name}.pt" for name in
+               ("qwen3", "moe", "rwkv", "rgemma_local", "rgemma_mra")}
         t0 = time.perf_counter()
+        small_streams = _mesh_references(torch, bsa, job)
+        refs_s = time.perf_counter() - t0
+        t0, spawned = time.perf_counter(), time.time()
         ranks = spawn(mesh_rank, MESH_SHAPE[0] * MESH_SHAPE[1], job,
                       device=DEVICE, timeout=MESH_TIMEOUT)
         wall = time.perf_counter() - t0
     r0 = ranks[0]
     emit({"phase": "mesh_probe", "mesh": dict(zip(("data", "model"),
                                                   MESH_SHAPE)),
-          "ranks": len(ranks), "ranks_wall_s": wall,
+          "ranks": len(ranks), "ranks_wall_s": wall, "references_s": refs_s,
+          # per rank: spawn -> fn entered -> mesh up, each part, fn left
+          "start_s_by_rank": {r["rank"]: r["entered"] - spawned
+                              for r in ranks},
+          "mesh_up_s_by_rank": {r["rank"]: r["mesh_up"] - r["entered"]
+                                for r in ranks},
+          "seconds_by_rank": {r["rank"]: r["seconds"] for r in ranks},
+          "returned_s_by_rank": {r["rank"]: spawned + wall - r["left"]
+                                 for r in ranks},
           **{k: r0["probe"][k] for k in ("backend", "device", "staged_ops")},
           "checks": {r["rank"]: r["probe"]["checks"] for r in ranks}})
     gp = {r["rank"]: r["grad_parity"] for r in ranks}
@@ -4193,7 +4435,176 @@ def phase_mesh(torch, bsa, chunk_attn, base, moe_base):
             if (res["max_abs_err"]["out"] > 1e-3
                     or max(res["rel_err"].values()) > 1e-3):
                 raise AssertionError(f"rank {k} moe {dispatch}: {res}")
-    return {"train": tr, "engine": r0["engine"], "ranks": ranks}
+    rwkv_launches = _emit_mesh_rwkv(ranks, small_streams, rwkv_base)
+    rgemma_launches = _emit_mesh_rgemma(ranks, small_streams)
+    return {"train": tr, "engine": r0["engine"], "ranks": ranks,
+            "rwkv": rwkv_launches, "rgemma": rgemma_launches}
+
+
+def _train_line(t):
+    """A mesh ``train()`` run's report, without the bulky keys."""
+    return {k: v for k, v in t.items() if k not in ("comm", "param_checksums",
+                                                    "launch_shapes")}
+
+
+def _engine_line(e):
+    return {k: v for k, v in e.items() if k not in ("streams", "comm",
+                                                    "launch_shapes")}
+
+
+def _hold_parity(name, by_rank, launches=None):
+    """The mesh-parity limits of PERF.md §2 on every rank (and the exact
+    launches, when given)."""
+    for k, g in by_rank.items():
+        if (g["loss_rel"] > 1e-4 or g["grad_norm_rel"] > 1e-4
+                or g["leaf_max_abs"] > 5e-3):
+            raise AssertionError(f"rank {k}: {name} mesh gradients vs one "
+                                 f"device {g}")
+        if launches is not None and g["launches"] != launches:
+            raise AssertionError(f"rank {k}: {name} launches {g['launches']}")
+
+
+def _hold_engine(name, ranks, key, small):
+    """The fp32 mesh engine's streams equal one device's on every rank;
+    returns the first parts by rank."""
+    parts = {r["rank"]: _first_part(r[name][key]["streams"], small)
+             for r in ranks}
+    if any(p is not None for r in parts.values() for p in r.values()):
+        raise AssertionError(f"fp32 mesh {name} engine streams part: {parts}")
+    return parts
+
+
+def _hold_same_streams(name, ranks, key, vocab):
+    s0 = ranks[0][name][key]["streams"]
+    for r in ranks:
+        st = r[name][key]["streams"]
+        if st != s0:
+            raise AssertionError(f"{name} {key}: rank streams differ")
+        if any(len(t) != MESH_NEW_TOKENS or min(t) < 0 or max(t) >= vocab
+               for t in st.values()):
+            raise AssertionError(f"{name} {key}: a stream is short or holds "
+                                 f"an out-of-vocab token: {st}")
+
+
+def _mesh_step_line(tr):
+    by_rank = {k: _train_line(t) for k, t in tr.items()}
+    return {"by_rank": by_rank,
+            "card_peak_gib_sum": sum(t["peak_gib"] for t in tr.values()),
+            "card_reserved_gib_sum": sum(t["reserved_gib"]
+                                         for t in tr.values()),
+            "staging_share": {k: t["staging_s"] / t["wall_s"]
+                              for k, t in tr.items()},
+            "comm_share": {k: t["comm_s"] / t["wall_s"]
+                           for k, t in tr.items()}}
+
+
+def _hold_step(name, tr, launches):
+    for k, t in tr.items():
+        if not all(np.isfinite([s["loss"], s["grad_norm"]]).all()
+                   for s in t["steps"]):
+            raise AssertionError(f"rank {k}: {name} non-finite step "
+                                 f"{t['steps']}")
+        if t["kernel_launches"] != launches:
+            raise AssertionError(f"rank {k}: {name} launches "
+                                 f"{t['kernel_launches']} != {launches}")
+    last = [t["steps"][-1] for t in tr.values()]
+    if any(abs(s[key] - last[0][key]) > 1e-6 * abs(last[0][key])
+           for s in last for key in ("loss", "grad_norm")):
+        raise AssertionError(f"{name}: the ranks' steps differ {last}")
+
+
+def _emit_mesh_rwkv(ranks, small_streams, rwkv_base):
+    """Phase 38's lines and holds: rwkv6's fp32 gradients and engine
+    streams against one device, its bf16 step and full-depth engine."""
+    from repro_torch.configs import get_config
+
+    no_kernel = {"bsa_fwd": 0, "bsa_bwd_dq": 0, "bsa_bwd_dkv": 0}
+    gp = {r["rank"]: r["rwkv"]["parity"] for r in ranks}
+    e32 = _hold_engine("rwkv", ranks, "engine_fp32", small_streams["rwkv"])
+    tr = {r["rank"]: r["rwkv"]["train"] for r in ranks}
+    emit({"phase": "mesh_rwkv", "arch": RWKV_ARCH,
+          "mesh": dict(zip(("data", "model"), MESH_SHAPE)),
+          "seconds_by_rank": {r["rank"]: r["rwkv"]["seconds"] for r in ranks},
+          "parity": {"dtype": "float32", "layers": MESH_PARITY_LAYERS,
+                     "seq_len": TRAIN["seq"], "batch": TRAIN["batch"],
+                     "by_rank": gp},
+          "engine_parity": {"dtype": "float32", "layers": MESH_PARITY_LAYERS,
+                            "new_tokens": MESH_NEW_TOKENS,
+                            "first_part_by_rank": e32,
+                            "by_rank": {r["rank"]: _engine_line(
+                                r["rwkv"]["engine_fp32"]) for r in ranks}},
+          "train": {"layers": MESH_RWKV_TRAIN_LAYERS, "steps": 1,
+                    "seq_len": TRAIN["seq"], "batch": TRAIN["batch"],
+                    **_mesh_step_line(tr)},
+          "engine": {"layers": MESH_RWKV_SERVE_LAYERS,
+                     "new_tokens": MESH_NEW_TOKENS,
+                     "first_part_vs_phase28": {
+                         r["rank"]: _first_part(r["rwkv"]["engine"]["streams"],
+                                                rwkv_base) for r in ranks},
+                     "by_rank": {r["rank"]: _engine_line(r["rwkv"]["engine"])
+                                 for r in ranks}}})
+    _hold_parity("rwkv6", gp, no_kernel)
+    _hold_step("rwkv6 train", tr, no_kernel)
+    _hold_same_streams("rwkv", ranks, "engine", get_config(RWKV_ARCH).vocab)
+    return no_kernel
+
+
+def _emit_mesh_rgemma(ranks, small_streams):
+    """Phase 39's lines and holds: recurrentgemma's fp32 gradients (local
+    and MRA-2, the kernels on every rank at B = 1, 16 / 1 heads, against
+    the plain twins too) and engine streams against one device, and the
+    deeper bf16 engine. Returns the MRA-2 gradient's launches by rank."""
+    from repro_torch.configs import get_config
+
+    G = MESH_RGEMMA_GROUPS  # one local layer a group, forward twice (remat)
+    mra_launches = {"bsa_fwd": 2 * G, "bsa_bwd_dq": G, "bsa_bwd_dkv": G}
+    no_kernel = {"bsa_fwd": 0, "bsa_bwd_dq": 0, "bsa_bwd_dkv": 0}
+    local = {r["rank"]: r["rgemma"]["parity_local"] for r in ranks}
+    mra = {r["rank"]: r["rgemma"]["parity_mra"] for r in ranks}
+    mra_plain = {r["rank"]: r["rgemma"]["parity_mra_plain"]["launches"]
+                 for r in ranks}
+    route = {r["rank"]: r["rgemma"]["mra_kernel_vs_plain"] for r in ranks}
+    e32 = _hold_engine("rgemma", ranks, "engine_fp32",
+                       small_streams["rgemma"])
+    emit({"phase": "mesh_rgemma", "arch": RGEMMA_ARCH,
+          "mesh": dict(zip(("data", "model"), MESH_SHAPE)),
+          "seconds_by_rank": {r["rank"]: r["rgemma"]["seconds"]
+                              for r in ranks},
+          "parity": {"dtype": "float32", "groups": G, "seq_len": TRAIN["seq"],
+                     "batch": TRAIN["batch"], "local": local, "mra2": mra,
+                     "mra2_plain_launches": mra_plain},
+          "mra2_kernel_vs_plain": {"tolerance": 1e-4, "by_rank": route},
+          "engine_parity": {"dtype": "float32", "groups": G,
+                            "new_tokens": MESH_NEW_TOKENS,
+                            "local_window": RGEMMA_STREAMS["window"],
+                            "prompts": list(RGEMMA_STREAMS["prompts"]),
+                            "first_part_by_rank": e32,
+                            "by_rank": {r["rank"]: _engine_line(
+                                r["rgemma"]["engine_fp32"]) for r in ranks}},
+          "engine": {"groups": MESH_RGEMMA_SERVE_GROUPS,
+                     "new_tokens": MESH_NEW_TOKENS,
+                     "by_rank": {r["rank"]: _engine_line(r["rgemma"]["engine"])
+                                 for r in ranks}}})
+    _hold_parity("recurrentgemma local", local, no_kernel)
+    _hold_parity("recurrentgemma MRA-2", mra, mra_launches)
+    if any(n != no_kernel for n in mra_plain.values()):
+        raise AssertionError(f"the plain MRA-2 route launched {mra_plain}")
+    for k, g in route.items():
+        if any(g[key] > 1e-4 for key in ("loss_rel", "grad_norm_rel",
+                                         "leaf_rel")):
+            raise AssertionError(f"rank {k}: MRA-2 kernels vs plain on the "
+                                 f"mesh {g}")
+    b = TRAIN["batch"] // MESH_SHAPE[0]
+    for k, g in mra.items():  # (rows, n, d): B = 1 a rank, 16 / 1 heads of 256
+        if not g["launch_shapes"] or not all(
+                s["q"] == [16 * b, TRAIN["seq"], 256]
+                and s["kv"] == [b, TRAIN["seq"], 256]
+                for s in g["launch_shapes"]):
+            raise AssertionError(f"rank {k}: rgemma launch shapes "
+                                 f"{g['launch_shapes']}")
+    _hold_same_streams("rgemma", ranks, "engine",
+                       get_config(RGEMMA_ARCH).vocab)
+    return {k: g["launches"] for k, g in mra.items()}
 
 
 def main() -> int:
@@ -4210,9 +4621,22 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 products in fp32
     torch.backends.cudnn.allow_tf32 = False
-    smi, bsa_ptx = phase_device(torch)
+    build = start_build()
+    try:  # phases 28-30 launch no kernel of this repo: they run meanwhile
+        eng, rwkv_base = phase_rwkv_full_width(torch)
+        phase_profile(torch, eng, phase="rwkv_profile", kernels=())
+        del eng
+        torch.cuda.empty_cache()
+        phase_rwkv_self(torch)
+        torch.cuda.empty_cache()
+        phase_rwkv_train(torch)
+        torch.cuda.empty_cache()
+    finally:  # nothing raises before the compilers have stopped
+        join_build(build)
+    smi, bsa_ptx = phase_device(torch, build)
     # recurrentgemma's training peaks at 70.67 GiB of the card's 79.18: it
-    # runs first, before the other phases' allocations fragment the cache
+    # runs first of the kernel phases, on the cache rwkv6's left empty,
+    # before the other phases' allocations fragment it
     rg_err, rg_bsa = phase_bsa_rgemma(torch, bsa, bsa_ptx)
     torch.cuda.empty_cache()
     with _expandable_segments(torch):
@@ -4227,7 +4651,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_launches, eng, moe_base = phase_engine_full_width(
         torch, chunk_attn, arch=MOE_ARCH, phase="moe_full_width",
-        new_tokens=FAMILY_SERVE_TOKENS)
+        new_tokens=FAMILY_SERVE_TOKENS, layers=MOE_SERVE_LAYERS)
     phase_profile(torch, eng, phase="moe_profile")
     phase_moe_drops(torch, eng)
     del eng
@@ -4274,21 +4698,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     h1d_launches, h1d_err, h1d_time = phase_baselines(torch, bsa, bsa_ptx)
     torch.cuda.empty_cache()
-    eng = phase_rwkv_full_width(torch)
-    phase_profile(torch, eng, phase="rwkv_profile", kernels=())
-    del eng
-    torch.cuda.empty_cache()
-    phase_rwkv_self(torch)
-    torch.cuda.empty_cache()
-    phase_rwkv_train(torch)
-    torch.cuda.empty_cache()
     eng = phase_rgemma_full_width(torch)
     phase_profile(torch, eng, phase="rgemma_profile", kernels=())
     del eng
     torch.cuda.empty_cache()
     rg_prefill = phase_rgemma_self(torch, bsa)
     torch.cuda.empty_cache()
-    mesh = phase_mesh(torch, bsa, chunk_attn, base, moe_base)
+    mesh = phase_mesh(torch, bsa, chunk_attn, base, moe_base, rwkv_base)
     dec = timing["decode"]
     print(smi, flush=True)
     train_kernels = []
@@ -4447,6 +4863,8 @@ def main() -> int:
             "launches": rg_launches[name],
             **({"prefill_launches": rg_prefill} if key == "fwd" else {}),
             "max_abs_err": rg_err[name],
+            "mesh_launches_per_rank": {k: v[name] for k, v in
+                                       mesh["rgemma"].items()},
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms_bf16"], "bound_by": t["bound_by_bf16"],
             "library_ms": None,
@@ -4456,7 +4874,9 @@ def main() -> int:
                      "B=2, 16 query / 1 KV head, causal, bf16; launches from "
                      f"the 3-step training run at {RGEMMA_TRAIN_GROUPS} "
                      "groups (phase 33), prefill_launches from phase 34's "
-                     "whole-prompt prefill",
+                     "whole-prompt prefill, mesh_launches_per_rank from "
+                     "phase 39's fp32 gradient on the (2, 2) mesh (local "
+                     "blocks: B=1, 16 query / 1 KV head)",
             **{k: t[k] for k in ("grid", "threads", "smem_bytes",
                                  "blocks_per_sm")}})
     emit({"kernels": [{

@@ -143,8 +143,8 @@ def all_reduce(t, mesh, axis: str, op: str = "sum"):
         dist.all_reduce(y, op=_OPS["sum" if op == "mean" else op], group=group)
         return y
 
-    out = _run("all_reduce", t, mesh, axis, fn)
-    return out / n if op == "mean" else out
+    out = _run("all_reduce", t, mesh, axis, fn)  # a new tensor
+    return out.div_(n) if op == "mean" else out
 
 
 def all_gather(t, mesh, axis: str, dim: int):

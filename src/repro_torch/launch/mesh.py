@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import os
 import tempfile
+import time
 import traceback
 from typing import Optional
 
@@ -32,6 +33,8 @@ import torch.distributed as dist
 from repro_torch import resolve_device
 
 __all__ = ["Mesh", "init_ranks", "make_local_mesh", "parse_mesh", "spawn"]
+
+_POLL_S = 2.0  # spawn: seconds between looks at the ranks' exit codes
 
 
 class Mesh:
@@ -144,9 +147,9 @@ def spawn(fn, world_size: int, *args, device=None, timeout: float = 600.0,
     """Run ``fn(rank, *args)`` on ``world_size`` spawned ranks with the
     process group up (``init_ranks``; ``device`` as there); returns the
     results by rank. ``fn`` and its results must pickle. Raises
-    ``RuntimeError`` with the failing ranks' tracebacks, or on timeout,
-    after every rank has stopped. ``threads`` > 0 caps each rank's
-    intra-op threads."""
+    ``RuntimeError`` with the failing ranks' tracebacks, when a rank ends
+    without a result (its exit code), or on timeout, after every rank has
+    stopped. ``threads`` > 0 caps each rank's intra-op threads."""
     import multiprocessing as mp
     import queue
 
@@ -161,19 +164,29 @@ def spawn(fn, world_size: int, *args, device=None, timeout: float = 600.0,
         for p in procs:
             p.start()
         got, errors = {}, []
+        deadline = time.monotonic() + timeout
         try:
-            for _ in range(world_size):
+            while len(got) < world_size and not errors:
                 try:
-                    rank, ok, out = results.get(timeout=timeout)
+                    rank, ok, out = results.get(timeout=_POLL_S)
                 except queue.Empty:
-                    errors.append(f"timed out after {timeout} s waiting for "
-                                  f"ranks {sorted(set(range(world_size)) - set(got))}")
-                    break
+                    waiting = sorted(set(range(world_size)) - set(got))
+                    # a rank that ended without a result (killed, crashed,
+                    # failed to start) ends the wait; one that returned
+                    # exits 0 after its result is queued
+                    dead = [(r, procs[r].exitcode) for r in waiting
+                            if procs[r].exitcode not in (None, 0)]
+                    if dead:
+                        errors.extend(f"rank {r} exited with code {c} "
+                                      "without a result" for r, c in dead)
+                    elif time.monotonic() > deadline:
+                        errors.append(f"timed out after {timeout} s waiting "
+                                      f"for ranks {waiting}")
+                    continue
                 if ok:
                     got[rank] = out
                 else:
                     errors.append(f"rank {rank}:\n{out}")
-                    break
         finally:
             for p in procs:
                 p.join(timeout=5 if errors else 60)

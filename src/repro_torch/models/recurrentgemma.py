@@ -25,6 +25,16 @@ Serving follows ``models/transformer.py``: ``prefill``, ``prefill_chunk``
 and ``decode_step`` update the cache tensors **in place** and return the
 same dict; a slot frozen for the call (``active`` False, ``num_valid`` 0)
 keeps every row bit-identical, every write guarded by ``torch.where``.
+
+Under an active mesh (``distributed/mesh_utils.use_mesh``; the placement
+rules of DESIGN.md §12) the RG-LRU block, its weights whole on every rank,
+runs on the rank's batch rows with no collective; the MLP splits d_ff and
+the embedding the vocab over "model" (``models/layers.py``); the local
+attention's one KV head does not split, so ``L.attn_params`` gathers
+``wq`` / ``wo`` and each rank attends all query heads over its rows, on
+the ring of its own slots in serving (the counterpart of the reference's
+``sharded_window_attention``) and through ``mra2_attention`` on the MRA-2
+variant, whose kernels then launch on every rank's rows.
 """
 from __future__ import annotations
 
@@ -184,22 +194,32 @@ def _layer_fwd(x, p, kind: str, cfg: ModelConfig, key_mask):
     return x + L.mlp_block(h, p["mlp"], cfg)
 
 
-def forward(params, cfg: ModelConfig, batch, *, key_mask=None):
-    """Full-sequence forward: (logits (B, S, padded_vocab) in the activation
-    dtype, a zero fp32 aux loss). Each layer runs under the config's remat
-    policy."""
+def _forward(params, cfg: ModelConfig, batch, key_mask):
+    """The logits as ``unembed`` leaves them (the rank's vocab columns
+    under a vocab-split mesh)."""
     x = L.embed(batch["tokens"], params["embed"], cfg)
     body = L.remat_wrap(_layer_fwd, cfg)
     for kind, p in _layers_iter(params, cfg):
         x = body(x, p, kind, cfg, key_mask)
     x = L.apply_norm(x, params["ln_f"], cfg)
-    return (L.unembed(x, params["embed"], cfg),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+    return L.unembed(x, params["embed"], cfg)
+
+
+def forward(params, cfg: ModelConfig, batch, *, key_mask=None):
+    """Full-sequence forward: (logits (B, S, padded_vocab) in the activation
+    dtype, a zero fp32 aux loss). Each layer runs under the config's remat
+    policy. Under an active mesh ``params`` are the rank's blocks and
+    ``batch`` its rows; the logits are the rank's rows over the whole
+    vocab."""
+    logits = _forward(params, cfg, batch, key_mask)
+    return (L.gather_vocab(logits, cfg),
+            torch.zeros((), dtype=torch.float32, device=logits.device))
 
 
 def loss_fn(params, cfg: ModelConfig, batch, *, key_mask=None):
-    """Mean next-token NLL: (loss, {"loss", "nll"})."""
-    logits, _ = forward(params, cfg, batch)
+    """Mean next-token NLL: (loss, {"loss", "nll"}); under a mesh the
+    rank's rows' share (the vocab-parallel NLL of ``L.lm_nll``)."""
+    logits = _forward(params, cfg, batch, key_mask)
     loss = L.lm_nll(logits, batch["targets"], cfg).mean()
     return loss, {"loss": loss, "nll": loss}
 
@@ -280,6 +300,21 @@ def _window_attention(q, k_new, v_new, kc, vc, pos_c, positions, tv,
                                  tv, window=cfg.local_window, hd=cfg.hd)
 
 
+def _project(h, p, cfg: ModelConfig, positions):
+    """A serving local layer's q / k / v from its normed input, and what
+    ``_attn_out`` takes (under a mesh the query weights gathered whole: the
+    one KV head does not split)."""
+    tp = L.tp_layout(cfg)
+    pa = L.attn_params(p["attn"], cfg, tp)
+    q, k, v = L.qkv_project(L.attn_input(h, tp), pa, cfg, positions)
+    return q, k, v, (pa, tp)
+
+
+def _attn_out(o, proj, cfg: ModelConfig):
+    pa, tp = proj
+    return L.attn_output(o, pa, cfg, tp)
+
+
 def _ring_write(cache, ia, k, v, positions, tv):
     """Write the chunk's valid lanes into layer ``ia``'s ring at pos % W.
 
@@ -318,7 +353,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, active=None):
     for kind, p in _layers_iter(params, cfg):
         h = L.apply_norm(x, p["ln1"], cfg)
         if kind == "local":
-            q, k_new, v_new = L.qkv_project(h, p["attn"], cfg, pos_now[:, None])
+            q, k_new, v_new, proj = _project(h, p, cfg, pos_now[:, None])
             # attend before writing: the ring as of the step's start plus
             # the step's own key (a wrapping write cannot evict a needed
             # entry); -1 on a frozen empty slot lands in range, masked
@@ -326,7 +361,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, active=None):
                                   cache["v"][ia], cache["kv_pos"][ia],
                                   pos_now[:, None], act[:, None], cfg)
             _ring_write(cache, ia, k_new, v_new, pos_now[:, None], act[:, None])
-            x = x + torch.einsum("bhsk,hkd->bsd", o, p["attn"]["wo"].to(x.dtype))
+            x = x + _attn_out(o, proj, cfg)
             ia += 1
         else:
             pr = p["rglru"]
@@ -350,7 +385,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, active=None):
         h = L.apply_norm(x, p["ln2"], cfg)
         x = x + L.mlp_block(h, p["mlp"], cfg)
     x = L.apply_norm(x, params["ln_f"], cfg)
-    logits = L.unembed(x, params["embed"], cfg)[:, 0]
+    logits = L.gather_vocab(L.unembed(x, params["embed"], cfg)[:, 0], cfg)
     cache["lengths"].add_(act.to(cache["lengths"].dtype))
     return logits, cache
 
@@ -376,9 +411,9 @@ def prefill(params, cfg: ModelConfig, batch, cache):
     for kind, p in _layers_iter(params, cfg):
         h = L.apply_norm(x, p["ln1"], cfg)
         if kind == "local":
-            q, k, v = L.qkv_project(h, p["attn"], cfg, positions)
+            q, k, v, proj = _project(h, p, cfg, positions)
             o = self_attention(q, k, v, _local_spec(cfg), causal=True)
-            x = x + torch.einsum("bhsk,hkd->bsd", o, p["attn"]["wo"].to(x.dtype))
+            x = x + _attn_out(o, proj, cfg)
             cache["k"][ia][:, :, slots] = k[:, :, S - take:].to(cache["k"].dtype)
             cache["v"][ia][:, :, slots] = v[:, :, S - take:].to(cache["v"].dtype)
             pc = cache["kv_pos"][ia]
@@ -402,7 +437,7 @@ def prefill(params, cfg: ModelConfig, batch, cache):
     x = L.apply_norm(x, params["ln_f"], cfg)
     logits = L.unembed(x[:, -1:], params["embed"], cfg)
     cache["lengths"].fill_(S)
-    return logits[:, 0], cache
+    return L.gather_vocab(logits[:, 0], cfg), cache
 
 
 def prefill_chunk(params, cfg: ModelConfig, cache, tokens, num_valid, *,
@@ -441,10 +476,10 @@ def prefill_chunk(params, cfg: ModelConfig, cache, tokens, num_valid, *,
     for kind, p in _layers_iter(params, cfg):
         h = L.apply_norm(x, p["ln1"], cfg)
         if kind == "local":
-            q, k, v = L.qkv_project(h, p["attn"], cfg, positions)
+            q, k, v, proj = _project(h, p, cfg, positions)
             o = _window_attention(q, k, v, cache["k"][ia], cache["v"][ia],
                                   cache["kv_pos"][ia], positions, tv, cfg)
-            x = x + torch.einsum("bhsk,hkd->bsd", o, p["attn"]["wo"].to(x.dtype))
+            x = x + _attn_out(o, proj, cfg)
             _ring_write(cache, ia, k, v, positions, tv)
             ia += 1
         else:
@@ -480,5 +515,7 @@ def prefill_chunk(params, cfg: ModelConfig, cache, tokens, num_valid, *,
     x = L.apply_norm(x, params["ln_f"], cfg)
     cache["lengths"].add_(nv)
     if all_logits:
-        return L.unembed(x, params["embed"], cfg), cache
-    return L.unembed(x[rows, last][:, None], params["embed"], cfg)[:, 0], cache
+        logits = L.unembed(x, params["embed"], cfg)
+    else:
+        logits = L.unembed(x[rows, last][:, None], params["embed"], cfg)[:, 0]
+    return L.gather_vocab(logits, cfg), cache

@@ -18,6 +18,18 @@ order: equal to the reference within fp32 rounding, not bitwise).
 ``wkv_scan`` is the token-by-token recurrence that validates it. MRA does
 not apply (no attention matrix), as in the reference (DESIGN.md §5).
 
+Under an active mesh (``distributed/mesh_utils.use_mesh``) the time mix
+splits its heads and the channel mix its d_ff over the "model" axis, as
+the weights' placement says (``_split``): each rank projects r / k / v /
+g for its heads, runs the WKV recurrence and the per-head group norm on
+them, and ``wo``'s partial outputs are summed (``collectives.reduce_from``);
+the channel mix's ``wk`` columns and ``wv`` rows likewise, the sum taken
+before the replicated ``wr`` gate. The token-mix coefficients and the
+decay LoRA stay whole (d_model has no mesh axis) but feed the split work,
+so they and the normed input enter it through ``collectives.copy_to``
+(their gradients are all-reduced); each rank cuts its heads' columns out
+of the decay.
+
 Serving keeps, per layer and slot, the wkv state and the token-shift
 carries (``cache_specs``). As in ``models/transformer.py``, ``prefill``,
 ``prefill_chunk`` and ``decode_step`` update the cache tensors **in place**
@@ -31,6 +43,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import mesh_utils
+from repro_torch.distributed.sharding import logical_to_pspec
 
 from . import layers as L
 from .params import TensorSpec, embed_specs, norm_specs
@@ -91,6 +106,22 @@ def param_specs(cfg: ModelConfig) -> dict:
 # --------------------------------------------------------------------------- #
 # time mixing
 # --------------------------------------------------------------------------- #
+def _split(cfg: ModelConfig):
+    """(mesh, heads, ff): the active mesh and whether the time mix's heads
+    and the channel mix's d_ff split over its "model" axis (the placement
+    of ``wr`` and of the channel mix's ``wk``)."""
+    mesh = mesh_utils.get_mesh()
+    if C.axis_size(mesh, "model") == 1:
+        return mesh, False, False
+    d, dh = cfg.d_model, cfg.rwkv_head_dim
+
+    def split(shape, axes):
+        return logical_to_pspec(shape, axes, mesh)[1] == "model"
+
+    return (mesh, split((d, d // dh, dh), ("d_model", "heads", None)),
+            split((d, cfg.d_ff), ("d_model", "d_ff")))
+
+
 def _shift(x, x_prev=None):
     """Previous-token values. x (B,T,d); ``x_prev`` (B,d) is the stream's
     token before this window (zeros when the stream starts at t = 0)."""
@@ -106,7 +137,12 @@ def _heads(a, H: int, dh: int):
 
 def _tm_inputs(x, p, cfg: ModelConfig, x_prev=None):
     """r, k, v (fp32), g (activation dtype) and the log decay lw (fp32),
-    each (B,H,T,dh)."""
+    each (B,H,T,dh): the rank's H heads under a head-split mesh."""
+    mesh, heads, _ = _split(cfg)
+    if heads:  # whole tensors entering head-split work
+        x = C.copy_to(x, mesh)
+        p = dict(p, **{k: C.copy_to(p[k], mesh)
+                       for k in ("mu", "w0", "wA", "wB")})
     adt = x.dtype
     xs = _shift(x, x_prev)
     mu = p["mu"].to(adt)  # (5, d)
@@ -115,12 +151,16 @@ def _tm_inputs(x, p, cfg: ModelConfig, x_prev=None):
     k = torch.einsum("btd,dhk->bhtk", xk, p["wk"].to(adt))
     v = torch.einsum("btd,dhk->bhtk", xv, p["wv"].to(adt))
     g = F.silu(torch.einsum("btd,dhk->bhtk", xg, p["wg"].to(adt)))
+    H, dh = p["u"].shape
+    w0, wB = p["w0"], p["wB"]
+    if heads:  # the decay of the rank's heads' columns
+        c0 = mesh.index("model") * H * dh
+        w0, wB = w0[c0:c0 + H * dh], wB[:, c0:c0 + H * dh]
     dw = torch.einsum(
         "btl,ld->btd",
         torch.tanh(torch.einsum("btd,dl->btl", xw, p["wA"].to(adt))),
-        p["wB"].to(adt))
-    H, dh = p["u"].shape
-    wlog = -torch.exp(_heads(p["w0"].float() + dw.float(), H, dh))
+        wB.to(adt))
+    wlog = -torch.exp(_heads(w0.float() + dw.float(), H, dh))
     wlog = torch.clamp(wlog, min=-_decay_clamp(cfg.rwkv_chunk))
     return r.float(), k.float(), v.float(), g, wlog
 
@@ -198,9 +238,12 @@ def _group_norm(y, w, b, eps):
 
 
 def _tm_out(y, g, p, cfg: ModelConfig, x):
-    """Group norm, the gate and the output projection: (B, T, d)."""
+    """Group norm, the gate and the output projection: (B, T, d), summed
+    over the head blocks under a head-split mesh."""
     y = _group_norm(y, p["gn_w"], p["gn_b"], cfg.norm_eps) * g.float()
-    return torch.einsum("bhtk,hkd->btd", y.to(x.dtype), p["wo"].to(x.dtype))
+    out = torch.einsum("bhtk,hkd->btd", y.to(x.dtype), p["wo"].to(x.dtype))
+    mesh, heads, _ = _split(cfg)
+    return C.reduce_from(out, mesh) if heads else out
 
 
 def time_mix(x, p, cfg: ModelConfig, *, use_scan: bool = False):
@@ -213,12 +256,19 @@ def time_mix(x, p, cfg: ModelConfig, *, use_scan: bool = False):
 
 
 def channel_mix(x, p, cfg: ModelConfig, x_prev=None):
+    """The channel mix: (B, T, d). Under a d_ff-split mesh the key branch
+    runs on the rank's d_ff block and is summed before the gate."""
+    mesh, _, ff = _split(cfg)
     adt = x.dtype
     xs = _shift(x, x_prev)
     xk = x + (xs - x) * p["mu_k"].to(adt)
     xr = x + (xs - x) * p["mu_r"].to(adt)
+    if ff:
+        xk = C.copy_to(xk, mesh)
     k = torch.square(F.relu(torch.einsum("btd,df->btf", xk, p["wk"].to(adt))))
     out = torch.einsum("btf,fd->btd", k, p["wv"].to(adt))
+    if ff:
+        out = C.reduce_from(out, mesh)
     return torch.sigmoid(torch.einsum("btd,de->bte", xr,
                                       p["wr"].to(adt))) * out
 
@@ -232,23 +282,33 @@ def _layer_fwd(x, p, cfg: ModelConfig, use_scan: bool):
     return x + channel_mix(L.apply_norm(x, p["ln2"], cfg), p["cm"], cfg)
 
 
-def forward(params, cfg: ModelConfig, batch, *, use_scan: bool = False,
-            key_mask=None):
-    """Full-sequence forward: (logits (B, S, padded_vocab) in the activation
-    dtype, a zero fp32 aux loss). Each layer runs under the config's remat
-    policy; ``use_scan`` takes the token-by-token recurrence."""
+def _forward(params, cfg: ModelConfig, batch, use_scan: bool):
+    """The logits as ``unembed`` leaves them (the rank's vocab columns
+    under a vocab-split mesh)."""
     x = L.embed(batch["tokens"], params["embed"], cfg)
     body = L.remat_wrap(_layer_fwd, cfg)
     for p in params["layers"]:
         x = body(x, p, cfg, use_scan)
     x = L.apply_norm(x, params["ln_f"], cfg)
-    return (L.unembed(x, params["embed"], cfg),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+    return L.unembed(x, params["embed"], cfg)
+
+
+def forward(params, cfg: ModelConfig, batch, *, use_scan: bool = False,
+            key_mask=None):
+    """Full-sequence forward: (logits (B, S, padded_vocab) in the activation
+    dtype, a zero fp32 aux loss). Each layer runs under the config's remat
+    policy; ``use_scan`` takes the token-by-token recurrence. Under an
+    active mesh ``params`` are the rank's blocks and ``batch`` its rows; the
+    logits are the rank's rows over the whole vocab."""
+    logits = _forward(params, cfg, batch, use_scan)
+    return (L.gather_vocab(logits, cfg),
+            torch.zeros((), dtype=torch.float32, device=logits.device))
 
 
 def loss_fn(params, cfg: ModelConfig, batch, *, key_mask=None):
-    """Mean next-token NLL: (loss, {"loss", "nll"})."""
-    logits, _ = forward(params, cfg, batch)
+    """Mean next-token NLL: (loss, {"loss", "nll"}); under a mesh the
+    rank's rows' share (the vocab-parallel NLL of ``L.lm_nll``)."""
+    logits = _forward(params, cfg, batch, False)
     loss = L.lm_nll(logits, batch["targets"], cfg).mean()
     return loss, {"loss": loss, "nll": loss}
 
@@ -287,62 +347,39 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, active=None):
 
     ``active`` (B,) bool restricts the step to a subset of slots: inactive
     slots' state, carries and length stay bit-identical and their logits
-    are garbage for the caller to ignore. ``None`` = all active.
+    are garbage for the caller to ignore. ``None`` = all active. Under a
+    mesh the cache is the rank's block (slots over the data axes, the
+    state's heads over "model") and ``tokens`` / ``active`` its slots.
     """
     B = tokens.shape[0]
     dev = tokens.device
     act = (torch.ones((B,), dtype=torch.bool, device=dev) if active is None
            else active.to(torch.bool))
     a2, a4 = act[:, None], act[:, None, None, None]
-    x = L.embed(tokens[:, None], params["embed"], cfg)[:, 0]  # (B, d)
-    dh = cfg.rwkv_head_dim
-    H = cfg.d_model // dh
+    x = L.embed(tokens[:, None], params["embed"], cfg)  # (B, 1, d)
     for i, p in enumerate(params["layers"]):
-        tm, cm = p["tm"], p["cm"]
-        # time mix, one step
-        h = L.apply_norm(x[:, None], p["ln1"], cfg)[:, 0]
-        adt = h.dtype
-        xs = cache["tm_x"][i].to(adt)
-        mu = tm["mu"].to(adt)
-        xr, xk, xv, xw, xg = (h + (xs - h) * mu[j] for j in range(5))
-        r = torch.einsum("bd,dhk->bhk", xr, tm["wr"].to(adt)).float()
-        k = torch.einsum("bd,dhk->bhk", xk, tm["wk"].to(adt)).float()
-        v = torch.einsum("bd,dhk->bhk", xv, tm["wv"].to(adt)).float()
-        g = F.silu(torch.einsum("bd,dhk->bhk", xg, tm["wg"].to(adt)))
-        dw = torch.einsum(
-            "bl,ld->bd",
-            torch.tanh(torch.einsum("bd,dl->bl", xw, tm["wA"].to(adt))),
-            tm["wB"].to(adt))
-        # the chunked form's per-step log-decay floor, so a decode
-        # continuation stays consistent with chunk-prefilled state
-        w = torch.exp(torch.clamp(
-            -torch.exp((tm["w0"].float() + dw.float()).reshape(B, H, dh)),
-            min=-_decay_clamp(cfg.rwkv_chunk)))
+        tm = p["tm"]
+        # time mix, one step: the chunked form's per-step log-decay floor
+        # (``_tm_inputs``), so a decode continuation stays consistent with
+        # chunk-prefilled state
+        h = L.apply_norm(x, p["ln1"], cfg)
+        r, k, v, g, lw = _tm_inputs(h, tm, cfg, x_prev=cache["tm_x"][i])
+        r, k, v, w = r[:, :, 0], k[:, :, 0], v[:, :, 0], torch.exp(lw[:, :, 0])
         S = cache["state"][i]  # (B,H,dh,dh)
         a = k[..., :, None] * v[..., None, :]
         y = torch.einsum("bhi,bhij->bhj", r,
                          S + tm["u"].float()[None, :, :, None] * a)
         S.copy_(torch.where(a4, w[..., :, None] * S + a, S))
-        cache["tm_x"][i].copy_(torch.where(a2, h.to(cache["tm_x"].dtype),
-                                           cache["tm_x"][i]))
-        y = _group_norm(y[:, :, None], tm["gn_w"], tm["gn_b"],
-                        cfg.norm_eps)[:, :, 0] * g.float()
-        x = x + torch.einsum("bhk,hkd->bd", y.to(x.dtype), tm["wo"].to(x.dtype))
+        cache["tm_x"][i].copy_(torch.where(
+            a2, h[:, 0].to(cache["tm_x"].dtype), cache["tm_x"][i]))
+        x = x + _tm_out(y[:, :, None], g, tm, cfg, x)
         # channel mix, one step
-        h = L.apply_norm(x[:, None], p["ln2"], cfg)[:, 0]
-        adt = h.dtype
-        xs = cache["cm_x"][i].to(adt)
-        xk2 = h + (xs - h) * cm["mu_k"].to(adt)
-        xr2 = h + (xs - h) * cm["mu_r"].to(adt)
-        kk = torch.square(F.relu(torch.einsum("bd,df->bf", xk2,
-                                              cm["wk"].to(adt))))
-        out = torch.einsum("bf,fd->bd", kk, cm["wv"].to(adt))
-        x = x + torch.sigmoid(torch.einsum("bd,de->be", xr2,
-                                           cm["wr"].to(adt))) * out
-        cache["cm_x"][i].copy_(torch.where(a2, h.to(cache["cm_x"].dtype),
-                                           cache["cm_x"][i]))
-    x = L.apply_norm(x[:, None], params["ln_f"], cfg)
-    logits = L.unembed(x, params["embed"], cfg)[:, 0]
+        h = L.apply_norm(x, p["ln2"], cfg)
+        x = x + channel_mix(h, p["cm"], cfg, x_prev=cache["cm_x"][i])
+        cache["cm_x"][i].copy_(torch.where(
+            a2, h[:, 0].to(cache["cm_x"].dtype), cache["cm_x"][i]))
+    x = L.apply_norm(x, params["ln_f"], cfg)
+    logits = L.gather_vocab(L.unembed(x, params["embed"], cfg)[:, 0], cfg)
     cache["lengths"].add_(act.to(cache["lengths"].dtype))
     return logits, cache
 
@@ -371,7 +408,7 @@ def prefill(params, cfg: ModelConfig, batch, cache):
     x = L.apply_norm(x, params["ln_f"], cfg)
     logits = L.unembed(x[:, -1:], params["embed"], cfg)
     cache["lengths"].fill_(S)
-    return logits[:, 0], cache
+    return L.gather_vocab(logits[:, 0], cfg), cache
 
 
 def prefill_chunk(params, cfg: ModelConfig, cache, tokens, num_valid, *,
@@ -429,5 +466,7 @@ def prefill_chunk(params, cfg: ModelConfig, cache, tokens, num_valid, *,
     x = L.apply_norm(x, params["ln_f"], cfg)
     cache["lengths"].add_(nv)
     if all_logits:
-        return L.unembed(x[:, :C], params["embed"], cfg), cache
-    return L.unembed(x[rows, last][:, None], params["embed"], cfg)[:, 0], cache
+        logits = L.unembed(x[:, :C], params["embed"], cfg)
+    else:
+        logits = L.unembed(x[rows, last][:, None], params["embed"], cfg)[:, 0]
+    return L.gather_vocab(logits, cfg), cache

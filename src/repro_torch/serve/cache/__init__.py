@@ -27,22 +27,18 @@ _WINDOW_KINDS = frozenset({"window", "rglru"})
 def make_cache(cfg, model, slots: int, max_len: int, *,
                device=None, mesh=None) -> CacheBackend:
     """Build the cache backend serving ``model``'s per-layer kinds on
-    ``device`` (default: cuda); under ``mesh`` the rank's blocks (the
-    ring-paged cache only: the state caches come with ROADMAP module item
-    6b and raise)."""
+    ``device`` (default: cuda); under ``mesh`` the rank's blocks."""
     kinds = tuple(model.layer_cache_kinds(cfg))
     ks = set(kinds)
-    if mesh is not None and not ks <= _PAGED_KINDS:
-        raise NotImplementedError(
-            f"cache kinds {sorted(ks)} under a mesh come with ROADMAP module "
-            "item 6b (rwkv6 and recurrentgemma, sharded_window_attention)")
     if ks <= _PAGED_KINDS:
         cache = RingPagedKVCache(cfg, slots, max_len, device=device,
                                  mesh=mesh)
     elif ks <= _RECURRENT_KINDS:
-        cache = RecurrentStateCache(cfg, model, slots, max_len, device=device)
+        cache = RecurrentStateCache(cfg, model, slots, max_len, device=device,
+                                    mesh=mesh)
     elif ks <= _WINDOW_KINDS:
-        cache = HybridWindowCache(cfg, model, slots, max_len, device=device)
+        cache = HybridWindowCache(cfg, model, slots, max_len, device=device,
+                                  mesh=mesh)
     else:
         raise ValueError(
             f"no cache backend serves layer cache kinds {sorted(ks)} "

@@ -34,11 +34,11 @@ rewind restores it whole before replaying, in ascending block order, the
 collapses the kept writes performed.
 
 Under a mesh (``mesh=``) the tree holds the rank's blocks
-(``place_specs``: slots over the data axis, kv heads over "model"); the
-engine-facing calls take and return every slot's values, and the engine
-cuts each model call's per-slot inputs to the rank's rows (``rows``) and
-gathers its logits over every slot (``whole``), so the scheduler and the
-speculative rounds run unchanged on every rank.
+(``protocol.place_specs``: slots over the data axis, kv heads over
+"model"); the engine-facing calls take and return every slot's values,
+and the engine cuts each model call's per-slot inputs to the rank's rows
+(``rows``) and gathers its logits over every slot (``whole``), so the
+scheduler and the speculative rounds run unchanged on every rank.
 """
 from __future__ import annotations
 
@@ -51,7 +51,6 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import hier
 from repro_torch.core.attention import MRA_KINDS
-from repro_torch.distributed import collectives as C
 from repro_torch.models import transformer
 from repro_torch.models.params import materialize
 
@@ -60,28 +59,6 @@ from .protocol import CacheBackend
 __all__ = ["RingPagedKVCache"]
 
 _HIER_LAYER_KEYS = ("hier_k", "hier_v", "hier_ks", "hier_vs")
-
-
-def place_specs(specs: dict, mesh) -> dict:
-    """The cache specs of the rank's blocks on ``mesh``: every tensor placed
-    by its axes (batch -> data, kv-heads -> model), the sequence axis kept
-    whole (the reference's ``kv_seq`` data split, taken only when the slots
-    do not divide the data axis, is not ported: the slots are then
-    replicated over it)."""
-    from repro_torch.distributed.sharding import (
-        ShardingRules,
-        local_shape,
-        logical_to_pspec,
-    )
-
-    rules = ShardingRules().override(kv_seq=())
-
-    def one(s):
-        pspec = logical_to_pspec(s.shape, s.axes, mesh, rules)
-        return s._replace(shape=local_shape(s.shape, pspec, mesh))
-
-    return {k: [one(x) for x in v] if isinstance(v, list) else one(v)
-            for k, v in specs.items()}
 
 
 def _window_indices(lengths, W: int, S: int):
@@ -119,31 +96,11 @@ class RingPagedKVCache(CacheBackend):
         if self.hier_lids:
             self.capacity = None
             self.chunk_cap = max_len - self.block
-        self.mesh = mesh
-        if mesh is not None:  # the rank's blocks (see place_specs)
-            self.specs = place_specs(self.specs, mesh)
-            self.row_split = self.specs["lengths"].shape[0] != slots
+        self._place(mesh)
         self.tree = {
             k: ([materialize(s, self.device) for s in v] if isinstance(v, list)
                 else materialize(v, self.device))
             for k, v in self.specs.items()}
-
-    # ---- the rank's slots under a mesh ------------------------------------ #
-    def rows(self, x):
-        n = self.specs["lengths"].shape[0]
-        if self.mesh is None or not self.row_split or x.shape[0] == n:
-            return x
-        i = self.mesh.index("data")
-        return x[i * n:(i + 1) * n]
-
-    def whole(self, t):
-        if self.mesh is None or not self.row_split:
-            return t
-        return C.all_gather(t, self.mesh, "data", 0)
-
-    @property
-    def lengths(self) -> np.ndarray:
-        return self.whole(self.tree["lengths"]).cpu().numpy()
 
     @torch.no_grad()
     def reset_slots(self, mask: np.ndarray) -> None:

@@ -20,7 +20,8 @@ introspection:
   lengths        (slots,) host view of per-slot stream lengths
   rows / whole   the rank's rows of a per-slot input / a per-slot output
                  gathered over every slot: the one place that knows how
-                 the slots are split over a mesh (the identity otherwise)
+                 the slots are split over a mesh (the identity otherwise;
+                 ``mesh=`` places the tree by ``place_specs``)
 
 Which backend serves a model is decided from the model's per-layer
 ``layer_cache_kinds(cfg)`` (``make_cache`` in __init__.py). The fixed-size
@@ -34,9 +35,32 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import (
+    ShardingRules,
+    local_shape,
+    logical_to_pspec,
+)
 from repro_torch.models.params import fill_value, materialize
 
-__all__ = ["CacheBackend", "StateCache", "fill_value", "make_state_reset"]
+__all__ = ["CacheBackend", "StateCache", "fill_value", "make_state_reset",
+           "place_specs"]
+
+
+def place_specs(specs: dict, mesh) -> dict:
+    """The cache specs of the rank's blocks on ``mesh``: every tensor placed
+    by its axes (batch -> data, kv-heads and the rwkv6 state's heads ->
+    model), the sequence axis kept whole (the reference's ``kv_seq`` data
+    split, taken only when the slots do not divide the data axis, is not
+    ported: the slots are then replicated over it)."""
+    rules = ShardingRules().override(kv_seq=())
+
+    def one(s):
+        pspec = logical_to_pspec(s.shape, s.axes, mesh, rules)
+        return s._replace(shape=local_shape(s.shape, pspec, mesh))
+
+    return {k: [one(x) for x in v] if isinstance(v, list) else one(v)
+            for k, v in specs.items()}
 
 
 class CacheBackend:
@@ -47,21 +71,38 @@ class CacheBackend:
     capacity: int | None = None
     chunk_cap: int | None = None
     kinds: tuple = ()
+    mesh = None
+    row_split = False  # the slots split over the data axes
 
     def reset_slots(self, mask: np.ndarray) -> None:
         raise NotImplementedError
 
+    def _place(self, mesh) -> None:
+        """Cut ``self.specs`` to the rank's blocks on ``mesh`` (None: keep
+        them whole)."""
+        self.mesh = mesh
+        if mesh is not None:
+            n = self.specs["lengths"].shape[0]
+            self.specs = place_specs(self.specs, mesh)
+            self.row_split = self.specs["lengths"].shape[0] != n
+
     def rows(self, x):
         """The rank's rows of a per-slot array (every slot's, (slots, ...))."""
-        return x
+        n = self.specs["lengths"].shape[0]
+        if not self.row_split or x.shape[0] == n:
+            return x
+        i = self.mesh.index("data")
+        return x[i * n:(i + 1) * n]
 
     def whole(self, t):
         """A per-slot array of the rank's slots gathered over every slot."""
-        return t
+        if not self.row_split:
+            return t
+        return C.all_gather(t, self.mesh, "data", 0)
 
     @property
     def lengths(self) -> np.ndarray:
-        return self.tree["lengths"].cpu().numpy()
+        return self.whole(self.tree["lengths"]).cpu().numpy()
 
     def occupancy(self) -> dict:
         """Uniform occupancy gauges: ``slots_active``, ``tokens_live``,
@@ -115,21 +156,26 @@ class StateCache(CacheBackend):
     layout, this class the init and the reset. The state per slot does not
     grow with the stream, so there is no admission capacity: ``capacity``
     stays None and the scheduler accepts any prompt and generation length.
+    Under ``mesh`` the tree holds the rank's blocks (``place_specs``: the
+    slots over the data axes, the rwkv6 state's heads over "model"), reset
+    by the rank's rows of the mask.
     """
 
     capacity = None
 
-    def __init__(self, cfg, model, slots: int, max_len: int, *, device=None):
+    def __init__(self, cfg, model, slots: int, max_len: int, *, device=None,
+                 mesh=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.slots = slots
         self.max_len = max_len
         self.specs = model.cache_specs(cfg, slots, max_len)
+        self._place(mesh)
         self.tree = {k: materialize(s, self.device)
                      for k, s in self.specs.items()}
         self._reset = make_state_reset(
             tuple(sorted((k, fill_value(s)) for k, s in self.specs.items())))
 
     def reset_slots(self, mask: np.ndarray) -> None:
-        self._reset(self.tree, torch.as_tensor(np.asarray(mask, bool),
-                                               device=self.device))
+        self._reset(self.tree, torch.as_tensor(
+            self.rows(np.asarray(mask, bool)), device=self.device))

@@ -27,8 +27,9 @@ __all__ = ["HybridWindowCache"]
 class HybridWindowCache(StateCache):
     """Window ring + RG-LRU state per slot; chunk size capped at the window."""
 
-    def __init__(self, cfg, model, slots: int, max_len: int, *, device=None):
-        super().__init__(cfg, model, slots, max_len, device=device)
+    def __init__(self, cfg, model, slots: int, max_len: int, *, device=None,
+                 mesh=None):
+        super().__init__(cfg, model, slots, max_len, device=device, mesh=mesh)
         self.chunk_cap = min(cfg.local_window, max_len)
 
     def occupancy(self) -> dict:

@@ -33,14 +33,14 @@ each request's lifecycle; ``Engine.stats`` is a typed view over it.
 Mesh serving (``EngineConfig.mesh``, a ``launch.mesh.Mesh``; every rank
 of the process group builds the same engine and runs the same requests):
 the parameters are cut to the rank's blocks (``shard_params``), the cache
-tree is placed by its specs' axes (slots over "data", kv heads over
-"model"), so attention runs on the rank's (batch, kv-head) block. Each
-model call takes the rank's slots (``kv.rows``) and its logits, over the
-whole vocab, are gathered over every slot (``kv.whole``), so sampling and
-the scheduler run alike on every rank and every rank returns the same
-streams. The speculative engine
-(``draft_level=1``) rides through unchanged. The recurrent families come
-with ROADMAP module item 6b and raise.
+tree is placed by its specs' axes (slots over "data"; kv heads, and
+rwkv6's state heads, over "model"; the recurrentgemma window ring and
+RG-LRU state over the slots only), so attention and the recurrences run on
+the rank's block. Each model call takes the rank's slots (``kv.rows``)
+and its logits, over the whole vocab, are gathered over every slot
+(``kv.whole``), so sampling and the scheduler run alike on every rank and
+every rank returns the same streams. The speculative engine
+(``draft_level=1``) rides through unchanged.
 """
 from __future__ import annotations
 

@@ -35,8 +35,10 @@ axis (``batch_pspec``), and the layers split their work over "model"
 averaged over the data axis, the global norm counts each replicated leaf
 once, the moments are ZeRO-1 shards (``optim/adamw.zero_plan``), and a
 checkpoint holds whole tensors, so ``restore`` re-shards it onto whatever
-mesh the relaunch has. The dense, MoE, hubert and internvl families train
-under a mesh; rwkv6 and recurrentgemma raise (ROADMAP module item 6b).
+mesh the relaunch has. Every family trains under a mesh: rwkv6 splits its
+time-mix heads and channel-mix d_ff over "model", recurrentgemma its MLP
+and vocab, with the RG-LRU and the one-KV-head attention on the rank's
+rows (``models/rwkv6.py``, ``models/recurrentgemma.py``).
 """
 from __future__ import annotations
 
@@ -63,8 +65,6 @@ from repro_torch.models.registry import get_model
 from repro_torch.optim import AdamW, compress, cosine_schedule, init_ef
 from repro_torch.optim.adamw import AdamWState, tree_leaves_pspec, zero_plan
 
-# families whose layers split over a mesh (rwkv6 / recurrentgemma: 6b)
-MESH_FAMILIES = ("dense", "moe", "hubert", "internvl")
 # gradient elements per all-reduce over the data axis
 _BUCKET = 1 << 25
 
@@ -117,13 +117,6 @@ def _check_ported(tc: TrainConfig) -> None:
                          f"expected one of {GRAD_COMPRESSION}")
 
 
-def _check_mesh(cfg: ModelConfig, mesh) -> None:
-    if mesh is not None and cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} under a mesh comes with ROADMAP module "
-            "item 6b (rwkv6 and recurrentgemma, sharded_window_attention)")
-
-
 def data_mean(tensors, mesh) -> list:
     """Each tensor averaged over the data axis **in place**, in fp32
     buckets of at most ``_BUCKET`` elements (one all-reduce each): no
@@ -139,7 +132,11 @@ def data_mean(tensors, mesh) -> list:
         for t, piece in zip(bucket, flat.split([t.numel() for t in bucket])):
             t.copy_(piece.view(t.shape))
 
-    for t in tensors:
+    # a contiguous tensor larger than a bucket goes in pieces (views of its
+    # storage), so no all-reduce, nor a copy of one, passes _BUCKET elements
+    pieces = [p for t in tensors for p in
+              (t.view(-1).split(_BUCKET) if t.is_contiguous() else (t,))]
+    for t in pieces:
         if bucket and n + t.numel() > _BUCKET:
             flush()
             bucket, n = [], 0
@@ -162,7 +159,6 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, optimizer: AdamW,
     gradients and metrics are averaged over the data axis.
     """
     _check_ported(tc)
-    _check_mesh(cfg, mesh)
     model = get_model(cfg)
     ef = tc.grad_compression == "bf16_ef"
 
@@ -224,13 +220,11 @@ def train(cfg: ModelConfig, shape: ShapeCfg, tc: TrainConfig, *, device=None,
     every rank calls ``train`` alike and gets its own blocks back, with the
     same metrics."""
     _check_ported(tc)
-    _check_mesh(cfg, mesh if mesh is not None else tc.mesh_shape)
     dev = resolve_device(device)
     if mesh is None and tc.mesh_shape is not None:
         from repro_torch.launch.mesh import make_local_mesh
 
         mesh = make_local_mesh(*tc.mesh_shape, device=dev)
-    _check_mesh(cfg, mesh)
     optimizer = AdamW()
     params = init_params(cfg, seed=tc.seed, device=dev, mesh=mesh)
     placements = plan = opt_places = None

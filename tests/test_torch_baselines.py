@@ -20,6 +20,7 @@ On the same numpy inputs, on the CPU:
 """
 from __future__ import annotations
 
+import functools
 from unittest import mock
 
 import jax
@@ -98,7 +99,9 @@ CASES = [
                          ids=[f"{k}-{i}" for i, (k, _) in enumerate(CASES)])
 def test_baseline_matches_reference(kind, kw, D):
     q, k, v = _qkv(D + len(kw), D=D)
-    want = np.asarray(JB.REGISTRY[kind](*map(jnp.asarray, (q, k, v)), **kw))
+    # the reference under jax.jit, its keywords closed over
+    want = np.asarray(jax.jit(functools.partial(JB.REGISTRY[kind], **kw))(
+        *map(jnp.asarray, (q, k, v))))
     got = TB.REGISTRY[kind](*map(torch.from_numpy, (q, k, v)), **kw,
                             **_draws(kind, q.shape[2], D, **kw))
     assert got.dtype == torch.float32 and got.shape == q.shape

@@ -14,7 +14,11 @@ with 8 / 4 heads of 8 (every head split over the model axis) and at its own
 weights are gathered and attention runs replicated), the decode and chunk
 routes, the serve step and chunked prefill, the mesh engine plain and
 speculative, and the expert-parallel MoE of the kimi-k2 smoke config (8
-experts, 2 a model rank).
+experts, 2 a model rank). The recurrent families run the (2, 2) file
+test_torch_dist_recurrent.py's training, serving and engine cases here:
+each model rank then holds one of rwkv6's four heads (and a quarter of
+its d_ff), or recurrentgemma's MLP quarter with all four query heads over
+the shared KV head.
 """
 from __future__ import annotations
 
@@ -46,6 +50,10 @@ from test_torch_dist_train import (
     _jax_step,
     _moe_inputs,
 )
+from test_torch_dist_recurrent import SERVED, TRAIN, _jax_serve
+from test_torch_dist_recurrent import check_engine as check_recurrent_engine
+from test_torch_dist_recurrent import check_frozen, check_serve, check_train
+from test_torch_dist_recurrent import recurrent_cases
 from test_torch_engine import _greedy_mix, _run
 from test_torch_train import _kernel_route, _shapes
 
@@ -120,11 +128,12 @@ def run():
         ("moe", dict(mesh_shape=MESH, arch="kimi-k2-1t-a32b",
                      overrides=_moe_ov(), weights=mw, x=mx)),
     ]
-    got = spawn(R.run_cases, MESH[0] * MESH[1], cases, device="cpu",
-                threads=1)
+    rec_cases, rec = recurrent_cases(MESH)
+    got = spawn(R.run_cases, MESH[0] * MESH[1], cases + rec_cases,
+                device="cpu", threads=1)
     return {"got": got, "attn": (q, k, v, masks), "kv": kv,
             "weights": weights, "batch": batch, "steps": steps,
-            "chunks": chunks, "moe": (mcfg, mw, mx)}
+            "chunks": chunks, "moe": (mcfg, mw, mx), "recurrent": rec}
 
 
 def test_attention_blocks(run):
@@ -199,3 +208,27 @@ def test_moe_expert_parallel(run):
     for rank, res in enumerate(run["got"]):
         rows = local_block(out, ("data", None, None), _mesh(rank)).numpy()
         assert np.abs(res["moe"]["out"] - rows).max() < 1e-3
+
+
+@pytest.fixture(scope="module")
+def recurrent(run):
+    """The recurrent cases' results and inputs, as the (2, 2) file's
+    checkers take them."""
+    return {"got": run["got"], **run["recurrent"]}
+
+
+@pytest.mark.parametrize("name", list(TRAIN))
+def test_recurrent_train_step(recurrent, name):
+    check_train(recurrent, name, MESH)
+
+
+@pytest.mark.parametrize("arch,name", SERVED)
+def test_recurrent_serving_and_frozen_slots(recurrent, arch, name):
+    check_serve(recurrent, arch, _jax_serve(arch, recurrent["weights"][name]),
+                MESH)
+    check_frozen(recurrent, arch, MESH)
+
+
+@pytest.mark.parametrize("arch,name", SERVED)
+def test_recurrent_engine_streams(recurrent, arch, name):
+    check_recurrent_engine(recurrent, arch, name)

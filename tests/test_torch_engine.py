@@ -256,17 +256,38 @@ def test_engine_needs_cuda_or_an_explicit_cpu(cfgs, params):
         Engine(tcfg, tp, ECFG)
 
 
-@pytest.mark.parametrize("field,value", [("mesh", object()),
+class _OneRank:
+    """A (1, 1) mesh stand-in: the placement rules read its ``shape``,
+    the block cutters a rank's ``index`` on an axis."""
+
+    shape = {"data": 1, "model": 1}
+
+    def index(self, axis):
+        return 0
+
+
+@pytest.mark.parametrize("field,value", [("mesh", _OneRank()),
                                          ("draft_level", 2)])
 def test_unported_options_raise(cfgs, params, field, value):
-    """A mesh serves the transformer families
-    (tests/test_torch_dist_serve.py); the recurrent families' state caches
-    under one (ROADMAP module item 6b) and draft_level > 1 raise."""
+    """draft_level > 1 raises. A mesh serves every family now: the
+    recurrent families' state caches too (tests/test_torch_dist_recurrent.py),
+    so rwkv6 builds on a one-rank mesh, its tree whole and placed by the
+    rules, and raises only for speculation, which its state cache lacks."""
     _, tcfg = cfgs
     _, tp = params
-    cfg = get_smoke_config("rwkv6-7b") if field == "mesh" else tcfg
+    if field == "mesh":
+        cfg = get_smoke_config("rwkv6-7b")
+        from repro_torch.models.params import init_params
+
+        rp = init_params(cfg, seed=0, device="cpu")
+        eng = Engine(cfg, rp, ECFG.replace(mesh=value), device="cpu")
+        assert eng.kv.mesh is value and not eng.kv.row_split
+        assert eng.kv.tree["state"].shape[1] == ECFG.slots
+        with pytest.raises(NotImplementedError, match="speculative"):
+            Engine(cfg, rp, ECFG.replace(mesh=value, spec_k=2), device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=field):
-        Engine(cfg, tp, ECFG.replace(**{field: value}), device="cpu")
+        Engine(tcfg, tp, ECFG.replace(**{field: value}), device="cpu")
     with pytest.raises(ValueError, match="kernel_mode"):
         Engine(tcfg, tp, ECFG.replace(kernel_mode="fast"), device="cpu")
 

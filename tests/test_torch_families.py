@@ -236,8 +236,11 @@ def test_internvl_prefill_then_decode_matches_jax():
     B, max_len, steps = 2, 64, 8
     batch = _batch(jcfg, seq=48, batch=B)  # 8 patches + 40 text tokens
     jc = jax_init(JT.cache_specs(jcfg, B, max_len), jax.random.PRNGKey(1))
-    jlog, jc = JT.prefill(jp, jcfg, {k: jnp.asarray(batch[k]) for k in
-                                     ("tokens", "patches")}, jc)
+    # the reference under jax.jit, the config closed over (op-by-op
+    # dispatch took most of this test's time)
+    jlog, jc = jax.jit(lambda p, b, c: JT.prefill(p, jcfg, b, c))(
+        jp, {k: jnp.asarray(batch[k]) for k in ("tokens", "patches")}, jc)
+    jdecode = jax.jit(lambda p, c, t: JT.decode_step(p, jcfg, c, t))
     tc = RingPagedKVCache(tcfg, B, max_len, device="cpu").tree
     with torch.no_grad():
         tlog, tc = TT.prefill(tp, tcfg, {k: torch.from_numpy(batch[k]) for k
@@ -246,7 +249,7 @@ def test_internvl_prefill_then_decode_matches_jax():
     np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=1e-4)
     jtok = ttok = np.asarray(jlog).argmax(-1)
     for _ in range(steps):
-        jlog, jc = JT.decode_step(jp, jcfg, jc, jnp.asarray(jtok, jnp.int32))
+        jlog, jc = jdecode(jp, jc, jnp.asarray(jtok, jnp.int32))
         with torch.no_grad():
             tlog, tc = TT.decode_step(tp, tcfg, tc, torch.as_tensor(ttok))
         np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=1e-4)

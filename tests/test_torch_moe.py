@@ -161,7 +161,8 @@ def _setup(arch, seed=0):
 def test_moe_block_matches_jax(arch):
     jcfg, tcfg, jp, tp = _setup(arch)
     x = _f32(np.random.default_rng(5), 3, 20, tcfg.d_model)
-    jo, ja = JM.moe_block(jnp.asarray(x), jp["layers"][0]["moe"], jcfg)
+    jo, ja = jax.jit(lambda x, p: JM.moe_block(x, p, jcfg))(
+        jnp.asarray(x), jp["layers"][0]["moe"])
     to, ta = TM.moe_block(torch.from_numpy(x), tp["layers"][0]["moe"], tcfg)
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=1e-5)
     for key in ja:
@@ -174,14 +175,16 @@ def test_forward_and_loss_match_jax(arch):
     r = np.random.default_rng(6)
     toks = r.integers(0, jcfg.vocab, (2, 64))
     tgts = r.integers(0, jcfg.vocab, (2, 64))
-    jl, jaux = JT.forward(jp, jcfg, {"tokens": jnp.asarray(toks)})
+    # the reference under jax.jit, the config closed over
+    jl, jaux = jax.jit(lambda p, b: JT.forward(p, jcfg, b))(
+        jp, {"tokens": jnp.asarray(toks)})
     tl, taux = TT.forward(tp, tcfg, {"tokens": torch.as_tensor(toks)})
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4)
     np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-6)
     assert float(taux) > 0
     batch = {"tokens": toks, "targets": tgts}
-    jloss, jm = JT.loss_fn(jp, jcfg, {k: jnp.asarray(v) for k, v in
-                                      batch.items()})
+    jloss, jm = jax.jit(lambda p, b: JT.loss_fn(p, jcfg, b))(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()})
     tloss, tm = TT.loss_fn(tp, tcfg, {k: torch.as_tensor(v) for k, v in
                                       batch.items()})
     np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-6)

@@ -129,8 +129,10 @@ def test_moe_block_gradients_match_jax(case):
         out, aux = JM.moe_block(x, p, jcfg)
         return jnp.sum(out * w) + 3 * aux["load_balance"] + 5 * aux["router_z"]
 
-    jgp, jgx = jax.grad(jloss, argnums=(0, 1))(jm, jnp.asarray(x))
-    jout, jaux = JM.moe_block(jnp.asarray(x), jm, jcfg)
+    # the reference under jax.jit, the config closed over
+    jgp, jgx = jax.jit(jax.grad(jloss, argnums=(0, 1)))(jm, jnp.asarray(x))
+    jout, jaux = jax.jit(lambda x, p: JM.moe_block(x, p, jcfg))(
+        jnp.asarray(x), jm)
     xt = torch.from_numpy(x).requires_grad_(True)
     out, aux = TM.moe_block(xt, tm, tcfg)
     tl = ((out * torch.from_numpy(w)).sum() + 3 * aux["load_balance"]

@@ -67,6 +67,12 @@ def _params(jcfg, tcfg, seed=0):
     return jp, params_from_jax(jax.device_get(jp), tcfg, device="cpu")
 
 
+def _jprefill(jcfg):
+    """The reference's ``prefill`` under ``jax.jit``, the config closed
+    over (op-by-op dispatch took most of these tests' time)."""
+    return jax.jit(lambda p, b, c: JT.prefill(p, jcfg, b, c))
+
+
 def _prompt(vocab, seed=0, n=S):
     return np.random.default_rng(seed).integers(0, vocab, (B, n))
 
@@ -78,8 +84,8 @@ def test_prefill_matches_jax(arch, quant):
     jp, tp = _params(jcfg, tcfg)
     toks = _prompt(jcfg.vocab)
     jc = jax_init(JT.cache_specs(jcfg, B, MAX_LEN), jax.random.PRNGKey(1))
-    jl, jc = JT.prefill(jp, jcfg, {"tokens": jnp.asarray(toks, jnp.int32)},
-                        jc)
+    jl, jc = _jprefill(jcfg)(jp, {"tokens": jnp.asarray(toks, jnp.int32)},
+                             jc)
     tc = RingPagedKVCache(tcfg, B, MAX_LEN, device="cpu").tree
     tl, tc2 = TT.prefill(tp, tcfg, {"tokens": torch.as_tensor(toks)}, tc)
     assert tc2 is tc  # updated in place
@@ -133,12 +139,13 @@ def test_prefill_then_decode_matches_jax():
     jp, tp = _params(jcfg, tcfg)
     toks = _prompt(jcfg.vocab, seed=5)
     jc = jax_init(JT.cache_specs(jcfg, B, MAX_LEN), jax.random.PRNGKey(1))
-    _, jc = JT.prefill(jp, jcfg, {"tokens": jnp.asarray(toks, jnp.int32)}, jc)
+    _, jc = _jprefill(jcfg)(jp, {"tokens": jnp.asarray(toks, jnp.int32)}, jc)
+    jdecode = jax.jit(lambda p, c, t: JT.decode_step(p, jcfg, c, t))
     tc = RingPagedKVCache(tcfg, B, MAX_LEN, device="cpu").tree
     TT.prefill(tp, tcfg, {"tokens": torch.as_tensor(toks)}, tc)
     for step in range(20):  # past the 64-token ring
         tok = np.array([step + 1, 2 * step + 3])
-        jl, jc = JT.decode_step(jp, jcfg, jc, jnp.asarray(tok, jnp.int32))
+        jl, jc = jdecode(jp, jc, jnp.asarray(tok, jnp.int32))
         tl, tc = TT.decode_step(tp, tcfg, tc, torch.as_tensor(tok))
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4,
                                    err_msg=f"step {step}")

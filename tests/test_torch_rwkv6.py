@@ -70,6 +70,13 @@ def _np(t):
     return t.detach().float().numpy()
 
 
+def _jit(fn, jcfg, **kw):
+    """The reference's ``fn(params, jcfg, *args, **kw)`` under ``jax.jit``,
+    the config and ``kw`` closed over (eager dispatch op by op took most
+    of these tests' time)."""
+    return jax.jit(lambda p, *args: fn(p, jcfg, *args, **kw))
+
+
 def _rel(got, want):
     want = np.asarray(want, np.float32)
     return float(np.abs(np.asarray(got, np.float32) - want).max()
@@ -141,13 +148,13 @@ def test_forward_loss_and_gradients_match_reference():
     batch = _batch(jcfg)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
-    jlogits, _ = JR.forward(jp, jcfg, jb)
+    jlogits, _ = _jit(JR.forward, jcfg)(jp, jb)
     tlogits, aux = TR.forward(tp, tcfg, tb)
     assert float(aux) == 0.0
     assert _rel(_np(tlogits), jlogits) < 1e-5
 
-    (jl, _), jg = jax.value_and_grad(
-        lambda p: JR.loss_fn(p, jcfg, jb), has_aux=True)(jp)
+    (jl, _), jg = jax.jit(jax.value_and_grad(
+        lambda p: JR.loss_fn(p, jcfg, jb), has_aux=True))(jp)
     tl, metrics = TR.loss_fn(tp, tcfg, tb)
     assert set(metrics) == {"loss", "nll"}
     assert abs(float(tl.detach()) - float(jl)) <= 1e-5 * abs(float(jl))
@@ -221,7 +228,8 @@ def test_prefill_matches_reference():
     jp, tp = _weights(jcfg, tcfg)
     toks = np.random.default_rng(1).integers(1, tcfg.vocab, (2, 16)).astype(
         np.int32)
-    jl, jc = JR.prefill(jp, jcfg, {"tokens": jnp.asarray(toks)}, _jcache(jcfg, 2))
+    jl, jc = _jit(JR.prefill, jcfg)(jp, {"tokens": jnp.asarray(toks)},
+                                    _jcache(jcfg, 2))
     with torch.no_grad():
         tl, tc = TR.prefill(tp, tcfg, {"tokens": torch.from_numpy(toks)},
                             _tcache(tcfg, 2))
@@ -237,12 +245,14 @@ def test_prefill_chunk_then_decode_match_reference():
     jp, tp = _weights(jcfg, tcfg)
     r = np.random.default_rng(4)
     jc, tc = _jcache(jcfg, 2), _tcache(tcfg, 2)
+    jprefill = _jit(JR.prefill_chunk, jcfg)
+    jdecode = jax.jit(lambda p, c, t, a: JR.decode_step(p, jcfg, c, t,
+                                                        active=a))
     with torch.no_grad():
         for nv in ((11, 0), (5, 9)):
             toks = r.integers(1, tcfg.vocab, (2, 12)).astype(np.int32)
             nva = np.array(nv, np.int32)
-            jl, jc = JR.prefill_chunk(jp, jcfg, jc, jnp.asarray(toks),
-                                      jnp.asarray(nva))
+            jl, jc = jprefill(jp, jc, jnp.asarray(toks), jnp.asarray(nva))
             tl, tc = TR.prefill_chunk(tp, tcfg, tc, torch.from_numpy(toks),
                                       torch.from_numpy(nva))
             live = nva > 0
@@ -251,8 +261,7 @@ def test_prefill_chunk_then_decode_match_reference():
         for act in ((True, True), (False, True), (True, False)):
             toks = r.integers(1, tcfg.vocab, (2,)).astype(np.int32)
             a = np.array(act)
-            jl, jc = JR.decode_step(jp, jcfg, jc, jnp.asarray(toks),
-                                    active=jnp.asarray(a))
+            jl, jc = jdecode(jp, jc, jnp.asarray(toks), jnp.asarray(a))
             tl, tc = TR.decode_step(tp, tcfg, tc, torch.from_numpy(toks),
                                     active=torch.from_numpy(a))
             assert _rel(_np(tl)[a], np.asarray(jl)[a]) < 1e-5

@@ -151,12 +151,15 @@ def test_collect_kv_matches_the_jax_model(cfgs, params):
     B, C = 3, 5
     jcache = jax_init(model.cache_specs(jcfg, B, 64), jax.random.PRNGKey(1))
     tcache = RingPagedKVCache(tcfg, B, 64, device="cpu").tree
+    # the reference under jax.jit, the config closed over
+    jprefill = jax.jit(lambda p, c, t, n: model.prefill_chunk(
+        p, jcfg, c, t, n, all_logits=True, collect_kv=True))
     for nv in ([5, 3, 0], [2, 5, 4]):
         toks = r.integers(0, tcfg.vocab, (B, C))
         nv = np.asarray(nv, np.int32)
-        jl, jcache, (jk, jv) = model.prefill_chunk(
-            jp, jcfg, jcache, jnp.asarray(toks, jnp.int32), jnp.asarray(nv),
-            all_logits=True, collect_kv=True)
+        jl, jcache, (jk, jv) = jprefill(jp, jcache,
+                                        jnp.asarray(toks, jnp.int32),
+                                        jnp.asarray(nv))
         tl, _, (tk, tv) = TT.prefill_chunk(
             tp, tcfg, tcache, torch.as_tensor(toks), torch.as_tensor(nv),
             all_logits=True, collect_kv=True)

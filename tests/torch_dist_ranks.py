@@ -33,6 +33,7 @@ from repro_torch.launch.mesh import make_local_mesh, parse_mesh
 from repro_torch.models import transformer as TT
 from repro_torch.models.moe import moe_block
 from repro_torch.models.params import params_from_jax, tree_leaves
+from repro_torch.models.registry import get_model
 from repro_torch.optim import AdamW, cosine_schedule
 from repro_torch.optim.adamw import zero_plan
 
@@ -140,11 +141,12 @@ def case_train_step(mesh_shape, arch, overrides, weights, batch, lr):
         p.requires_grad_(True)
     rows = {k: local_block(_t(v), batch_pspec(mesh, v.ndim), mesh)
             for k, v in batch.items()}
+    model = get_model(cfg)
     with mesh_utils.use_mesh(mesh):
         with torch.no_grad():
-            logits, _ = TT.forward(params, cfg, {
+            logits, _ = model.forward(params, cfg, {
                 k: v for k, v in rows.items() if k != "targets"})
-        loss, _ = TT.loss_fn(params, cfg, rows)
+        loss, _ = model.loss_fn(params, cfg, rows)
         grads = torch.autograd.grad(loss, tree_leaves(params))
     from repro_torch.train.loop import data_mean
 
@@ -183,6 +185,27 @@ def case_moe(mesh_shape, arch, overrides, weights, x):
     return {"out": _np(out),
             "aux": {k: float(v.detach()) for k, v in aux.items()},
             "grads": [_np(g) for g in grads], "comm": C.STATS.snapshot()}
+
+
+def case_data_mean(mesh_shape, sizes, bucket):
+    """``train.loop.data_mean`` with ``_BUCKET`` set to ``bucket``: a
+    contiguous tensor of each size in ``sizes`` and a transposed (not
+    contiguous) one, each (data index + 1) times its arange, averaged in
+    place; the results and the all-reduce calls it made."""
+    from unittest import mock
+
+    from repro_torch.train import loop
+
+    mesh = make_local_mesh(*mesh_shape, device="cpu")
+    f = mesh.index("data") + 1.0
+    ts = [torch.arange(float(n)) * f for n in sizes]
+    ts.append((torch.arange(12.0).reshape(3, 4) * f).t())
+    C.STATS.reset()
+    with mock.patch.object(loop, "_BUCKET", bucket):
+        out = loop.data_mean(ts, mesh)
+    return {"same": all(a is b for a, b in zip(out, ts)),
+            "values": [_np(t) for t in ts],
+            "calls": C.STATS.snapshot()["ops"]["all_reduce"]["calls"]}
 
 
 def case_elastic(mesh_a, mesh_b, arch, overrides, shape, ckpt_dir, steps):
@@ -247,10 +270,50 @@ def case_serve(mesh_shape, arch, overrides, weights, steps_tokens, chunks,
     return out
 
 
+def case_state_serve(mesh_shape, arch, overrides, weights, chunks, steps,
+                     slots, max_len, prompt):
+    """Ragged ``prefill_chunk`` calls then ``decode_step`` with frozen slots
+    over the rank's block of the family's state cache (the rank's rows in,
+    every slot's logits gathered back, as the engine calls it): the logits
+    and the rank's cache block after every call; then the whole-prompt
+    ``prefill`` of ``prompt`` (every slot) into a fresh cache."""
+    from repro_torch.serve.cache import make_cache
+
+    mesh = make_local_mesh(*mesh_shape, device="cpu")
+    cfg = _smoke(arch, overrides)
+    params = shard_params(params_from_jax(weights, cfg, device="cpu"), cfg,
+                          mesh)
+    model = get_model(cfg)
+    out = {"logits": [], "cache": []}
+    with mesh_utils.use_mesh(mesh), torch.no_grad():
+        kv = make_cache(cfg, model, slots, max_len, device="cpu", mesh=mesh)
+        out["type"] = type(kv).__name__
+        out["shapes"] = {k: tuple(v.shape) for k, v in kv.tree.items()}
+        for toks, nv in chunks:
+            logits, _ = model.prefill_chunk(params, cfg, kv.tree,
+                                            kv.rows(_t(toks)), kv.rows(_t(nv)))
+            out["logits"].append(_np(kv.whole(logits)))
+            out["cache"].append({k: _np(v).copy() for k, v in kv.tree.items()})
+        for toks, act in steps:
+            logits, _ = model.decode_step(params, cfg, kv.tree,
+                                          kv.rows(_t(toks)),
+                                          active=kv.rows(_t(act)))
+            out["logits"].append(_np(kv.whole(logits)))
+            out["cache"].append({k: _np(v).copy() for k, v in kv.tree.items()})
+        out["lengths"] = kv.lengths
+        kv = make_cache(cfg, model, slots, max_len, device="cpu", mesh=mesh)
+        logits, _ = model.prefill(params, cfg, {"tokens": kv.rows(_t(prompt))},
+                                  kv.tree)
+        out["prefill"] = (_np(kv.whole(logits)),
+                          {k: _np(v) for k, v in kv.tree.items()})
+    return out
+
+
 def case_engine(mesh_shape, arch, overrides, weights, mix, slots, max_len,
                 chunk, spec_k):
-    """Greedy streams and counters of the mesh engine."""
-    from repro_torch.serve import Engine, EngineConfig, Request
+    """Streams and counters of the mesh engine; a ``mix`` entry is (prompt,
+    max_new_tokens) or (prompt, max_new_tokens, SamplingParams kwargs)."""
+    from repro_torch.serve import Engine, EngineConfig, Request, SamplingParams
 
     mesh = make_local_mesh(*mesh_shape, device="cpu")
     cfg = _smoke(arch, overrides)
@@ -258,7 +321,9 @@ def case_engine(mesh_shape, arch, overrides, weights, mix, slots, max_len,
     eng = Engine(cfg, params, EngineConfig(slots=slots, max_len=max_len,
                                            chunk=chunk, spec_k=spec_k,
                                            mesh=mesh), device="cpu")
-    done = eng.run([Request(prompt=p, max_new_tokens=n) for p, n in mix])
+    done = eng.run([Request(prompt=m[0], max_new_tokens=m[1],
+                            sampling=SamplingParams(**m[2]) if len(m) > 2
+                            else None) for m in mix])
     keys = ("spec_rounds", "spec_drafted_tokens", "spec_accepted_tokens",
             "spec_emitted_tokens", "draft_dispatches", "verify_dispatches",
             "decode_dispatches", "prefill_dispatches", "generated_tokens")
@@ -268,6 +333,21 @@ def case_engine(mesh_shape, arch, overrides, weights, mix, slots, max_len,
 
 CASES = {name[5:]: fn for name, fn in globals().items()
          if name.startswith("case_")}
+
+
+def end_early(rank: int, how: str):
+    """Rank 1 ends without a result: ``how`` "exit" leaves the process with
+    code 3 (a crash or a kill), "raise" raises; the other ranks wait, as
+    a peer blocked in a collective would."""
+    import os
+    import time
+
+    if rank == 1:
+        if how == "exit":
+            os._exit(3)
+        raise ValueError("rank 1 failed")
+    time.sleep(120)
+    return rank
 
 
 def run_cases(rank: int, cases: list) -> dict:
