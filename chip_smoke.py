@@ -298,6 +298,28 @@ serving path and its training path on the card:
      requests (the window cut to 128: the two longest wrap the ring)
      through the fp32 mesh engine, streams equal to one device's; the bf16 mesh engine at
      MESH_RGEMMA_SERVE_GROUPS groups on MESH_DEEP_PROMPT, reported.
+ 40. the chunk kernel at hubert-xlarge's (80, 128), G = 1, both programs,
+     bf16 / fp32 / int8 caches, decode and C = 128 / 5, against its plain
+     twin (the serving tolerance), two blocks an SM for each program, the
+     workspace program forced equal bit for bit to the shared-memory one,
+     its time; then the hubert engine at full width (16 of 48 layers) and its
+     fp32 2-layer greedy streams equal to the plain route's;
+ 41. the chunk kernel at 4096 pages (LONG_PAGES: qwen2-7b's G = 7 decode,
+     qwen3-1.7b's C = 128 chunk), which plan its workspace program, held
+     and timed;
+ 42-44. the reference's shape cells at qwen3-1.7b's full width through the
+     normal entry points: ``prefill_32k`` (``transformer.prefill``,
+     bsa_fwd at n = 32768), ``decode_32k`` (slots filled by ``prefill``,
+     then ``decode_step`` over 256 pages) and ``long_500k`` (prefill of
+     524,288 tokens, then decode over 4096 pages), each under the cut
+     (batch, int8 KV, bf16 weights, depth) the dry run picks from
+     CELL_CUTS to fit CELL_GIB; each prints the dry run's predicted peak,
+     FLOPs and roofline time beside the card's peak, wall, device time and
+     busy share and the kernels' launches, and fails where the peak lands
+     more than CELL_PEAK_TOL from the prediction; one layer's kernels at
+     the new sizes are held against their plain twins first;
+ 45. ``repro_torch.examples.train_lm`` at its small preset for
+     TRAIN_LM_STEPS steps, its kernels' call held first.
 
 One JSON line per phase; then the card line from nvidia-smi, the kernels
 line and, last, ``{"ok": true, "device": {...}}``. Any failed phase raises,
@@ -323,9 +345,6 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"
 SEED = 0
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
-FP32_FLOP_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
-BF16_FLOP_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
 ATOL, RTOL, TIE = 2e-5, 1e-5, 1e-4
 MAIN = dict(B=4, Hkv=8, G=2, D=128, b=128, nb=32, m=16)  # qwen3-1.7b serving
 SMOKE = dict(B=4, Hkv=2, G=2, D=16, b=16, nb=4, m=2)     # its smoke config
@@ -352,7 +371,7 @@ L2_COPIES = 4  # cache copies cycled by the H-level timing (> 50 MB L2)
 UP_GRANITE = dict(GRANITE, B=2)
 LONG = dict(slots=2, max_len=4096, chunk=512, prompts=(65536, 6000),
             new_tokens=(8, 64))
-LONG_LAYERS = 14  # the long-context engine's depth (of 28: cut for time)
+LONG_LAYERS = 8  # the long-context engine's depth (of 28: cut for time)
 # block-sparse attention of qwen3-1.7b train_4k (batch cut to 2) and of its
 # smoke config; Hq query heads, G per KV head
 BSA_MAIN = dict(B=2, Hq=16, n=4096, d=128, b=128, bpr=4)
@@ -470,6 +489,48 @@ RGEMMA_SCAN = dict(B=2, T=4096, W=4096)  # the RG-LRU scan at full width
 RGEMMA_PREFILL = 4096  # the MRA-2 variant's whole-prompt prefill
 # card vs CPU streams at one group, the window cut so the prompts wrap it
 RGEMMA_STREAMS = dict(prompts=(301, 160, 64, 17), new_tokens=16, window=128)
+# the chunk kernel at hubert-xlarge's serving shape (phase 40): head dim 80
+# at block 128, 16 KV heads of one query head each, 4096-token slots
+HUBERT_SERVE = dict(B=4, Hkv=16, G=1, D=80, b=128, nb=32, m=16)
+HUBERT_SERVE_TOKENS = 32  # its full-width engine's new tokens a request
+HUBERT_SERVE_LAYERS = 16  # and its depth (of 48: cut for time)
+# the reference's shape cells (phases 42-44) at qwen3-1.7b's full width, 28
+# layers: each cell's cut is the first of its candidates whose peak the dry
+# run (launch/dryrun.py, one rank) predicts under CELL_GIB of the card's
+# 79.2; the card's peak must land within CELL_PEAK_TOL of the prediction.
+# decode_32k fills its slots by whole-prompt prefill, ``fill`` at a time.
+SHAPE_ARCH = "qwen3-1.7b"
+CELL_GIB, CELL_PEAK_TOL = 72.0, 0.15
+CELL_CUTS = {
+    "prefill_32k": (dict(batch=16), dict(batch=8), dict(batch=4)),
+    "decode_32k": (dict(batch=32, fill=2), dict(batch=16, fill=2),
+                   dict(batch=8, fill=2)),
+    "long_500k": (dict(batch=1), dict(batch=1, kv_quant=True),
+                  dict(batch=1, kv_quant=True, param_dtype="bfloat16"),
+                  dict(batch=1, kv_quant=True, param_dtype="bfloat16",
+                       layers=14)),
+}
+CELL_STEPS = 6  # greedy decode steps after the timed and profiled one
+# examples/train_lm.py on the card (phase 45): its small preset's steps, and
+# its kernels' call (batch 8, seq 256, 8 query / 4 KV heads of 32, block 32)
+TRAIN_LM_STEPS = 3
+TRAIN_LM_BSA = dict(B=8, Hq=8, n=256, d=32, b=32, bpr=4)
+# the chunk kernel at 4096 pages of 128 tokens (long_500k's 524,288; phase
+# 41), one slot: where its page arrays leave shared memory for the
+# workspace program (qwen2-7b's G = 7 decode, qwen3-1.7b's C = 128 prefill
+# chunk), and the long_500k cell's own decode (qwen3-1.7b, G = 2, int8
+# cache), which still fits shared memory; (label, arch, shape, C, mode,
+# the timed cache type, the program expected)
+LONG_PAGES = (
+    ("qwen2-7b decode", "qwen2-7b", dict(B=1, Hkv=4, G=7, D=128, b=128,
+                                         nb=4096, m=16), 1, "latency",
+     "bf16", True),
+    ("qwen3-1.7b chunk128", "qwen3-1.7b", dict(B=1, Hkv=8, G=2, D=128, b=128,
+                                               nb=4096, m=16), 128,
+     "throughput", "bf16", True),
+    ("qwen3-1.7b decode", "qwen3-1.7b", dict(B=1, Hkv=8, G=2, D=128, b=128,
+                                             nb=4096, m=16), 1, "latency",
+     "int8", False))
 
 
 START = time.perf_counter()
@@ -485,7 +546,8 @@ def emit(obj) -> None:
 # kernel inputs, selection margins and bounds
 # --------------------------------------------------------------------------- #
 def kernel_case(torch, tmd, seed, sh, C, layout, dtype):
-    """(pre, k, v, q_pos, ks, vs) for one comparison, from ``seed``.
+    """(pre, k, v, q_pos, ks, vs) for one comparison, from ``seed``;
+    ``dtype`` the cache's: bf16, int8 or fp32.
 
     Keys carry a random per-page offset so coarse scores spread like real
     attention. layout: dense (full slots) | ring (a 1.5x-capacity stream
@@ -524,6 +586,8 @@ def kernel_case(torch, tmd, seed, sh, C, layout, dtype):
         k, ks = tmd.quantize_kv(k)
         v, vs = tmd.quantize_kv(v)
         kf, vf = k.float() * ks[..., None], v.float() * vs[..., None]
+    elif dtype == "fp32":
+        kf, vf = k, v
     else:
         k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
         kf, vf = k.float(), v.float()
@@ -569,33 +633,24 @@ def tile_union_pages(torch, grid, c_tile):
 
 
 def bound(pre, k, q_pos, ks, grid, pairs, nu=0):
-    """Least time for this call: bytes it must move (each input read once,
-    the output written once) over HBM bandwidth vs its operations over the
-    bf16 tensor-core rate and over the fp32 CUDA-core rate; ``nu``
-    collapsed entries (the H-level program) add their fp32 means and counts
-    and 2·rows·NU·D·2 operations (scores + fold). Returns a dict with
-    ``bound_ms`` / ``bound_by`` at the bf16 rate, ``bound_ms_fp32_rate`` /
-    ``bound_by_fp32_rate``, ``bytes`` and ``flops``."""
+    """Least time for this call: ``kernels/cost.py``'s bytes (each input
+    read once, the output written once; the K/V pages of the selection's
+    union) over HBM bandwidth vs its operations over the bf16 tensor-core
+    rate and over the fp32 CUDA-core rate; ``nu`` collapsed entries (the
+    H-level program) add their means, counts, scores and fold. Returns a
+    dict with ``bound_ms`` / ``bound_by`` at the bf16 rate,
+    ``bound_ms_fp32_rate`` / ``bound_by_fp32_rate``, ``bytes`` and
+    ``flops``."""
+    from repro_torch.kernels import cost
+
     B, Hkv, G, C, D = pre.qg.shape
-    b, nb = pre.block_size, pre.pb.shape[1]
-    page = b * D * k.element_size() + (b * 4 if ks is not None else 0)
-    rows = B * Hkv * G * C
-    union = grid.any(3).any(2)  # (B, Hkv, nb): pages read at least once
-    nbytes = (2 * int(union.sum()) * page          # selected K/V pages (+scales)
-              + 2 * B * Hkv * nb * D * 4           # page means k_ds, v_ds
-              + 2 * B * nb * 4                     # counts, page table
-              + rows * D * 4 + B * C * 4           # queries, positions
-              + rows * D * 4                       # output
-              + 2 * B * Hkv * nu * D * 4 + B * nu * 4)  # hk, hv, hcnt
-    flops = (2 * 2 * rows * nb * D                 # coarse scores + background
-             + 2 * 2 * pairs * D                   # exact scores + P.V
-             + 2 * 2 * rows * nu * D)              # upper scores + fold
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    out = {"bytes": nbytes, "flops": flops}
-    for key, rate in (("", BF16_FLOP_PER_S), ("_fp32_rate", FP32_FLOP_PER_S)):
-        t_ops = flops / rate
-        out[f"bound_ms{key}"] = 1e3 * max(t_bytes, t_ops)
-        out[f"bound_by{key}"] = "bytes" if t_bytes >= t_ops else "operations"
+    union = int(grid.any(3).any(2).sum())  # (B, Hkv, nb) pages read at all
+    out = cost.chunk_cost(B, Hkv, G, C, D, pre.block_size, pre.pb.shape[1],
+                          k.element_size(), ks is not None, union, pairs, nu)
+    for key, rate in (("", cost.BF16_FLOP_PER_S),
+                      ("_fp32_rate", cost.FP32_FLOP_PER_S)):
+        out[f"bound_ms{key}"], out[f"bound_by{key}"] = cost.bound_ms(
+            out["bytes"], out["flops"], rate)
     return out
 
 
@@ -673,18 +728,19 @@ def phase_device(torch, job):
           "ptxas_chunk_attn": ptxas_report(
               libs["chunk_attn"].with_suffix(".log").read_text()),
           "ptxas_block_sparse_attn": bsa_ptx})
-    # 42 = bf16 and fp32 x seven (D, b) x bsa_fwd, bsa_bwd_dq, bsa_bwd_dkv
+    # 48 = bf16 and fp32 x eight (D, b) x bsa_fwd, bsa_bwd_dq, bsa_bwd_dkv
     spills = [k for k in bsa_ptx if k["kernel"].startswith(
         ("bsa_fwd bf16", "bsa_bwd_dq bf16", "bsa_bwd_dkv bf16"))
         and (k["spill_stores"] or k["spill_loads"] or k["registers"] > 255)]
-    if len(bsa_ptx) != 42 or spills:
+    if len(bsa_ptx) != 48 or spills:
         raise AssertionError(f"bsa kernels: {len(bsa_ptx)} built, spilling "
                              f"bf16 tensor-core kernels {spills}")
-    # 19 = three storage types x three (D, b) x two programs, + the combine
+    # 34 = three storage types x (four (D, b) x two programs + the
+    # two-level workspace program at the three of block 128), + the combine
     chunk_ptx = ptxas_report(libs["chunk_attn"].with_suffix(".log").read_text())
     spills = [k for k in chunk_ptx if k["kernel"].startswith("bf16")
               and (k["spill_stores"] or k["spill_loads"])]
-    if len(chunk_ptx) != 19 or spills:
+    if len(chunk_ptx) != 34 or spills:
         raise AssertionError(f"chunk_attn kernels: {len(chunk_ptx)} built, "
                              f"spilling bf16 instantiations {spills}")
     return smi, bsa_ptx
@@ -702,9 +758,10 @@ def _kernel_label(name):
         return " ".join([kind, dt] + [f"{k}={v}" for k, v in zip("Db", dims)])
     dt = ("bf16" if "bfloat16" in name else
           "int8" if "chunk_attn_kernelIa" in name else "fp32")
-    up = "upper" if name.count("Lb1E") else "two_level"
+    upper, ws = (b == "1" for b in re.findall(r"Lb([01])E", name))
     shape = " ".join(f"{k}={v}" for k, v in zip("Db", dims)) or "D=?"
-    return f"{dt} {shape} {up}"
+    return (f"{dt} {shape} {'upper' if upper else 'two_level'}"
+            + (" workspace" if ws else ""))
 
 
 def ptxas_report(log):
@@ -843,9 +900,11 @@ def launch_info(torch, chunk_attn, pre, k, grid, mode, upper):
                                      sms=chunk_attn.sm_count(0))
     B, Hkv, G, C, D = pre.qg.shape
     return {"nsplit": geo["nsplit"], "grid": geo["grid"],
-            "smem_bytes": geo["smem"],
+            "smem_bytes": geo["smem"], "workspace": geo["workspace"],
+            "workspace_bytes": geo["ws_bytes"],
             "blocks_per_sm": chunk_attn.blocks_per_sm(
-                k.dtype, D, pre.block_size, upper, geo["smem"]),
+                k.dtype, D, pre.block_size, upper, geo["smem"],
+                geo["workspace"]),
             "sms": chunk_attn.sm_count(0),
             "union_pages_per_tile": tile_union_pages(torch, grid,
                                                      geo["c_tile"])}
@@ -977,7 +1036,7 @@ def _splits(chunk_attn, cfg, slots, C, max_len):
     """Whether a dispatch of C-token chunks plans a split (and a combine)."""
     G = cfg.num_heads // cfg.kv_heads
     nb = max_len // cfg.attention.block_size
-    tiles = -(-C // chunk_attn.tile_width("auto", C, G))
+    tiles = -(-C // chunk_attn.tile_width("auto", C, G, cfg.hd))
     return chunk_attn.split_plan(slots, cfg.kv_heads, tiles, nb,
                                  chunk_attn.sm_count(0))[0] > 1
 
@@ -999,12 +1058,15 @@ def _chunk_launches(chunk_attn):
 
 
 def _profile(torch, fn, steps, kernels=("chunk_attn",), ranges=(),
-             warm=False):
+             warm=False, alone=True):
     """Wall ms per call without the profiler, then torch.profiler over the
     same calls: device ms per call, busy share, the named kernels' ms, the
     device ms of the kernels launched inside each named
     ``record_function`` range, and the top kernels. One call warms up
-    first unless ``warm`` (the caller just ran the same work)."""
+    first unless ``warm`` (the caller just ran the same work). Without
+    ``alone`` the calls run once, under the profiler, and its wall time
+    stands for theirs (for calls of seconds, where the profiler's own cost
+    is small)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1012,7 +1074,7 @@ def _profile(torch, fn, steps, kernels=("chunk_attn",), ranges=(),
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(steps):
+    for _ in range(steps if alone else 0):
         fn()
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0) / steps
@@ -1026,6 +1088,8 @@ def _profile(torch, fn, steps, kernels=("chunk_attn",), ranges=(),
             fn()
         torch.cuda.synchronize()
         prof_wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    if not alone:
+        wall_ms = prof_wall_ms
     events = prof.key_averages()  # one pass: it is slow on many events
     rows = []  # kernels only: an operator's row repeats its kernels' time,
     # and a range's device-side annotation spans its kernels and the gaps
@@ -1146,6 +1210,610 @@ def phase_engine_parity(torch, chunk_attn):
     emit({"phase": "engine_parity", **result})
     if not first:
         raise AssertionError("full-width first tokens differ kernel vs plain")
+
+
+
+# --------------------------------------------------------------------------- #
+# the chunk kernel at head dim 80 and past its shared-memory page arrays
+# --------------------------------------------------------------------------- #
+def _same_bits(torch, a, b):
+    return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+
+def _nsplit_sweep(torch, chunk_attn, pre, k, v, q_pos, kw, iters,
+                  mode="latency"):
+    """ms of the two-level program at the planned nsplit and at half, twice
+    and four times it (within [1, nb]), keyed by nsplit; "plan" names the
+    planned count."""
+    nb = pre.pb.shape[1]
+    planned = chunk_attn.launch_geometry(pre, k.dtype, mode=mode,
+                                         sms=chunk_attn.sm_count(0))["nsplit"]
+    out = {"plan": planned}
+    for ns in (planned // 2, planned, 2 * planned, 4 * planned):
+        if 1 <= ns <= nb:
+            out[str(ns)] = time_ms(torch, lambda: chunk_attn._launch(
+                pre, k, v, q_pos, nsplit=ns, mode=mode, **kw), iters)
+    return out
+
+
+def _program_times(torch, chunk_attn, pre, k, v, q_pos, kw, iters):
+    """Median ms of the shared-memory and the workspace program, forced,
+    over two interleaved runs each."""
+    runs = {"shared": [], "workspace": []}
+    for prog in ("shared", "workspace", "workspace", "shared"):
+        runs[prog].append(time_ms(torch, lambda: chunk_attn._launch(
+            pre, k, v, q_pos, workspace=prog == "workspace", **kw), iters))
+    return {f"{prog}_ms": float(np.median(t)) for prog, t in runs.items()}
+
+
+def phase_chunk_d80(torch, tmd, chunk_attn):
+    """Phase 40: the chunk kernel at hubert-xlarge's (80, 128), G = 1, both
+    programs, bf16 / fp32 / int8 caches, decode and C = 128 / 5, held to the
+    plain twin at the serving tolerance; two blocks an SM for each program;
+    the workspace program forced at (80, 128) and at the main shape equals
+    the shared-memory one bit for bit, and both are timed; the main
+    decode's planned split is timed beside half, twice and four times it;
+    then the hubert engine at full width
+    (HUBERT_SERVE_LAYERS of 48 layers, bf16) and its fp32 2-layer greedy
+    streams against the plain route's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import init_params
+    from repro_torch.serve import EngineConfig, Request
+
+    sh = HUBERT_SERVE
+    worst, ties, rows, n, upper_cases = 0.0, 0, 0, 0, 0
+    for (C, mode), layout, dtype, variant, nu in itertools.product(
+            ((1, "latency"), (128, "throughput"), (5, "throughput")),
+            ("dense", "ring", "ragged"), ("bf16", "fp32", "int8"),
+            ("full", "sparse"), (0, 33)):
+        if nu and (variant == "sparse" or layout == "ragged"):
+            continue
+        n += 1
+        pre, k, v, q_pos, ks, vs = kernel_case(torch, tmd, SEED + 4000 + n,
+                                               sh, C, layout, dtype)
+        if nu:
+            pre = pre._replace(upper=upper_view(
+                torch, SEED + 5000 + n, sh["B"], sh["Hkv"], sh["D"], nu,
+                "some_dead"))
+            upper_cases += 1
+        kw = dict(m=sh["m"], k_scale=ks, v_scale=vs,
+                  include_bg=variant == "full", mode=mode)
+        got = chunk_attn.chunk_attention_kernel(pre, k, v, q_pos, **kw)
+        ref = chunk_attn.chunk_attention_ref(pre, k, v, q_pos, **kw)
+        torch.cuda.synchronize()
+        err, t, r = _hold(torch, tmd, got, pre, q_pos, sh["m"], ref,
+                          f"d80 C={C} {layout} {dtype} {variant} NU={nu}")
+        worst, ties, rows = max(worst, err), ties + t, rows + r
+    occupancy = {}
+    for dt, upper in itertools.product(
+            (torch.bfloat16, torch.float32, torch.int8), (False, True)):
+        for C in (1, 128):
+            geo = chunk_attn.plan(sh["B"], sh["Hkv"], sh["G"], C, sh["D"],
+                                  sh["b"], sh["nb"], dt,
+                                  sms=chunk_attn.sm_count(0))
+            bps = chunk_attn.blocks_per_sm(dt, sh["D"], sh["b"], upper,
+                                           geo["smem"])
+            occupancy[f"{str(dt)[6:]} C={C} "
+                      f"{'upper' if upper else 'two_level'}"] = bps
+    low = {k: v for k, v in occupancy.items() if v < 2}
+    # the workspace program against the shared-memory one, forced: the same
+    # bits, and their times (interleaved, the median of two runs each)
+    same, ws_time = {}, {}
+    for name, shp in (("d80", sh), ("main", MAIN)):
+        for C, mode in ((1, "latency"), (128, "throughput")):
+            pre, k, v, q_pos, ks, vs = kernel_case(torch, tmd, SEED + 6000,
+                                                   shp, C, "ring", "bf16")
+            kw = dict(m=shp["m"], include_bg=True, mode=mode)
+            a = chunk_attn._launch(pre, k, v, q_pos, workspace=False, **kw)
+            b = chunk_attn._launch(pre, k, v, q_pos, workspace=True, **kw)
+            same[f"{name} C={C}"] = _same_bits(torch, a, b)
+            ws_time[f"{name} C={C}"] = _program_times(
+                torch, chunk_attn, pre, k, v, q_pos, kw, 100)
+    timing = {}
+    for label, C, mode, nu in (("decode", 1, "latency", 0),
+                               ("chunk128", 128, "throughput", 0),
+                               ("upper_decode", 1, "latency", 33),
+                               ("upper_chunk128", 128, "throughput", 33)):
+        pre, k, v, q_pos, ks, vs = kernel_case(torch, tmd, SEED, sh, C,
+                                               "dense", "bf16")
+        if nu:  # the H-level program over NU collapsed entries
+            pre = pre._replace(upper=upper_view(
+                torch, SEED + 1, sh["B"], sh["Hkv"], sh["D"], nu, "all_live"))
+        kw = dict(m=sh["m"], include_bg=True, mode=mode)
+        ms = time_ms(torch, lambda: chunk_attn.chunk_attention_kernel(
+            pre, k, v, q_pos, **kw), 200)
+        plain_ms = time_ms(torch, lambda: chunk_attn.chunk_attention_ref(
+            pre, k, v, q_pos, **kw), 20)
+        _, grid, pairs = selection_stats(torch, tmd, pre, q_pos, sh["m"])
+        timing[label] = {"ms": ms, "plain_ms": plain_ms,
+                         **bound(pre, k, q_pos, ks, grid, pairs, nu=nu),
+                         **launch_info(torch, chunk_attn, pre, k, grid, mode,
+                                       upper=bool(nu))}
+    pre, k, v, q_pos, ks, vs = kernel_case(torch, tmd, SEED, MAIN, 1,
+                                           "dense", "bf16")
+    main_split = _nsplit_sweep(torch, chunk_attn, pre, k, v, q_pos,
+                               dict(m=MAIN["m"], include_bg=True), 100)
+    emit({"phase": "chunk_d80", "shape": sh, "cases": n,
+          "upper_cases": upper_cases, "atol": ATOL, "rtol": RTOL,
+          "max_abs_err": worst, "near_tie_rows": ties, "rows": rows,
+          "blocks_per_sm": occupancy, "workspace_bitwise": same,
+          "workspace_vs_shared": ws_time, "main_decode_ms_by_nsplit":
+          main_split, **timing})
+    if ties > 0.01 * rows:
+        raise AssertionError(f"{ties} near-tie rows of {rows} exceed 1%")
+    if low:
+        raise AssertionError(f"D = 80 programs under two blocks an SM: {low}")
+    if not all(same.values()):
+        raise AssertionError(f"workspace program != shared-memory one: {same}")
+    # the hubert engine at full width, then its 2-layer fp32 streams
+    launches, eng, _ = phase_engine_full_width(
+        torch, chunk_attn, arch=HUBERT_ARCH, phase="hubert_engine",
+        new_tokens=HUBERT_SERVE_TOKENS, layers=HUBERT_SERVE_LAYERS)
+    del eng
+    torch.cuda.empty_cache()
+    small = get_config(HUBERT_ARCH, num_layers=2, activ_dtype="float32")
+    params = init_params(small, seed=SEED, device=DEVICE)
+    ecfg = EngineConfig(slots=4, max_len=4096, chunk=128)
+    reqs = _requests(Request, SERVE["prompts"], 16, small.vocab)
+    streams = [_streams(torch, chunk_attn, small, params, ecfg, reqs, plain)
+               for plain in (False, True)]
+    equal = all(np.array_equal(streams[0][k], streams[1][k])
+                for k in streams[0])
+    emit({"phase": "hubert_engine_parity", "layers": 2,
+          "activ_dtype": "float32", "prompts": list(SERVE["prompts"]),
+          "new_tokens": 16, "identical_streams": equal})
+    if not equal:
+        raise AssertionError("hubert fp32 2-layer streams differ kernel vs "
+                             "plain")
+    return worst, timing, launches
+
+
+def phase_chunk_long_pages(torch, tmd, chunk_attn):
+    """Phase 41: the chunk kernel at 4096 pages (524,288-token slots):
+    LONG_PAGES' calls held to the plain twin at the serving tolerance over
+    dense and ring layouts (bf16, and int8 for the decodes), then timed
+    beside the bound and the plain twin in their cache type (the planned
+    split also beside half, twice and four times it); each plans
+    the program LONG_PAGES expects (the workspace one where the page arrays
+    do not fit shared memory)."""
+    out, worst = {}, 0.0
+    for label, arch, sh, C, mode, tdt, want_ws in LONG_PAGES:
+        err_arch, ties, rows = 0.0, 0, 0
+        dtypes = ("bf16", "int8") if C == 1 else ("bf16",)
+        for i, (layout, dtype) in enumerate(itertools.product(
+                ("dense", "ring"), dtypes)):
+            pre, k, v, q_pos, ks, vs = kernel_case(
+                torch, tmd, SEED + 7000 + i, sh, C, layout, dtype)
+            kw = dict(m=sh["m"], k_scale=ks, v_scale=vs, include_bg=True,
+                      mode=mode)
+            got = chunk_attn.chunk_attention_kernel(pre, k, v, q_pos, **kw)
+            ref = chunk_attn.chunk_attention_ref(pre, k, v, q_pos, **kw)
+            torch.cuda.synchronize()
+            err, t, r = _hold(torch, tmd, got, pre, q_pos, sh["m"], ref,
+                              f"{label} nb={sh['nb']} {layout} {dtype}")
+            err_arch, ties, rows = max(err_arch, err), ties + t, rows + r
+            del pre, k, v, got, ref
+            torch.cuda.empty_cache()
+        pre, k, v, q_pos, ks, vs = kernel_case(torch, tmd, SEED, sh, C,
+                                               "dense", tdt)
+        kw = dict(m=sh["m"], k_scale=ks, v_scale=vs, include_bg=True,
+                  mode=mode)
+        before = chunk_attn.chunk_attention_kernel.launches
+        ms = time_ms(torch, lambda: chunk_attn.chunk_attention_kernel(
+            pre, k, v, q_pos, **kw), 20)
+        plain_ms = time_ms(torch, lambda: chunk_attn.chunk_attention_ref(
+            pre, k, v, q_pos, **kw), 3)
+        launches = chunk_attn.chunk_attention_kernel.launches - before
+        _, grid, pairs = selection_stats(torch, tmd, pre, q_pos, sh["m"])
+        info = launch_info(torch, chunk_attn, pre, k, grid, mode,
+                           upper=False)
+        info["ms_by_nsplit"] = _nsplit_sweep(  # the plan and its neighbours
+            torch, chunk_attn, pre, k, v, q_pos,
+            dict(m=sh["m"], k_scale=ks, v_scale=vs, include_bg=True), 10,
+            mode)
+        out[label] = {"arch": arch, "shape": sh, "C": C, "mode": mode,
+                      "cache": tdt, "max_abs_err": err_arch,
+                      "near_tie_rows": ties,
+                     "rows": rows, "ms": ms, "plain_ms": plain_ms,
+                     "timed_launches": launches,
+                     **bound(pre, k, q_pos, ks, grid, pairs), **info}
+        worst = max(worst, err_arch)
+        del pre, k, v
+        torch.cuda.empty_cache()
+        if info["workspace"] != want_ws:
+            raise AssertionError(f"{label}: nb = {sh['nb']} planned the "
+                                 f"workspace program: {info['workspace']}")
+        if ties > 0.01 * rows:
+            raise AssertionError(f"{label}: {ties} near-tie rows of {rows}")
+    emit({"phase": "chunk_long_pages", "atol": ATOL, "rtol": RTOL,
+          "max_abs_err": worst, **out})
+    return worst, out
+
+
+# --------------------------------------------------------------------------- #
+# the reference's shape cells at qwen3-1.7b's full width (phases 42-44)
+# --------------------------------------------------------------------------- #
+def phase_train_lm(torch, bsa):
+    """Phase 45: ``repro_torch.examples.train_lm`` at its small preset
+    (head dim 32, block 32) for TRAIN_LM_STEPS steps of MRA-2 on the card,
+    its three kernels at that call held against their plain twins first;
+    losses finite, each kernel launched once a layer a step."""
+    from repro_torch.examples import train_lm
+
+    errs = {}
+    for i, dt in enumerate((torch.bfloat16, torch.float32)):
+        e, _ = _bsa_hold(torch, bsa, TRAIN_LM_BSA, 2, dt, SEED + 9000 + i,
+                         i == 1)
+        for key, v in e.items():
+            errs[key] = max(errs.get(key, 0.0), v)
+    timing = _bsa_timing(torch, bsa, TRAIN_LM_BSA, 2, True)
+    _reset_bsa(bsa)
+    t0 = time.perf_counter()
+    losses = train_lm.run("small", TRAIN_LM_STEPS, "mra2", "1", None,
+                          DEVICE)["mra2"]
+    wall = time.perf_counter() - t0
+    launches = _bsa_launches(bsa)
+    layers = train_lm.PRESETS["small"]["num_layers"]
+    emit({"phase": "train_lm", "preset": "small", "steps": TRAIN_LM_STEPS,
+          "losses": losses, "wall_s": wall, "launches": launches,
+          "bsa_d32_b32": {"max_abs_err": errs, **timing}})
+    want = layers * TRAIN_LM_STEPS
+    if (len(losses) != TRAIN_LM_STEPS or not np.isfinite(losses).all()
+            or any(v != want for v in launches.values())):
+        raise AssertionError(f"train_lm: losses {losses}, launches "
+                             f"{launches} (want {want} each)")
+    return launches, errs, timing
+
+
+def _cell_rows(cache, lo, hi):
+    """Slots [lo, hi) of a serving cache: views, written in place."""
+    return {k: [t[lo:hi] for t in v] if isinstance(v, list) else v[lo:hi]
+            for k, v in cache.items()}
+
+
+def _cell_predict(cell, kind, cut):
+    """The dry run's one-rank prediction of a step of ``kind`` under
+    ``cut``: peak GiB, FLOPs, the roofline's terms and its time (the
+    larger term, as the terms overlap), the kernels' launch keys."""
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import AbstractMesh
+
+    kw = {k: v for k, v in cut.items() if k in ("batch", "layers")}
+    if cut.get("kv_quant"):
+        kw["attention_override"] = {"kv_quant": True}
+    if cut.get("param_dtype"):
+        kw["config_override"] = {"param_dtype": cut["param_dtype"]}
+    res = dryrun.lower_cell(SHAPE_ARCH, cell, mesh=AbstractMesh(1, 1),
+                            kind=kind, **kw)
+    res["status"] = "ok"
+    row = roofline.analyze(res)
+    return {"peak_gib": res["memory"]["peak_bytes"] / 2**30,
+            "argument_gib": res["memory"]["arguments"] / 2**30,
+            "flops": res["cost"]["flops_per_device"],
+            "kernel_flops": res["cost"]["kernel_flops_per_device"],
+            "model_flops": res["model_flops_total"],
+            "compute_ms": 1e3 * row["compute_s"],
+            "memory_ms": 1e3 * row["memory_s"],
+            "roofline_ms": 1e3 * max(row["compute_s"], row["memory_s"]),
+            "kernels": {k: v["calls"] for k, v in res["kernels"].items()},
+            "kernels_unbuilt": res["kernels_unbuilt"], "dry_run_s": res["lower_s"]}
+
+
+def _cell_cut(cell, kinds, candidates):
+    """The first cut of ``candidates`` whose predicted peak for the step of
+    ``kinds[0]`` (the one that peaks) stays under CELL_GIB, and the other
+    steps' predictions under it: (cut, {kind: prediction}, tried)."""
+    tried = []
+    for cut in candidates:
+        pred = {kinds[0]: _cell_predict(cell, kinds[0], cut)}
+        peak = pred[kinds[0]]["peak_gib"]
+        tried.append({"cut": cut, "predicted_peak_gib": peak})
+        if peak < CELL_GIB:
+            pred.update({k: _cell_predict(cell, k, cut) for k in kinds[1:]})
+            return cut, pred, tried
+    raise AssertionError(f"{cell}: no cut fits {CELL_GIB} GiB: {tried}")
+
+
+def _cell_model(torch, cut):
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import init_params, map_specs, materialize
+    from repro_torch.models.transformer import cache_specs
+
+    over = {}
+    if cut.get("param_dtype"):
+        over["param_dtype"] = cut["param_dtype"]
+    if cut.get("layers"):
+        over["num_layers"] = cut["layers"]
+    cfg = get_config(SHAPE_ARCH, **over)
+    if cut.get("kv_quant"):
+        cfg = cfg.replace(attention=dataclasses.replace(cfg.attention,
+                                                        kv_quant=True))
+    params = init_params(cfg, seed=SEED, device=DEVICE)
+    return cfg, params, lambda B, S: map_specs(
+        cache_specs(cfg, B, S), lambda s: materialize(s, DEVICE))
+
+
+def _cell_tokens(torch, cfg, B, S, seed):
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    return torch.randint(0, cfg.vocab, (B, S), generator=g, device=DEVICE,
+                         dtype=torch.int32)
+
+
+def _cell_step(torch, fn, kernels, then):
+    """One call of ``fn`` under the profiler (its device time, the named
+    kernels' ms, the top kernels), then ``then(fn's result)``, the same
+    work, once without it: its wall, and the busy share as the profiled
+    call's device time over that wall (the profiler's own host cost stays
+    out of it). Returns (the second call's result, the timings)."""
+    res = {}
+
+    def call():
+        res["out"] = fn()
+
+    prof = _profile(torch, call, 1, kernels=kernels, warm=True, alone=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = then(res["out"])
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    return out, {"wall_ms": wall_ms, "profiled_wall_ms": prof["wall_ms"],
+                 "device_ms": prof["device_ms"],
+                 "busy_share": prof["device_ms"] / wall_ms,
+                 **{f"{k}_ms": prof[f"{k}_ms"] for k in kernels},
+                 "top": prof["top"][:4]}
+
+
+def _bsa_fwd_hold(torch, bsa, sh, G, seed, heads=None):
+    """``bsa_fwd`` on one MRA-2 selection at ``sh`` against its plain twin
+    (numerator / row sums at BSA_TOL, mt at MT_TOL): (errors, call ms, plain
+    ms). ``heads`` holds only those BHG rows against the twin (the kernel
+    runs on every row; the twin's gathered blocks of all would not fit)."""
+    q, k, v, c, x, y, fl, km, scale = bsa_case(torch, sh, G, torch.bfloat16,
+                                               seed, False, device_draws=True)
+    b, nb = sh["b"], sh["n"] // sh["b"]
+    kw = dict(scale=scale, block_size=b)
+    pq = bsa.group_by_query(x, y, fl, nb)
+    out, rs, mt = bsa.bsa_fwd(q, k, v, c, pq, km, **kw)
+    ms = time_ms(torch, lambda: bsa.bsa_fwd(q, k, v, c, pq, km, **kw), 3)
+    rows = slice(None) if heads is None else heads
+    kv = rows if heads is None else slice(heads.start // G, heads.stop // G)
+    args = (q[rows], k[kv], v[kv], x[rows], y[rows], fl[rows], c[rows],
+            km[kv])
+    ref = bsa.block_sparse_attention_ref(*args, **kw)
+    plain_ms = time_ms(torch, lambda: bsa.block_sparse_attention_ref(
+        *args, **kw), 1)
+    out, rs, mt = out[rows], rs[rows], mt[rows]
+    alive = rs > 0
+
+    def norm(o, r):
+        return torch.where(alive[..., None], o, 0.0) / torch.where(
+            alive, r, 1.0)[..., None]
+
+    errs = {"bsa_fwd": float((norm(out, rs) - norm(ref[0], ref[1])).abs().max()),
+            "mt": float((mt - ref[2]).abs().max())}
+    ok = (bool(torch.isclose(norm(out, rs), norm(ref[0], ref[1]), rtol=BSA_TOL,
+                             atol=BSA_TOL).all())
+          and bool(torch.isclose(rs, ref[1], rtol=BSA_TOL, atol=BSA_TOL).all())
+          and errs["mt"] <= MT_TOL and bool(torch.isfinite(out).all())
+          and torch.equal(alive, ref[1] > 0))
+    if not ok:
+        raise AssertionError(f"bsa_fwd != plain at n={sh['n']}: {errs}")
+    full = int(((fl & 1) == 1).sum())
+    diag = int((((fl & 1) == 1) & ((fl & 2) == 2)).sum())
+    return errs, ms, plain_ms, _bsa_bounds(q, k, fl, nb, "bsa_fwd")
+
+
+def _cell_emit(name, cut, tried, pred, measured, extra):
+    peak = measured["peak_gib"]
+    want = max(p["peak_gib"] for p in pred.values())
+    emit({"phase": name, "arch": SHAPE_ARCH, "cut": cut, "cuts_tried": tried,
+          "predicted": pred, "measured": measured,
+          "peak_vs_predicted": peak / want, **extra})
+    if abs(peak / want - 1) > CELL_PEAK_TOL:
+        raise AssertionError(f"{name}: card peak {peak:.2f} GiB vs predicted "
+                             f"{want:.2f} GiB")
+
+
+def phase_cell_prefill(torch, bsa):
+    """Phase 42: ``prefill_32k`` at qwen3-1.7b's full width through
+    ``transformer.prefill``: the batch the dry run fits on the card, the
+    prediction beside the card's peak, wall, device time and busy share;
+    ``bsa_fwd`` at n = 32768 held against its plain twin (one slot)."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.models import transformer
+
+    S = SHAPES["prefill_32k"].seq_len
+    sh = dict(B=1, Hq=16, n=S, d=128, b=128, bpr=4)
+    errs, ms, plain_ms, bnd = _bsa_fwd_hold(torch, bsa, sh, 2, SEED)
+    torch.cuda.empty_cache()
+    cut, pred, tried = _cell_cut("prefill_32k", ("prefill",),
+                                 CELL_CUTS["prefill_32k"])
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, make_cache = _cell_model(torch, cut)
+    B = cut["batch"]
+    cache = make_cache(B, S)
+    toks = _cell_tokens(torch, cfg, B, S, SEED)
+    _reset_bsa(bsa)
+
+    def run(_=None):
+        return transformer.prefill(params, cfg, {"tokens": toks}, cache)
+
+    (logits, _), step = _cell_step(torch, run, ("bsa_fwd",), run)
+    launches = _bsa_launches(bsa)["bsa_fwd"]
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    ok = bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (
+        B, cfg.padded_vocab)
+    del params, cache, logits, toks
+    torch.cuda.empty_cache()
+    _cell_emit("cell_prefill_32k", cut, tried, pred,
+               {"peak_gib": peak, **step, "bsa_fwd_launches": launches,
+                "finite_logits": ok},
+               {"bsa_fwd_n32768": {"max_abs_err": errs, "ms": ms,
+                                   "plain_ms": plain_ms, **bnd}})
+    if not ok or launches != 2 * cfg.num_layers:  # profiled, then timed
+        raise AssertionError(f"prefill_32k: finite {ok}, {launches} bsa_fwd "
+                             "launches")
+    return {"launches": launches, "max_abs_err": errs["bsa_fwd"], "ms": ms,
+            "plain_ms": plain_ms, **bnd}
+
+
+def _cell_decode(torch, chunk_attn, cfg, params, cache, logits, steps):
+    """``steps`` + 1 greedy decode steps of every slot, the first profiled
+    and the second timed alone (``_cell_step``): (the tokens of the last
+    steps - 1, (steps - 1, B); the timing, two-level launches, combines)."""
+    from repro_torch.models import transformer
+
+    def step_after(res):
+        tok = res[0].argmax(-1).to(torch.int32)
+        return transformer.decode_step(params, cfg, cache, tok)
+
+    _reset_chunk(chunk_attn)
+    (logits, _), step = _cell_step(
+        torch, lambda: step_after((logits,)), ("chunk_attn",), step_after)
+    out = []
+    for _ in range(steps - 1):
+        tok = logits.argmax(-1).to(torch.int32)
+        out.append(tok)
+        logits, _ = transformer.decode_step(params, cfg, cache, tok)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("decode: non-finite logits")
+    fn = chunk_attn.chunk_attention_kernel
+    return torch.stack(out), step, fn.launches, fn.combine_launches
+
+
+def phase_cell_decode(torch, chunk_attn):
+    """Phase 43: ``decode_32k``: the slots the dry run fits, filled by
+    ``transformer.prefill`` a few at a time (each group's cache rows are
+    views of the whole cache), then greedy ``decode_step``s of every slot
+    over 256 pages each; the chunk kernel at that shape held against its
+    plain twin, its planned split timed beside half, twice and four times
+    it, and the workspace program forced beside the shared one."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.core import mra_decode as tmd
+    from repro_torch.models import transformer
+
+    S = SHAPES["decode_32k"].seq_len
+    cut, pred, tried = _cell_cut("decode_32k", ("decode",),
+                                 CELL_CUTS["decode_32k"])
+    fill = cut["fill"]
+    fill_pred = _cell_predict("decode_32k", "prefill", dict(cut, batch=fill))
+    pred["prefill_fill"] = dict(fill_pred, peak_gib=pred["decode"]["argument_gib"]
+                                + fill_pred["peak_gib"]
+                                - fill_pred["argument_gib"])
+    sh = dict(B=cut["batch"], Hkv=8, G=2, D=128, b=128, nb=S // 128, m=16)
+    worst = 0.0
+    for i, dt in enumerate(("bf16", "int8")):
+        pre, k, v, q_pos, ks, vs = kernel_case(torch, tmd, SEED + 8000 + i,
+                                               sh, 1, "ring", dt)
+        kw = dict(m=sh["m"], k_scale=ks, v_scale=vs, include_bg=True)
+        got = chunk_attn.chunk_attention_kernel(pre, k, v, q_pos, **kw)
+        ref = chunk_attn.chunk_attention_ref(pre, k, v, q_pos, **kw)
+        torch.cuda.synchronize()
+        worst = max(worst, _hold(torch, tmd, got, pre, q_pos, sh["m"], ref,
+                                 f"decode_32k {dt}")[0])
+    pre, k, v, q_pos, ks, vs = kernel_case(torch, tmd, SEED, sh, 1, "dense",
+                                           "bf16")
+    kw = dict(m=sh["m"], include_bg=True)
+    ms = time_ms(torch, lambda: chunk_attn.chunk_attention_kernel(
+        pre, k, v, q_pos, **kw), 20)
+    plain_ms = time_ms(torch, lambda: chunk_attn.chunk_attention_ref(
+        pre, k, v, q_pos, **kw), 3)
+    _, grid, pairs = selection_stats(torch, tmd, pre, q_pos, sh["m"])
+    kern = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            **bound(pre, k, q_pos, ks, grid, pairs),
+            **launch_info(torch, chunk_attn, pre, k, grid, "latency", False),
+            "ms_by_nsplit": _nsplit_sweep(torch, chunk_attn, pre, k, v,
+                                          q_pos, kw, 20),
+            "workspace_vs_shared": _program_times(
+                torch, chunk_attn, pre, k, v, q_pos, kw, 20)}
+    del pre, k, v, got, ref
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, make_cache = _cell_model(torch, cut)
+    B = cut["batch"]
+    cache = make_cache(B, S)
+    t0 = time.perf_counter()
+    last = []
+    for lo in range(0, B, fill):
+        toks = _cell_tokens(torch, cfg, fill, S, SEED + lo)
+        lg, _ = transformer.prefill(params, cfg, {"tokens": toks},
+                                    _cell_rows(cache, lo, lo + fill))
+        last.append(lg)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    toks, step, launches, combines = _cell_decode(
+        torch, chunk_attn, cfg, params, cache, torch.cat(last), CELL_STEPS)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    del params, cache
+    torch.cuda.empty_cache()
+    want = cfg.num_layers * (CELL_STEPS + 1)  # the profiled step, the rest
+    _cell_emit("cell_decode_32k", cut, tried, pred,
+               {"peak_gib": peak, "fill_s": fill_s, "decode_step": step,
+                "decode_steps": CELL_STEPS, "chunk_attn_launches": launches,
+                "combine_launches": combines,
+                "tokens_in_vocab": bool((toks >= 0).all()
+                                        and (toks < cfg.vocab).all())},
+               {"chunk_attn_nb256": kern})
+    if launches != want:
+        raise AssertionError(f"decode_32k: {launches} chunk_attn launches != "
+                             f"{want}")
+    return {"launches": launches, "combines": combines, **kern}
+
+
+def phase_cell_long(torch, bsa, chunk_attn):
+    """Phase 44: ``long_500k`` at batch 1: ``transformer.prefill`` of
+    524,288 tokens (``bsa_fwd`` at n = 524288), then greedy decode steps
+    over 4096 pages (the chunk kernel at G = 2, int8), under the cut
+    the dry run chooses; ``bsa_fwd`` at that n held against its plain twin
+    on the last KV head's two query heads."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.models import transformer
+
+    S = SHAPES["long_500k"].seq_len
+    sh = dict(B=1, Hq=16, n=S, d=128, b=128, bpr=4)
+    errs, ms, plain_ms, bnd = _bsa_fwd_hold(torch, bsa, sh, 2, SEED,
+                                            heads=slice(14, 16))
+    torch.cuda.empty_cache()
+    cut, pred, tried = _cell_cut("long_500k", ("prefill", "decode"),
+                                 CELL_CUTS["long_500k"])
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, make_cache = _cell_model(torch, cut)
+    cache = make_cache(1, S)
+    toks = _cell_tokens(torch, cfg, 1, S, SEED)
+    _reset_bsa(bsa)
+
+    def run(_=None):
+        return transformer.prefill(params, cfg, {"tokens": toks}, cache)
+
+    (logits, _), step = _cell_step(torch, run, ("bsa_fwd",), run)
+    launches = _bsa_launches(bsa)["bsa_fwd"]
+    del toks
+    out, dstep, chunk_launches, combines = _cell_decode(
+        torch, chunk_attn, cfg, params, cache, logits, CELL_STEPS)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    _cell_emit("cell_long_500k", cut, tried, pred,
+               {"peak_gib": peak, "prefill": step, "decode_step": dstep,
+                "bsa_fwd_launches": launches, "decode_steps": CELL_STEPS,
+                "chunk_attn_launches": chunk_launches,
+                "combine_launches": combines,
+                "context_tok_per_s": S / (step["wall_ms"] / 1e3)},
+               {"bsa_fwd_n524288": {"max_abs_err": errs, "ms": ms,
+                                    "plain_ms": plain_ms, "held_rows": [14, 16],
+                                    **bnd}})
+    if launches != 2 * cfg.num_layers:  # profiled, then timed
+        raise AssertionError(f"long_500k: {launches} bsa_fwd launches")
+    if chunk_launches != cfg.num_layers * (CELL_STEPS + 1):
+        raise AssertionError(f"long_500k: {chunk_launches} chunk launches")
+    return {"bsa_launches": launches, "chunk_launches": chunk_launches,
+            "combines": combines, "max_abs_err": errs["bsa_fwd"], "ms": ms,
+            "plain_ms": plain_ms, **bnd}
 
 
 # --------------------------------------------------------------------------- #
@@ -1318,26 +1986,34 @@ def _bsa_launches(bsa):
     return {name: getattr(bsa, name).launches for name in BSA_KERNELS}
 
 
-def bsa_case(torch, sh, G, dtype, seed, edited, hot=False, causal=True):
+def bsa_case(torch, sh, G, dtype, seed, edited, hot=False, causal=True,
+             device_draws=False):
     """(q, k, v, c, x, y, flags, km, scale) for one comparison, numpy from
     ``seed``; pairs from a real MRA-2 selection (``select_blocks``), causal
     unless ``causal`` is false.
     ``edited`` pads the keys of batch row 1, invalidates every 7th pair and
     leaves query block 1 of BHG row 0 without pairs. ``hot`` makes the first
     nb pairs of every row (x, 0) for x = 0 .. nb - 1, so key tile 0 of each
-    KV head walks G·nb pairs more than the rest."""
+    KV head walks G·nb pairs more than the rest. ``device_draws`` draws
+    q / k / v on the device from the seed (numpy's draws take seconds at
+    n = 524288)."""
     from repro_torch.core.mra import MraConfig, kernel_pairs, select_blocks
 
     r = np.random.default_rng(seed)
     B, Hq, n, d, b = (sh[k] for k in ("B", "Hq", "n", "d", "b"))
     Hkv = Hq // G
-    q = r.standard_normal((B, Hkv, G, n, d), np.float32)
-    k = r.standard_normal((B, Hkv, n, d), np.float32)
-    v = r.standard_normal((B, Hkv, n, d), np.float32)
+    shapes = ((B, Hkv, G, n, d), (B, Hkv, n, d), (B, Hkv, n, d))
+    if device_draws:
+        g = torch.Generator(device=DEVICE)
+        g.manual_seed(seed)
+        q, k, v = (torch.randn(s, generator=g, device=DEVICE).to(dtype)
+                   for s in shapes)
+    else:
+        q, k, v = (torch.from_numpy(r.standard_normal(s, np.float32)).to(
+            DEVICE, dtype) for s in shapes)
     lengths = np.array([n] + [n - (3 * b) // 2 if edited else n] * (B - 1))
     key_mask = torch.as_tensor(np.arange(n)[None] < lengths[:, None],
                                device=DEVICE)
-    q, k, v = (torch.from_numpy(a).to(DEVICE, dtype) for a in (q, k, v))
     cfg = MraConfig(block_size=b, blocks_per_row=sh["bpr"], causal=causal)
     scale = d ** -0.5
     sel = select_blocks(q, k, v, key_mask, cfg, scale)
@@ -1385,29 +2061,23 @@ def phase_bsa_vs_plain(torch, bsa):
     return worst
 
 
-def _bsa_bounds(q, k, flags, nb, outputs, products):
-    """Least time for one block-sparse call: bytes (q, k, v, the pair lists
-    and their per-token inputs read once, outputs written once) over HBM vs
-    2·products·d operations per score entry the pairs need (b² for a valid
-    pair, b(b+1)/2 for a diagonal one: flags bit0 and bit1) over the bf16
-    tensor-core rate and the fp32 CUDA-core rate."""
+def _bsa_bounds(q, k, flags, nb, kernel):
+    """Least time for one block-sparse call of ``kernel`` (``bsa_fwd``,
+    ``bsa_bwd_dq``, ``bsa_bwd_dkv`` or the backward pair ``bwd_pair``):
+    ``kernels/cost.py``'s bytes over HBM vs operations over the bf16
+    tensor-core and the fp32 CUDA-core rates, with the pairs these flags
+    make valid (bit0) and diagonal (bit1)."""
+    from repro_torch.kernels import cost
+
     BHG, n, d = q.shape
-    BHKV = k.shape[0]
-    b = n // nb
     valid = (flags & 1) == 1
     diag = int((valid & ((flags & 2) == 2)).sum())
-    full = int(valid.sum()) - diag
-    entries = full * b * b + diag * b * (b + 1) // 2
-    nbytes = (q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
-              + BHKV * n * 4 + outputs)
-    flops = 2 * products * entries * d
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    out = {"bytes": nbytes, "flops": flops, "full_pairs": full,
-           "diagonal_pairs": diag}
-    for label, rate in (("bf16", BF16_FLOP_PER_S), ("fp32", FP32_FLOP_PER_S)):
-        t_ops = flops / rate
-        out[f"bound_ms_{label}"] = 1e3 * max(t_bytes, t_ops)
-        out[f"bound_by_{label}"] = "bytes" if t_bytes >= t_ops else "operations"
+    out = cost.bsa_cost(kernel, BHG, k.shape[0], n, d, n // nb, flags.shape[1],
+                        q.element_size(), int(valid.sum()) - diag, diag)
+    for label, rate in (("bf16", cost.BF16_FLOP_PER_S),
+                        ("fp32", cost.FP32_FLOP_PER_S)):
+        out[f"bound_ms_{label}"], out[f"bound_by_{label}"] = cost.bound_ms(
+            out["bytes"], out["flops"], rate)
     return out
 
 
@@ -1429,25 +2099,22 @@ def phase_bsa_timing(torch, bsa):
     r = np.random.default_rng(SEED)
     do = torch.from_numpy(r.standard_normal(tuple(q.shape), np.float32)).to(DEVICE)
     dr = torch.from_numpy(r.standard_normal(tuple(q.shape[:2]), np.float32)).to(DEVICE)
-    lists = 3 * BHG * m * 4 + BHG * (nb + 1) * 4
     res = {"fwd": {"ms": time_ms(torch, lambda: bsa.bsa_fwd(
                q, k, v, c, pq, km, **kw), 20),
                "plain_ms": time_ms(torch, lambda: bsa.block_sparse_attention_ref(
                    q, k, v, x, y, fl, c, km, **kw), 5),
-               **_bsa_bounds(q, k, fl, nb, BHG * nb * 4 + lists
-                             + BHG * n * (d + 2) * 4, 2)}}
-    bwd_in = lists + BHG * n * (d + 2) * 4  # pair lists, do, dr, mt
+               **_bsa_bounds(q, k, fl, nb, "bsa_fwd")}}
     plain_args = (q, k, v, c, x, y, fl, km, do, dr)
     res["dq"] = {"ms": time_ms(torch, lambda: bsa.bsa_bwd_dq(
         q, k, v, mt, do, dr, pq, km, **kw), 10),
         "plain_ms": time_ms(torch, lambda: bsa.block_sparse_attention_bwd_dq_ref(
             *plain_args, **kw), 5),
-        **_bsa_bounds(q, k, fl, nb, bwd_in + BHG * n * d * 4, 3)}
+        **_bsa_bounds(q, k, fl, nb, "bsa_bwd_dq")}
     res["dkv"] = {"ms": time_ms(torch, lambda: bsa.bsa_bwd_dkv(
         q, k, v, mt, do, dr, pk, km, **kw), 10),
         "plain_ms": time_ms(torch, lambda: bsa.block_sparse_attention_bwd_dkv_ref(
             *plain_args, **kw), 5),
-        **_bsa_bounds(q, k, fl, nb, bwd_in + 2 * BHKV * n * d * 4, 4)}
+        **_bsa_bounds(q, k, fl, nb, "bsa_bwd_dkv")}
     # the tensor-core kernels' launch: grid, block, occupancy, pair balance
     for key, pairs_, tiles in (("fwd", pq, BHG * nb), ("dq", pq, BHG * nb),
                                ("dkv", pk, BHKV * nb)):
@@ -1466,8 +2133,7 @@ def phase_bsa_timing(torch, bsa):
     plain_bwd = time_ms(torch, lambda: bsa.block_sparse_attention_bwd_ref(
         *plain_args, **kw), 5)
     res["bwd_pair"] = {"ms": time_ms(torch, both, 10), "plain_ms": plain_bwd,
-                       **_bsa_bounds(q, k, fl, nb, bwd_in + (
-                           BHG + 2 * BHKV) * n * d * 4, 5)}
+                       **_bsa_bounds(q, k, fl, nb, "bwd_pair")}
     # exact causal attention on the same q/k/v (KV heads repeated): a
     # yardstick, not the same function; the port never calls it
     B = sh["B"]
@@ -1532,13 +2198,11 @@ def phase_bsa_granite(torch, bsa):
     b, nb = sh["b"], nseq // sh["b"]
     pq = bsa.group_by_query(x, y, fl, nb)
     kw = dict(scale=scale, block_size=b)
-    lists = 3 * BHG * x.shape[1] * 4 + BHG * (nb + 1) * 4
     timing = {"ms": time_ms(torch, lambda: bsa.bsa_fwd(q, k, v, c, pq, km,
                                                        **kw), 50),
               "plain_ms": time_ms(torch, lambda: bsa.block_sparse_attention_ref(
                   q, k, v, x, y, fl, c, km, **kw), 5),
-              **_bsa_bounds(q, k, fl, nb, BHG * nb * 4 + lists
-                            + BHG * nseq * (d + 2) * 4, 2),
+              **_bsa_bounds(q, k, fl, nb, "bsa_fwd"),
               **bsa.launch_geometry("fwd", q.dtype, d, b, BHG * nb),
               "blocks_per_sm": bsa.blocks_per_sm("fwd", q.dtype, d, b)}
     emit({"phase": "bsa_granite", "kernel": "bsa_fwd", "shape": sh, "G": 3,
@@ -1601,22 +2265,20 @@ def phase_bsa_granite_bwd(torch, bsa):
     r = np.random.default_rng(SEED)
     do = torch.from_numpy(r.standard_normal(tuple(q.shape), np.float32)).to(DEVICE)
     dr = torch.from_numpy(r.standard_normal(tuple(q.shape[:2]), np.float32)).to(DEVICE)
-    lists = 3 * BHG * x.shape[1] * 4 + BHG * (nb + 1) * 4
-    bwd_in = lists + BHG * nseq * (d + 2) * 4  # pair lists, do, dr, mt
     plain_args = (q, k, v, c, x, y, fl, km, do, dr)
     timing = {
         "dq": {"ms": time_ms(torch, lambda: bsa.bsa_bwd_dq(
             q, k, v, mt, do, dr, pq, km, **kw), 20),
             "plain_ms": time_ms(torch, lambda: bsa.block_sparse_attention_bwd_dq_ref(
                 *plain_args, **kw), 5),
-            **_bsa_bounds(q, k, fl, nb, bwd_in + BHG * nseq * d * 4, 3),
+            **_bsa_bounds(q, k, fl, nb, "bsa_bwd_dq"),
             **bsa.launch_geometry("dq", q.dtype, d, b, BHG * nb),
             "blocks_per_sm": bsa.blocks_per_sm("dq", q.dtype, d, b)},
         "dkv": {"ms": time_ms(torch, lambda: bsa.bsa_bwd_dkv(
             q, k, v, mt, do, dr, pk, km, **kw), 20),
             "plain_ms": time_ms(torch, lambda: bsa.block_sparse_attention_bwd_dkv_ref(
                 *plain_args, **kw), 5),
-            **_bsa_bounds(q, k, fl, nb, bwd_in + 2 * BHKV * nseq * d * 4, 4),
+            **_bsa_bounds(q, k, fl, nb, "bsa_bwd_dkv"),
             **bsa.launch_geometry("dkv", q.dtype, d, b, BHKV * nb),
             "blocks_per_sm": bsa.blocks_per_sm("dkv", q.dtype, d, b)}}
     emit({"phase": "bsa_granite_bwd", "shape": sh, "G": 3, "cases": n,
@@ -1701,26 +2363,24 @@ def _bsa_timing(torch, bsa, sh, G, causal):
     r = np.random.default_rng(SEED)
     do = torch.from_numpy(r.standard_normal(tuple(q.shape), np.float32)).to(DEVICE)
     dr = torch.from_numpy(r.standard_normal(tuple(q.shape[:2]), np.float32)).to(DEVICE)
-    lists = 3 * BHG * x.shape[1] * 4 + BHG * (nb + 1) * 4
-    bwd_in = lists + BHG * n * (d + 2) * 4  # pair lists, do, dr, mt
     plain_args = (q, k, v, c, x, y, fl, km, do, dr)
     cases = {
         "fwd": (lambda: bsa.bsa_fwd(q, k, v, c, pq, km, **kw),
                 lambda: bsa.block_sparse_attention_ref(q, k, v, x, y, fl, c,
                                                        km, **kw),
-                BHG * nb * 4 + lists + BHG * n * (d + 2) * 4, 2, BHG * nb),
+                "bsa_fwd", BHG * nb),
         "dq": (lambda: bsa.bsa_bwd_dq(q, k, v, mt, do, dr, pq, km, **kw),
                lambda: bsa.block_sparse_attention_bwd_dq_ref(*plain_args, **kw),
-               bwd_in + BHG * n * d * 4, 3, BHG * nb),
+               "bsa_bwd_dq", BHG * nb),
         "dkv": (lambda: bsa.bsa_bwd_dkv(q, k, v, mt, do, dr, pk, km, **kw),
                 lambda: bsa.block_sparse_attention_bwd_dkv_ref(*plain_args,
                                                                **kw),
-                bwd_in + 2 * BHKV * n * d * 4, 4, BHKV * nb)}
+                "bsa_bwd_dkv", BHKV * nb)}
     return {key: {"ms": time_ms(torch, fn, 20), "plain_ms": time_ms(torch, plain, 3),
-                  **_bsa_bounds(q, k, fl, nb, outputs, products),
+                  **_bsa_bounds(q, k, fl, nb, kernel),
                   **bsa.launch_geometry(key, q.dtype, d, b, tiles),
                   "blocks_per_sm": bsa.blocks_per_sm(key, q.dtype, d, b)}
-            for key, (fn, plain, outputs, products, tiles) in cases.items()}
+            for key, (fn, plain, kernel, tiles) in cases.items()}
 
 
 def phase_bsa_hubert(torch, bsa, ptx):
@@ -4622,7 +5282,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 products in fp32
     torch.backends.cudnn.allow_tf32 = False
     build = start_build()
-    try:  # phases 28-30 launch no kernel of this repo: they run meanwhile
+    try:  # phases 28-30 and 32 launch no kernel of this repo: they run
+        # meanwhile
         eng, rwkv_base = phase_rwkv_full_width(torch)
         phase_profile(torch, eng, phase="rwkv_profile", kernels=())
         del eng
@@ -4630,6 +5291,10 @@ def main() -> int:
         phase_rwkv_self(torch)
         torch.cuda.empty_cache()
         phase_rwkv_train(torch)
+        torch.cuda.empty_cache()
+        eng = phase_rgemma_full_width(torch)  # the local kind: no kernel
+        phase_profile(torch, eng, phase="rgemma_profile", kernels=())
+        del eng
         torch.cuda.empty_cache()
     finally:  # nothing raises before the compilers have stopped
         join_build(build)
@@ -4644,6 +5309,10 @@ def main() -> int:
     max_err, err_by_shape = phase_kernel_vs_plain(torch, tmd, chunk_attn)
     timing = phase_timing(torch, tmd, chunk_attn)
     granite_time = phase_timing(torch, tmd, chunk_attn, GRANITE, MOE_ARCH)
+    d80_err, d80_time, hubert_serve = phase_chunk_d80(torch, tmd, chunk_attn)
+    torch.cuda.empty_cache()
+    long_err, long_pages = phase_chunk_long_pages(torch, tmd, chunk_attn)
+    torch.cuda.empty_cache()
     launches, eng, base = phase_engine_full_width(torch, chunk_attn)
     phase_profile(torch, eng)
     del eng
@@ -4698,13 +5367,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     h1d_launches, h1d_err, h1d_time = phase_baselines(torch, bsa, bsa_ptx)
     torch.cuda.empty_cache()
-    eng = phase_rgemma_full_width(torch)
-    phase_profile(torch, eng, phase="rgemma_profile", kernels=())
-    del eng
-    torch.cuda.empty_cache()
     rg_prefill = phase_rgemma_self(torch, bsa)
     torch.cuda.empty_cache()
     mesh = phase_mesh(torch, bsa, chunk_attn, base, moe_base, rwkv_base)
+    lm_launches, lm_err, lm_time = phase_train_lm(torch, bsa)
+    torch.cuda.empty_cache()
+    with _expandable_segments(torch):
+        cell_pre = phase_cell_prefill(torch, bsa)
+        cell_dec = phase_cell_decode(torch, chunk_attn)
+        cell_long = phase_cell_long(torch, bsa, chunk_attn)
     dec = timing["decode"]
     print(smi, flush=True)
     train_kernels = []
@@ -4879,6 +5550,68 @@ def main() -> int:
                      "blocks: B=1, 16 query / 1 KV head)",
             **{k: t[k] for k in ("grid", "threads", "smem_bytes",
                                  "blocks_per_sm")}})
+    chunk_src = dict(route="cuda", source="src/repro_torch/csrc/chunk_attn.cu",
+                     replaces="src/repro/kernels/chunk_attn.py:93",
+                     library_ms=None)
+    bsa_src = dict(route="cuda",
+                   source="src/repro_torch/csrc/block_sparse_attn.cu",
+                   library_ms=None)
+    hdec, lq3 = d80_time["decode"], long_pages["qwen3-1.7b decode"]
+    new_shapes.append({
+        "name": "chunk_attn (D=80, b=128)", **chunk_src,
+        "launches": hubert_serve[0], "combine_launches": hubert_serve[1],
+        "max_abs_err": d80_err, "ms": hdec["ms"], "plain_ms": hdec["plain_ms"],
+        "bound_ms": hdec["bound_ms"], "bound_by": hdec["bound_by"],
+        "shape": "hubert-xlarge decode C=1, B=4, Hkv=16, G=1 (phase 40); "
+                 "chunk128 below, and the H-level program (NU=33) at both "
+                 "widths; launches from its engine run (16 of 48 layers)",
+        **{w: {k: d80_time[w][k] for k in keys}
+           for w in ("chunk128", "upper_decode", "upper_chunk128")}})
+    new_shapes.append({
+        "name": "chunk_attn (nb=4096)", **chunk_src,
+        "launches": cell_long["chunk_launches"],
+        "combine_launches": cell_long["combines"], "max_abs_err": long_err,
+        "ms": lq3["ms"], "plain_ms": lq3["plain_ms"],
+        "bound_ms": lq3["bound_ms"], "bound_by": lq3["bound_by"],
+        "shape": "long_500k's decode: qwen3-1.7b C=1, B=1, Hkv=8, G=2, int8 "
+                 "cache, 4096 pages, the shared-memory program (phase 41); "
+                 "launches from the cell's decode (phase 44); the workspace "
+                 "program's calls below (phase 41: none on the main paths)",
+        **{f"workspace {k}": {f: long_pages[k][f] for f in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "nsplit", "grid",
+            "smem_bytes", "workspace_bytes")}
+           for k in ("qwen2-7b decode", "qwen3-1.7b chunk128")}})
+    new_shapes.append({
+        "name": "chunk_attn (nb=256, B=16)", **chunk_src,
+        "launches": cell_dec["launches"],
+        "combine_launches": cell_dec["combines"],
+        **{k: cell_dec[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by")},
+        "shape": "decode_32k: qwen3-1.7b decode C=1, the cell's slots, "
+                 "Hkv=8, G=2, 256 pages (phase 43)"})
+    for name, cell, key in (("bsa_fwd (n=32768)", cell_pre, "launches"),
+                            ("bsa_fwd (n=524288)", cell_long, "bsa_launches")):
+        new_shapes.append({
+            "name": name, **bsa_src,
+            "replaces": "src/repro/kernels/block_sparse_attn.py:92",
+            "launches": cell[key], "max_abs_err": cell["max_abs_err"],
+            "ms": cell["ms"], "plain_ms": cell["plain_ms"],
+            "bound_ms": cell["bound_ms_bf16"],
+            "bound_by": cell["bound_by_bf16"],
+            "shape": "qwen3-1.7b whole-prompt prefill, B=1, 16 query / 8 KV "
+                     "heads, causal, bf16 (phases 42 / 44; the n=524288 "
+                     "twin held on the last KV head)"})
+    for name, key, line in (("bsa_fwd", "fwd", 92), ("bsa_bwd_dq", "dq", 196),
+                            ("bsa_bwd_dkv", "dkv", 232)):
+        t = lm_time[key]
+        new_shapes.append({
+            "name": f"{name} (d=32, b=32, train_lm)", **bsa_src,
+            "replaces": f"src/repro/kernels/block_sparse_attn.py:{line}",
+            "launches": lm_launches[name], "max_abs_err": lm_err[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms_bf16"], "bound_by": t["bound_by_bf16"],
+            "shape": "examples/train_lm small preset, B=8, n=256, 8 query / "
+                     "4 KV heads, causal, bf16 (phase 45)"})
     emit({"kernels": [{
         "name": "chunk_attn", "route": "cuda",
         "source": "src/repro_torch/csrc/chunk_attn.cu",

@@ -22,7 +22,7 @@ _ARCH_MODULES = {
 ARCHS = tuple(_ARCH_MODULES)
 
 __all__ = ["ARCHS", "SHAPES", "ModelConfig", "MoESpec", "ShapeCfg",
-           "get_config", "get_smoke_config"]
+           "get_config", "get_smoke_config", "shape_skips"]
 
 
 def _module(name: str):
@@ -39,3 +39,12 @@ def get_config(name: str, **overrides) -> ModelConfig:
 def get_smoke_config(name: str, **overrides) -> ModelConfig:
     cfg = _module(name).smoke()
     return cfg.replace(**overrides) if overrides else cfg
+
+
+def shape_skips(arch: str, shape: str) -> str | None:
+    """A skip reason for an (arch, shape) cell that is not well-defined, as
+    the reference's: an encoder has no decode step."""
+    cfg = get_config(arch)
+    if cfg.family == "hubert" and shape in ("decode_32k", "long_500k"):
+        return "encoder-only: no decode step (DESIGN.md §5)"
+    return None

@@ -6,7 +6,7 @@ and the recurrentgemma hybrid read (``MoESpec``, the ``moe`` /
 ``moe_dispatch`` fields, the frontend, learned-position, layernorm and gelu
 fields, rwkv6's head size, chunk and decay LoRA width, and recurrentgemma's
 block pattern, local window, RG-LRU width and conv width, all with the
-reference's defaults), and the ``ShapeCfg`` training input shape.
+reference's defaults), and the ``ShapeCfg`` input-shape cells.
 """
 from __future__ import annotations
 
@@ -143,10 +143,21 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ShapeCfg:
-    """One input shape: the fields the data pipeline reads."""
+    """One input-shape cell: sequence length, global batch, and the
+    reference's name and kind (train | prefill | decode). The fields the
+    data pipeline reads come first, so ``ShapeCfg(seq, batch)`` is a
+    training shape."""
 
     seq_len: int
     global_batch: int
+    name: str = ""
+    kind: str = "train"
 
 
-SHAPES = {"train_4k": ShapeCfg(4096, 256)}
+# the reference's four cells (repro/configs/base.py), its exact values
+SHAPES = {
+    "train_4k": ShapeCfg(4096, 256, "train_4k", "train"),
+    "prefill_32k": ShapeCfg(32768, 32, "prefill_32k", "prefill"),
+    "decode_32k": ShapeCfg(32768, 128, "decode_32k", "decode"),
+    "long_500k": ShapeCfg(524288, 1, "long_500k", "decode"),
+}

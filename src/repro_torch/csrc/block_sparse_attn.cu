@@ -104,8 +104,8 @@
 //        -Xcompiler -fPIC -Xptxas=-v (repro_torch/kernels/build.py); plain C
 //        entry points, loaded with ctypes. All three kernels are
 //        instantiated for (head dim, block size) = (128, 128), (64, 64),
-//        (16, 16), (64, 128), (80, 128), (64, 32) and (256, 128), bf16 and
-//        fp32 (42 kernels); the wrapper zero-pads a head dim to the next
+//        (16, 16), (64, 128), (80, 128), (64, 32), (32, 32) and (256, 128),
+//        bf16 and fp32 (48 kernels); the wrapper zero-pads a head dim to the next
 //        multiple of 16 (exact for the products).
 
 #include <cuda_bf16.h>
@@ -1193,6 +1193,7 @@ KernelInfo info_shape(int kernel, int D, int b) {
   if (D == 64 && b == 128) return info_of<T, 64, 128>(kernel);
   if (D == 80 && b == 128) return info_of<T, 80, 128>(kernel);
   if (D == 64 && b == 32) return info_of<T, 64, 32>(kernel);
+  if (D == 32 && b == 32) return info_of<T, 32, 32>(kernel);
   if (D == 256 && b == 128) return info_of<T, 256, 128>(kernel);
   return {nullptr, 0, 0, 0};
 }
@@ -1206,7 +1207,7 @@ KernelInfo info(int kernel, int dtype, int D, int b) {
 }
 
 // the instantiations: three kernels x two types x the (D, b) of info_shape
-constexpr int kShapes = 7;
+constexpr int kShapes = 8;
 constexpr int kInstantiations = 3 * 2 * kShapes;
 
 // Allow the kernel's dynamic shared memory (and the largest carveout, so that

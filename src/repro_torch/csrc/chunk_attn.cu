@@ -55,8 +55,9 @@
 //     (one or two m16 tiles; pad rows have q_pos = -1 and select nothing).
 //   * At decode the grid is too small for the card (B·Hkv blocks), so the
 //     wrapper splits each row's pages into nsplit contiguous physical ranges
-//     (grid z). Every split recomputes the (cheap) selection and walks only
-//     its range of the union; it writes its partial (acc, running max, row
+//     (grid z), as many as one wave of resident blocks holds. Every split
+//     recomputes the selection (its cost grows with nb: ~2 ms a block at
+//     4096 pages, G = 2) and walks only its range of the union; it writes its partial (acc, running max, row
 //     sum) to fp32 scratch, and split 0 also the parts that do not depend on
 //     the running max (c after fold pass 1, the background numerator and
 //     its sum). chunk_attn_combine_kernel merges the splits in ascending
@@ -64,12 +65,37 @@
 //     block normalizes itself and no combine runs.
 //   * At most ~108 KB of shared memory per block (D = b = 128, 32 rows), so
 //     two blocks share an SM. D and b are template parameters, instantiated
-//     for (128, 128), (64, 128) and (16, 16) (the wrapper zero-pads a head
-//     dim to the next multiple of 16, exact for the products); at D = 64
-//     two warps split D (32 columns each) and the other two stage pages and
-//     run the selection. The fold streams hk / hv through the ring in tiles
-//     of 16 entries, so shared memory does not grow with NU.
-//
+//     for (128, 128), (64, 128), (80, 128) and (16, 16) (the wrapper
+//     zero-pads a head dim to the next multiple of 16, exact for the
+//     products); at D = 64 two warps split D (32 columns each) and the other
+//     two stage pages and run the selection. At D = 80 (hubert-xlarge), which
+//     32 does not divide, one warp owns all 80 columns and a block holds one
+//     m16 row tile (16 query rows: G = 1 there), so that its query fragments
+//     and accumulators stay in registers; its rows are ten bf16 chunks
+//     (five int8, twenty fp32), which no XOR swizzle permutes within the
+//     row, so staged rows are padded to an odd count of chunks instead
+//     (ChunkRow, sm90_mma.cuh). The fold streams hk / hv through the ring in
+//     tiles of 16 entries, so shared memory does not grow with NU.
+//   * The per-row page arrays (masked coarse scores, selection scores and
+//     then background weights, flags, the union and its list) grow with
+//     rows·nb: 122 KB at nb = 256 (32k tokens) for a C = 128 tile of 16
+//     rows, past the 227 KB a block may have beyond nb ≈ 1000. So each shape
+//     has a second program (GWS) that keeps them in a global workspace, one
+//     slice of rows·nb·9 + nb·5 bytes per block, which the wrapper allocates
+//     before the launch and which stays in L2 / L1 while the block runs;
+//     shared memory then holds only the ring, the exchange and the per-row
+//     scalars. The wrapper's plan takes it only where the shared-memory
+//     layout does not fit, so every shape that fitted keeps its program:
+//     where both fit at two blocks an SM, the shared-memory program is
+//     1-8% faster (PERF.md §6). It is built for the two-level program at
+//     block 128 (see pick_program).
+//     Tiling the pages with a running top-m merge would keep the arrays on
+//     chip, but the top-m rounds, the lowest-index tie rule and the
+//     background pass each walk every page of a row; a merge across page
+//     tiles would carry m candidates a row and a second pass for the
+//     background, where the workspace keeps the one arithmetic (and its
+//     order) of the shared-memory program, bit for bit.
+
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -Xptxas=-v (repro_torch/kernels/build.py); plain C
 //        entry points, loaded with ctypes.
@@ -109,6 +135,8 @@ struct Params {
   const float* hcnt;    // (B, NU) or null
   float* out;           // (BKV, G, C, D)
   float* part;          // split scratch (nsplit > 1) or null
+  unsigned char* ws;    // page-array workspace (GWS) or null
+  size_t ws_stride;     // its bytes a block (page_bytes)
   int Hkv, G, C, nb, m, c_tile, NU, nsplit, rows, mtiles, include_bg;
   float scale;
 };
@@ -153,24 +181,35 @@ template <typename T, int D, int BS>
 struct Geo {
   static constexpr int KT = cmin(Cache<T>::kKeys, BS);  // keys per stage
   static constexpr int SPP = BS / KT;                   // stages per page
-  static constexpr int NWD = D < 32 ? 1 : cmin(4, D / 32);  // warps over D
+  // warps over D: each owns a multiple of 32 columns (two n-tile pairs);
+  // one warp takes all of a D that 32 does not divide (D = 80)
+  static constexpr int NWD = D >= 32 && D % 32 == 0 ? cmin(4, D / 32) : 1;
   static constexpr int DS = D / NWD;                    // columns per warp
   static constexpr int KSD = DS / 16;                   // k-steps of q·k
   static constexpr int NTD = DS / 8;                    // n-tiles of p·v
+  // m16 row tiles a block holds: two, or one where a warp's columns are
+  // wider than 32 (its query fragments and accumulators would not fit in
+  // registers twice)
+  static constexpr int MTL = DS > 32 ? 1 : kMTiles;
   static constexpr int XW = cmax(KT, kEntryTile);       // exchange columns
   static constexpr int XS = XW + 8;  // padded row stride: conflict-free float2
   static constexpr int RB = D * (int)sizeof(T);         // bytes of a cache row
   static constexpr int RBF = D * 4;                     // bytes of an fp32 row
+  static constexpr int RS = ChunkRow<RB / 16>::BYTES;   // staged row strides
+  static constexpr int RSF = ChunkRow<RBF / 16>::BYTES; // (padded: ChunkRow)
   static constexpr int STAGE =
-      2 * KT * RB + (Cache<T>::kQuant ? 2 * KT * 4 : 0);
-  static constexpr int FTILE = 2 * kEntryTile * RBF;    // hk + hv tile
+      2 * KT * RS + (Cache<T>::kQuant ? 2 * KT * 4 : 0);
+  static constexpr int FTILE = 2 * kEntryTile * RSF;    // hk + hv tile
   static constexpr int SLOT = (int)align16(cmax(STAGE, FTILE));
   static_assert(BS % KT == 0 && KT % 16 == 0, "stage keys");
-  static_assert(D % NWD == 0 && DS % 16 == 0, "warp columns");
+  static_assert(D % NWD == 0 && DS % 16 == 0 && NTD % 2 == 0, "warp columns");
   static_assert(RB % 16 == 0, "16-byte rows");
 };
 
-// Shared-memory layout; the wrapper's smem_bytes() mirrors it.
+// Shared-memory layout; the wrapper's smem_bytes() mirrors it. The per-row
+// page arrays (cm, ss, sel, any, ul: rows·nb·9 + nb·5 bytes) sit in shared
+// memory, or, in the workspace program (GWS), in the block's slice of a
+// global workspace (page_bytes a block), read back through L1 / L2.
 struct Smem {
   unsigned char* ring;  // kSlots x SLOT cp.async ring (first the fp32 q tile)
   float* q;             // RP x D fp32 query tile (aliases the ring)
@@ -186,8 +225,16 @@ struct Smem {
   int* npages;          // their count
 };
 
-template <typename T, int D, int BS>
-__device__ __forceinline__ Smem smem_layout(unsigned char* raw, int rows,
+// bytes of the per-row page arrays of one block: cm and ss (rows x nb
+// floats), sel (rows x nb), any (nb), ul (nb ints)
+__host__ __device__ __forceinline__ size_t page_bytes(int rows, int nb) {
+  return 2 * align16((size_t)rows * nb * 4) + align16((size_t)rows * nb) +
+         align16((size_t)nb) + align16((size_t)nb * 4);
+}
+
+template <typename T, int D, int BS, bool GWS>
+__device__ __forceinline__ Smem smem_layout(unsigned char* raw,
+                                            unsigned char* ws, int rows,
                                             int RP, int nb) {
   using G = Geo<T, D, BS>;
   Smem m;
@@ -197,26 +244,29 @@ __device__ __forceinline__ Smem smem_layout(unsigned char* raw, int rows,
   off += align16(cmax(kSlots * G::SLOT, RP * D * 4));
   m.xch = reinterpret_cast<float*>(raw + off);
   off += G::NWD > 1 ? align16((size_t)G::NWD * RP * G::XS * 4) : 0;
-  m.cm = reinterpret_cast<float*>(raw + off);   off += align16((size_t)rows * nb * 4);
-  m.ss = reinterpret_cast<float*>(raw + off);   off += align16((size_t)rows * nb * 4);
+  unsigned char* pg = GWS ? ws : raw;  // the page arrays' region
+  size_t po = GWS ? 0 : off;
+  m.cm = reinterpret_cast<float*>(pg + po);     po += align16((size_t)rows * nb * 4);
+  m.ss = reinterpret_cast<float*>(pg + po);     po += align16((size_t)rows * nb * 4);
+  if (!GWS) off = po;
   m.qp = reinterpret_cast<int*>(raw + off);     off += align16((size_t)RP * 4);
   m.c = reinterpret_cast<float*>(raw + off);    off += align16((size_t)RP * 4);
   m.bgs = reinterpret_cast<float*>(raw + off);  off += align16((size_t)RP * 4);
-  m.sel = raw + off;                            off += align16((size_t)rows * nb);
-  m.any = raw + off;                            off += align16((size_t)nb);
-  m.ul = reinterpret_cast<int*>(raw + off);     off += align16((size_t)nb * 4);
+  if (!GWS) po = off;
+  m.sel = pg + po;                              po += align16((size_t)rows * nb);
+  m.any = pg + po;                              po += align16((size_t)nb);
+  m.ul = reinterpret_cast<int*>(pg + po);       po += align16((size_t)nb * 4);
+  if (!GWS) off = po;
   m.npages = reinterpret_cast<int*>(raw + off);
   return m;
 }
 
 template <typename T, int D, int BS>
-size_t smem_bytes(int rows, int RP, int nb) {
+size_t smem_bytes(int rows, int RP, int nb, bool gws) {
   using G = Geo<T, D, BS>;
   return align16(cmax(kSlots * G::SLOT, RP * D * 4)) +
          (G::NWD > 1 ? align16((size_t)G::NWD * RP * G::XS * 4) : 0) +
-         2 * align16((size_t)rows * nb * 4) + 3 * align16((size_t)RP * 4) +
-         align16((size_t)rows * nb) + align16((size_t)nb) +
-         align16((size_t)nb * 4) + 16;
+         (gws ? 0 : page_bytes(rows, nb)) + 3 * align16((size_t)RP * 4) + 16;
 }
 
 // ---- operand helpers (PTX wrappers and split3: sm90_mma.cuh) -------------
@@ -230,13 +280,13 @@ template <typename U, int D>
 __device__ __forceinline__ const U* elem(const unsigned char* tile, int row,
                                          int d) {
   constexpr int RB = D * (int)sizeof(U), EPC = 16 / (int)sizeof(U);
-  return reinterpret_cast<const U*>(tile + row * RB +
-                                    swz<RB / 16>(row, d / EPC) * 16) +
+  return reinterpret_cast<const U*>(tile + ChunkRow<RB / 16>::at(row, d / EPC)) +
          d % EPC;
 }
 
-// copy `nrows` rows of RB bytes from src (row stride RB) into a swizzled
-// tile; rows >= valid are zero-filled
+// copy `nrows` rows of RB bytes from src (row stride RB) into a tile laid
+// out by ChunkRow (swizzled, or padded to an odd count of chunks); rows >=
+// valid are zero-filled
 template <int RB>
 __device__ __forceinline__ void stage_rows(unsigned char* dst, const void* src,
                                            int nrows, int valid) {
@@ -245,7 +295,7 @@ __device__ __forceinline__ void stage_rows(unsigned char* dst, const void* src,
   for (int i = threadIdx.x; i < nrows * CPR; i += kThreads) {
     const int row = i / CPR, ch = i - row * CPR;
     const bool ok = row < valid;
-    cp16(dst + row * RB + swz<CPR>(row, ch) * 16,
+    cp16(dst + ChunkRow<CPR>::at(row, ch),
          ok ? s + (size_t)row * RB + ch * 16 : s, ok);
   }
 }
@@ -310,12 +360,12 @@ __device__ __forceinline__ void vfrag(const unsigned char* tile, int k0, int d,
 // of terms i + j <= 2 (NK terms of k), smallest first.
 template <typename U, typename Gm, bool PERM, int NT, int NK>
 __device__ __forceinline__ void tile_scores(
-    const unsigned char* tile, const uint32_t (&qf)[kMTiles][Gm::KSD][3][4],
-    float (&s)[kMTiles][NT][4], int MT, int warp, int lane) {
+    const unsigned char* tile, const uint32_t (&qf)[Gm::MTL][Gm::KSD][3][4],
+    float (&s)[Gm::MTL][NT][4], int MT, int warp, int lane) {
   constexpr int D = Gm::DS * Gm::NWD;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int mt = 0; mt < kMTiles; ++mt)
+  for (int mt = 0; mt < Gm::MTL; ++mt)
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
@@ -331,9 +381,9 @@ __device__ __forceinline__ void tile_scores(
       for (int n = 0; n < NT; n += 2) {
         const int key = n * 8 + ((i >> 1) << 3) + (lane & 7);
         uint32_t b[4];
-        ldsm4(b, tile + key * RB + swz<RB / 16>(key, d0 / 8 + (i & 1)) * 16);
+        ldsm4(b, tile + ChunkRow<RB / 16>::at(key, d0 / 8 + (i & 1)));
 #pragma unroll
-        for (int mt = 0; mt < kMTiles; ++mt) {
+        for (int mt = 0; mt < Gm::MTL; ++mt) {
           if (mt >= MT) continue;
 #pragma unroll
           for (int L = 2; L >= 0; --L) {
@@ -348,7 +398,7 @@ __device__ __forceinline__ void tile_scores(
         uint32_t b[3][2];
         kfrag<U, D, PERM>(tile, n * 8 + g, d0, t, b);
 #pragma unroll
-        for (int mt = 0; mt < kMTiles; ++mt) {
+        for (int mt = 0; mt < Gm::MTL; ++mt) {
           if (mt >= MT) continue;
 #pragma unroll
           for (int L = 2; L >= 0; --L)
@@ -366,16 +416,16 @@ __device__ __forceinline__ void tile_scores(
 // NV terms, products of terms i + j <= 2, smallest first.
 template <typename U, typename Gm, int NT, int NV>
 __device__ __forceinline__ void tile_pv(const unsigned char* tile,
-                                        const float (&w)[kMTiles][NT][4],
-                                        float (&acc)[kMTiles][Gm::NTD][4],
+                                        const float (&w)[Gm::MTL][NT][4],
+                                        float (&acc)[Gm::MTL][Gm::NTD][4],
                                         int MT, int warp, int lane) {
   constexpr int D = Gm::DS * Gm::NWD;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int kk = 0; kk < NT / 2; ++kk) {
-    uint32_t pa[kMTiles][3][4];
+    uint32_t pa[Gm::MTL][3][4];
 #pragma unroll
-    for (int mt = 0; mt < kMTiles; ++mt) {
+    for (int mt = 0; mt < Gm::MTL; ++mt) {
       uint32_t x[3];
       split3(w[mt][2 * kk][0], w[mt][2 * kk][1], x);
       for (int i = 0; i < 3; ++i) pa[mt][i][0] = x[i];
@@ -395,9 +445,9 @@ __device__ __forceinline__ void tile_pv(const unsigned char* tile,
       for (int nd = 0; nd < Gm::NTD; nd += 2) {
         uint32_t b[4];
         const int ch = (warp * Gm::DS + nd * 8) / 8 + (i >> 1);
-        ldsm4t(b, tile + key * RB + swz<RB / 16>(key, ch) * 16);
+        ldsm4t(b, tile + ChunkRow<RB / 16>::at(key, ch));
 #pragma unroll
-        for (int mt = 0; mt < kMTiles; ++mt) {
+        for (int mt = 0; mt < Gm::MTL; ++mt) {
           if (mt >= MT) continue;
 #pragma unroll
           for (int L = 2; L >= 0; --L) {
@@ -412,7 +462,7 @@ __device__ __forceinline__ void tile_pv(const unsigned char* tile,
         uint32_t b[3][2];
         vfrag<U, D>(tile, kk * 16, warp * Gm::DS + nd * 8 + g, t, b);
 #pragma unroll
-        for (int mt = 0; mt < kMTiles; ++mt) {
+        for (int mt = 0; mt < Gm::MTL; ++mt) {
           if (mt >= MT) continue;
 #pragma unroll
           for (int L = 2; L >= 0; --L)
@@ -429,13 +479,13 @@ __device__ __forceinline__ void tile_pv(const unsigned char* tile,
 // compute warp holds the full scores, summed over the warps in one order.
 // Every thread of the block must call it (it holds a __syncthreads).
 template <typename Gm, int NT>
-__device__ __forceinline__ void exchange(float (&s)[kMTiles][NT][4], float* xch,
+__device__ __forceinline__ void exchange(float (&s)[Gm::MTL][NT][4], float* xch,
                                          int MT, int RP, int warp, int lane) {
   if constexpr (Gm::NWD > 1) {
     const int g = lane >> 2, t = lane & 3;
     if (warp < Gm::NWD) {
 #pragma unroll
-      for (int mt = 0; mt < kMTiles; ++mt) {
+      for (int mt = 0; mt < Gm::MTL; ++mt) {
         if (mt >= MT) continue;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
@@ -450,7 +500,7 @@ __device__ __forceinline__ void exchange(float (&s)[kMTiles][NT][4], float* xch,
     __syncthreads();
     if (warp < Gm::NWD) {
 #pragma unroll
-      for (int mt = 0; mt < kMTiles; ++mt) {
+      for (int mt = 0; mt < Gm::MTL; ++mt) {
         if (mt >= MT) continue;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
@@ -482,7 +532,7 @@ __host__ __device__ __forceinline__ size_t part_stride(int nsplit, int R, int D)
   return (size_t)(nsplit + 1) * R * (D + 2);
 }
 
-template <typename T, int D, int BS, bool UPPER>
+template <typename T, int D, int BS, bool UPPER, bool GWS>
 __global__ void __launch_bounds__(kThreads, 2)
 chunk_attn_kernel(const Params p) {
   using Gm = Geo<T, D, BS>;
@@ -498,7 +548,10 @@ chunk_attn_kernel(const Params p) {
   const bool compute = warp < Gm::NWD;  // this warp owns columns
   const bool bg_here = p.include_bg && split == 0;
   const int S = nb * BS;
-  Smem sm = smem_layout<T, D, BS>(smem_raw, R, RP, nb);
+  unsigned char* ws = nullptr;  // GWS: this block's slice of the workspace
+  if (GWS)
+    ws = p.ws + ((size_t)(r * gridDim.y + tile) * gridDim.z + split) * p.ws_stride;
+  Smem sm = smem_layout<T, D, BS, GWS>(smem_raw, ws, R, RP, nb);
 
   const float* kds_r = p.kds + (size_t)r * nb * D;
   const float* vds_r = p.vds + (size_t)r * nb * D;
@@ -575,9 +628,9 @@ chunk_attn_kernel(const Params p) {
   __syncthreads();
 
   // ---- query fragments (three bf16 terms) and the split's union pages ------
-  uint32_t qf[kMTiles][Gm::KSD][3][4];
+  uint32_t qf[Gm::MTL][Gm::KSD][3][4];
 #pragma unroll
-  for (int mt = 0; mt < kMTiles; ++mt)
+  for (int mt = 0; mt < Gm::MTL; ++mt)
 #pragma unroll
     for (int ks = 0; ks < Gm::KSD; ++ks) {
       const int c0 = CT::kPerm ? 4 * t : 2 * t, c1 = CT::kPerm ? 4 * t + 2 : 2 * t + 8;
@@ -608,10 +661,10 @@ chunk_attn_kernel(const Params p) {
     if (lane == 0) *sm.npages = cnt;
   }
   // per fragment row (mt, h): running max, row sum, stabilizer c, bg row sum
-  float mrow[kMTiles][2], lrow[kMTiles][2], crow[kMTiles][2], brow[kMTiles][2];
-  float acc[kMTiles][Gm::NTD][4];
+  float mrow[Gm::MTL][2], lrow[Gm::MTL][2], crow[Gm::MTL][2], brow[Gm::MTL][2];
+  float acc[Gm::MTL][Gm::NTD][4];
 #pragma unroll
-  for (int mt = 0; mt < kMTiles; ++mt) {
+  for (int mt = 0; mt < Gm::MTL; ++mt) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       mrow[mt][h] = kNegInf;
@@ -633,9 +686,9 @@ chunk_attn_kernel(const Params p) {
     const size_t tok = cache_row + (size_t)j * BS + k0;
     unsigned char* dst = sm.ring + slot * Gm::SLOT;
     stage_rows<Gm::RB>(dst, static_cast<const T*>(p.k) + tok * D, KT, KT);
-    stage_rows<Gm::RB>(dst + KT * Gm::RB, static_cast<const T*>(p.v) + tok * D, KT, KT);
+    stage_rows<Gm::RB>(dst + KT * Gm::RS, static_cast<const T*>(p.v) + tok * D, KT, KT);
     if constexpr (CT::kQuant) {
-      float* sc = reinterpret_cast<float*>(dst + 2 * KT * Gm::RB);
+      float* sc = reinterpret_cast<float*>(dst + 2 * KT * Gm::RS);
       for (int i = tid; i < KT / 2; i += kThreads) {  // KT/4 chunks each
         const bool isv = i >= KT / 4;
         const int ch = isv ? i - KT / 4 : i;
@@ -652,17 +705,17 @@ chunk_attn_kernel(const Params p) {
     if (st + 1 < nstage) load_stage(st + 1, (st + 1) & 1);
     cp_commit();
     const unsigned char* kt = sm.ring + (st & 1) * Gm::SLOT;
-    const unsigned char* vt = kt + KT * Gm::RB;
-    const float* sks = reinterpret_cast<const float*>(vt + KT * Gm::RB);
+    const unsigned char* vt = kt + KT * Gm::RS;
+    const float* sks = reinterpret_cast<const float*>(vt + KT * Gm::RS);
     const int j = sm.ul[st / Gm::SPP], k0 = (st % Gm::SPP) * KT;
     const int pos0 = pb_r[j] * BS + k0;  // logical position of the stage's key 0
-    float s[kMTiles][NTK][4];
+    float s[Gm::MTL][NTK][4];
     if (compute)
       tile_scores<T, Gm, CT::kPerm, NTK, CT::kTerms>(kt, qf, s, MT, warp, lane);
     exchange<Gm, NTK>(s, sm.xch, MT, RP, warp, lane);
     if (!compute) continue;
 #pragma unroll
-    for (int mt = 0; mt < kMTiles; ++mt) {
+    for (int mt = 0; mt < Gm::MTL; ++mt) {
       if (mt >= MT) continue;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -714,9 +767,9 @@ chunk_attn_kernel(const Params p) {
   __syncthreads();  // the ring is free again
 
   // ---- split 0: H-level fold and background (independent of the max) ------
-  float bga[kMTiles][Gm::NTD][4];
+  float bga[Gm::MTL][Gm::NTD][4];
 #pragma unroll
-  for (int mt = 0; mt < kMTiles; ++mt)
+  for (int mt = 0; mt < Gm::MTL; ++mt)
 #pragma unroll
     for (int nd = 0; nd < Gm::NTD; ++nd)
 #pragma unroll
@@ -730,7 +783,7 @@ chunk_attn_kernel(const Params p) {
     unsigned char* dst = sm.ring + slot * Gm::SLOT;
     stage_rows<Gm::RBF>(dst, hk_r + (size_t)e0 * D, kEntryTile, ne);
     if (values)
-      stage_rows<Gm::RBF>(dst + kEntryTile * Gm::RBF, hv_r + (size_t)e0 * D,
+      stage_rows<Gm::RBF>(dst + kEntryTile * Gm::RSF, hv_r + (size_t)e0 * D,
                           kEntryTile, ne);
   };
   if (UPPER && bg_here) {
@@ -742,14 +795,14 @@ chunk_attn_kernel(const Params p) {
       __syncthreads();
       if (ti + 1 < ntile) load_entries(ti + 1, (ti + 1) & 1, false);
       cp_commit();
-      float s[kMTiles][NTE][4];
+      float s[Gm::MTL][NTE][4];
       if (compute)
         tile_scores<float, Gm, CT::kPerm, NTE, 3>(sm.ring + (ti & 1) * Gm::SLOT,
                                                   qf, s, MT, warp, lane);
       exchange<Gm, NTE>(s, sm.xch, MT, RP, warp, lane);
       if (!compute) continue;
 #pragma unroll
-      for (int mt = 0; mt < kMTiles; ++mt)
+      for (int mt = 0; mt < Gm::MTL; ++mt)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           float mx = -INFINITY;
@@ -768,7 +821,7 @@ chunk_attn_kernel(const Params p) {
     __syncthreads();
     if (warp == 0 && t == 0)  // every compute warp holds the same c
 #pragma unroll
-      for (int mt = 0; mt < kMTiles; ++mt)
+      for (int mt = 0; mt < Gm::MTL; ++mt)
 #pragma unroll
         for (int h = 0; h < 2; ++h)
           if (mt < MT) sm.c[mt * 16 + g + 8 * h] = crow[mt][h];
@@ -797,7 +850,7 @@ chunk_attn_kernel(const Params p) {
     __syncthreads();
     if (compute) {  // Σ_y w·v̄ on CUDA cores, into this thread's C fragments
 #pragma unroll
-      for (int mt = 0; mt < kMTiles; ++mt) {
+      for (int mt = 0; mt < Gm::MTL; ++mt) {
         if (mt >= MT) continue;
         const int ra = mt * 16 + g, rb = ra + 8;
         brow[mt][0] = sm.bgs[ra];
@@ -829,13 +882,13 @@ chunk_attn_kernel(const Params p) {
       if (ti + 1 < ntile) load_entries(ti + 1, (ti + 1) & 1, true);
       cp_commit();
       const unsigned char* ht = sm.ring + (ti & 1) * Gm::SLOT;
-      float s[kMTiles][NTE][4];
+      float s[Gm::MTL][NTE][4];
       if (compute)
         tile_scores<float, Gm, CT::kPerm, NTE, 3>(ht, qf, s, MT, warp, lane);
       exchange<Gm, NTE>(s, sm.xch, MT, RP, warp, lane);
       if (!compute) continue;
 #pragma unroll
-      for (int mt = 0; mt < kMTiles; ++mt)
+      for (int mt = 0; mt < Gm::MTL; ++mt)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           float sum = 0.f;
@@ -852,7 +905,7 @@ chunk_attn_kernel(const Params p) {
             }
           brow[mt][h] += quad_sum(sum);
         }
-      tile_pv<float, Gm, NTE, 3>(ht + kEntryTile * Gm::RBF, s, bga, MT, warp, lane);
+      tile_pv<float, Gm, NTE, 3>(ht + kEntryTile * Gm::RSF, s, bga, MT, warp, lane);
     }
     cp_wait_all();
   }
@@ -861,7 +914,7 @@ chunk_attn_kernel(const Params p) {
   // ---- normalize here, or hand the partial to the combine ------------------
   if (p.nsplit == 1) {
 #pragma unroll
-    for (int mt = 0; mt < kMTiles; ++mt) {
+    for (int mt = 0; mt < Gm::MTL; ++mt) {
       if (mt >= MT) continue;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -890,7 +943,7 @@ chunk_attn_kernel(const Params p) {
   float* bgn = base + (size_t)p.nsplit * R * (D + 2);
   float* cb = bgn + (size_t)R * D;
 #pragma unroll
-  for (int mt = 0; mt < kMTiles; ++mt) {
+  for (int mt = 0; mt < Gm::MTL; ++mt) {
     if (mt >= MT) continue;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -950,51 +1003,82 @@ chunk_attn_combine_kernel(const float* __restrict__ part, float* __restrict__ ou
 // ---- host side ----------------------------------------------------------------
 using KernelFn = void (*)(Params);
 
+// The workspace program is built for the two-level program at block 128,
+// the one that serves long contexts: the H-level program's fine window and
+// the (16, 16) smoke shape stay within shared memory (the wrapper's plan
+// refuses a launch that would need one of them past it).
 template <typename T, int D, int BS>
-KernelFn pick_upper(bool upper) {
-  return upper ? chunk_attn_kernel<T, D, BS, true> : chunk_attn_kernel<T, D, BS, false>;
+KernelFn pick_program(bool upper, bool gws) {
+  if (gws) {
+    if constexpr (BS == 128) {
+      if (!upper) return chunk_attn_kernel<T, D, BS, false, true>;
+    }
+    return nullptr;
+  }
+  return upper ? chunk_attn_kernel<T, D, BS, true, false>
+               : chunk_attn_kernel<T, D, BS, false, false>;
 }
 
 template <typename T>
-KernelFn pick_shape(int D, int b, bool upper) {
-  if (D == 128 && b == 128) return pick_upper<T, 128, 128>(upper);
-  if (D == 64 && b == 128) return pick_upper<T, 64, 128>(upper);
-  if (D == 16 && b == 16) return pick_upper<T, 16, 16>(upper);
+KernelFn pick_shape(int D, int b, bool upper, bool gws) {
+  if (D == 128 && b == 128) return pick_program<T, 128, 128>(upper, gws);
+  if (D == 64 && b == 128) return pick_program<T, 64, 128>(upper, gws);
+  if (D == 80 && b == 128) return pick_program<T, 80, 128>(upper, gws);
+  if (D == 16 && b == 16) return pick_program<T, 16, 16>(upper, gws);
   return nullptr;
 }
 
 // dtype: 0 = bf16, 1 = fp32, 2 = int8; null for a shape not instantiated
-KernelFn pick(int dtype, int D, int b, bool upper) {
-  if (dtype == 0) return pick_shape<__nv_bfloat16>(D, b, upper);
-  if (dtype == 1) return pick_shape<float>(D, b, upper);
-  if (dtype == 2) return pick_shape<int8_t>(D, b, upper);
+KernelFn pick(int dtype, int D, int b, bool upper, bool gws) {
+  if (dtype == 0) return pick_shape<__nv_bfloat16>(D, b, upper, gws);
+  if (dtype == 1) return pick_shape<float>(D, b, upper, gws);
+  if (dtype == 2) return pick_shape<int8_t>(D, b, upper, gws);
   return nullptr;
 }
 
-template <typename T>
-size_t smem_of_shape(int D, int b, int rows, int RP, int nb) {
-  if (D == 128 && b == 128) return smem_bytes<T, 128, 128>(rows, RP, nb);
-  if (D == 64 && b == 128) return smem_bytes<T, 64, 128>(rows, RP, nb);
-  if (D == 16 && b == 16) return smem_bytes<T, 16, 16>(rows, RP, nb);
-  return 0;
+// (dynamic shared memory, m16 row tiles a block holds) of a built shape
+template <typename T, int D, int BS>
+void shape_info(int rows, int RP, int nb, bool gws, size_t* smem, int* mtl) {
+  *smem = smem_bytes<T, D, BS>(rows, RP, nb, gws);
+  *mtl = Geo<T, D, BS>::MTL;
 }
 
-size_t smem_of(int dtype, int D, int b, int rows, int nb) {
+template <typename T>
+bool info_of_shape(int D, int b, int rows, int RP, int nb, bool gws,
+                   size_t* smem, int* mtl) {
+  if (D == 128 && b == 128) shape_info<T, 128, 128>(rows, RP, nb, gws, smem, mtl);
+  else if (D == 64 && b == 128) shape_info<T, 64, 128>(rows, RP, nb, gws, smem, mtl);
+  else if (D == 80 && b == 128) shape_info<T, 80, 128>(rows, RP, nb, gws, smem, mtl);
+  else if (D == 16 && b == 16) shape_info<T, 16, 16>(rows, RP, nb, gws, smem, mtl);
+  else return false;
+  return true;
+}
+
+// false for a (dtype, D, b) not built
+bool info(int dtype, int D, int b, int rows, int nb, bool gws, size_t* smem,
+          int* mtl) {
   const int RP = 16 * ((rows + 15) / 16);
-  if (dtype == 0) return smem_of_shape<__nv_bfloat16>(D, b, rows, RP, nb);
-  if (dtype == 1) return smem_of_shape<float>(D, b, rows, RP, nb);
-  if (dtype == 2) return smem_of_shape<int8_t>(D, b, rows, RP, nb);
-  return 0;
+  if (dtype == 0) return info_of_shape<__nv_bfloat16>(D, b, rows, RP, nb, gws, smem, mtl);
+  if (dtype == 1) return info_of_shape<float>(D, b, rows, RP, nb, gws, smem, mtl);
+  if (dtype == 2) return info_of_shape<int8_t>(D, b, rows, RP, nb, gws, smem, mtl);
+  return false;
+}
+
+size_t smem_of(int dtype, int D, int b, int rows, int nb, bool gws) {
+  size_t smem = 0;
+  int mtl = 0;
+  return info(dtype, D, b, rows, nb, gws, &smem, &mtl) ? smem : 0;
 }
 
 // Allow `smem` bytes of dynamic shared memory (and the largest carveout, so
 // that two blocks fit on an SM); done once per kernel and size.
 cudaError_t configure(KernelFn kernel, int smem) {
-  static KernelFn done_fn[16];
-  static int done_smem[16];
+  constexpr int kSlotsCfg = 64;  // >= the instantiations
+  static KernelFn done_fn[kSlotsCfg];
+  static int done_smem[kSlotsCfg];
   int slot = 0;
-  while (slot < 16 && done_fn[slot] && done_fn[slot] != kernel) ++slot;
-  if (slot < 16 && done_fn[slot] == kernel && done_smem[slot] >= smem)
+  while (slot < kSlotsCfg && done_fn[slot] && done_fn[slot] != kernel) ++slot;
+  if (slot < kSlotsCfg && done_fn[slot] == kernel && done_smem[slot] >= smem)
     return cudaSuccess;
   cudaError_t err = cudaFuncSetAttribute(
       reinterpret_cast<const void*>(kernel),
@@ -1004,7 +1088,7 @@ cudaError_t configure(KernelFn kernel, int smem) {
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  if (slot < 16) {
+  if (slot < kSlotsCfg) {
     done_fn[slot] = kernel;
     done_smem[slot] = smem;
   }
@@ -1013,16 +1097,28 @@ cudaError_t configure(KernelFn kernel, int smem) {
 
 }  // namespace
 
-// Dynamic shared memory of one block, or 0 for a (dtype, D, b) not built.
+// Dynamic shared memory of one block of the shared-memory program, or 0 for
+// a (dtype, D, b) not built.
 extern "C" long long chunk_attn_smem_bytes(int dtype, int D, int b, int rows,
                                            int nb) {
-  return static_cast<long long>(smem_of(dtype, D, b, rows, nb));
+  return static_cast<long long>(smem_of(dtype, D, b, rows, nb, false));
+}
+
+// The same for the workspace program (the page arrays in global memory).
+extern "C" long long chunk_attn_smem_bytes_ws(int dtype, int D, int b,
+                                              int rows, int nb) {
+  return static_cast<long long>(smem_of(dtype, D, b, rows, nb, true));
+}
+
+// Bytes of one block's slice of the workspace program's global workspace.
+extern "C" long long chunk_attn_workspace_bytes(int rows, int nb) {
+  return static_cast<long long>(page_bytes(rows, nb));
 }
 
 // Blocks of one program that fit on an SM at `smem` bytes (occupancy API).
 extern "C" int chunk_attn_blocks_per_sm(int dtype, int D, int b, int upper,
-                                        int smem, int* blocks) {
-  KernelFn kernel = pick(dtype, D, b, upper != 0);
+                                        int gws, int smem, int* blocks) {
+  KernelFn kernel = pick(dtype, D, b, upper != 0, gws != 0);
   if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = configure(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1034,7 +1130,10 @@ extern "C" int chunk_attn_blocks_per_sm(int dtype, int D, int b, int upper,
 // NU > 0 launches the H-level program over hk / hv / hcnt (background on
 // only); NU = 0 the two-level one (the three pointers unused). nsplit > 1
 // writes partials to `part` (part_stride floats per (row, tile)) for
-// chunk_attn_combine_launch; nsplit = 1 writes `out`.
+// chunk_attn_combine_launch; nsplit = 1 writes `out`. A non-null `ws`
+// launches the workspace program: each block keeps its page arrays in its
+// chunk_attn_workspace_bytes(G·c_tile, nb) bytes of `ws` (16-byte aligned,
+// one slice per block of the grid).
 // Returns cudaGetLastError() after the launch (0 = success).
 extern "C" int chunk_attn_launch(const void* q, const void* qpos,
                                  const void* kds, const void* vds,
@@ -1042,15 +1141,20 @@ extern "C" int chunk_attn_launch(const void* q, const void* qpos,
                                  const void* k, const void* v, const void* ks,
                                  const void* vs, const void* hk,
                                  const void* hv, const void* hcnt, void* out,
-                                 void* part, int B, int Hkv, int G, int C,
-                                 int D, int nb, int b, int m, int c_tile,
-                                 int NU, int nsplit, float scale, int dtype,
-                                 int include_bg, int smem, void* stream) {
+                                 void* part, void* ws, int B, int Hkv, int G,
+                                 int C, int D, int nb, int b, int m,
+                                 int c_tile, int NU, int nsplit, float scale,
+                                 int dtype, int include_bg, int smem,
+                                 void* stream) {
   const int rows = G * c_tile, mtiles = (rows + 15) / 16;
-  KernelFn kernel = pick(dtype, D, b, NU > 0);
-  if (!kernel || NU < 0 || (NU > 0 && !include_bg) || mtiles > kMTiles ||
-      nsplit < 1 || nsplit > nb || (nsplit > 1 && !part) ||
-      (size_t)smem < smem_of(dtype, D, b, rows, nb))
+  const bool gws = ws != nullptr;
+  KernelFn kernel = pick(dtype, D, b, NU > 0, gws);
+  size_t need = 0;
+  int mtl = 0;
+  if (!kernel || !info(dtype, D, b, rows, nb, gws, &need, &mtl) || NU < 0 ||
+      (NU > 0 && !include_bg) || mtiles > mtl || nsplit < 1 || nsplit > nb ||
+      (nsplit > 1 && !part) || (size_t)smem < need ||
+      (reinterpret_cast<uintptr_t>(ws) & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = configure(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1070,6 +1174,8 @@ extern "C" int chunk_attn_launch(const void* q, const void* qpos,
   p.hcnt = static_cast<const float*>(hcnt);
   p.out = static_cast<float*>(out);
   p.part = static_cast<float*>(part);
+  p.ws = static_cast<unsigned char*>(ws);
+  p.ws_stride = page_bytes(rows, nb);
   p.Hkv = Hkv;
   p.G = G;
   p.C = C;

@@ -103,16 +103,17 @@ __device__ __forceinline__ int swz(int row, int ch) {
   return ch ^ (row & (cmin(CPR, 8) - 1));
 }
 
-// Shared-memory layout of a bf16 tile row of D elements (D / 8 16-byte
-// chunks) read by ldmatrix, which takes the same chunk of 8 consecutive rows
-// in one pass. A power-of-two count of chunks is XOR-swizzled (swz) in a row
-// of its own width. Any other count (D = 80: ten chunks) is padded to an odd
+// Shared-memory layout of a tile row of N (CPR) 16-byte chunks read by
+// ldmatrix (or by per-lane fragment loads), which take the same chunk of 8
+// consecutive rows in one pass. A power-of-two count of chunks is
+// XOR-swizzled (swz) in a row of its own width. Any other count (D = 80:
+// ten bf16 chunks, five int8 ones, twenty fp32 ones) is padded to an odd
 // count and kept in order: with an odd stride of 16-byte units, the same
 // chunk of 8 consecutive rows falls in 8 distinct bank groups. The padding
 // chunk is never written or read.
-template <int D>
-struct PlaneRow {
-  static constexpr int CPR = D / 8;                 // data chunks a row
+template <int N>
+struct ChunkRow {
+  static constexpr int CPR = N;                     // data chunks a row
   static constexpr bool SWZ = (CPR & (CPR - 1)) == 0;
   static constexpr int BYTES = (SWZ ? CPR : (CPR | 1)) * 16;  // row stride
   // byte offset of chunk ch of row `row`
@@ -120,5 +121,9 @@ struct PlaneRow {
     return row * BYTES + (SWZ ? swz<CPR>(row, ch) : ch) * 16;
   }
 };
+
+// a bf16 row of D elements (D / 8 chunks)
+template <int D>
+struct PlaneRow : ChunkRow<D / 8> {};
 
 }  // namespace

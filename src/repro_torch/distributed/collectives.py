@@ -31,6 +31,11 @@ waits for the card anyway (its seconds are wall time, the card
 synchronized at both ends), a CPU one runs on the host, and an NCCL one
 stays queued on the stream like a kernel, timed by CUDA events that
 ``snapshot`` reads.
+
+Under a ``launch.mesh.AbstractMesh`` (the dry run) an op calls nothing:
+it records its payload as any op does (``STATS``; ``STATS.by_axis`` keeps
+the bytes by op and axis) and returns an empty tensor of the result's
+local shape on the input's device (meta in the dry run).
 """
 from __future__ import annotations
 
@@ -53,11 +58,14 @@ class CommStats:
 
     def reset(self) -> None:
         self.ops: dict = {}
+        self.by_axis: dict = {}  # (op, axis) -> payload bytes
         self.staged: set = set()
         self.pending: list = []  # (op, start, end) CUDA events not yet read
 
     def add(self, op: str, nbytes: int, seconds: float, staged_s: float,
-            staged: bool) -> None:
+            staged: bool, axis: str | None = None) -> None:
+        if axis is not None:
+            self.by_axis[op, axis] = self.by_axis.get((op, axis), 0) + nbytes
         s = self.ops.setdefault(op, {"calls": 0, "bytes": 0, "seconds": 0.0,
                                      "staging_seconds": 0.0})
         s["calls"] += 1
@@ -67,10 +75,11 @@ class CommStats:
         if staged:
             self.staged.add(op)
 
-    def add_events(self, op: str, nbytes: int, start, end) -> None:
+    def add_events(self, op: str, nbytes: int, start, end,
+                   axis: str | None = None) -> None:
         """An unstaged collective on the card, timed by ``start`` / ``end``
         (read once they have completed, without waiting here)."""
-        self.add(op, nbytes, 0.0, 0.0, False)
+        self.add(op, nbytes, 0.0, 0.0, False, axis)
         self.pending = [e for e in self.pending if not self._read(*e, False)]
         self.pending.append((op, start, end))
 
@@ -96,10 +105,15 @@ def axis_size(mesh, axis: str) -> int:
     return mesh.shape[axis] if mesh is not None and axis in mesh.shape else 1
 
 
-def _run(op: str, t, mesh, axis: str, fn):
+def _run(op: str, t, mesh, axis: str, fn, shape=None):
     """Run ``fn(host_or_device_tensor, group) -> tensor`` on ``t``, staged
-    through host memory on a gloo mesh when ``t`` is a CUDA tensor."""
+    through host memory on a gloo mesh when ``t`` is a CUDA tensor. Under
+    an abstract mesh: record, and return an empty tensor of ``shape``
+    (default: ``t``'s)."""
     nbytes = t.numel() * t.element_size()
+    if getattr(mesh, "abstract", False):
+        STATS.add(op, nbytes, 0.0, 0.0, False, axis)
+        return t.new_empty(t.shape if shape is None else shape)
     x = t.detach()
     if t.is_cuda and mesh.backend != "gloo":  # NCCL: queued on the stream
         start = torch.cuda.Event(enable_timing=True)
@@ -107,7 +121,7 @@ def _run(op: str, t, mesh, axis: str, fn):
         start.record()
         out = fn(x.contiguous(), mesh.group(axis))
         end.record()
-        STATS.add_events(op, nbytes, start, end)
+        STATS.add_events(op, nbytes, start, end, axis)
         return out
     staged = t.is_cuda
     if staged:  # the copy to the host below waits for the card anyway
@@ -123,7 +137,7 @@ def _run(op: str, t, mesh, axis: str, fn):
         out = out.to(t.device)
         torch.cuda.synchronize(t.device)
         stage_s += time.perf_counter() - t1
-    STATS.add(op, nbytes, time.perf_counter() - t0, stage_s, staged)
+    STATS.add(op, nbytes, time.perf_counter() - t0, stage_s, staged, axis)
     return out
 
 
@@ -159,7 +173,9 @@ def all_gather(t, mesh, axis: str, dim: int):
         dist.all_gather(parts, x, group=group)
         return torch.cat(parts, dim=dim)
 
-    return _run("all_gather", t, mesh, axis, fn)
+    shape = list(t.shape)
+    shape[dim] *= n
+    return _run("all_gather", t, mesh, axis, fn, shape)
 
 
 def all_to_all(t, mesh, axis: str, split_dim: int, concat_dim: int):
@@ -185,7 +201,10 @@ def all_to_all(t, mesh, axis: str, split_dim: int, concat_dim: int):
         return out.reshape(shp[:concat_dim] + (n * shp[concat_dim + 1],)
                            + shp[concat_dim + 2:])
 
-    return _run("all_to_all", t, mesh, axis, fn)
+    shape = list(t.shape)
+    shape[split_dim] //= n
+    shape[concat_dim] *= n
+    return _run("all_to_all", t, mesh, axis, fn, shape)
 
 
 def _rank_slice(t, mesh, axis: str, dim: int):

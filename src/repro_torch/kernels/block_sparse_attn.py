@@ -32,6 +32,10 @@ Two implementations of each pass, chosen by the tensors' device:
     backward's two halves alone, each the twin of one backward kernel).
 
 There is no other route: a CUDA tensor never takes the plain version.
+Tensors on the meta device (the dry run, ``launch/dryrun.py``) take the
+meta route: the kernels' shape check and plan, then empty outputs of their
+shapes, each call's operations and bytes recorded in ``cost.LEDGER`` (a
+shape no kernel is built for is recorded there, not raised).
 """
 from __future__ import annotations
 
@@ -42,13 +46,16 @@ import torch
 
 from repro_torch.core.mra import NEG_INF
 
+from . import cost
+
 # (head dim padded to a multiple of 16, block size b) the three kernels are
 # built for: qwen3-1.7b, the reference's (64, 64) and smoke (16, 16) shapes,
 # granite-moe-3b-a800m and internvl2-1b, hubert-xlarge, the
-# H-Transformer-1D baseline (core/baselines.py: head dim 64, block 32) and
+# H-Transformer-1D baseline (core/baselines.py: head dim 64, block 32),
+# examples/train_lm.py's small preset (head dim 32, block 32) and
 # recurrentgemma-9b's local layers under MRA-2 (head dim 256)
 KERNEL_SHAPES = ((128, 128), (64, 64), (16, 16), (64, 128), (80, 128),
-                 (64, 32), (256, 128))
+                 (64, 32), (32, 32), (256, 128))
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _KERNELS = {"fwd": 0, "dkv": 1, "dq": 2}  # the kernels of the source
 _SM_SMEM = 233472   # shared memory of an SM (228 KB)
@@ -589,12 +596,60 @@ bsa_bwd_dkv.launches = 0
 
 
 # --------------------------------------------------------------------------- #
+# the meta route (the dry run)
+# --------------------------------------------------------------------------- #
+_PLAN = {"bsa_fwd": "fwd", "bsa_bwd_dq": "dq", "bsa_bwd_dkv": "dkv"}
+SMS = 132  # the H100's SMs, for the meta route's plan
+
+
+def _meta_record(name, q, k, m2, block_size):
+    """Check and plan the launch of ``name`` on meta q / k as on the card
+    and record its cost at the budget (every pair full); a shape not built
+    is recorded in ``cost.LEDGER.unbuilt``."""
+    BHG, n, d = q.shape
+    BHKV = k.shape[0]
+    b = block_size
+    try:
+        tiles = (BHKV if name == "bsa_bwd_dkv" else BHG) * (n // b)
+        geo = launch_geometry(_PLAN[name], q.dtype, d, b, tiles)
+        if geo["smem_bytes"] > _SM_SMEM - _BLOCK_RESERVED:
+            raise ValueError(f"{name}: {geo['smem_bytes']} bytes of shared "
+                             "memory")
+    except ValueError:
+        cost.LEDGER.refuse(name, (padded_dim(d), b))
+        return
+    key = f"q{tuple(q.shape)} kv{tuple(k.shape)} b={b}"
+    cost.LEDGER.record(name, key, cost.bsa_cost(
+        name, BHG, BHKV, n, padded_dim(d), b, m2, q.element_size(),
+        full=BHG * m2))
+
+
+def _meta_forward(q, k, c, x_idx, block_size):
+    _meta_record("bsa_fwd", q, k, x_idx.shape[1], block_size)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    BHG, n, d = q.shape
+    return (torch.empty((BHG, n, d), **f32), torch.empty((BHG, n), **f32),
+            torch.empty((BHG, n), **f32), None)
+
+
+def _meta_backward(q, k, x_idx, block_size):
+    for name in ("bsa_bwd_dq", "bsa_bwd_dkv"):
+        _meta_record(name, q, k, x_idx.shape[1], block_size)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    return (torch.empty(q.shape, **f32), torch.empty(k.shape, **f32),
+            torch.empty(k.shape, **f32))
+
+
+# --------------------------------------------------------------------------- #
 # the autograd.Function
 # --------------------------------------------------------------------------- #
 def _forward(q, k, v, c, x_idx, y_idx, flags, key_mask, scale, block_size):
     """(out, rowsum, mt, pairs): the kernel for CUDA tensors, the plain
-    version for CPU tensors. ``pairs`` is the ``QueryPairs`` the kernel
-    walked, kept for the dq kernel (None on the CPU)."""
+    version for CPU tensors, the meta route for meta ones. ``pairs`` is
+    the ``QueryPairs`` the kernel walked, kept for the dq kernel (None on
+    the CPU)."""
+    if q.is_meta:
+        return _meta_forward(q, k, c, x_idx, block_size)
     if not q.is_cuda:
         return (*block_sparse_attention_ref(q, k, v, x_idx, y_idx, flags, c,
                                             key_mask, scale=scale,
@@ -607,7 +662,10 @@ def _forward(q, k, v, c, x_idx, y_idx, flags, key_mask, scale, block_size):
 def _backward(q, k, v, c, mt, pairs, x_idx, y_idx, flags, key_mask, do, dr,
               scale, block_size):
     """(dq, dk, dv) fp32: the kernels for CUDA tensors, the plain version
-    (which recomputes mt from c) for CPU tensors."""
+    (which recomputes mt from c) for CPU tensors, the meta route for meta
+    ones."""
+    if q.is_meta:
+        return _meta_backward(q, k, x_idx, block_size)
     if not q.is_cuda:
         return block_sparse_attention_bwd_ref(
             q, k, v, c, x_idx, y_idx, flags, key_mask, do, dr, scale=scale,

@@ -24,15 +24,24 @@ the live entries' scores join the row stabilizer ``c`` before any exp, and
 launches apart from the two-level program's (``upper_launches``).
 
 Split decode: when the (batch·kv-head, query-tile) grid is too small for
-the card (``split_plan``: fewer than two blocks per SM, as at decode), each
-row's pages are cut into ``nsplit`` contiguous physical ranges, one block
-each; the blocks write partials to scratch and ``chunk_attn_combine_kernel``
+the card (``split_plan``: under one wave of resident blocks, as at
+decode), each row's pages are cut into ``nsplit`` contiguous physical
+ranges, one block each; the blocks write partials to scratch and ``chunk_attn_combine_kernel``
 merges them (``combine_launches``). ``chunk_attention_split_ref`` is the
 plain version of that split-and-merge arithmetic.
 
 Shapes: the kernel is built for the (head dim, block size) pairs of
 ``KERNEL_SHAPES``; the wrapper zero-pads a head dim to the next multiple
-of 16 (``pad_head_dim``) and raises on a pair that is not built.
+of 16 (``pad_head_dim``) and raises on a pair that is not built. At
+D = 80 a tile holds at most 16 query rows (``tile_rows``).
+
+Page count: each query row's page arrays (coarse scores, selection scores,
+flags, the tile's union) take rows·nb·9 + nb·5 bytes. Where they fit in a
+block's shared memory the kernel keeps them there; past that (nb beyond
+about 1000 pages at a C = 128 tile) ``launch_geometry`` plans the
+workspace program, which keeps them in a global workspace the wrapper
+allocates before the launch (``workspace_bytes`` a block). Both programs
+do the same arithmetic in the same order.
 
 Dual mode: the kernel runs at two query-tile widths — ``latency``
 (C_tile = 1, decode) and ``throughput`` (C_tile = min(C, 8), chunked
@@ -40,6 +49,12 @@ prefill; fewer for G > 4, so that a tile holds at most 32 query rows) —
 with ``auto`` resolving from C. Every row's arithmetic is the same in both
 modes; only the tiling (and so which rows share a page fetch) changes.
 Forward only: the serving path is never differentiated.
+
+Meta tensors (the dry run, ``launch/dryrun.py``) take the meta route: the
+shape check and ``plan`` at 132 SMs, the workspace and split scratch
+allocated as a launch would, an empty output, the call's operations and
+bytes at the selection budget in ``cost.LEDGER`` (a shape no kernel is
+built for is recorded there, not raised).
 """
 from __future__ import annotations
 
@@ -51,14 +66,19 @@ import torch
 from repro_torch.core import mra_decode
 from repro_torch.core.mra import NEG_INF
 
-from .block_sparse_attn import padded_dim
+from . import cost
+from .block_sparse_attn import _BLOCK_RESERVED, _SM_SMEM, SMS, padded_dim
 
 KERNEL_MODES = ("auto", "latency", "throughput")
 THROUGHPUT_C_TILE = 8  # query-tile width of the throughput instantiation
 # (head dim D padded to a multiple of 16, block size b) the kernel is built
 # for: qwen3-1.7b / llama3.2-3b / qwen2-7b / yi-6b, their smoke configs,
-# granite-moe-3b-a800m
-KERNEL_SHAPES = ((128, 128), (16, 16), (64, 128))
+# granite-moe-3b-a800m and internvl2-1b, hubert-xlarge
+KERNEL_SHAPES = ((128, 128), (16, 16), (64, 128), (80, 128))
+# the shapes whose two-level program is also built with the page arrays in
+# a global workspace (the H-level program's fine window and the smoke shape
+# stay within shared memory)
+WORKSPACE_SHAPES = ((128, 128), (64, 128), (80, 128))
 MAX_TILE_ROWS = 32  # G·C_tile query rows of one tile (two m16 row tiles)
 _MAX_SMEM = 232448  # dynamic shared memory a block may use on sm_90 (227 KB)
 _CACHE_DTYPES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
@@ -79,14 +99,29 @@ def resolve_kernel_mode(mode: str, C: int) -> str:
     return mode
 
 
-def tile_width(mode: str, C: int, G: int) -> int:
-    """Query positions per tile (C_tile) of the resolved ``mode``."""
-    if G > MAX_TILE_ROWS:
+def warp_columns(D: int) -> tuple:
+    """(warps splitting D, columns a warp owns); mirrors ``Geo`` in the
+    source: a multiple of 32 columns a warp, else one warp for all of D."""
+    nwd = min(4, D // 32) if D >= 32 and D % 32 == 0 else 1
+    return nwd, D // nwd
+
+
+def tile_rows(D: int) -> int:
+    """Query rows a tile holds at head dim D: two m16 tiles, one where a
+    warp owns more than 32 columns (D = 80)."""
+    return 16 if warp_columns(D)[1] > 32 else MAX_TILE_ROWS
+
+
+def tile_width(mode: str, C: int, G: int, D: int | None = None) -> int:
+    """Query positions per tile (C_tile) of the resolved ``mode`` (at head
+    dim ``D``, as launched; None: a D of two row tiles)."""
+    rows = MAX_TILE_ROWS if D is None else tile_rows(D)
+    if G > rows:
         raise ValueError(f"{G} query heads per KV head exceed the kernel's "
-                         f"{MAX_TILE_ROWS} rows a tile")
+                         f"{rows} rows a tile")
     if resolve_kernel_mode(mode, C) == "latency":
         return 1
-    return min(C, THROUGHPUT_C_TILE, MAX_TILE_ROWS // G)
+    return min(C, THROUGHPUT_C_TILE, rows // G)
 
 
 def split_ranges(nb: int, nsplit: int):
@@ -95,18 +130,23 @@ def split_ranges(nb: int, nsplit: int):
     return [(s * nb // nsplit, (s + 1) * nb // nsplit) for s in range(nsplit)]
 
 
-def split_plan(B: int, Hkv: int, tiles: int, nb: int, sms: int):
-    """(nsplit, page ranges) for a grid of B·Hkv·tiles blocks on ``sms`` SMs.
+def split_plan(B: int, Hkv: int, tiles: int, nb: int, sms: int,
+               per_sm: int = 2):
+    """(nsplit, page ranges) for a grid of B·Hkv·tiles blocks on ``sms`` SMs
+    that hold ``per_sm`` blocks each.
 
-    nsplit = 1 when the grid already has two blocks per SM (every chunked
-    prefill at C >= 128 of the served configs); else the least power of two
-    that reaches 2·sms blocks, at most the largest power of two <= nb (so
-    every split owns a page; at B = 2, Hkv = 8, nb = 32 a cap of nb/2 would
-    stop at 256 blocks, under the 264 of 132 SMs).
+    Every split repeats its row's selection over all nb pages, so splitting
+    pays only while the splits run side by side: nsplit is the largest
+    power of two (at most nb, so every split owns a page) whose grid fits
+    one wave of resident blocks, sms·per_sm; 1 where the unsplit grid fills
+    that wave already (every chunked prefill at C >= 128 of the served
+    configs). A second wave repeats the selection and hides no more
+    latency (PERF.md §6: one wave was the fastest count, or within 5% of
+    it, at each measured decode and prefill shape).
     """
     blocks = B * Hkv * tiles
     nsplit = 1
-    while blocks * nsplit < 2 * sms and 2 * nsplit <= nb:
+    while blocks * nsplit * 2 <= sms * per_sm and 2 * nsplit <= nb:
         nsplit *= 2
     return nsplit, split_ranges(nb, nsplit)
 
@@ -115,26 +155,44 @@ def _a16(x: int) -> int:
     return (x + 15) // 16 * 16
 
 
+def row_stride(nbytes: int) -> int:
+    """Bytes between staged rows of ``nbytes``: the row itself when its
+    16-byte chunks number a power of two (XOR-swizzled), else padded to an
+    odd count of chunks (``ChunkRow`` in ``csrc/sm90_mma.cuh``)."""
+    chunks = nbytes // 16
+    return nbytes if chunks & (chunks - 1) == 0 else (chunks | 1) * 16
+
+
+def workspace_bytes(rows: int, nb: int) -> int:
+    """Bytes of one block's per-row page arrays (``page_bytes`` in the
+    source): coarse_m and the selection scores / w (rows x nb floats), the
+    selection flags (rows x nb), the page union (nb) and the split's union
+    list (nb ints). In shared memory, or the block's slice of the
+    workspace program's global workspace."""
+    return (2 * _a16(rows * nb * 4) + _a16(rows * nb) + _a16(nb)
+            + _a16(nb * 4))
+
+
 def smem_bytes(G: int, c_tile: int, D: int, b: int, nb: int,
-               cache_dtype) -> int:
+               cache_dtype, workspace: bool = False) -> int:
     """Dynamic shared memory of one block; mirrors ``smem_layout`` in the
-    source. The same for both programs: the H-level fold streams the
-    collapsed entries through the ring in tiles of 16, whatever their count.
-    """
+    source (``workspace``: the program whose page arrays are in global
+    memory). The same for the two-level and H-level programs: the fold
+    streams the collapsed entries through the ring in tiles of 16, whatever
+    their count."""
     size, keys, quant = _STORAGE[cache_dtype]
     rows = G * c_tile
     rp = 16 * -(-rows // 16)              # rows padded to m16 tiles
     kt = min(keys, b)                     # keys per ring stage
-    nwd = 1 if D < 32 else min(4, D // 32)  # warps splitting D
-    stage = 2 * kt * D * size + (2 * kt * 4 if quant else 0)
-    slot = _a16(max(stage, 2 * _ENTRY_TILE * D * 4))
+    nwd = warp_columns(D)[0]              # warps splitting D
+    stage = 2 * kt * row_stride(D * size) + (2 * kt * 4 if quant else 0)
+    slot = _a16(max(stage, 2 * _ENTRY_TILE * row_stride(D * 4)))
     xs = max(kt, _ENTRY_TILE) + 8         # padded exchange row (floats)
     return (_a16(max(_RING_SLOTS * slot, rp * D * 4))  # ring / q tile
             + (_a16(nwd * rp * xs * 4) if nwd > 1 else 0)  # score exchange
-            + 2 * _a16(rows * nb * 4)     # coarse_m, selection scores / w
+            + (0 if workspace else workspace_bytes(rows, nb))  # page arrays
             + 3 * _a16(rp * 4)            # qpos, c, background row sums
-            + _a16(rows * nb) + _a16(nb)  # selection flags, page union
-            + _a16(nb * 4) + 16)          # the split's union list, its count
+            + 16)                         # the union list's count
 
 
 def _exact_inputs(pre, k_cache, v_cache, q_pos, m, k_scale, v_scale,
@@ -300,6 +358,9 @@ def chunk_attention_kernel(pre, k_cache, v_cache, q_pos, *, m: int,
             f"q_pos shape {tuple(q_pos.shape)} does not match the (B, C) = "
             f"({B}, {C}) of queries {tuple(pre.qg.shape)}")
     resolve_kernel_mode(mode, C)
+    if k_cache.is_meta:
+        return _meta_call(pre, k_cache, m, k_scale is not None, include_bg,
+                          mode)
     if not k_cache.is_cuda:
         return chunk_attention_ref(pre, k_cache, v_cache, q_pos, m=m,
                                    k_scale=k_scale, v_scale=v_scale,
@@ -314,6 +375,44 @@ def chunk_attention_kernel(pre, k_cache, v_cache, q_pos, *, m: int,
 chunk_attention_kernel.launches = 0          # two-level (with_upper=False)
 chunk_attention_kernel.upper_launches = 0    # H-level fold (with_upper=True)
 chunk_attention_kernel.combine_launches = 0  # merges of split blocks
+
+
+def _meta_call(pre, k_cache, m, quant, include_bg, mode):
+    """The meta route: plan the launch as on the card (head dim padded),
+    allocate its scratch, record its cost, return an empty output."""
+    B, Hkv, G, C, D = pre.qg.shape
+    b, nb = pre.block_size, pre.pb.shape[1]
+    Dp = padded_dim(D)
+    up = pre.upper if include_bg else None
+    nu = 0 if up is None else up.k_mean.shape[2]
+    name = "chunk_attn_upper" if nu else "chunk_attn"
+    out = torch.empty((B, Hkv * G, C, D), dtype=torch.float32,
+                      device=k_cache.device)
+    try:
+        geo = plan(B, Hkv, G, C, Dp, b, nb, k_cache.dtype, mode=mode,
+                   sms=SMS, upper=nu > 0)
+    except ValueError:
+        cost.LEDGER.refuse(name, (Dp, b))
+        return out
+    ns = geo["nsplit"]
+    scratch = [torch.empty(geo["ws_bytes"], dtype=torch.uint8,
+                           device=k_cache.device)]
+    if ns > 1:
+        scratch.append(torch.empty(B * Hkv * geo["tiles"] * (ns + 1) * G
+                                   * geo["c_tile"] * (Dp + 2),
+                                   dtype=torch.float32, device=k_cache.device))
+    union, pairs = cost.chunk_budget(B, Hkv, G, C, b, nb, m, geo["c_tile"])
+    key = (f"B={B} Hkv={Hkv} G={G} C={C} D={Dp} b={b} nb={nb} "
+           f"{str(k_cache.dtype)[6:]} nsplit={ns}"
+           + (" workspace" if geo["workspace"] else ""))
+    cost.LEDGER.record(name, key, cost.chunk_cost(
+        B, Hkv, G, C, Dp, b, nb, k_cache.element_size(), quant, union, pairs,
+        nu))
+    if ns > 1:
+        cost.LEDGER.record("chunk_attn_combine", key, {
+            "flops": 0, "bytes": scratch[-1].numel() * 4 + out.numel() * 4})
+    del scratch
+    return out
 
 
 def _check(t, name, shape, dtypes, device):
@@ -365,15 +464,18 @@ def _library() -> ctypes.CDLL:
     if lib.chunk_attn_launch.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.chunk_attn_launch.argtypes = (
-            [ptr] * 15 + [i32] * 11 + [ctypes.c_float] + [i32] * 3 + [ptr])
+            [ptr] * 16 + [i32] * 11 + [ctypes.c_float] + [i32] * 3 + [ptr])
         lib.chunk_attn_launch.restype = i32
         lib.chunk_attn_combine_launch.argtypes = [ptr] * 2 + [i32] * 7 + [ptr]
         lib.chunk_attn_combine_launch.restype = i32
-        lib.chunk_attn_blocks_per_sm.argtypes = [i32] * 5 + [
+        lib.chunk_attn_blocks_per_sm.argtypes = [i32] * 6 + [
             ctypes.POINTER(i32)]
         lib.chunk_attn_blocks_per_sm.restype = i32
-        lib.chunk_attn_smem_bytes.argtypes = [i32] * 5
-        lib.chunk_attn_smem_bytes.restype = ctypes.c_longlong
+        for fn in (lib.chunk_attn_smem_bytes, lib.chunk_attn_smem_bytes_ws):
+            fn.argtypes = [i32] * 5
+            fn.restype = ctypes.c_longlong
+        lib.chunk_attn_workspace_bytes.argtypes = [i32] * 2
+        lib.chunk_attn_workspace_bytes.restype = ctypes.c_longlong
         lib.chunk_attn_error_string.argtypes = [i32]
         lib.chunk_attn_error_string.restype = ctypes.c_char_p
     return lib
@@ -391,38 +493,74 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def blocks_per_sm(cache_dtype, D: int, b: int, upper: bool, smem: int) -> int:
+def blocks_per_sm(cache_dtype, D: int, b: int, upper: bool, smem: int,
+                  workspace: bool = False) -> int:
     """Blocks of one program that fit on an SM (the CUDA occupancy API)."""
     lib = _library()
     n = ctypes.c_int(0)
     _raise_on(lib, lib.chunk_attn_blocks_per_sm(
-        _CACHE_DTYPES[cache_dtype], D, b, int(upper), smem, ctypes.byref(n)),
-        "chunk_attn occupancy query")
+        _CACHE_DTYPES[cache_dtype], D, b, int(upper), int(workspace), smem,
+        ctypes.byref(n)), "chunk_attn occupancy query")
     return n.value
 
 
-def launch_geometry(pre, cache_dtype, *, mode: str = "auto",
-                    nsplit: int | None = None, sms: int = 132) -> dict:
-    """Tile width, grid, split and shared memory of a launch on ``pre``."""
-    B, Hkv, G, C, D = pre.qg.shape
-    b, nb = pre.block_size, pre.pb.shape[1]
-    c_tile = tile_width(mode, C, G)
+def plan(B: int, Hkv: int, G: int, C: int, D: int, b: int, nb: int,
+         cache_dtype, *, mode: str = "auto", nsplit: int | None = None,
+         sms: int = 132, workspace: bool | None = None,
+         upper: bool = False) -> dict:
+    """Tile width, grid, split, program and shared memory of a launch at
+    these shapes (D as launched, after ``pad_head_dim``; ``upper``: the
+    H-level program). ``workspace`` None takes the workspace program only
+    where the shared-memory layout does not fit a block; ``ws_bytes`` is
+    then its global workspace (0 otherwise). Raises where no built program
+    fits: the workspace program is built for the two-level program of
+    WORKSPACE_SHAPES."""
+    check_shape(D, b)
+    c_tile = tile_width(mode, C, G, D)
     tiles = -(-C // c_tile)
-    if nsplit is None:
-        nsplit = split_plan(B, Hkv, tiles, nb, sms)[0]
+    if workspace is None:
+        workspace = smem_bytes(G, c_tile, D, b, nb, cache_dtype) > _MAX_SMEM
+    if workspace and (upper or (D, b) not in WORKSPACE_SHAPES):
+        raise ValueError(
+            f"chunk_attn's workspace program is built for the two-level "
+            f"program at {list(WORKSPACE_SHAPES)}, not ({D}, {b}) "
+            f"{'H-level' if upper else 'two-level'} (nb={nb})")
+    smem = smem_bytes(G, c_tile, D, b, nb, cache_dtype, workspace)
+    if smem > _MAX_SMEM:
+        raise ValueError(
+            f"chunk_attn tile needs {smem} bytes of shared memory (G={G}, "
+            f"c_tile={c_tile}, D={D}, b={b}, nb={nb}); a block has {_MAX_SMEM}")
+    if nsplit is None:  # two blocks an SM (the launch bounds) where they fit
+        per_sm = min(2, _SM_SMEM // (smem + _BLOCK_RESERVED))
+        nsplit = split_plan(B, Hkv, tiles, nb, sms, per_sm)[0]
     if not 1 <= nsplit <= nb:
         raise ValueError(f"nsplit {nsplit} outside [1, nb = {nb}]")
+    blocks = B * Hkv * tiles * nsplit
     return {"c_tile": c_tile, "rows": G * c_tile, "tiles": tiles,
             "nsplit": nsplit, "grid": [B * Hkv, tiles, nsplit],
-            "smem": smem_bytes(G, c_tile, D, b, nb, cache_dtype)}
+            "smem": smem, "workspace": workspace,
+            "ws_bytes": blocks * workspace_bytes(G * c_tile, nb)
+            if workspace else 0}
+
+
+def launch_geometry(pre, cache_dtype, *, mode: str = "auto",
+                    nsplit: int | None = None, sms: int = 132,
+                    workspace: bool | None = None,
+                    upper: bool = False) -> dict:
+    """``plan`` of a launch on ``pre`` (its head dim as given)."""
+    B, Hkv, G, C, D = pre.qg.shape
+    return plan(B, Hkv, G, C, D, pre.block_size, pre.pb.shape[1],
+                cache_dtype, mode=mode, nsplit=nsplit, sms=sms,
+                workspace=workspace, upper=upper)
 
 
 def _launch(pre, k_cache, v_cache, q_pos, *, m, k_scale=None, v_scale=None,
-            include_bg=True, mode="auto", nsplit=None):
+            include_bg=True, mode="auto", nsplit=None, workspace=None):
     """Launch the kernel (and the combine where split) on CUDA tensors.
 
-    ``nsplit`` None takes ``split_plan``'s; an explicit count is for tests
-    and ``chip_smoke.py`` only. Counts each launch where it is made.
+    ``nsplit`` None takes ``split_plan``'s and ``workspace`` None the
+    plan's program; explicit values are for tests and ``chip_smoke.py``
+    only. Counts each launch where it is made.
     """
     B, Hkv, G, C, D = pre.qg.shape
     b = pre.block_size
@@ -457,13 +595,13 @@ def _launch(pre, k_cache, v_cache, q_pos, *, m, k_scale=None, v_scale=None,
         _check(upper.counts, "upper counts", (B, nu), f32, dev)
     geo = launch_geometry(pre, k_cache.dtype, mode=mode, nsplit=nsplit,
                           sms=sm_count(dev.index if dev.index is not None
-                                       else torch.cuda.current_device()))
+                                       else torch.cuda.current_device()),
+                          workspace=workspace, upper=nu > 0)
     c_tile, tiles, ns, smem = (geo[k] for k in ("c_tile", "tiles", "nsplit",
                                                 "smem"))
-    if smem > _MAX_SMEM:
-        raise ValueError(
-            f"chunk_attn tile needs {smem} bytes of shared memory (G={G}, "
-            f"c_tile={c_tile}, D={D}, b={b}, nb={nb}); a block has {_MAX_SMEM}")
+    # the workspace program's page arrays: one 16-byte aligned slice a block
+    ws = (torch.empty(geo["ws_bytes"], dtype=torch.uint8, device=dev)
+          if geo["workspace"] else None)
     qpos = q_pos.to(device=dev, dtype=torch.int32).contiguous()
     out = torch.empty((B, Hkv * G, C, D), dtype=torch.float32, device=dev)
     part = None
@@ -484,7 +622,7 @@ def _launch(pre, k_cache, v_cache, q_pos, *, m, k_scale=None, v_scale=None,
         upper.v_mean.data_ptr() if nu else null,
         upper.counts.data_ptr() if nu else null,
         out.data_ptr(), part.data_ptr() if ns > 1 else null,
-        B, Hkv, G, C, D, nb, b, m, c_tile, nu, ns, float(pre.scale),
+        ws.data_ptr() if ws is not None else null, B, Hkv, G, C, D, nb, b, m, c_tile, nu, ns, float(pre.scale),
         _CACHE_DTYPES[k_cache.dtype], int(include_bg), smem, stream),
         "chunk_attn kernel launch")
     if nu:

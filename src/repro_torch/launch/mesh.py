@@ -18,6 +18,12 @@ every rank on ``cuda:0`` and the collectives staged through host memory by
 ``world_size`` fresh processes with the process group up, and returns each
 rank's result; any rank's failure raises in the caller after every rank
 has stopped.
+
+``AbstractMesh`` is a mesh with no process group and no device: rank 0's
+view of a mesh of any size, for the dry run (``launch/dryrun.py``), where
+every collective records what it would move and returns a meta tensor
+(``distributed/collectives.py``). ``make_production_mesh`` gives the
+reference's production meshes as abstract ones.
 """
 from __future__ import annotations
 
@@ -32,7 +38,8 @@ import torch.distributed as dist
 
 from repro_torch import resolve_device
 
-__all__ = ["Mesh", "init_ranks", "make_local_mesh", "parse_mesh", "spawn"]
+__all__ = ["AbstractMesh", "Mesh", "init_ranks", "make_local_mesh",
+           "make_production_mesh", "parse_mesh", "spawn"]
 
 _POLL_S = 2.0  # spawn: seconds between looks at the ranks' exit codes
 
@@ -59,6 +66,43 @@ class Mesh:
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, backend={self.backend!r}, "
                 f"device={self.device}, index={self._index})")
+
+
+class AbstractMesh:
+    """A (data, model) mesh, or (pod, data, model), seen from rank 0, with
+    no process group and no device: ``axis_names``, ``shape`` and
+    ``index`` as ``Mesh`` has them."""
+
+    abstract = True
+    backend = "abstract"
+    device = torch.device("meta")
+
+    def __init__(self, data: int, model: int, pod: int = 1):
+        self.axis_names = (("pod",) if pod > 1 else ()) + ("data", "model")
+        sizes = ((pod,) if pod > 1 else ()) + (data, model)
+        self.shape = dict(zip(self.axis_names, sizes))
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for v in self.shape.values():
+            n *= v
+        return n
+
+    def index(self, axis: str) -> int:
+        return 0
+
+    def group(self, axis: str):
+        raise RuntimeError("an AbstractMesh has no process group")
+
+    def __repr__(self) -> str:
+        return f"AbstractMesh({self.shape})"
+
+
+def make_production_mesh(multi_pod: bool = False) -> AbstractMesh:
+    """The reference's production meshes, abstract: (16, 16) data x model,
+    or (2, 16, 16) pod x data x model."""
+    return AbstractMesh(16, 16, pod=2 if multi_pod else 1)
 
 
 def _backend_and_device(world_size: int, rank: int, device=None):

@@ -436,7 +436,7 @@ def test_head_dim_256_plan(kernel, dtype, rows, stage, smem):
     bsa.check_shape(248, 128)  # padded to 256
 
 
-@pytest.mark.parametrize("d,b", [(32, 32), (128, 64), (16, 128), (130, 128),
+@pytest.mark.parametrize("d,b", [(32, 64), (128, 64), (16, 128), (130, 128),
                                  (80, 64), (112, 128), (256, 64)])
 def test_unbuilt_shapes_are_refused(d, b):
     with pytest.raises(ValueError, match="is not built"):

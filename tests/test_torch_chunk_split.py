@@ -4,8 +4,9 @@ The CUDA kernel (``csrc/chunk_attn.cu``) cannot run here, so this file holds
 what surrounds it to the plain route, with numpy inputs from a seed:
 
   * ``split_plan``: the page ranges cover every page exactly once; chunked
-    prefill at the served shapes does not split; decode reaches two blocks
-    per SM of an H100 (132 SMs);
+    prefill at the served shapes does not split; decode splits to the
+    largest grid within one wave of two blocks per SM of an H100 (132
+    SMs), and within one block per SM where shared memory holds one;
   * the three-term bf16 split of an fp32 operand recomposes it exactly, and
     products from the terms match fp32 (within 1e-6 of the largest |q·k|)
     against bf16 keys, int8 codes and (six products) fp32 keys;
@@ -77,12 +78,15 @@ def test_split_plan_leaves_chunked_prefill_whole(arch, B, C):
 def test_split_plan_fills_the_card_at_decode(arch, B):
     cfg = get_config(arch)
     nb = 4096 // cfg.attention.block_size
-    nsplit, ranges = chunk_attn.split_plan(B, cfg.kv_heads, 1, nb, SMS)
-    blocks = B * cfg.kv_heads * nsplit
-    assert blocks >= 2 * SMS
-    assert nsplit & (nsplit - 1) == 0 and nsplit <= nb
-    assert B * cfg.kv_heads * (nsplit // 2) < 2 * SMS  # the least such count
-    assert [j for p0, p1 in ranges for j in range(p0, p1)] == list(range(nb))
+    for per_sm in (2, 1):
+        nsplit, ranges = chunk_attn.split_plan(B, cfg.kv_heads, 1, nb, SMS,
+                                               per_sm)
+        blocks = B * cfg.kv_heads * nsplit
+        assert blocks <= per_sm * SMS  # one wave of resident blocks
+        assert nsplit & (nsplit - 1) == 0 and nsplit <= nb
+        assert 2 * blocks > per_sm * SMS  # the largest such count
+        assert ([j for p0, p1 in ranges for j in range(p0, p1)]
+                == list(range(nb)))
 
 
 # --------------------------------------------------------------------------- #
