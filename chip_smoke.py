@@ -9,9 +9,9 @@ phases 28-30, which launch none of them, run first) and drives the port's
 serving path and its training path on the card:
 
   1. device and build — the card's name and power limit, build seconds,
-     and ptxas' registers and spill bytes of every chunk_attn and bsa_*
-     kernel (a bf16 bsa_fwd / bsa_bwd_dq / bsa_bwd_dkv or bf16 chunk_attn
-     instantiation that spills fails);
+     and ptxas' registers and spill bytes of every chunk_attn (55) and
+     bsa_* (54) kernel (a bf16 bsa_fwd / bsa_bwd_dq / bsa_bwd_dkv or bf16
+     chunk_attn instantiation that spills fails);
   2. kernel vs plain version — every CUDA kernel against its plain PyTorch
      twin on the same CUDA tensors, at the main path's shapes and at the
      smoke config's, over decode/chunk widths, bf16/int8 caches, MRA-2 /
@@ -176,7 +176,7 @@ serving path and its training path on the card:
      reported); the whole-prompt ``prefill`` of 4 slots of 256 patches +
      3840 text tokens then 32 greedy ``decode_step``s, launches counted,
      kernels against plain twins at 2 layers (streams equal, or part only
-     at a near tie by phase 14's rule), and at 4, 8 and 24 layers reported
+     at a near tie by phase 14's rule), and at 4 and 24 layers reported
      beside the plain route against a rerun of itself and against itself
      on patches scaled by 1 + 2^-20; then phase 4's engine and text-only
      prompts, FAMILY_SERVE_TOKENS new tokens each (tok/s, prefill / decode
@@ -320,6 +320,38 @@ serving path and its training path on the card:
      the new sizes are held against their plain twins first;
  45. ``repro_torch.examples.train_lm`` at its small preset for
      TRAIN_LM_STEPS steps, its kernels' call held first.
+ 46. (after phase 41) the chunk kernel's H-level program past shared
+     memory (UPPER_WS: qwen2-7b's G = 7 C = 128 chunk at 512 pages,
+     qwen3-1.7b's C = 128 chunk at 1000 and its decode at 6448, bf16 and
+     the decode in int8) against its plain twin at the serving tolerance,
+     timed, with its workspace program's shared memory, workspace bytes,
+     blocks per SM and split; at phase 11's shapes the workspace program
+     forced beside the shared one, bit for bit, both timed;
+ 47. the chunk kernel at kimi-k2's (112, 128), G = 8, both programs, bf16 /
+     fp32 / int8, decode and C = 128 / 5, dense / ring / ragged, MRA-2 and
+     MRA-2-s, the workspace program at 4096 pages (decode) and 1024 (C =
+     128), against its plain twin; ptxas and blocks an SM of all twelve
+     D = 112 programs (two an SM, no bf16 spill); timed;
+ 48. (after phase 26) bsa_fwd, bsa_bwd_dq and bsa_bwd_dkv at (112, 128),
+     64 query / 8 KV heads, n = 4096, causal, bf16 and fp32, against their
+     plain twins, reruns bit-identical; timed, ptxas per kernel;
+ 49. (after phase 33) kimi-k2-1t-a32b at full width, one of its 61 layers,
+     bf16 weights (384 experts top-8, head dim 112): KIMI's two greedy
+     requests through the engine (launches = layers x dispatches), a
+     profile of its dispatches and a whole-prompt ``prefill`` of the
+     longest prompt (bsa_fwd at (112, 128)); one captured chunk-kernel
+     call and the bsa_fwd call held against their plain twins (the
+     tolerances plus the fp32 rounding of the largest attended score:
+     its seeded logits reach ~1e3), tokens and MoE assignments conserved,
+     tok/s, the dropped-assignment share and the init's and run's peaks;
+ 50. (after phase 15) the grouped far-field draft: the fold (group sizes 2
+     and 4) against its plain twin at the drafts' budget m = 1 and m = 16,
+     with and without an H-level view, over layouts, caches and splits; a
+     draft call's time at draft_level 1 and 2; phase 14's speculative
+     engine at ``levels=3`` (SPEC_DRAFT_LAYERS layers) at draft_level 1
+     and 2 against plain decoding (streams equal, or parting only at a
+     near tie by phase 14's rule), acceptance and tokens per full
+     dispatch.
 
 One JSON line per phase; then the card line from nvidia-smi, the kernels
 line and, last, ``{"ok": true, "device": {...}}``. Any failed phase raises,
@@ -371,7 +403,7 @@ L2_COPIES = 4  # cache copies cycled by the H-level timing (> 50 MB L2)
 UP_GRANITE = dict(GRANITE, B=2)
 LONG = dict(slots=2, max_len=4096, chunk=512, prompts=(65536, 6000),
             new_tokens=(8, 64))
-LONG_LAYERS = 8  # the long-context engine's depth (of 28: cut for time)
+LONG_LAYERS = 4  # the long-context engine's depth (of 28: cut for time)
 # block-sparse attention of qwen3-1.7b train_4k (batch cut to 2) and of its
 # smoke config; Hq query heads, G per KV head
 BSA_MAIN = dict(B=2, Hq=16, n=4096, d=128, b=128, bpr=4)
@@ -407,10 +439,11 @@ MOE_REMAT_LAYERS = 8
 # the serving engine's traffic (phase 4), and phase 14's speculative run of
 # the same requests: new tokens cut from 192 to 144 to hold the script's
 # time, still past the 4096-token ring (3968 + 144), so fallback waves run
-SERVE = dict(prompts=(3968, 2500, 1200, 300), new_tokens=192)
+SERVE = dict(prompts=(3968, 2500, 1200, 300), new_tokens=144)
 # the other families' engines on the same prompts (granite-moe, internvl,
-# recurrentgemma): new tokens cut from 192 for the script's time
-FAMILY_SERVE_TOKENS = 96
+# recurrentgemma): new tokens cut from 192, then from 96, for the script's
+# time
+FAMILY_SERVE_TOKENS = 64
 SPEC = dict(spec_k=4, new_tokens=144)
 # granite-moe-3b-a800m at full width: phase 4's engine and requests
 MOE_ARCH = "granite-moe-3b-a800m"
@@ -423,6 +456,10 @@ HUBERT_ARCH, VLM_ARCH = "hubert-xlarge", "internvl2-1b"
 FAMILY_BATCH = {HUBERT_ARCH: 64, VLM_ARCH: 4}
 # train() steps at the batch cut (hubert's ~12 s steps cut from three)
 FAMILY_STEPS = {HUBERT_ARCH: 1, VLM_ARCH: TRAIN["steps"]}
+# whether the profiled step runs once more without the profiler for its
+# wall (_profile's ``alone``): not hubert's ~12 s step, where the
+# profiler's own cost is small
+FAMILY_PROFILE_ALONE = {HUBERT_ARCH: False, VLM_ARCH: True}
 # internvl2-1b's serving: 14 query / 2 KV heads (G = 7) at (64, 128)
 VLM_SERVE = dict(B=4, Hkv=2, G=7, D=64, b=128, nb=32, m=16)
 # the whole-prompt prefill of 4 slots of 256 patches + 3840 text tokens,
@@ -437,7 +474,7 @@ VLM_PROMPT = dict(slots=4, text=3840, new_tokens=32, max_len=4096 + 128)
 # by 1 + VLM_PERTURB (under half a bf16 ulp: it moves only the inputs near
 # a rounding boundary), as kernel and plain part there; at 2 layers they
 # part at near ties only
-VLM_PARITY_LAYERS, VLM_REPORT_LAYERS, VLM_PERTURB = 2, (4, 8), 2.0 ** -20
+VLM_PARITY_LAYERS, VLM_REPORT_LAYERS, VLM_PERTURB = 2, (4,), 2.0 ** -20
 # internvl's fp32 kernel-vs-plain training parity at one layer holds loss,
 # grad norm and every gradient leaf (the leaf held once the fp32 kernels'
 # scores took the plain product's order: 1.19e-4 before, 3.08e-6 after)
@@ -531,6 +568,39 @@ LONG_PAGES = (
     ("qwen3-1.7b decode", "qwen3-1.7b", dict(B=1, Hkv=8, G=2, D=128, b=128,
                                              nb=4096, m=16), 1, "latency",
      "int8", False))
+# the H-level program past shared memory (phase 46): qwen2-7b's G = 7
+# C = 128 chunk at a 512-page ring, qwen3-1.7b's C = 128 chunk at 1000 pages
+# and its decode at 6448 pages, one slot, NU collapsed entries; (label,
+# shape, C, mode, cache types held; bf16 plans the workspace program)
+UPPER_WS = (
+    ("qwen2-7b C=128 nb=512", dict(B=1, Hkv=4, G=7, D=128, b=128, nb=512,
+                                   m=16), 128, "throughput", ("bf16",)),
+    ("qwen3-1.7b C=128 nb=1000", dict(B=1, Hkv=8, G=2, D=128, b=128, nb=1000,
+                                      m=16), 128, "throughput", ("bf16",)),
+    ("qwen3-1.7b decode nb=6448", dict(B=1, Hkv=8, G=2, D=128, b=128,
+                                       nb=6448, m=16), 1, "latency",
+     ("bf16", "int8")))
+UPPER_WS_NU = 33
+# kimi-k2-1t-a32b (phases 47-49): head dim 112 at block 128, 64 query over
+# 8 KV heads (G = 8); its serving kernel at 4096-token slots, at 4096
+# pages (decode) and 1024 (a C = 128 chunk) where the workspace program
+# takes the page arrays, and its block-sparse call at train_4k's n
+KIMI_ARCH = "kimi-k2-1t-a32b"
+KIMI_SERVE = dict(B=2, Hkv=8, G=8, D=112, b=128, nb=32, m=16)
+KIMI_PAGES = ((1, "latency", dict(KIMI_SERVE, B=1, nb=4096)),
+              (128, "throughput", dict(KIMI_SERVE, B=1, nb=1024)))
+BSA_KIMI = dict(B=1, Hq=64, n=4096, d=112, b=128, bpr=4)
+# one full-width layer in bf16 weights (~17 G expert parameters + the
+# 163840 x 7168 embedding and head: 38.8 GB) through the engine and a
+# whole-prompt prefill of its longest prompt
+KIMI = dict(layers=1, slots=2, max_len=4096, chunk=128, prompts=(3968, 1200),
+            new_tokens=32)
+# the grouped far-field draft (phase 50): phase 14's speculative engine at
+# levels=3, the depth cut to SPEC_DRAFT_LAYERS, drafts at draft_level 1
+# and 2 against plain decoding at levels=3; the fold kernel held at group
+# sizes 2 and 4
+SPEC_DRAFT_LAYERS = 4
+DRAFT_LEVELS = (2, 3)
 
 
 START = time.perf_counter()
@@ -728,22 +798,22 @@ def phase_device(torch, job):
           "ptxas_chunk_attn": ptxas_report(
               libs["chunk_attn"].with_suffix(".log").read_text()),
           "ptxas_block_sparse_attn": bsa_ptx})
-    # 48 = bf16 and fp32 x eight (D, b) x bsa_fwd, bsa_bwd_dq, bsa_bwd_dkv
+    # 54 = bf16 and fp32 x nine (D, b) x bsa_fwd, bsa_bwd_dq, bsa_bwd_dkv
     spills = [k for k in bsa_ptx if k["kernel"].startswith(
         ("bsa_fwd bf16", "bsa_bwd_dq bf16", "bsa_bwd_dkv bf16"))
         and (k["spill_stores"] or k["spill_loads"] or k["registers"] > 255)]
-    if len(bsa_ptx) != 48 or spills:
+    if len(bsa_ptx) != 54 or spills:
         raise AssertionError(f"bsa kernels: {len(bsa_ptx)} built, spilling "
                              f"bf16 tensor-core kernels {spills}")
-    # 34 = three storage types x (four (D, b) x two programs + the
-    # two-level workspace program at the three of block 128), + the combine
+    # 55 = three storage types x (five (D, b) x two programs + both
+    # programs' workspace variants at the four of block 128), + the combine
     chunk_ptx = ptxas_report(libs["chunk_attn"].with_suffix(".log").read_text())
     spills = [k for k in chunk_ptx if k["kernel"].startswith("bf16")
               and (k["spill_stores"] or k["spill_loads"])]
-    if len(chunk_ptx) != 34 or spills:
+    if len(chunk_ptx) != 55 or spills:
         raise AssertionError(f"chunk_attn kernels: {len(chunk_ptx)} built, "
                              f"spilling bf16 instantiations {spills}")
-    return smi, bsa_ptx
+    return smi, bsa_ptx, chunk_ptx
 
 
 def _kernel_label(name):
@@ -786,12 +856,12 @@ def ptxas_report(log):
     return out
 
 
-def _hold(torch, tmd, got, pre, q_pos, m, ref, label):
+def _hold(torch, tmd, got, pre, q_pos, m, ref, label, atol=ATOL):
     """(max |err| outside near ties, near-tie rows, rows) of kernel vs plain;
     raises on a disagreement outside the near ties or a non-finite value."""
     margin, _, _ = selection_stats(torch, tmd, pre, q_pos, m)
     tie = (margin < TIE).reshape(got.shape[:3])[..., None]
-    close = torch.isclose(got, ref, atol=ATOL, rtol=RTOL) | tie
+    close = torch.isclose(got, ref, atol=atol, rtol=RTOL) | tie
     err = float(torch.where(tie, 0.0, (got - ref).abs()).max())
     if not bool(close.all()) or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"chunk_attn kernel != plain version: {label}: "
@@ -1057,8 +1127,80 @@ def _chunk_launches(chunk_attn):
     return fn.launches, fn.upper_launches
 
 
+def _device_times(torch, prof, ranges=()):
+    """From a finished torch.profiler's raw events: {name: µs} summed over
+    the device events (kernels, copies) but the ``ranges``' own
+    annotations, and {range: µs} of the device events that host operations
+    inside the range's host events launched (on the range's thread), which
+    is how ``key_averages()`` attributes them (``_key_average_times``).
+    ``key_averages()`` builds a Python object and a tree over every event
+    first, tens of seconds for a training step's; this is one pass."""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    device = DeviceType.CUDA
+    names, kernel_ns = {}, {}
+    ops, intervals, launched = {}, {r: {} for r in ranges}, []
+    for e in prof.profiler.kineto_results.events():
+        if getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        if e.device_type() == device:
+            raw, ns = e.name(), e.duration_ns()
+            name = names.get(raw)
+            if name is None:
+                name = names[raw] = torch._C._demangle(raw) if len(raw) > 1 \
+                    else raw
+            if name not in ranges:
+                kernel_ns[name] = kernel_ns.get(name, 0) + ns
+            if ranges:
+                launched.append((e.linked_correlation_id(), ns))
+        elif (ranges and e.linked_correlation_id() == 0 and not e.is_async()
+              and e.start_thread_id() == e.end_thread_id()):
+            # a host operation: the device events link to it by its id
+            tid, t0, t1 = e.start_thread_id(), e.start_ns(), e.end_ns()
+            ops[e.correlation_id()] = (tid, t0, t1)
+            if e.name() in intervals:
+                intervals[e.name()].setdefault(tid, []).append((t0, t1))
+    span_ns = dict.fromkeys(ranges, 0)
+    for r, by_thread in intervals.items():
+        for iv in by_thread.values():
+            iv.sort()
+        starts = {tid: [a for a, _ in iv] for tid, iv in by_thread.items()}
+        for corr, ns in launched:
+            op = ops.get(corr)
+            if op is None or op[0] not in by_thread:
+                continue
+            tid, t0, t1 = op
+            i = bisect.bisect_right(starts[tid], t0) - 1
+            if i >= 0 and t1 <= by_thread[tid][i][1]:
+                span_ns[r] += ns
+    return ({k: ns / 1e3 for k, ns in kernel_ns.items()},
+            {r: ns / 1e3 for r, ns in span_ns.items()})
+
+
+def _key_average_times(prof, ranges=()):
+    """``_device_times`` through ``key_averages()``: what it replaced, kept
+    to hold it (phase 49's profile)."""
+    from torch.autograd import DeviceType
+
+    events = prof.key_averages()
+    kernel_us = {}
+    for e in events:
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if e.device_type == DeviceType.CUDA and e.key not in ranges:
+            kernel_us[e.key] = kernel_us.get(e.key, 0.0) + us
+    span_us = {name: sum(
+        getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
+        for e in events
+        if e.key == name and e.device_type == DeviceType.CPU)
+        for name in ranges}
+    return kernel_us, span_us
+
+
 def _profile(torch, fn, steps, kernels=("chunk_attn",), ranges=(),
-             warm=False, alone=True):
+             warm=False, alone=True, check=False):
     """Wall ms per call without the profiler, then torch.profiler over the
     same calls: device ms per call, busy share, the named kernels' ms, the
     device ms of the kernels launched inside each named
@@ -1066,8 +1208,8 @@ def _profile(torch, fn, steps, kernels=("chunk_attn",), ranges=(),
     first unless ``warm`` (the caller just ran the same work). Without
     ``alone`` the calls run once, under the profiler, and its wall time
     stands for theirs (for calls of seconds, where the profiler's own cost
-    is small)."""
-    from torch.autograd import DeviceType
+    is small). ``check`` also sums the events through ``key_averages()``
+    and fails unless both sums agree."""
     from torch.profiler import ProfilerActivity, profile
 
     if not warm:
@@ -1090,35 +1232,48 @@ def _profile(torch, fn, steps, kernels=("chunk_attn",), ranges=(),
         prof_wall_ms = 1e3 * (time.perf_counter() - t0) / steps
     if not alone:
         wall_ms = prof_wall_ms
-    events = prof.key_averages()  # one pass: it is slow on many events
-    rows = []  # kernels only: an operator's row repeats its kernels' time,
+    # device events only: an operator's row would repeat its kernels' time,
     # and a range's device-side annotation spans its kernels and the gaps
-    for e in events:
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0))
-        if e.device_type == DeviceType.CUDA and us > 0 and e.key not in ranges:
-            rows.append((e.key, us / 1e3 / steps))
-    rows.sort(key=lambda r: -r[1])
+    t0 = time.perf_counter()
+    kernel_us, span_us = _device_times(torch, prof, ranges)
+    held = {"events_s": time.perf_counter() - t0}
+    if check:
+        t0 = time.perf_counter()
+        ka_kernel, ka_span = _key_average_times(prof, ranges)
+        held["key_averages_s"] = time.perf_counter() - t0
+        ka_kernel = {k: us for k, us in ka_kernel.items() if us > 0}
+        got = {k: us for k, us in kernel_us.items() if us > 0}
+        rel = [abs(got[k] - ka_kernel[k]) / ka_kernel[k]
+               for k in set(got) & set(ka_kernel)]
+        rel += [abs(span_us[r] - ka_span[r]) / max(ka_span[r], 1e-9)
+                for r in ranges]
+        held.update(kernels=len(got), ranges=dict(span_us),
+                    max_rel_diff=max(rel, default=0.0))
+        if set(got) != set(ka_kernel) or held["max_rel_diff"] > 1e-6:
+            raise AssertionError(
+                f"profiler sums differ from key_averages(): {held}; only in "
+                f"events: {sorted(set(got) - set(ka_kernel))[:5]}, only in "
+                f"key_averages: {sorted(set(ka_kernel) - set(got))[:5]}")
+    rows = sorted(((k, us / 1e3 / steps) for k, us in kernel_us.items()
+                   if us > 0), key=lambda r: -r[1])
     device_ms = sum(ms for _, ms in rows)
-    # a range's kernels: the device time under its host-side event
-    spans = {f"{name}_ms": sum(
-        getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
-        for e in events
-        if e.key == name and e.device_type == DeviceType.CPU) / 1e3 / steps
-        for name in ranges}
+    spans = {f"{name}_ms": span_us[name] / 1e3 / steps for name in ranges}
     return {"wall_ms": wall_ms, "profiled_wall_ms": prof_wall_ms,
             "device_ms": device_ms,
             "busy_share": device_ms / wall_ms if wall_ms else None,
             **{f"{name}_ms": sum(ms for k, ms in rows if name in k)
                for name in kernels}, **spans,
-            "top": [[k[:100], ms] for k, ms in rows[:10]]}
+            "top": [[k[:100], ms] for k, ms in rows[:10]],
+            "sums": held}
 
 
-def phase_profile(torch, eng, C=128, phase="profile", kernels=("chunk_attn",)):
+def phase_profile(torch, eng, C=128, phase="profile", kernels=("chunk_attn",),
+                  check=False):
     """Where a full-width dispatch's time goes, on the engine's own cache
     after its run: decode waves of every slot, and C-token prefill chunks.
     For an MoE model the routed FFN of every layer runs inside a
-    ``moe_block`` range, whose kernels' device time is reported apart."""
+    ``moe_block`` range, whose kernels' device time is reported apart.
+    ``check``: ``_profile``'s."""
     from repro_torch.models import transformer
     from repro_torch.serve.sampling import greedy_batch
 
@@ -1149,10 +1304,11 @@ def phase_profile(torch, eng, C=128, phase="profile", kernels=("chunk_attn",)):
               "kernel time from torch.profiler; busy_share = device_ms / "
               "wall_ms", "arch": eng.cfg.name, "slots": B,
               "decode_step": _profile(torch, decode, PROFILE_STEPS["decode"],
-                                      kernels=kernels, ranges=ranges),
+                                      kernels=kernels, ranges=ranges,
+                                      check=check),
               f"prefill_chunk_{C}": _profile(
                   torch, prefill, PROFILE_STEPS["prefill"], kernels=kernels,
-                  ranges=ranges)})
+                  ranges=ranges, check=check)})
 
 
 def _streams(torch, chunk_attn, cfg, params, ecfg, reqs, plain):
@@ -2520,7 +2676,7 @@ def phase_moe_train_full_width(torch, bsa):
     return launches, state
 
 
-def phase_train_profile(torch, state, phase="train_profile"):
+def phase_train_profile(torch, state, phase="train_profile", alone=True):
     """Where one full-width training step's time goes (kernel rows only);
     an MoE model's routed FFN runs inside a ``moe_block`` range (its
     forward and remat recompute: the backward's kernels fall outside)."""
@@ -2550,7 +2706,7 @@ def phase_train_profile(torch, state, phase="train_profile"):
         emit({"phase": phase, "arch": cfg.name, "note": "ms per training "
               "step; device_ms = summed kernel time from torch.profiler",
               "train_step": _profile(torch, step, 1, kernels=BSA_KERNELS,
-                                     ranges=ranges, warm=True)})
+                                     ranges=ranges, warm=True, alone=alone)})
 
 
 def _plain_twins(bsa):
@@ -2801,7 +2957,8 @@ def _family_train(torch, bsa, arch, name):
         batch=FAMILY_BATCH[arch], steps=FAMILY_STEPS[arch])
     if peak >= 80.0:
         raise AssertionError(f"{arch} training peaked at {peak} GiB")
-    phase_train_profile(torch, state, phase=f"{name}_train_profile")
+    phase_train_profile(torch, state, phase=f"{name}_train_profile",
+                        alone=FAMILY_PROFILE_ALONE[arch])
     del state
     torch.cuda.empty_cache()
     twice = dataclasses.replace(_family_shape(arch),
@@ -4340,9 +4497,9 @@ def phase_rgemma_self(torch, bsa):
 # --------------------------------------------------------------------------- #
 MESH_SHAPE = (2, 2)
 MESH_PARITY_LAYERS = 2  # the fp32 step and engine held to one device
-MESH_TRAIN_LAYERS = 4  # the bf16 step's depth (of 28: cut for time)
+MESH_TRAIN_LAYERS = 2  # the bf16 step's depth (of 28: cut for time)
 MESH_TRAIN_STEPS = 2  # the second reads what the first ZeRO-1 update wrote
-MESH_NEW_TOKENS = 8  # a mesh engine request's new tokens (phase 4: 192)
+MESH_NEW_TOKENS = 8  # a mesh engine request's new tokens (phase 4: 144)
 # the one of phase 4's prompts served by the deep bf16 mesh engines (qwen3,
 # granite-moe, rwkv6, recurrentgemma; all four in the fp32 parity engines)
 MESH_DEEP_PROMPT = 2
@@ -4350,7 +4507,7 @@ MESH_MOE = dict(B=2, S=2048)  # granite-moe's one-layer tokens
 MESH_RWKV_TRAIN_LAYERS = 2  # rwkv6's bf16 step on four ranks (of 32)
 MESH_RWKV_SERVE_LAYERS = 32  # rwkv6's bf16 mesh engine: the whole depth
 MESH_RGEMMA_GROUPS = 1  # recurrentgemma's fp32 parity and engine
-MESH_RGEMMA_SERVE_GROUPS = 2  # its bf16 mesh engine, reported (of 12 + 2)
+MESH_RGEMMA_SERVE_GROUPS = 1  # its bf16 mesh engine, reported (of 12 + 2)
 MESH_TIMEOUT = 900
 
 
@@ -5267,6 +5424,662 @@ def _emit_mesh_rgemma(ranks, small_streams):
     return {k: g["launches"] for k, g in mra.items()}
 
 
+# --------------------------------------------------------------------------- #
+# the last slice: the H-level workspace program, head dim 112, the grouped
+# far-field draft (phases 46-50)
+# --------------------------------------------------------------------------- #
+def phase_upper_workspace(torch, tmd, chunk_attn):
+    """Phase 46: the H-level program past shared memory (UPPER_WS, NU = 33,
+    some entries dead) against its plain twin at the serving tolerance over
+    dense and ring windows, timed beside its bound and the plain twin with
+    its program, shared memory, workspace bytes, blocks per SM and split;
+    then at phase 11's shapes (decode and C = 512) the workspace program
+    forced beside the shared one: the same bits, both timed."""
+    out, worst, ties, rows = {}, 0.0, 0, 0
+    for label, sh, C, mode, dtypes in UPPER_WS:
+        err, shape_ties, shape_rows = 0.0, 0, 0
+        for i, (layout, dtype) in enumerate(itertools.product(
+                ("dense", "ring"), dtypes)):
+            pre, k, v, q_pos, ks, vs = kernel_case(
+                torch, tmd, SEED + 8000 + i, sh, C, layout, dtype)
+            pre = pre._replace(upper=upper_view(
+                torch, SEED + 8100 + i, sh["B"], sh["Hkv"], sh["D"],
+                UPPER_WS_NU, "some_dead"))
+            kw = dict(m=sh["m"], k_scale=ks, v_scale=vs, include_bg=True,
+                      mode=mode)
+            got = chunk_attn.chunk_attention_kernel(pre, k, v, q_pos, **kw)
+            ref = chunk_attn.chunk_attention_ref(pre, k, v, q_pos, **kw)
+            torch.cuda.synchronize()
+            e, t, r = _hold(torch, tmd, got, pre, q_pos, sh["m"], ref,
+                            f"H-level {label} {layout} {dtype}")
+            err, shape_ties, shape_rows = max(err, e), shape_ties + t, \
+                shape_rows + r
+            del pre, k, v, got, ref
+            torch.cuda.empty_cache()
+        pre, k, v, q_pos, ks, vs = kernel_case(torch, tmd, SEED, sh, C,
+                                               "dense", "bf16")
+        pre = pre._replace(upper=upper_view(torch, SEED, sh["B"], sh["Hkv"],
+                                            sh["D"], UPPER_WS_NU, "all_live"))
+        kw = dict(m=sh["m"], include_bg=True, mode=mode)
+        fn = chunk_attn.chunk_attention_kernel
+        before = fn.upper_launches
+        ms = time_ms(torch, lambda: fn(pre, k, v, q_pos, **kw), 20)
+        plain_ms = time_ms(torch, lambda: chunk_attn.chunk_attention_ref(
+            pre, k, v, q_pos, **kw), 3)
+        _, grid, pairs = selection_stats(torch, tmd, pre, q_pos, sh["m"])
+        info = launch_info(torch, chunk_attn, pre, k, grid, mode, upper=True)
+        out[label] = {"shape": sh, "C": C, "mode": mode, "nu": UPPER_WS_NU,
+                      "caches_held": list(dtypes), "max_abs_err": err,
+                      "near_tie_rows": shape_ties, "rows": shape_rows,
+                      "ms": ms,
+                      "plain_ms": plain_ms,
+                      "timed_upper_launches": fn.upper_launches - before,
+                      "program": "workspace" if info["workspace"] else "shared",
+                      **bound(pre, k, q_pos, None, grid, pairs,
+                              nu=UPPER_WS_NU), **info}
+        worst, ties, rows = max(worst, err), ties + shape_ties, \
+            rows + shape_rows
+        del pre, k, v
+        torch.cuda.empty_cache()
+        if not info["workspace"]:
+            raise AssertionError(f"{label}: not the workspace program")
+    if ties > 0.01 * rows:  # phase 2's rule, over the phase's rows
+        raise AssertionError(f"H-level workspace: {ties} near-tie rows of "
+                             f"{rows}")
+    same, times = {}, {}
+    for C, mode in ((1, "latency"), (512, "throughput")):
+        pre, k, v, q_pos, _, _ = kernel_case(torch, tmd, SEED, UP_MAIN, C,
+                                             "dense", "bf16")
+        pre = pre._replace(upper=upper_view(torch, SEED, UP_MAIN["B"],
+                                            UP_MAIN["Hkv"], UP_MAIN["D"], 33,
+                                            "all_live"))
+        kw = dict(m=UP_MAIN["m"], include_bg=True, mode=mode)
+        a = chunk_attn._launch(pre, k, v, q_pos, workspace=False, **kw)
+        b = chunk_attn._launch(pre, k, v, q_pos, workspace=True, **kw)
+        same[f"C={C}"] = _same_bits(torch, a, b)
+        times[f"C={C}"] = _program_times(torch, chunk_attn, pre, k, v, q_pos,
+                                         kw, 100 if C == 1 else 10)
+    emit({"phase": "upper_workspace", "atol": ATOL, "rtol": RTOL,
+          "max_abs_err": worst, "near_tie_rows": ties, "rows": rows, **out, "phase11_workspace_bitwise": same,
+          "phase11_workspace_vs_shared": times})
+    if not all(same.values()):
+        raise AssertionError(f"H-level workspace program != shared: {same}")
+    return worst, out
+
+
+def _programs_per_sm(torch, chunk_attn, sh, C):
+    """Blocks an SM of every program (storage type x level x shared /
+    workspace) at ``sh``'s C-query tile, from the occupancy API."""
+    occ = {}
+    for dt, upper, ws in itertools.product(
+            (torch.bfloat16, torch.float32, torch.int8), (False, True),
+            (False, True)):
+        geo = chunk_attn.plan(sh["B"], sh["Hkv"], sh["G"], C, sh["D"],
+                              sh["b"], sh["nb"], dt, workspace=ws,
+                              sms=chunk_attn.sm_count(0))
+        occ[f"{str(dt)[6:]} C={C} {'upper' if upper else 'two_level'}"
+            f"{' workspace' if ws else ''}"] = chunk_attn.blocks_per_sm(
+                dt, sh["D"], sh["b"], upper, geo["smem"], ws)
+    return occ
+
+
+def phase_chunk_d112(torch, tmd, chunk_attn, ptx):
+    """Phase 47: the chunk kernel at kimi-k2's (112, 128), G = 8, both
+    programs (two-level and H-level, NU = 33), bf16 / fp32 / int8 caches,
+    decode and C = 128 / 5, dense / ring / ragged, MRA-2 and MRA-2-s, held
+    to the plain twin at the serving tolerance; the workspace program at
+    KIMI_PAGES (decode at 4096 pages, C = 128 at 1024) held the same way
+    (two-level and H-level) and forced beside the shared one at the
+    serving shape (the same bits); ptxas and blocks an SM of every D = 112
+    program (two an SM, as at D = 128, and no bf16 spill); decode and
+    C = 128 timed beside the bound and the plain twin."""
+    sh = KIMI_SERVE
+    worst, ties, rows, n = 0.0, 0, 0, 0
+    for (C, mode), layout, dtype, variant, nu in itertools.product(
+            WIDTHS, ("dense", "ring", "ragged"), ("bf16", "fp32", "int8"),
+            ("full", "sparse"), (0, 33)):
+        if nu and (variant == "sparse" or layout == "ragged"):
+            continue
+        n += 1
+        pre, k, v, q_pos, ks, vs = kernel_case(torch, tmd, SEED + 9000 + n,
+                                               sh, C, layout, dtype)
+        if nu:
+            pre = pre._replace(upper=upper_view(
+                torch, SEED + 9100 + n, sh["B"], sh["Hkv"], sh["D"], nu,
+                "some_dead"))
+        kw = dict(m=sh["m"], k_scale=ks, v_scale=vs,
+                  include_bg=variant == "full", mode=mode)
+        got = chunk_attn.chunk_attention_kernel(pre, k, v, q_pos, **kw)
+        ref = chunk_attn.chunk_attention_ref(pre, k, v, q_pos, **kw)
+        torch.cuda.synchronize()
+        err, t, r = _hold(torch, tmd, got, pre, q_pos, sh["m"], ref,
+                          f"d112 C={C} {layout} {dtype} {variant} NU={nu}")
+        worst, ties, rows = max(worst, err), ties + t, rows + r
+    pages = {}
+    for C, mode, shp in KIMI_PAGES:
+        for i, (layout, nu) in enumerate(itertools.product(("dense", "ring"),
+                                                           (0, 33))):
+            pre, k, v, q_pos, ks, vs = kernel_case(
+                torch, tmd, SEED + 9200 + i, shp, C, layout, "bf16")
+            if nu:
+                pre = pre._replace(upper=upper_view(
+                    torch, SEED + 9300 + i, shp["B"], shp["Hkv"], shp["D"],
+                    nu, "some_dead"))
+            kw = dict(m=shp["m"], include_bg=True, mode=mode)
+            geo = chunk_attn.launch_geometry(pre, k.dtype, mode=mode,
+                                             sms=chunk_attn.sm_count(0))
+            got = chunk_attn.chunk_attention_kernel(pre, k, v, q_pos, **kw)
+            ref = chunk_attn.chunk_attention_ref(pre, k, v, q_pos, **kw)
+            torch.cuda.synchronize()
+            err, t, r = _hold(torch, tmd, got, pre, q_pos, shp["m"], ref,
+                              f"d112 nb={shp['nb']} C={C} {layout} NU={nu}")
+            worst, ties, rows = max(worst, err), ties + t, rows + r
+            if not geo["workspace"]:
+                raise AssertionError(f"d112 nb={shp['nb']} C={C}: not the "
+                                     "workspace program")
+            if i == 0:
+                ms = time_ms(torch, lambda: chunk_attn.chunk_attention_kernel(
+                    pre, k, v, q_pos, **kw), 10)
+                _, grid, pairs = selection_stats(torch, tmd, pre, q_pos,
+                                                 shp["m"])
+                pages[f"nb={shp['nb']} C={C}"] = {
+                    "ms": ms, **bound(pre, k, q_pos, None, grid, pairs),
+                    **launch_info(torch, chunk_attn, pre, k, grid, mode,
+                                  upper=False)}
+            del pre, k, v, got, ref
+            torch.cuda.empty_cache()
+    same, ws_time = {}, {}
+    for C, mode in ((1, "latency"), (128, "throughput")):
+        pre, k, v, q_pos, _, _ = kernel_case(torch, tmd, SEED + 9400, sh, C,
+                                             "ring", "bf16")
+        kw = dict(m=sh["m"], include_bg=True, mode=mode)
+        a = chunk_attn._launch(pre, k, v, q_pos, workspace=False, **kw)
+        b = chunk_attn._launch(pre, k, v, q_pos, workspace=True, **kw)
+        same[f"C={C}"] = _same_bits(torch, a, b)
+        ws_time[f"C={C}"] = _program_times(torch, chunk_attn, pre, k, v,
+                                           q_pos, kw, 100)
+    occupancy = {**_programs_per_sm(torch, chunk_attn, sh, 1),
+                 **_programs_per_sm(torch, chunk_attn, sh, 128)}
+    timing = {}
+    for label, C, mode, nu in (("decode", 1, "latency", 0),
+                               ("chunk128", 128, "throughput", 0),
+                               ("upper_decode", 1, "latency", 33),
+                               ("upper_chunk128", 128, "throughput", 33)):
+        pre, k, v, q_pos, ks, vs = kernel_case(torch, tmd, SEED, sh, C,
+                                               "dense", "bf16")
+        if nu:
+            pre = pre._replace(upper=upper_view(
+                torch, SEED + 1, sh["B"], sh["Hkv"], sh["D"], nu, "all_live"))
+        kw = dict(m=sh["m"], include_bg=True, mode=mode)
+        ms = time_ms(torch, lambda: chunk_attn.chunk_attention_kernel(
+            pre, k, v, q_pos, **kw), 200)
+        plain_ms = time_ms(torch, lambda: chunk_attn.chunk_attention_ref(
+            pre, k, v, q_pos, **kw), 20)
+        _, grid, pairs = selection_stats(torch, tmd, pre, q_pos, sh["m"])
+        timing[label] = {"ms": ms, "plain_ms": plain_ms,
+                         **bound(pre, k, q_pos, ks, grid, pairs, nu=nu),
+                         **launch_info(torch, chunk_attn, pre, k, grid, mode,
+                                       upper=bool(nu))}
+    regs = [x for x in ptx if "D=112" in x["kernel"]]
+    emit({"phase": "chunk_d112", "shape": sh, "cases": n, "atol": ATOL,
+          "rtol": RTOL, "max_abs_err": worst, "near_tie_rows": ties,
+          "rows": rows, "pages": pages, "workspace_bitwise": same,
+          "workspace_vs_shared": ws_time, "blocks_per_sm": occupancy,
+          "ptxas": regs, **timing})
+    low = {k: b for k, b in occupancy.items() if b < 2}
+    spills = [x for x in regs if x["kernel"].startswith("bf16")
+              and (x["spill_stores"] or x["spill_loads"])]
+    if ties > 0.01 * rows:
+        raise AssertionError(f"{ties} near-tie rows of {rows} exceed 1%")
+    if low or spills or len(regs) != 12 or not all(same.values()):
+        raise AssertionError(f"D = 112: under two blocks an SM {low}, bf16 "
+                             f"spills {spills}, {len(regs)} programs built, "
+                             f"workspace bitwise {same}")
+    return worst, timing
+
+
+def phase_bsa_kimi(torch, bsa, ptx):
+    """Phase 48: bsa_fwd, bsa_bwd_dq and bsa_bwd_dkv at kimi-k2's (112, 128),
+    64 query over 8 KV heads (G = 8), n = 4096, causal, bf16 and fp32, with
+    and without padded keys / invalid pairs, against their plain twins at
+    phase 22's tolerances (mt at MT_TOL), reruns bit-identical; then timed
+    in bf16 beside the bounds and the plain twins with grid, shared memory,
+    blocks per SM and ptxas per D = 112 kernel (a bf16 spill, or a bf16
+    kernel under (128, 128)'s two blocks an SM, fails it)."""
+    sh, G = BSA_KIMI, BSA_KIMI["Hq"] // 8
+    worst, n = {}, 0
+    _reset_bsa(bsa)
+    for dtype, edited in itertools.product((torch.bfloat16, torch.float32),
+                                           (False, True)):
+        n += 1
+        errs, _ = _bsa_hold(torch, bsa, sh, G, dtype, SEED + 700 + n, edited)
+        worst = {k: max(worst.get(k, 0.0), e) for k, e in errs.items()}
+    timing = _bsa_timing(torch, bsa, sh, G, True)
+    regs = [x for x in ptx if "D=112" in x["kernel"]]
+    emit({"phase": "bsa_kimi", "shape": sh, "G": G, "cases": n,
+          "rtol": BSA_TOL, "atol": BSA_TOL, "mt_atol": MT_TOL,
+          "max_abs_err": worst, "bit_identical_reruns": True,
+          "phase_launches": _bsa_launches(bsa), "ptxas": regs,
+          "timing_bf16": timing})
+    low = [key for key, t in timing.items() if t["blocks_per_sm"] < 2]
+    spills = [x for x in regs if " bf16 " in x["kernel"]
+              and (x["spill_stores"] or x["spill_loads"])]
+    if low or spills or len(regs) != 6:
+        raise AssertionError(f"bsa (112, 128): under two blocks an SM {low}, "
+                             f"bf16 spills {spills}, {len(regs)} built")
+    return worst, timing
+
+
+def _score_rounding(q, k, scale):
+    """Four fp32 roundings of the largest partial sum a score of the call
+    can reach: 4·2^-24·|q|max·|k|max·scale (row norms; an upper bound of
+    Σ_d |q_d·k_d|·scale). Two routes that sum a score in another order part
+    by about this; it moves the softmax weights by as much (relative) and
+    an output by that times the values' largest magnitude. At unit-scale
+    inputs it is ~1e-6; at the saturated logits of a model without
+    qk-norm at its seeded init (|q|, |k| ~ 1e2 a row, |v| ~ 1e2) it is
+    ~1e-3 on a score and ~1e-1 on an output, where the serving atol (2e-5)
+    and the training one (1e-4) cannot hold in fp32 whatever the order."""
+    return 4 * 2.0 ** -24 * float(q.float().norm(dim=-1).max()
+                                  * k.float().norm(dim=-1).max()) * scale
+
+
+def _capture(store, fn):
+    """``fn`` recording its first call's arguments and result in ``store``
+    (tensors cloned: the serving cache updates in place)."""
+    def clone(x):
+        if isinstance(x, tuple):  # a NamedTuple, or a plain tuple
+            items = [clone(y) for y in x]
+            return type(x)(*items) if hasattr(x, "_replace") else tuple(items)
+        return x.clone() if hasattr(x, "clone") else x
+
+    def wrapped(*a, **kw):
+        res = fn(*a, **kw)
+        if not store:
+            store.update(args=tuple(clone(x) for x in a),
+                         kw={k: clone(x) for k, x in kw.items()},
+                         out=clone(res))
+        return res
+    return wrapped
+
+
+def phase_kimi_full_width(torch, tmd, chunk_attn, bsa):
+    """Phase 49: kimi-k2-1t-a32b at full width cut to KIMI["layers"] of its
+    61 layers, bf16 weights from a seed (each leaf drawn in fp32: the
+    init's peak reported), 384 experts top-8, head dim 112: KIMI's greedy
+    requests through ``Engine(slots=2, max_len=4096, chunk=128)`` (the chunk
+    kernel at (112, 128): launches = layers x dispatches, combines as
+    planned), a torch.profiler breakdown of one decode and one prefill
+    dispatch on its cache, then one whole-prompt ``transformer.prefill`` of
+    the longest prompt (bsa_fwd at (112, 128), one launch a layer). Held:
+    one captured chunk-kernel call (a C = 128 prefill chunk) and the
+    captured bsa_fwd call against their plain twins, every prompt token
+    prefilled and every requested token generated, every MoE dispatch's
+    assignments counted (kept <= tokens x top-8), no non-finite logit.
+    Reported: tok/s, prefill / decode wall, the dropped-assignment share,
+    the peaks."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe, transformer
+    from repro_torch.models.params import init_params, map_specs, materialize
+    from repro_torch.serve import Engine, EngineConfig, Request
+
+    cfg = get_config(KIMI_ARCH, num_layers=KIMI["layers"],
+                     param_dtype="bfloat16")
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    param_gib = (torch.cuda.memory_allocated() - base) / 2**30
+    ecfg = EngineConfig(slots=KIMI["slots"], max_len=KIMI["max_len"],
+                        chunk=KIMI["chunk"])
+    eng = Engine(cfg, params, ecfg, device=DEVICE)
+    reqs = _requests(Request, KIMI["prompts"], KIMI["new_tokens"], cfg.vocab)
+    bad, kept, total = (torch.zeros((), dtype=torch.int64, device=DEVICE)
+                        for _ in range(3))
+    routed = torch.zeros((), dtype=torch.int64, device=DEVICE)
+    orig_dispatch = moe._dispatch
+
+    def counted(x, idx, **kw):  # kept and total assignments, on the device
+        buf, meta = orig_dispatch(x, idx, **kw)
+        kept.add_(meta[3].sum())
+        total.add_(meta[3].numel())
+        routed.add_(idx.numel())
+        return buf, meta
+
+    orig = (transformer.prefill_chunk, transformer.decode_step)
+
+    def finite(fn):
+        def wrapped(*a, **kw):
+            logits, cache = fn(*a, **kw)
+            bad.add_((~torch.isfinite(logits)).sum())
+            return logits, cache
+        return wrapped
+
+    chunk_call, launch = {}, chunk_attn._launch
+    capture = _capture(chunk_call, launch)
+
+    def launch_kimi(pre, *a, **kw):  # capture the first C = 128 call
+        fn = capture if pre.qg.shape[3] == KIMI["chunk"] else launch
+        return fn(pre, *a, **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(transformer, "prefill_chunk", finite(orig[0])), \
+            mock.patch.object(transformer, "decode_step", finite(orig[1])), \
+            mock.patch.object(moe, "_dispatch", counted), \
+            mock.patch.object(chunk_attn, "_launch", launch_kimi):
+        _reset_chunk(chunk_attn)
+        t0 = time.perf_counter()
+        done = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, upper = _chunk_launches(chunk_attn)
+        combines = chunk_attn.chunk_attention_kernel.combine_launches
+    serve_peak = torch.cuda.max_memory_allocated() / 2**30
+    st = eng.stats
+    dispatches = st["prefill_dispatches"] + st["decode_dispatches"]
+    want_comb = _want_combines(chunk_attn, cfg, st, KIMI["slots"],
+                               KIMI["chunk"], KIMI["max_len"])
+    serve = {"wall_s": wall, "generated_tokens": st["generated_tokens"],
+             "tok_per_s": st["generated_tokens"] / wall,
+             "prefill_tokens": st["prefill_tokens"],
+             "prefill_dispatches": st["prefill_dispatches"],
+             "prefill_s": _dispatch_seconds(eng, "prefill_chunk_seconds"),
+             "decode_dispatches": st["decode_dispatches"],
+             "decode_s": _dispatch_seconds(eng, "decode_step_seconds"),
+             "peak_gib": serve_peak, "kernel_launches": launches,
+             "combine_launches": combines,
+             "assignments": int(total), "dropped": int(total - kept),
+             "dropped_share": float(total - kept) / max(float(total), 1.0)}
+    # one MoE layer: the profiler's raw sums held against key_averages()
+    phase_profile(torch, eng, phase="kimi_profile", check=True)
+    # the captured chunk-kernel call against its plain twin
+    pre, k, v, q_pos = chunk_call["args"][:4]
+    kw = {x: y for x, y in chunk_call["kw"].items()
+          if x in ("m", "k_scale", "v_scale", "include_bg", "mode")}
+    ref = chunk_attn.chunk_attention_ref(pre, k, v, q_pos, **kw)
+    torch.cuda.synchronize()
+    # the serving tolerance plus the scores' fp32 rounding carried to the
+    # output (kimi-k2 has no qk-norm: its seeded logits reach ~1e3)
+    chunk_round = _score_rounding(pre.qg, k, pre.scale)
+    chunk_slack = chunk_round * float(v.float().abs().max())
+    chunk_err, _, _ = _hold(torch, tmd, chunk_call["out"], pre, q_pos,
+                            kw["m"], ref, "kimi engine C = 128 call",
+                            atol=ATOL + chunk_slack)
+    del eng, chunk_call, pre, k, v, ref
+    torch.cuda.empty_cache()
+    # the whole-prompt prefill of the longest prompt
+    S = KIMI["prompts"][0]
+    cache = map_specs(transformer.cache_specs(cfg, 1, KIMI["max_len"]),
+                      lambda s: materialize(s, DEVICE))
+    toks = torch.as_tensor(np.asarray(reqs[0].prompt)[None],
+                           dtype=torch.int32, device=DEVICE)
+    fwd_call = {}
+    _reset_bsa(bsa)
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(bsa, "_forward", _capture(fwd_call, bsa._forward)):
+        t0 = time.perf_counter()
+        logits, _ = transformer.prefill(params, cfg, {"tokens": toks}, cache)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    prefill_peak = torch.cuda.max_memory_allocated() / 2**30
+    fwd_launches = _bsa_launches(bsa)["bsa_fwd"]
+    q, k, v, c, x_idx, y_idx, flags, km, scale, b = fwd_call["args"]
+    out, rs, mt = fwd_call["out"][:3]
+    ref = bsa.block_sparse_attention_ref(q, k, v, x_idx, y_idx, flags, c, km,
+                                         scale=scale, block_size=b)
+    # the numerator and row sums at their shared stabilizer mt, each row
+    # held in proportion to its weight mass (max(rs, rs_ref)): a row whose
+    # exact term the coarse floor c outweighs by e^88 has denormal sums
+    # and an ill-defined normalized output, and adds nothing to the
+    # layer's output. Tolerances: phase 22's plus the scores' fp32
+    # rounding (``_score_rounding``; its seeded logits reach ~1e3)
+    s_round = _score_rounding(q, k, scale)
+    mass = torch.maximum(rs, ref[1])
+    vmax = float(v.float().abs().max())
+    bsa_err = {"bsa_fwd": float(((out - ref[0]).abs()
+                                 / (1.0 + vmax * mass[..., None])).max()),
+               "rowsum_rel": float(((rs - ref[1]).abs()
+                                    / mass.clamp(min=1e-30)).max()),
+               "mt": float((mt - ref[2]).abs().max())}
+    bsa_ok = (bool(((out - ref[0]).abs() <= BSA_TOL + (BSA_TOL + s_round)
+                    * vmax * mass[..., None]).all())
+              and bool(((rs - ref[1]).abs()
+                        <= BSA_TOL + (BSA_TOL + s_round) * mass).all())
+              and bsa_err["mt"] <= MT_TOL + s_round
+              and torch.equal(rs > 0, ref[1] > 0))
+    prefill_finite = bool(torch.isfinite(logits).all())
+    emit({"phase": "kimi_full_width", "arch": cfg.name,
+          "layers": cfg.num_layers, "of_layers": 61,
+          "param_dtype": cfg.param_dtype, "activ_dtype": cfg.activ_dtype,
+          "experts": cfg.moe.num_experts, "top_k": cfg.moe.top_k,
+          "head_dim": cfg.hd, "config": KIMI, "init_s": init_s,
+          "param_gib": param_gib, "init_peak_gib": init_peak,
+          "engine": serve, "chunk_call_max_abs_err": chunk_err,
+          "chunk_call_score_rounding": chunk_round,
+          "chunk_call_atol": ATOL + chunk_slack,
+          "whole_prompt_prefill": {
+              "tokens": S, "s": prefill_s, "peak_gib": prefill_peak,
+              "bsa_fwd_launches": fwd_launches, "max_abs_err": bsa_err,
+              "score_rounding": s_round, "mt_atol": MT_TOL + s_round,
+              "q_shape": list(q.shape), "finite_logits": prefill_finite}})
+    del params, cache, logits, fwd_call, q, k, v, ref
+    torch.cuda.empty_cache()
+    if launches != cfg.num_layers * dispatches or upper or combines != want_comb:
+        raise AssertionError(f"kimi: {launches} (+{upper}) launches != "
+                             f"{cfg.num_layers} x {dispatches}; {combines} "
+                             f"combines != {want_comb}")
+    if int(bad) or not prefill_finite:
+        raise AssertionError(f"kimi: {int(bad)} non-finite logits")
+    if (st["prefill_tokens"] != sum(KIMI["prompts"])
+            or st["generated_tokens"] != len(reqs) * KIMI["new_tokens"]
+            or any(len(r.out) != KIMI["new_tokens"] for r in done)
+            or int(total) != int(routed) or int(kept) > int(total)):
+        raise AssertionError("kimi: tokens or assignments not conserved")
+    if not bsa_ok or fwd_launches != cfg.num_layers:
+        raise AssertionError(f"kimi: bsa_fwd {bsa_err} ({fwd_launches} "
+                             "launches)")
+    return (launches, combines), fwd_launches, chunk_err, bsa_err["bsa_fwd"]
+
+
+def _with_groups(pre, draft_level):
+    """``pre`` with the draft's page groups of ``draft_level``."""
+    return pre._replace(group=1 << (draft_level - 1))
+
+
+def phase_draft_fold(torch, tmd, chunk_attn):
+    """Phase 50: the grouped far-field draft. The fold kernel (group sizes
+    2 and 4: draft_level 2 and 3) against its plain twin at the serving
+    tolerance: the drafts' budget m = 1 and m = 16 at the serving shape
+    (B = 4) and with an H-level view (NU = 33) at the long-context one
+    (B = 2), dense / ring / ragged, bf16 / int8 / fp32, decode with the
+    split planned and forced to 1, and C = 5; a draft call's kernel time
+    at draft_level 1 and 2 (m = 1, decode); then phase 14's speculative
+    engine at qwen3-1.7b's full width with ``levels=3``, the depth cut to
+    SPEC_DRAFT_LAYERS, at draft_level 1 and 2 against plain decoding at
+    levels=3 (streams equal, or parting only at phase 14's near tie):
+    acceptance, tokens per full dispatch, launches by dispatch kind."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.models.params import init_params
+    from repro_torch.serve import Engine, EngineConfig, Request, Scheduler
+    from repro_torch.serve import engine as engine_mod
+
+    worst, ties, rows, n = 0.0, 0, 0, 0
+    for dl, (sh, nu), m, layout, dtype, (C, mode, ns) in itertools.product(
+            DRAFT_LEVELS, ((MAIN, 0), (UP_MAIN, 33)), (1, 16),
+            ("dense", "ring", "ragged"), ("bf16", "int8", "fp32"),
+            ((1, "latency", None), (1, "latency", 1),
+             (5, "throughput", None))):
+        if nu and layout == "ragged":
+            continue
+        n += 1
+        shm = dict(sh, m=m)
+        pre, k, v, q_pos, ks, vs = kernel_case(torch, tmd, SEED + 9500 + n,
+                                               shm, C, layout, dtype)
+        pre = _with_groups(pre, dl)
+        if nu:
+            pre = pre._replace(upper=upper_view(
+                torch, SEED + 9600 + n, sh["B"], sh["Hkv"], sh["D"], nu,
+                "some_dead"))
+        kw = dict(m=m, k_scale=ks, v_scale=vs, include_bg=True, mode=mode)
+        got = chunk_attn._launch(pre, k, v, q_pos, nsplit=ns, **kw)
+        ref = chunk_attn.chunk_attention_ref(pre, k, v, q_pos, **kw)
+        torch.cuda.synchronize()
+        err, t, r = _hold(torch, tmd, got, pre, q_pos, m, ref,
+                          f"draft_level={dl} NU={nu} m={m} C={C} nsplit={ns} "
+                          f"{layout} {dtype}")
+        worst, ties, rows = max(worst, err), ties + t, rows + r
+    kernel_ms = {}
+    pre, k, v, q_pos, _, _ = kernel_case(torch, tmd, SEED, DRAFT_MAIN, 1,
+                                         "dense", "bf16")
+    for dl in (1, 2):
+        p = _with_groups(pre, dl)
+        kw = dict(m=1, include_bg=True, mode="latency")
+        kernel_ms[f"draft_level={dl}"] = {
+            "ms": time_ms(torch, lambda: chunk_attn.chunk_attention_kernel(
+                p, k, v, q_pos, **kw), 200),
+            "plain_ms": time_ms(torch, lambda: chunk_attn.chunk_attention_ref(
+                p, k, v, q_pos, **kw), 20),
+            "nsplit": chunk_attn.launch_geometry(
+                p, k.dtype, mode="latency",
+                sms=chunk_attn.sm_count(0))["nsplit"]}
+    _, grid, pairs = selection_stats(torch, tmd, pre, q_pos, 1)
+    kernel_ms["bound"] = bound(pre, k, q_pos, None, grid, pairs)
+    del pre, k, v
+    if ties > 0.01 * rows:
+        raise AssertionError(f"draft fold: {ties} near-tie rows of {rows}")
+    # the speculative engine at levels=3, plain and at draft_level 1 / 2
+    cfg = get_config("qwen3-1.7b", num_layers=SPEC_DRAFT_LAYERS)
+    cfg = cfg.replace(attention=dataclasses.replace(cfg.attention, levels=3))
+    params = init_params(cfg, seed=SEED, device=DEVICE)
+    ecfg = EngineConfig(slots=4, max_len=4096, chunk=128)
+    n_new = SPEC["new_tokens"]
+    reqs = _requests(Request, SERVE["prompts"], n_new, cfg.vocab)
+    (p_sample, p_sched), gaps = _top2_recorder(torch, engine_mod, Scheduler,
+                                               cfg.vocab)
+    with p_sample, p_sched:
+        plain_eng = Engine(cfg, params, ecfg, device=DEVICE)
+        t0 = time.perf_counter()
+        plain = {len(r.prompt): np.asarray(r.out)
+                 for r in plain_eng.run(reqs)}
+        plain_wall = time.perf_counter() - t0
+    gaps = {n_: torch.stack([torch.stack(g) for g in v]).cpu().numpy()
+            for n_, v in gaps.items()}
+    plain_per = ((plain_eng.stats["generated_tokens"] - len(reqs))
+                 / plain_eng.stats["decode_dispatches"])
+    runs = {}
+    for dl in (1, 2):
+        counts = {k: dict(dispatches=0, launches=0, combines=0)
+                  for k in ("prefill", "decode", "draft", "verify")}
+        bad = torch.zeros((), dtype=torch.int64, device=DEVICE)
+        eng = Engine(cfg, params, ecfg.replace(spec_k=SPEC["spec_k"],
+                                               draft_level=dl),
+                     device=DEVICE)
+        with contextlib.ExitStack() as stack:
+            for p in _count_dispatches(torch, transformer, chunk_attn,
+                                       counts, bad):
+                stack.enter_context(p)
+            _reset_chunk(chunk_attn)
+            t0 = time.perf_counter()
+            done = eng.run(_requests(Request, SERVE["prompts"], n_new,
+                                     cfg.vocab))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            two_level = chunk_attn.chunk_attention_kernel.launches
+        st = eng.stats
+        gen = st["generated_tokens"]
+        first = {}
+        for r in done:
+            got = np.asarray(r.out)
+            diff = np.flatnonzero(got != plain[len(r.prompt)])
+            if diff.size:
+                i = int(diff[0])
+                gap, top = gaps[len(r.prompt)][i]
+                first[len(r.prompt)] = {"position": i,
+                                        "top2_gap": float(gap),
+                                        "limit_4_ulps": 4 * _bf16_ulp(top)}
+        runs[f"draft_level={dl}"] = {
+            "wall_s": wall, "tok_per_s": gen / wall,
+            "spec_rounds": st["spec_rounds"],
+            "acceptance_rate": st["spec_accepted_tokens"]
+            / max(st["spec_drafted_tokens"], 1),
+            "tokens_per_full_dispatch": (gen - len(done))
+            / (st["verify_dispatches"] + st["decode_dispatches"]),
+            "draft_s": _dispatch_seconds(eng, "draft_seconds"),
+            "verify_s": _dispatch_seconds(eng, "verify_seconds"),
+            "by_kind": counts, "two_level_launches": two_level,
+            "identical_streams": not first, "first_divergence": first,
+            "non_finite_logits": int(bad)}
+        del eng
+        for kind, c in counts.items():
+            if c["launches"] != cfg.num_layers * c["dispatches"]:
+                raise AssertionError(f"draft_level={dl} {kind}: "
+                                     f"{c['launches']} launches != "
+                                     f"{cfg.num_layers} x {c['dispatches']}")
+        if two_level or not st["spec_rounds"] or int(bad):
+            raise AssertionError(f"draft_level={dl}: {two_level} two-level "
+                                 f"launches at levels=3, {st['spec_rounds']} "
+                                 f"rounds, {int(bad)} non-finite logits")
+        for n_, f in first.items():
+            if not f["top2_gap"] < f["limit_4_ulps"]:
+                raise AssertionError(f"draft_level={dl} prompt {n_}: stream "
+                                     f"leaves plain decoding's at {f}")
+    emit({"phase": "draft_fold", "atol": ATOL, "rtol": RTOL, "cases": n,
+          "max_abs_err": worst, "near_tie_rows": ties, "rows": rows,
+          "draft_kernel": kernel_ms, "arch": cfg.name,
+          "layers": cfg.num_layers, "levels": 3, "spec_k": SPEC["spec_k"],
+          "prompts": list(SERVE["prompts"]), "new_tokens": n_new,
+          "plain": {"wall_s": plain_wall,
+                    "tok_per_s": plain_eng.stats["generated_tokens"]
+                    / plain_wall, "decode_tokens_per_dispatch": plain_per},
+          **runs})
+    del params, plain_eng
+    torch.cuda.empty_cache()
+    return worst, kernel_ms, runs
+
+
+def bitwise_dump(path):
+    """Outputs of the chunk kernel's existing launches (no draft groups) on
+    seeded inputs, saved to ``path`` for a bit-for-bit comparison between
+    two trees: phase 2's shapes over widths, layouts and caches (the split
+    planned and forced to 1), phase 11's H-level shapes (C = 512 too) and
+    phase 40's D = 80. Uses only the wrapper's ``_launch`` and the
+    prelude, which both trees have; run it with each tree's ``src`` first
+    on ``sys.path``."""
+    import torch
+
+    from repro_torch.core import mra_decode as tmd
+    from repro_torch.kernels import chunk_attn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out, n = {}, 0
+    for (name, sh, nu), (C, mode), layout, dtype, ns in itertools.product(
+            (("main", MAIN, 0), ("up", UP_MAIN, 33), ("d80", HUBERT_SERVE, 0),
+             ("granite", GRANITE, 0)),
+            ((1, "latency"), (128, "throughput"), (5, "throughput"),
+             (512, "throughput")),
+            ("dense", "ring", "ragged"), ("bf16", "int8", "fp32"),
+            (None, 1)):
+        if (ns == 1 and C != 1) or (C == 512 and not nu):
+            continue
+        n += 1
+        pre, k, v, q_pos, ks, vs = kernel_case(torch, tmd, SEED + n, sh, C,
+                                               layout, dtype)
+        if nu:
+            pre = pre._replace(upper=upper_view(
+                torch, SEED + n, sh["B"], sh["Hkv"], sh["D"], nu,
+                "some_dead"))
+        out[f"{name} C={C} {layout} {dtype} nsplit={ns}"] = chunk_attn._launch(
+            pre, k, v, q_pos, m=sh["m"], k_scale=ks, v_scale=vs,
+            include_bg=True, mode=mode, nsplit=ns).cpu()
+    torch.save(out, path)
+    print(json.dumps({"bitwise_dump": str(path), "cases": n}))
+
+
 def main() -> int:
     import torch
 
@@ -5298,7 +6111,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     finally:  # nothing raises before the compilers have stopped
         join_build(build)
-    smi, bsa_ptx = phase_device(torch, build)
+    smi, bsa_ptx, chunk_ptx = phase_device(torch, build)
     # recurrentgemma's training peaks at 70.67 GiB of the card's 79.18: it
     # runs first of the kernel phases, on the cache rwkv6's left empty,
     # before the other phases' allocations fragment it
@@ -5306,12 +6119,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     with _expandable_segments(torch):
         rg_launches = phase_rgemma_train(torch, bsa)
+        # kimi-k2's one bf16 layer peaks near 61 GiB at init: on the cache
+        # the training phase left empty
+        kimi = phase_kimi_full_width(torch, tmd, chunk_attn, bsa)
     max_err, err_by_shape = phase_kernel_vs_plain(torch, tmd, chunk_attn)
     timing = phase_timing(torch, tmd, chunk_attn)
     granite_time = phase_timing(torch, tmd, chunk_attn, GRANITE, MOE_ARCH)
     d80_err, d80_time, hubert_serve = phase_chunk_d80(torch, tmd, chunk_attn)
     torch.cuda.empty_cache()
     long_err, long_pages = phase_chunk_long_pages(torch, tmd, chunk_attn)
+    torch.cuda.empty_cache()
+    up_ws_err, up_ws = phase_upper_workspace(torch, tmd, chunk_attn)
+    torch.cuda.empty_cache()
+    d112_err, d112_time = phase_chunk_d112(torch, tmd, chunk_attn, chunk_ptx)
     torch.cuda.empty_cache()
     launches, eng, base = phase_engine_full_width(torch, chunk_attn)
     phase_profile(torch, eng)
@@ -5333,6 +6153,8 @@ def main() -> int:
     granite_bwd_err, granite_bwd = phase_bsa_granite_bwd(torch, bsa)
     hubert_err, hubert_bsa = phase_bsa_hubert(torch, bsa, bsa_ptx)
     vlm_bsa_err, vlm_bsa = phase_bsa_internvl(torch, bsa)
+    kimi_bsa_err, kimi_bsa = phase_bsa_kimi(torch, bsa, bsa_ptx)
+    kimi_bsa_launches = _bsa_launches(bsa)
     bsa_launches, _, state = phase_train_full_width(torch, bsa)
     phase_train_profile(torch, state)
     del state
@@ -5364,6 +6186,8 @@ def main() -> int:
     del eng
     torch.cuda.empty_cache()
     phase_spec_parity(torch, chunk_attn)
+    torch.cuda.empty_cache()
+    fold_err, fold_ms, fold_runs = phase_draft_fold(torch, tmd, chunk_attn)
     torch.cuda.empty_cache()
     h1d_launches, h1d_err, h1d_time = phase_baselines(torch, bsa, bsa_ptx)
     torch.cuda.empty_cache()
@@ -5612,6 +6436,64 @@ def main() -> int:
             "bound_ms": t["bound_ms_bf16"], "bound_by": t["bound_by_bf16"],
             "shape": "examples/train_lm small preset, B=8, n=256, 8 query / "
                      "4 KV heads, causal, bf16 (phase 45)"})
+    kdec = d112_time["decode"]
+    new_shapes.append({
+        "name": "chunk_attn (D=112, b=128)", **chunk_src,
+        "launches": kimi[0][0], "combine_launches": kimi[0][1],
+        "max_abs_err": d112_err, "kimi_engine_call_abs_err": kimi[2],
+        "ms": kdec["ms"],
+        "plain_ms": kdec["plain_ms"], "bound_ms": kdec["bound_ms"],
+        "bound_by": kdec["bound_by"],
+        "shape": "kimi-k2-1t-a32b decode C=1, B=2, Hkv=8, G=8 (phase 47); "
+                 "chunk128 and the H-level program (NU=33) below; launches "
+                 f"from its engine run ({KIMI['layers']} of 61 layers, bf16 "
+                 "weights, phase 49)",
+        **{w: {k: d112_time[w][k] for k in keys}
+           for w in ("chunk128", "upper_decode", "upper_chunk128")}})
+    for label, t in up_ws.items():
+        new_shapes.append({
+            "name": f"chunk_attn_upper (workspace, {label})", **chunk_src,
+            "replaces": "src/repro/kernels/chunk_attn.py:93 (with_upper=True)",
+            "launches": t["timed_upper_launches"],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            **{k: t[k] for k in ("nsplit", "smem_bytes", "workspace_bytes",
+                                 "blocks_per_sm")},
+            "shape": f"the H-level workspace program, NU={UPPER_WS_NU}, "
+                     f"{label}, B=1 (phase 46; launches: its timed calls "
+                     "there, none on the main paths)"})
+    for name, key, line in (("bsa_fwd", "fwd", 92), ("bsa_bwd_dq", "dq", 196),
+                            ("bsa_bwd_dkv", "dkv", 232)):
+        t = kimi_bsa[key]
+        new_shapes.append({
+            "name": f"{name} (d=112, b=128)", **bsa_src,
+            "replaces": f"src/repro/kernels/block_sparse_attn.py:{line}",
+            "launches": kimi[1] if key == "fwd" else kimi_bsa_launches[name],
+            "max_abs_err": kimi_bsa_err[name],
+            **({"kimi_prefill_call_err": kimi[3]} if key == "fwd" else {}),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms_bf16"], "bound_by": t["bound_by_bf16"],
+            "bound_ms_fp32_rate": t["bound_ms_fp32"],
+            "bound_by_fp32_rate": t["bound_by_fp32"],
+            "shape": "kimi-k2-1t-a32b, n=4096, B=1, 64 query / 8 KV heads, "
+                     "causal, bf16 (phase 48); launches: bsa_fwd from the "
+                     "whole-prompt prefill of phase 49, the backward kernels "
+                     "from phase 48's holds (no full-width training step)",
+            **{k: t[k] for k in ("grid", "threads", "smem_bytes",
+                                 "blocks_per_sm")}})
+    fd = fold_ms["draft_level=2"]
+    new_shapes.append({
+        "name": "chunk_attn (draft fold, gsz=2)", **chunk_src,
+        "launches": fold_runs["draft_level=2"]["by_kind"]["draft"]["launches"],
+        "max_abs_err": fold_err, "ms": fd["ms"], "plain_ms": fd["plain_ms"],
+        "bound_ms": fold_ms["bound"]["bound_ms"],
+        "bound_by": fold_ms["bound"]["bound_by"], "nsplit": fd["nsplit"],
+        "draft_level_1_ms": fold_ms["draft_level=1"]["ms"],
+        "shape": "a draft call: qwen3-1.7b decode C=1, m=1, B=4, Hkv=8, G=2, "
+                 "groups of 2 pages (phase 50); launches from the draft "
+                 f"dispatches of its levels=3 speculative engine "
+                 f"({SPEC_DRAFT_LAYERS} layers)"})
     emit({"kernels": [{
         "name": "chunk_attn", "route": "cuda",
         "source": "src/repro_torch/csrc/chunk_attn.cu",

@@ -2,8 +2,8 @@
 
 61L d_model=7168 64H (GQA kv=8) d_ff=2048(per expert) vocab=163840,
 MoE 384 experts top-8. At full width (head dim 112, about 1 T
-parameters) it neither fits one card nor has kernels built for its
-(head dim, block) = (112, 128): the kernels' shape checks refuse it. Its
+parameters) it does not fit one card; one layer does, in bf16 weights
+(38.8 GB), and runs the kernels at (head dim, block) = (112, 128). Its
 smoke config (D = b = 16) runs on the CPU and on the card.
 """
 from repro_torch.configs.base import ModelConfig, MoESpec

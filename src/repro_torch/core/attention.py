@@ -44,7 +44,8 @@ class AttentionSpec:
       two-level ring; >= 3 collapses evicted pages into coarser rings and
       an fp32 tail, so a slot serves contexts past its fine window.
     hier_pages: entries per collapsed level (0 = the fine page count).
-    draft_level: background resolution of coarse drafts; only 1 yet.
+    draft_level: background resolution of coarse drafts: > 1 folds groups
+      of 2^(draft_level-1) adjacent background pages through their mean.
     local_window: window of kind "local" (recurrentgemma's local layers).
     """
 

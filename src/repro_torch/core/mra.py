@@ -42,8 +42,9 @@ class MraConfig:
       kernel_mode: serving-kernel tile shape (kernels/chunk_attn.py) —
         "latency" (single-query tiles) | "throughput" (multi-query tiles) |
         "auto" (resolved per call from the chunk width).
-      draft_level: background resolution of speculative drafts; only 1 is
-        served until the speculative slice.
+      draft_level: background resolution of speculative drafts: 1 reads
+        every page's mean; > 1 folds groups of 2^(draft_level-1) adjacent
+        pages that are all background for a row through their mean.
     """
 
     block_size: int = 32

@@ -19,6 +19,13 @@ carries the collapsed levels + tail (``core.hier.HierUpper``) into the
 prelude; under ``variant="full"`` their live means join the background
 softmax (``variant="sparse"`` ignores them).
 
+Grouped far field (``draft_level > 1``, the speculative draft, DESIGN.md
+§14): the prelude also carries the group size 2^(draft_level-1); a group
+of that many physically adjacent pages whose every page is background for
+a row enters that row's background once, through the group's
+count-weighted mean, a mixed group page by page (the kernel and its plain
+twin in ``kernels/chunk_attn.py``).
+
 Only the page-statistics prelude and the jnp-oracle selection live here:
 everything after them runs in ``kernels/chunk_attn.py`` — the hand-written
 CUDA kernel on a card, its plain PyTorch twin on the CPU.
@@ -154,6 +161,20 @@ def mra2_coarse_decode_attention(q, k_cache, v_cache, lengths, cfg: MraConfig,
         page_blocks=page_blocks, k_scale=k_scale, v_scale=v_scale)
 
 
+def draft_group(cfg: MraConfig, nb: int) -> int:
+    """Pages a group of the draft's far field (1: none): 2^(draft_level-1)
+    under ``variant="full"``; raises ValueError where the nb pages do not
+    split into whole groups."""
+    if cfg.draft_level <= 1 or cfg.variant != "full":
+        return 1
+    gsz = 1 << (cfg.draft_level - 1)
+    if nb % gsz:
+        raise ValueError(
+            f"draft_level={cfg.draft_level} aggregates the background over "
+            f"{gsz}-page groups, but nb={nb} pages do not divide evenly")
+    return gsz
+
+
 class ChunkPrelude(NamedTuple):
     """Page statistics shared by the kernel and its plain twin.
 
@@ -170,6 +191,7 @@ class ChunkPrelude(NamedTuple):
     scale: float
     block_size: int
     upper: Optional[NamedTuple] = None  # core.hier.HierUpper at H >= 3
+    group: int = 1  # pages a group of the draft's far field (1: none)
 
 
 class PageSelection(NamedTuple):
@@ -224,7 +246,7 @@ def _chunk_prelude(q, k_cache, v_cache, lengths, q_pos, cfg: MraConfig,
     qg = q.reshape(B, Hkv, G, C, D).to(cdt).contiguous()
     upper = pyramid.upper if pyramid is not None else None
     return ChunkPrelude(qg, pb.to(torch.int32).contiguous(), counts, k_ds,
-                        v_ds, scale, b, upper)
+                        v_ds, scale, b, upper, draft_group(cfg, nb))
 
 
 def _select_pages(pre: ChunkPrelude, q_pos, m: int) -> PageSelection:
@@ -265,8 +287,9 @@ def mra2_chunk_attention(q, k_cache, v_cache, lengths, q_pos, cfg: MraConfig,
     the own (partial) block is force-selected and masked to ``pos_k <= p``,
     and the remaining live past pages form the coarse background — joined,
     at H >= 3 under ``variant="full"``, by the live collapsed entries of
-    ``pyramid.upper``. With C == 1 and ``q_pos == lengths - 1`` this is the
-    decode path.
+    ``pyramid.upper``, and folded over groups of adjacent pages at
+    ``cfg.draft_level > 1`` (``draft_group``). With C == 1 and ``q_pos ==
+    lengths - 1`` this is the decode path.
 
     Only the page-stats prelude runs here; selection, gather, two-level
     softmax, background and normalization run in
@@ -288,11 +311,6 @@ def mra2_chunk_attention(q, k_cache, v_cache, lengths, q_pos, cfg: MraConfig,
         raise ValueError(
             f"q_pos shape {tuple(q_pos.shape)} does not match (B, C) = "
             f"({B}, {C}) of q {tuple(q.shape)}")
-    if cfg.draft_level > 1:
-        raise NotImplementedError(
-            "draft_level > 1 (coarser speculative-draft background) is not "
-            "ported: the grouped fold needs the CUDA chunk kernel's support "
-            "(ROADMAP.md)")
     from repro_torch.kernels.chunk_attn import chunk_attention_kernel
 
     pre = _chunk_prelude(q, k_cache, v_cache, lengths, q_pos, cfg,

@@ -100,12 +100,15 @@
 //     computed: it would add exactly zero. In dq a warp also skips a stage
 //     of a diagonal block whose keys lie above all of its own rows.
 //
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC -Xptxas=-v (repro_torch/kernels/build.py); plain C
-//        entry points, loaded with ctypes. All three kernels are
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c
+//        -Xcompiler -fPIC -Xptxas=-v -DREPRO_PART=p for each of the
+//        REPRO_PARTS parts at once, then nvcc -shared over the objects
+//        (repro_torch/kernels/build.py, csrc/parts.cuh); plain C entry
+//        points, loaded with ctypes. All three kernels are
 //        instantiated for (head dim, block size) = (128, 128), (64, 64),
-//        (16, 16), (64, 128), (80, 128), (64, 32), (32, 32) and (256, 128),
-//        bf16 and fp32 (48 kernels); the wrapper zero-pads a head dim to the next
+//        (16, 16), (64, 128), (80, 128), (112, 128), (64, 32), (32, 32) and
+//        (256, 128), bf16 and fp32 (54 kernels); the wrapper zero-pads a
+//        head dim to the next
 //        multiple of 16 (exact for the products).
 
 #include <cuda_bf16.h>
@@ -114,7 +117,15 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "parts.cuh"
 #include "sm90_mma.cuh"
+
+// Part P's kernel (0 forward, 1 dk/dv, 2 dq) of (dtype, D, b), or null where
+// another part holds it (part_kernel).
+#define BSA_PART_DECL(P)                                                     \
+  extern "C" const void* REPRO_CAT(bsa_part_, P)(int, int, int, int);
+REPRO_FOR_PARTS(BSA_PART_DECL)
+#undef BSA_PART_DECL
 
 namespace {
 
@@ -1173,42 +1184,96 @@ struct KernelInfo {
 
 enum Kernel { kFwd = 0, kDkv = 1, kDq = 2 };
 
+// the instantiations: three kernels x two types x the (D, b) of info_shape
+constexpr int kShapes = 9;
+constexpr int kInstantiations = 3 * 2 * kShapes;
+
+// The (type, shape) pairs, in part_shape's order, are dealt to the parts of
+// the build in turn (csrc/parts.cuh): pair I of type `dtype` is part
+// (dtype·kShapes + I) mod REPRO_PARTS, which instantiates its three kernels.
+template <typename T>
+constexpr int dtype_of();
+template <>
+constexpr int dtype_of<__nv_bfloat16>() { return 0; }
+template <>
+constexpr int dtype_of<float>() { return 1; }
+
+// Null in every part but the pair's own.
+template <int P, typename T, int D, int BS, int I>
+const void* part_kernel(int kernel) {
+  if constexpr ((dtype_of<T>() * kShapes + I) % REPRO_PARTS != P) {
+    return nullptr;
+  } else {
+    if (kernel == kFwd) return reinterpret_cast<const void*>(bsa_fwd_kernel<T, D, BS>);
+    if (kernel == kDq) return reinterpret_cast<const void*>(bsa_bwd_dq_kernel<T, D, BS>);
+    return reinterpret_cast<const void*>(bsa_bwd_dkv_kernel<T, D, BS>);
+  }
+}
+
+template <int P, typename T>
+const void* part_shape(int kernel, int D, int b) {
+  if (D == 128 && b == 128) return part_kernel<P, T, 128, 128, 0>(kernel);
+  if (D == 64 && b == 64) return part_kernel<P, T, 64, 64, 1>(kernel);
+  if (D == 16 && b == 16) return part_kernel<P, T, 16, 16, 2>(kernel);
+  if (D == 64 && b == 128) return part_kernel<P, T, 64, 128, 3>(kernel);
+  if (D == 80 && b == 128) return part_kernel<P, T, 80, 128, 4>(kernel);
+  if (D == 112 && b == 128) return part_kernel<P, T, 112, 128, 5>(kernel);
+  if (D == 64 && b == 32) return part_kernel<P, T, 64, 32, 6>(kernel);
+  if (D == 32 && b == 32) return part_kernel<P, T, 32, 32, 7>(kernel);
+  if (D == 256 && b == 128) return part_kernel<P, T, 256, 128, 8>(kernel);
+  return nullptr;
+}
+
+template <int P>
+const void* pick_part(int kernel, int dtype, int D, int b) {
+  if (dtype == 0) return part_shape<P, __nv_bfloat16>(kernel, D, b);
+  if (dtype == 1) return part_shape<P, float>(kernel, D, b);
+  return nullptr;
+}
+
+#if REPRO_HOLDS(0)
+// The kernel, from whichever part holds it.
+const void* kernel_fn(int kernel, int dtype, int D, int b) {
+  using PartFn = const void* (*)(int, int, int, int);
+#define BSA_PART_FN(P) REPRO_CAT(bsa_part_, P),
+  static const PartFn parts[REPRO_PARTS] = {REPRO_FOR_PARTS(BSA_PART_FN)};
+#undef BSA_PART_FN
+  for (PartFn part : parts)
+    if (const void* fn = part(kernel, dtype, D, b)) return fn;
+  return nullptr;
+}
+
 template <typename T, int D, int BS>
-KernelInfo info_of(int kernel) {
+KernelInfo info_of(int kernel, int dtype) {
+  const void* fn = kernel_fn(kernel, dtype, D, BS);
   if (kernel == kFwd)
-    return {reinterpret_cast<const void*>(bsa_fwd_kernel<T, D, BS>),
-            FwdGeo<T, D, BS>::SMEM, FwdGeo<T, D, BS>::NT, FwdGeo<T, D, BS>::SUB};
+    return {fn, FwdGeo<T, D, BS>::SMEM, FwdGeo<T, D, BS>::NT, FwdGeo<T, D, BS>::SUB};
   if (kernel == kDq)
-    return {reinterpret_cast<const void*>(bsa_bwd_dq_kernel<T, D, BS>),
-            DqGeo<T, D, BS>::SMEM, DqGeo<T, D, BS>::NT, DqGeo<T, D, BS>::SUB};
-  return {reinterpret_cast<const void*>(bsa_bwd_dkv_kernel<T, D, BS>),
-          DkvGeo<T, D, BS>::SMEM, DkvGeo<T, D, BS>::NT, DkvGeo<T, D, BS>::SUB};
+    return {fn, DqGeo<T, D, BS>::SMEM, DqGeo<T, D, BS>::NT, DqGeo<T, D, BS>::SUB};
+  return {fn, DkvGeo<T, D, BS>::SMEM, DkvGeo<T, D, BS>::NT, DkvGeo<T, D, BS>::SUB};
 }
 
 template <typename T>
-KernelInfo info_shape(int kernel, int D, int b) {
-  if (D == 128 && b == 128) return info_of<T, 128, 128>(kernel);
-  if (D == 64 && b == 64) return info_of<T, 64, 64>(kernel);
-  if (D == 16 && b == 16) return info_of<T, 16, 16>(kernel);
-  if (D == 64 && b == 128) return info_of<T, 64, 128>(kernel);
-  if (D == 80 && b == 128) return info_of<T, 80, 128>(kernel);
-  if (D == 64 && b == 32) return info_of<T, 64, 32>(kernel);
-  if (D == 32 && b == 32) return info_of<T, 32, 32>(kernel);
-  if (D == 256 && b == 128) return info_of<T, 256, 128>(kernel);
+KernelInfo info_shape(int kernel, int dtype, int D, int b) {
+  if (D == 128 && b == 128) return info_of<T, 128, 128>(kernel, dtype);
+  if (D == 64 && b == 64) return info_of<T, 64, 64>(kernel, dtype);
+  if (D == 16 && b == 16) return info_of<T, 16, 16>(kernel, dtype);
+  if (D == 64 && b == 128) return info_of<T, 64, 128>(kernel, dtype);
+  if (D == 80 && b == 128) return info_of<T, 80, 128>(kernel, dtype);
+  if (D == 112 && b == 128) return info_of<T, 112, 128>(kernel, dtype);
+  if (D == 64 && b == 32) return info_of<T, 64, 32>(kernel, dtype);
+  if (D == 32 && b == 32) return info_of<T, 32, 32>(kernel, dtype);
+  if (D == 256 && b == 128) return info_of<T, 256, 128>(kernel, dtype);
   return {nullptr, 0, 0, 0};
 }
 
 // dtype: 0 = bf16, 1 = fp32 (q, k and v share it)
 KernelInfo info(int kernel, int dtype, int D, int b) {
   if (kernel != kFwd && kernel != kDkv && kernel != kDq) return {nullptr, 0, 0, 0};
-  if (dtype == 0) return info_shape<__nv_bfloat16>(kernel, D, b);
-  if (dtype == 1) return info_shape<float>(kernel, D, b);
+  if (dtype == 0) return info_shape<__nv_bfloat16>(kernel, dtype, D, b);
+  if (dtype == 1) return info_shape<float>(kernel, dtype, D, b);
   return {nullptr, 0, 0, 0};
 }
-
-// the instantiations: three kernels x two types x the (D, b) of info_shape
-constexpr int kShapes = 8;
-constexpr int kInstantiations = 3 * 2 * kShapes;
 
 // Allow the kernel's dynamic shared memory (and the largest carveout, so that
 // two blocks fit on an SM); done once per kernel.
@@ -1245,8 +1310,23 @@ cudaError_t launch_tc(int kernel, int dtype, int D, int b, const Args& args,
 bool shape_ok(int rows, int n, int b) {
   return rows > 0 && b > 0 && n % b == 0 && n / b > 0;
 }
+#endif  // REPRO_HOLDS(0)
 
 }  // namespace
+
+#define BSA_PART(P)                                                          \
+  extern "C" const void* REPRO_CAT(bsa_part_, P)(int kernel, int dtype,      \
+                                                 int D, int b) {             \
+    return pick_part<P>(kernel, dtype, D, b);                                \
+  }
+#if REPRO_PART < 0
+REPRO_FOR_PARTS(BSA_PART)
+#else
+BSA_PART(REPRO_PART)
+#endif
+#undef BSA_PART
+
+#if REPRO_HOLDS(0)
 
 // Dynamic shared memory of one block of the forward (kernel 0), dk/dv
 // (kernel 1) or dq (kernel 2) kernel, or 0 for a (dtype, D, b) not built.
@@ -1357,3 +1437,4 @@ extern "C" int bsa_bwd_dkv_launch(const void* q, const void* k, const void* v,
 extern "C" const char* bsa_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+#endif  // REPRO_HOLDS(0)

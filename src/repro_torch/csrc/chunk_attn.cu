@@ -19,8 +19,11 @@
 //      its own selection and to pos <= q_pos, with a flash-style online
 //      softmax (running max, row sum, fp32 accumulator) on tensor cores;
 //   4. the coarse background Σ exp(μ − c)·count·v̄ over live, allowed,
-//      unselected, non-own pages and, at UPPER (levels >= 3, DESIGN.md §14),
-//      the collapsed levels + tail: pass 1 takes the live entries' scores
+//      unselected, non-own pages (with the speculative draft's grouped far
+//      field, gsz > 1: a group of gsz adjacent pages that are all
+//      background for a row enters once, through its count-weighted mean;
+//      a mixed group's pages enter one by one) and, at UPPER (levels >= 3,
+//      DESIGN.md §14), the collapsed levels + tail: pass 1 takes the live entries' scores
 //      hmu = q·hk·scale into c before any exp, pass 2 adds
 //      Σ exp(hmu − c)·count·hv. Then the two-level stabilizer
 //      c_tok = max(c, running max) and normalization; rows with no live key
@@ -65,10 +68,15 @@
 //     block normalizes itself and no combine runs.
 //   * At most ~108 KB of shared memory per block (D = b = 128, 32 rows), so
 //     two blocks share an SM. D and b are template parameters, instantiated
-//     for (128, 128), (64, 128), (80, 128) and (16, 16) (the wrapper
-//     zero-pads a head dim to the next multiple of 16, exact for the
+//     for (128, 128), (64, 128), (80, 128), (112, 128) and (16, 16) (the
+//     wrapper zero-pads a head dim to the next multiple of 16, exact for the
 //     products); at D = 64 two warps split D (32 columns each) and the other
-//     two stage pages and run the selection. At D = 80 (hubert-xlarge), which
+//     two stage pages and run the selection. At D = 112 (kimi-k2) four warps
+//     own 32 columns each and the last one's end at D: its k-steps and
+//     n-tiles past D are skipped (RAGGED), and a block holds one m16 row
+//     tile (16 query rows), where one warp over all 112 columns would hold
+//     84 query-fragment and 2 x 56 accumulator registers and spill, and two
+//     row tiles spilled too. At D = 80 (hubert-xlarge), which
 //     32 does not divide, one warp owns all 80 columns and a block holds one
 //     m16 row tile (16 query rows: G = 1 there), so that its query fragments
 //     and accumulators stay in registers; its rows are ten bf16 chunks
@@ -87,25 +95,47 @@
 //     scalars. The wrapper's plan takes it only where the shared-memory
 //     layout does not fit, so every shape that fitted keeps its program:
 //     where both fit at two blocks an SM, the shared-memory program is
-//     1-8% faster (PERF.md §6). It is built for the two-level program at
-//     block 128 (see pick_program).
+//     1-8% faster (PERF.md §6). It is built for both programs (two-level
+//     and UPPER) at block 128 (see pick_program).
 //     Tiling the pages with a running top-m merge would keep the arrays on
 //     chip, but the top-m rounds, the lowest-index tie rule and the
 //     background pass each walk every page of a row; a merge across page
 //     tiles would carry m candidates a row and a second pass for the
 //     background, where the workspace keeps the one arithmetic (and its
 //     order) of the shared-memory program, bit for bit.
+//   * The draft's grouped far field (gsz > 1, a runtime field: gsz = 1 runs
+//     the per-page background exactly as before). A group's mean key and
+//     value are count-weighted means of its pages' means, so its score is
+//     the count-weighted mean of the pages' coarse scores, and its term
+//     exp(μ_g − c)·count_g·v̄_g is Σ_y exp(μ_g − c)·count_y·v̄_y over its
+//     pages: a whole-background group only changes its pages' weights
+//     (each page's score replaced by μ_g), and the sum over pages, its
+//     registers and shared memory stay as they are (no group means are
+//     read). The background runs on split 0 only, and every split holds
+//     every page's selection flags (each repeats the selection over all
+//     nb pages), so a group never straddles splits.
 
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC -Xptxas=-v (repro_torch/kernels/build.py); plain C
-//        entry points, loaded with ctypes.
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c
+//        -Xcompiler -fPIC -Xptxas=-v -DREPRO_PART=p for each of the
+//        REPRO_PARTS parts at once, then nvcc -shared over the objects
+//        (repro_torch/kernels/build.py, csrc/parts.cuh); plain C entry
+//        points, loaded with ctypes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "parts.cuh"
 #include "sm90_mma.cuh"
+
+// Part P's kernel of (dtype, D, b) and program, or null where another part
+// holds it (pick_part).
+#define CHUNK_PART_DECL(P)                                                  \
+  extern "C" const void* REPRO_CAT(chunk_attn_part_, P)(int, int, int, int, \
+                                                        int);
+REPRO_FOR_PARTS(CHUNK_PART_DECL)
+#undef CHUNK_PART_DECL
 
 namespace {
 
@@ -138,6 +168,7 @@ struct Params {
   unsigned char* ws;    // page-array workspace (GWS) or null
   size_t ws_stride;     // its bytes a block (page_bytes)
   int Hkv, G, C, nb, m, c_tile, NU, nsplit, rows, mtiles, include_bg;
+  int gsz;              // draft group size in pages (1: no grouped fold)
   float scale;
 };
 
@@ -177,20 +208,26 @@ struct Cache<float> {  // three bf16 terms
 };
 
 // Tile geometry of one instantiation; the wrapper's smem_bytes() mirrors it.
-template <typename T, int D, int BS>
+template <typename T, int D_, int BS>
 struct Geo {
+  static constexpr int D = D_;
   static constexpr int KT = cmin(Cache<T>::kKeys, BS);  // keys per stage
   static constexpr int SPP = BS / KT;                   // stages per page
   // warps over D: each owns a multiple of 32 columns (two n-tile pairs);
-  // one warp takes all of a D that 32 does not divide (D = 80)
-  static constexpr int NWD = D >= 32 && D % 32 == 0 ? cmin(4, D / 32) : 1;
-  static constexpr int DS = D / NWD;                    // columns per warp
+  // one warp takes all of a D up to 96 that 32 does not divide (D = 80);
+  // past that four warps own 32 columns each, the last one's ending at D
+  // (D = 112: RAGGED, its k-steps and n-tiles past D skipped)
+  static constexpr int NWD = D % 32 == 0 ? cmax(1, cmin(4, D / 32))
+                                         : (D > 96 ? 4 : 1);
+  static constexpr int DS = (D / NWD + 15) / 16 * 16;   // columns per warp
+  static constexpr bool RAGGED = NWD * DS > D;
   static constexpr int KSD = DS / 16;                   // k-steps of q·k
   static constexpr int NTD = DS / 8;                    // n-tiles of p·v
   // m16 row tiles a block holds: two, or one where a warp's columns are
   // wider than 32 (its query fragments and accumulators would not fit in
-  // registers twice)
-  static constexpr int MTL = DS > 32 ? 1 : kMTiles;
+  // registers twice) or the last warp's end short of D (D = 112: at two
+  // row tiles its column bookkeeping spilled 40-76 bytes in bf16)
+  static constexpr int MTL = DS > 32 || RAGGED ? 1 : kMTiles;
   static constexpr int XW = cmax(KT, kEntryTile);       // exchange columns
   static constexpr int XS = XW + 8;  // padded row stride: conflict-free float2
   static constexpr int RB = D * (int)sizeof(T);         // bytes of a cache row
@@ -202,7 +239,8 @@ struct Geo {
   static constexpr int FTILE = 2 * kEntryTile * RSF;    // hk + hv tile
   static constexpr int SLOT = (int)align16(cmax(STAGE, FTILE));
   static_assert(BS % KT == 0 && KT % 16 == 0, "stage keys");
-  static_assert(D % NWD == 0 && DS % 16 == 0 && NTD % 2 == 0, "warp columns");
+  static_assert(D % 16 == 0 && DS % 16 == 0 && NTD % 2 == 0 &&
+                    NWD * DS - D < DS, "warp columns");
   static_assert(RB % 16 == 0, "16-byte rows");
 };
 
@@ -362,7 +400,7 @@ template <typename U, typename Gm, bool PERM, int NT, int NK>
 __device__ __forceinline__ void tile_scores(
     const unsigned char* tile, const uint32_t (&qf)[Gm::MTL][Gm::KSD][3][4],
     float (&s)[Gm::MTL][NT][4], int MT, int warp, int lane) {
-  constexpr int D = Gm::DS * Gm::NWD;
+  constexpr int D = Gm::D;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int mt = 0; mt < Gm::MTL; ++mt)
@@ -373,6 +411,7 @@ __device__ __forceinline__ void tile_scores(
 #pragma unroll
   for (int ks = 0; ks < Gm::KSD; ++ks) {
     const int d0 = warp * Gm::DS + ks * 16;
+    if (Gm::RAGGED && d0 >= D) continue;  // the last warp's columns end at D
     if constexpr (sizeof(U) == 2) {  // bf16 page: ldmatrix, two n-tiles
       static_assert(NT % 2 == 0, "key tiles in pairs");
       constexpr int RB = D * 2;
@@ -419,7 +458,7 @@ __device__ __forceinline__ void tile_pv(const unsigned char* tile,
                                         const float (&w)[Gm::MTL][NT][4],
                                         float (&acc)[Gm::MTL][Gm::NTD][4],
                                         int MT, int warp, int lane) {
-  constexpr int D = Gm::DS * Gm::NWD;
+  constexpr int D = Gm::D;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int kk = 0; kk < NT / 2; ++kk) {
@@ -443,6 +482,7 @@ __device__ __forceinline__ void tile_pv(const unsigned char* tile,
       const int key = kk * 16 + ((i & 1) << 3) + (lane & 7);
 #pragma unroll
       for (int nd = 0; nd < Gm::NTD; nd += 2) {
+        if (Gm::RAGGED && warp * Gm::DS + nd * 8 >= D) continue;
         uint32_t b[4];
         const int ch = (warp * Gm::DS + nd * 8) / 8 + (i >> 1);
         ldsm4t(b, tile + ChunkRow<RB / 16>::at(key, ch));
@@ -459,6 +499,7 @@ __device__ __forceinline__ void tile_pv(const unsigned char* tile,
     } else {
 #pragma unroll
       for (int nd = 0; nd < Gm::NTD; ++nd) {
+        if (Gm::RAGGED && warp * Gm::DS + nd * 8 >= D) continue;
         uint32_t b[3][2];
         vfrag<U, D>(tile, kk * 16, warp * Gm::DS + nd * 8 + g, t, b);
 #pragma unroll
@@ -634,9 +675,10 @@ chunk_attn_kernel(const Params p) {
 #pragma unroll
     for (int ks = 0; ks < Gm::KSD; ++ks) {
       const int c0 = CT::kPerm ? 4 * t : 2 * t, c1 = CT::kPerm ? 4 * t + 2 : 2 * t + 8;
-      const float* qa = sm.q + (mt * 16 + g) * D + warp * Gm::DS + ks * 16;
+      const int col = warp * Gm::DS + ks * 16;
+      const float* qa = sm.q + (mt * 16 + g) * D + col;
       const float* qb = qa + 8 * D;
-      const bool ok = compute && mt < MT;
+      const bool ok = compute && mt < MT && (!Gm::RAGGED || col < D);
       uint32_t x[4][3];
       split3(ok ? qa[c0] : 0.f, ok ? qa[c0 + 1] : 0.f, x[0]);
       split3(ok ? qb[c0] : 0.f, ok ? qb[c0 + 1] : 0.f, x[1]);
@@ -828,19 +870,37 @@ chunk_attn_kernel(const Params p) {
     __syncthreads();
   }
   if (bg_here) {
-    // page background weights w = exp(cm − c)·count (ss now holds w)
+    // page background weights w = exp(cm − c)·count (ss now holds w); a
+    // page of a draft group that is background for the row throughout
+    // takes the group's score, the count-weighted mean of its pages'
+    const int gsz = p.gsz;
     for (int rr = warp; rr < R; rr += kWarps) {
       const float c = sm.c[rr];
       const int jq = floor_div(sm.qp[rr], BS);
-      float wsum = 0.f;
-      for (int y = lane; y < nb; y += 32) {
+      const float* cm = sm.cm + rr * nb;
+      auto page_bg = [&](int y) {  // live, allowed, not own, not selected
         const int pby = pb_r[y];
-        const float cnt = cnt_r[y];
-        const bool live = cnt > 0.f;
+        const bool live = cnt_r[y] > 0.f;
         const bool allowed = live && pby <= jq;
         const bool ownl = pby == jq && pby >= 0 && live;
-        const bool bg = allowed && !ownl && !sm.sel[rr * nb + y];
-        const float w = bg ? expf(sm.cm[rr * nb + y] - c) * cnt : 0.f;
+        return allowed && !ownl && !sm.sel[rr * nb + y];
+      };
+      float wsum = 0.f;
+      for (int y = lane; y < nb; y += 32) {
+        const bool bg = page_bg(y);
+        float score = cm[y];
+        if (gsz > 1 && bg) {
+          const int y0 = y - y % gsz;
+          bool whole = true;
+          float num = 0.f, den = 0.f;
+          for (int i = y0; i < y0 + gsz; ++i) {
+            whole = whole && page_bg(i);
+            num += cnt_r[i] * cm[i];
+            den += cnt_r[i];
+          }
+          if (whole) score = num / den;
+        }
+        const float w = bg ? expf(score - c) * cnt_r[y] : 0.f;
         sm.ss[rr * nb + y] = w;
         wsum += w;
       }
@@ -862,6 +922,7 @@ chunk_attn_kernel(const Params p) {
           const float* vy = vds_r + (size_t)y * D + warp * Gm::DS + 2 * t;
 #pragma unroll
           for (int nd = 0; nd < Gm::NTD; ++nd) {
+            if (Gm::RAGGED && warp * Gm::DS + nd * 8 >= D) continue;
             const float2 v = *reinterpret_cast<const float2*>(vy + nd * 8);
             bga[mt][nd][0] += xa * v.x;
             bga[mt][nd][1] += xa * v.y;
@@ -928,6 +989,7 @@ chunk_attn_kernel(const Params p) {
         float* o = p.out + ((size_t)(r * G + gg) * C + c) * D + warp * Gm::DS + 2 * t;
 #pragma unroll
         for (int nd = 0; nd < Gm::NTD; ++nd) {
+          if (Gm::RAGGED && warp * Gm::DS + nd * 8 >= D) continue;
           const float x = acc[mt][nd][2 * h] * fine_adj + adj * bga[mt][nd][2 * h];
           const float y = acc[mt][nd][2 * h + 1] * fine_adj + adj * bga[mt][nd][2 * h + 1];
           *reinterpret_cast<float2*>(o + nd * 8) =
@@ -952,6 +1014,7 @@ chunk_attn_kernel(const Params p) {
       const int col = warp * Gm::DS + 2 * t;
 #pragma unroll
       for (int nd = 0; nd < Gm::NTD; ++nd) {
+        if (Gm::RAGGED && col + nd * 8 >= D) continue;
         *reinterpret_cast<float2*>(acc_s + (size_t)rr * D + col + nd * 8) =
             make_float2(acc[mt][nd][2 * h], acc[mt][nd][2 * h + 1]);
         if (split == 0)
@@ -967,6 +1030,7 @@ chunk_attn_kernel(const Params p) {
   }
 }
 
+#if REPRO_HOLDS(0)
 // Merge the splits of one (row, tile) in ascending order and normalize with
 // the two-level stabilizer: M = max mt_s, rs = Σ rs_s·exp(mt_s − M), acc
 // likewise; c_tok = max(c, M); out = (acc·exp(M − c_tok) + exp(c − c_tok)·bg)
@@ -999,40 +1063,77 @@ chunk_attn_combine_kernel(const float* __restrict__ part, float* __restrict__ ou
     out[((size_t)(r * G + gg) * C + c) * D + d] = rs > 0.f ? o / rs : 0.f;
   }
 }
+#endif  // REPRO_HOLDS(0)
 
 // ---- host side ----------------------------------------------------------------
 using KernelFn = void (*)(Params);
 
-// The workspace program is built for the two-level program at block 128,
-// the one that serves long contexts: the H-level program's fine window and
-// the (16, 16) smoke shape stay within shared memory (the wrapper's plan
-// refuses a launch that would need one of them past it).
-template <typename T, int D, int BS>
-KernelFn pick_program(bool upper, bool gws) {
-  if (gws) {
-    if constexpr (BS == 128) {
-      if (!upper) return chunk_attn_kernel<T, D, BS, false, true>;
-    }
-    return nullptr;
-  }
-  return upper ? chunk_attn_kernel<T, D, BS, true, false>
-               : chunk_attn_kernel<T, D, BS, false, false>;
-}
+// The (storage type, shape) pairs, in pick_shape's order, are dealt to the
+// parts of the build in turn (csrc/parts.cuh): pair I of storage type
+// `dtype` is part (dtype·kShapes + I) mod REPRO_PARTS, which instantiates its
+// programs.
+constexpr int kShapes = 5;
 
 template <typename T>
+constexpr int dtype_of();
+template <>
+constexpr int dtype_of<__nv_bfloat16>() { return 0; }
+template <>
+constexpr int dtype_of<float>() { return 1; }
+template <>
+constexpr int dtype_of<int8_t>() { return 2; }
+
+// The workspace program is built for both programs at block 128, the
+// shapes that serve long contexts; the (16, 16) smoke shape stays within
+// shared memory (the wrapper's plan refuses a launch that would need it
+// past it). Null in every part but the pair's own.
+template <int P, typename T, int D, int BS, int I>
+KernelFn pick_program(bool upper, bool gws) {
+  if constexpr ((dtype_of<T>() * kShapes + I) % REPRO_PARTS != P) {
+    return nullptr;
+  } else {
+    if (gws) {
+      if constexpr (BS == 128)
+        return upper ? chunk_attn_kernel<T, D, BS, true, true>
+                     : chunk_attn_kernel<T, D, BS, false, true>;
+      return nullptr;
+    }
+    return upper ? chunk_attn_kernel<T, D, BS, true, false>
+                 : chunk_attn_kernel<T, D, BS, false, false>;
+  }
+}
+
+template <int P, typename T>
 KernelFn pick_shape(int D, int b, bool upper, bool gws) {
-  if (D == 128 && b == 128) return pick_program<T, 128, 128>(upper, gws);
-  if (D == 64 && b == 128) return pick_program<T, 64, 128>(upper, gws);
-  if (D == 80 && b == 128) return pick_program<T, 80, 128>(upper, gws);
-  if (D == 16 && b == 16) return pick_program<T, 16, 16>(upper, gws);
+  if (D == 128 && b == 128) return pick_program<P, T, 128, 128, 0>(upper, gws);
+  if (D == 64 && b == 128) return pick_program<P, T, 64, 128, 1>(upper, gws);
+  if (D == 80 && b == 128) return pick_program<P, T, 80, 128, 2>(upper, gws);
+  if (D == 112 && b == 128) return pick_program<P, T, 112, 128, 3>(upper, gws);
+  if (D == 16 && b == 16) return pick_program<P, T, 16, 16, 4>(upper, gws);
   return nullptr;
 }
 
 // dtype: 0 = bf16, 1 = fp32, 2 = int8; null for a shape not instantiated
+// or held by another part
+template <int P>
+KernelFn pick_part(int dtype, int D, int b, bool upper, bool gws) {
+  if (dtype == 0) return pick_shape<P, __nv_bfloat16>(D, b, upper, gws);
+  if (dtype == 1) return pick_shape<P, float>(D, b, upper, gws);
+  if (dtype == 2) return pick_shape<P, int8_t>(D, b, upper, gws);
+  return nullptr;
+}
+
+#if REPRO_HOLDS(0)
+// The kernel of (dtype, D, b) and the program, from whichever part holds
+// it; null for a shape not instantiated.
 KernelFn pick(int dtype, int D, int b, bool upper, bool gws) {
-  if (dtype == 0) return pick_shape<__nv_bfloat16>(D, b, upper, gws);
-  if (dtype == 1) return pick_shape<float>(D, b, upper, gws);
-  if (dtype == 2) return pick_shape<int8_t>(D, b, upper, gws);
+  using PartFn = const void* (*)(int, int, int, int, int);
+#define CHUNK_PART_FN(P) REPRO_CAT(chunk_attn_part_, P),
+  static const PartFn parts[REPRO_PARTS] = {REPRO_FOR_PARTS(CHUNK_PART_FN)};
+#undef CHUNK_PART_FN
+  for (PartFn part : parts)
+    if (const void* kernel = part(dtype, D, b, upper, gws))
+      return reinterpret_cast<KernelFn>(const_cast<void*>(kernel));
   return nullptr;
 }
 
@@ -1049,6 +1150,7 @@ bool info_of_shape(int D, int b, int rows, int RP, int nb, bool gws,
   if (D == 128 && b == 128) shape_info<T, 128, 128>(rows, RP, nb, gws, smem, mtl);
   else if (D == 64 && b == 128) shape_info<T, 64, 128>(rows, RP, nb, gws, smem, mtl);
   else if (D == 80 && b == 128) shape_info<T, 80, 128>(rows, RP, nb, gws, smem, mtl);
+  else if (D == 112 && b == 128) shape_info<T, 112, 128>(rows, RP, nb, gws, smem, mtl);
   else if (D == 16 && b == 16) shape_info<T, 16, 16>(rows, RP, nb, gws, smem, mtl);
   else return false;
   return true;
@@ -1073,7 +1175,7 @@ size_t smem_of(int dtype, int D, int b, int rows, int nb, bool gws) {
 // Allow `smem` bytes of dynamic shared memory (and the largest carveout, so
 // that two blocks fit on an SM); done once per kernel and size.
 cudaError_t configure(KernelFn kernel, int smem) {
-  constexpr int kSlotsCfg = 64;  // >= the instantiations
+  constexpr int kSlotsCfg = 64;  // >= the 54 instantiations
   static KernelFn done_fn[kSlotsCfg];
   static int done_smem[kSlotsCfg];
   int slot = 0;
@@ -1094,8 +1196,24 @@ cudaError_t configure(KernelFn kernel, int smem) {
   }
   return cudaSuccess;
 }
+#endif  // REPRO_HOLDS(0)
 
 }  // namespace
+
+#define CHUNK_PART(P)                                                       \
+  extern "C" const void* REPRO_CAT(chunk_attn_part_, P)(                    \
+      int dtype, int D, int b, int upper, int gws) {                        \
+    return reinterpret_cast<const void*>(                                   \
+        pick_part<P>(dtype, D, b, upper != 0, gws != 0));                   \
+  }
+#if REPRO_PART < 0
+REPRO_FOR_PARTS(CHUNK_PART)
+#else
+CHUNK_PART(REPRO_PART)
+#endif
+#undef CHUNK_PART
+
+#if REPRO_HOLDS(0)
 
 // Dynamic shared memory of one block of the shared-memory program, or 0 for
 // a (dtype, D, b) not built.
@@ -1128,7 +1246,9 @@ extern "C" int chunk_attn_blocks_per_sm(int dtype, int D, int b, int upper,
 
 // One launch of the chunk kernel on grid (B·Hkv, ceil(C / c_tile), nsplit).
 // NU > 0 launches the H-level program over hk / hv / hcnt (background on
-// only); NU = 0 the two-level one (the three pointers unused). nsplit > 1
+// only); NU = 0 the two-level one (the three pointers unused). gsz > 1
+// folds the background over draft groups of gsz adjacent pages (background
+// on only; nb a multiple of gsz). nsplit > 1
 // writes partials to `part` (part_stride floats per (row, tile)) for
 // chunk_attn_combine_launch; nsplit = 1 writes `out`. A non-null `ws`
 // launches the workspace program: each block keeps its page arrays in its
@@ -1143,16 +1263,17 @@ extern "C" int chunk_attn_launch(const void* q, const void* qpos,
                                  const void* hv, const void* hcnt, void* out,
                                  void* part, void* ws, int B, int Hkv, int G,
                                  int C, int D, int nb, int b, int m,
-                                 int c_tile, int NU, int nsplit, float scale,
-                                 int dtype, int include_bg, int smem,
-                                 void* stream) {
+                                 int c_tile, int NU, int gsz, int nsplit,
+                                 float scale, int dtype, int include_bg,
+                                 int smem, void* stream) {
   const int rows = G * c_tile, mtiles = (rows + 15) / 16;
   const bool gws = ws != nullptr;
   KernelFn kernel = pick(dtype, D, b, NU > 0, gws);
   size_t need = 0;
   int mtl = 0;
   if (!kernel || !info(dtype, D, b, rows, nb, gws, &need, &mtl) || NU < 0 ||
-      (NU > 0 && !include_bg) || mtiles > mtl || nsplit < 1 || nsplit > nb ||
+      (NU > 0 && !include_bg) || gsz < 1 || nb % gsz != 0 ||
+      (gsz > 1 && !include_bg) || mtiles > mtl || nsplit < 1 || nsplit > nb ||
       (nsplit > 1 && !part) || (size_t)smem < need ||
       (reinterpret_cast<uintptr_t>(ws) & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1188,6 +1309,7 @@ extern "C" int chunk_attn_launch(const void* q, const void* qpos,
   p.mtiles = mtiles;
   p.include_bg = include_bg;
   p.scale = scale;
+  p.gsz = gsz;
   dim3 grid(B * Hkv, (C + c_tile - 1) / c_tile, nsplit);
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
@@ -1209,3 +1331,4 @@ extern "C" int chunk_attn_combine_launch(const void* part, void* out, int B,
 extern "C" const char* chunk_attn_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+#endif  // REPRO_HOLDS(0)

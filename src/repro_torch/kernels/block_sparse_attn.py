@@ -50,12 +50,12 @@ from . import cost
 
 # (head dim padded to a multiple of 16, block size b) the three kernels are
 # built for: qwen3-1.7b, the reference's (64, 64) and smoke (16, 16) shapes,
-# granite-moe-3b-a800m and internvl2-1b, hubert-xlarge, the
-# H-Transformer-1D baseline (core/baselines.py: head dim 64, block 32),
-# examples/train_lm.py's small preset (head dim 32, block 32) and
-# recurrentgemma-9b's local layers under MRA-2 (head dim 256)
+# granite-moe-3b-a800m and internvl2-1b, hubert-xlarge, kimi-k2-1t-a32b
+# (head dim 112), the H-Transformer-1D baseline (core/baselines.py: head
+# dim 64, block 32), examples/train_lm.py's small preset (head dim 32,
+# block 32) and recurrentgemma-9b's local layers under MRA-2 (head dim 256)
 KERNEL_SHAPES = ((128, 128), (64, 64), (16, 16), (64, 128), (80, 128),
-                 (64, 32), (32, 32), (256, 128))
+                 (112, 128), (64, 32), (32, 32), (256, 128))
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _KERNELS = {"fwd": 0, "dkv": 1, "dq": 2}  # the kernels of the source
 _SM_SMEM = 233472   # shared memory of an SM (228 KB)

@@ -30,10 +30,21 @@ ranges, one block each; the blocks write partials to scratch and ``chunk_attn_co
 merges them (``combine_launches``). ``chunk_attention_split_ref`` is the
 plain version of that split-and-merge arithmetic.
 
+Grouped far field (the speculative draft at ``draft_level > 1``): when
+the prelude's ``pre.group`` is above 1 and the background is on, a group
+of that many adjacent pages that are all background for a row enters
+that row's background once, through the group's count-weighted mean
+(``group_means``); the group size is a runtime field of the same programs
+(1: the per-page background, as before). The kernel needs no group means:
+a group's score is the count-weighted mean of its pages' coarse scores,
+and its term the sum of its pages' terms at that score.
+
 Shapes: the kernel is built for the (head dim, block size) pairs of
 ``KERNEL_SHAPES``; the wrapper zero-pads a head dim to the next multiple
 of 16 (``pad_head_dim``) and raises on a pair that is not built. At
-D = 80 a tile holds at most 16 query rows (``tile_rows``).
+D = 80 a tile holds at most 16 query rows (``tile_rows``); at D = 112 four
+warps own 32 columns each, the last one's ending at D, and a tile holds
+16 query rows too.
 
 Page count: each query row's page arrays (coarse scores, selection scores,
 flags, the tile's union) take rows·nb·9 + nb·5 bytes. Where they fit in a
@@ -41,7 +52,8 @@ block's shared memory the kernel keeps them there; past that (nb beyond
 about 1000 pages at a C = 128 tile) ``launch_geometry`` plans the
 workspace program, which keeps them in a global workspace the wrapper
 allocates before the launch (``workspace_bytes`` a block). Both programs
-do the same arithmetic in the same order.
+do the same arithmetic in the same order; both are built for the
+two-level and the H-level fold at block 128 (``WORKSPACE_SHAPES``).
 
 Dual mode: the kernel runs at two query-tile widths — ``latency``
 (C_tile = 1, decode) and ``throughput`` (C_tile = min(C, 8), chunked
@@ -73,12 +85,12 @@ KERNEL_MODES = ("auto", "latency", "throughput")
 THROUGHPUT_C_TILE = 8  # query-tile width of the throughput instantiation
 # (head dim D padded to a multiple of 16, block size b) the kernel is built
 # for: qwen3-1.7b / llama3.2-3b / qwen2-7b / yi-6b, their smoke configs,
-# granite-moe-3b-a800m and internvl2-1b, hubert-xlarge
-KERNEL_SHAPES = ((128, 128), (16, 16), (64, 128), (80, 128))
-# the shapes whose two-level program is also built with the page arrays in
-# a global workspace (the H-level program's fine window and the smoke shape
-# stay within shared memory)
-WORKSPACE_SHAPES = ((128, 128), (64, 128), (80, 128))
+# granite-moe-3b-a800m and internvl2-1b, hubert-xlarge, kimi-k2-1t-a32b
+KERNEL_SHAPES = ((128, 128), (16, 16), (64, 128), (80, 128), (112, 128))
+# the shapes whose programs (two-level and H-level) are also built with the
+# page arrays in a global workspace (the smoke shape stays within shared
+# memory)
+WORKSPACE_SHAPES = ((128, 128), (64, 128), (80, 128), (112, 128))
 MAX_TILE_ROWS = 32  # G·C_tile query rows of one tile (two m16 row tiles)
 _MAX_SMEM = 232448  # dynamic shared memory a block may use on sm_90 (227 KB)
 _CACHE_DTYPES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
@@ -100,16 +112,23 @@ def resolve_kernel_mode(mode: str, C: int) -> str:
 
 
 def warp_columns(D: int) -> tuple:
-    """(warps splitting D, columns a warp owns); mirrors ``Geo`` in the
-    source: a multiple of 32 columns a warp, else one warp for all of D."""
-    nwd = min(4, D // 32) if D >= 32 and D % 32 == 0 else 1
-    return nwd, D // nwd
+    """(warps splitting D, columns a warp owns at most); mirrors ``Geo`` in
+    the source: 32 columns a warp where 32 divides D; one warp for all of a
+    D up to 96 that it does not divide (D = 80); past that four warps of
+    32, the last one's columns ending at D (D = 112)."""
+    if D % 32 == 0:
+        nwd = max(1, min(4, D // 32))
+    else:
+        nwd = 4 if D > 96 else 1
+    return nwd, -(-(D // nwd) // 16) * 16
 
 
 def tile_rows(D: int) -> int:
     """Query rows a tile holds at head dim D: two m16 tiles, one where a
-    warp owns more than 32 columns (D = 80)."""
-    return 16 if warp_columns(D)[1] > 32 else MAX_TILE_ROWS
+    warp owns more than 32 columns (D = 80) or the last warp's columns end
+    short of D (D = 112)."""
+    nwd, ds = warp_columns(D)
+    return 16 if ds > 32 or nwd * ds > D else MAX_TILE_ROWS
 
 
 def tile_width(mode: str, C: int, G: int, D: int | None = None) -> int:
@@ -177,9 +196,9 @@ def smem_bytes(G: int, c_tile: int, D: int, b: int, nb: int,
                cache_dtype, workspace: bool = False) -> int:
     """Dynamic shared memory of one block; mirrors ``smem_layout`` in the
     source (``workspace``: the program whose page arrays are in global
-    memory). The same for the two-level and H-level programs: the fold
+    memory). The same for the two-level and H-level programs (the fold
     streams the collapsed entries through the ring in tiles of 16, whatever
-    their count."""
+    their count) and at any draft group size."""
     size, keys, quant = _STORAGE[cache_dtype]
     rows = G * c_tile
     rp = 16 * -(-rows // 16)              # rows padded to m16 tiles
@@ -232,10 +251,39 @@ def _exact_inputs(pre, k_cache, v_cache, q_pos, m, k_scale, v_scale,
     return sel, sel_grid, c, up, hmu, hlive, s, ok, vf, page_of
 
 
+def group_means(pre):
+    """(k_g, v_g, count_g) of the draft's groups of ``pre.group`` adjacent
+    pages: count-weighted means of the pages' means (B, Hkv, nb / group, D)
+    and the tokens of each group (B, nb / group), as the reference's
+    grouped fold computes them."""
+    gsz = pre.group
+    B, Hkv, nb, D = pre.k_ds.shape
+    ng = nb // gsz
+    cnt_g = pre.counts.reshape(B, ng, gsz).sum(-1)
+    den_g = torch.clamp(cnt_g, min=1.0)[:, None, :, None]
+    w = pre.counts[:, None, :, None]
+    k_g = (pre.k_ds * w).reshape(B, Hkv, ng, gsz, D).sum(3) / den_g
+    v_g = (pre.v_ds * w).reshape(B, Hkv, ng, gsz, D).sum(3) / den_g
+    return k_g, v_g, cnt_g
+
+
 def _add_background(pre, sel, sel_grid, c, up, hmu, hlive, out, rs, adj):
     """out, rs plus the background on the stabilizer c, times ``adj`` where
-    given (the plain route's order of operations)."""
+    given (the plain route's order of operations): the draft's groups whose
+    every page is background (``pre.group`` > 1) through their means, then
+    the other background pages, then the collapsed entries."""
     bg = sel.allowed & ~sel.ownl & ~sel_grid
+    if pre.group > 1:  # a group folds where every page is background
+        k_g, v_g, cnt_g = group_means(pre)
+        whole = bg.reshape(*bg.shape[:-1], -1, pre.group).all(-1)
+        mu = torch.einsum("bhgcd,bhyd->bhgcy", pre.qg, k_g) * pre.scale
+        wg = torch.where(whole, torch.exp(mu - c[..., None]), 0.0)
+        wg = wg * cnt_g[:, None, None, None, :]
+        if adj is not None:
+            wg = wg * adj[..., None]
+        out = out + torch.einsum("bhgcy,bhyd->bhgcd", wg, v_g)
+        rs = rs + wg.sum(-1)
+        bg = bg & ~torch.repeat_interleave(whole, pre.group, dim=-1)
     w = torch.where(bg, torch.exp(sel.coarse_m - c[..., None]), 0.0)
     w = w * pre.counts[:, None, None, None, :]
     if adj is not None:
@@ -464,7 +512,7 @@ def _library() -> ctypes.CDLL:
     if lib.chunk_attn_launch.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.chunk_attn_launch.argtypes = (
-            [ptr] * 16 + [i32] * 11 + [ctypes.c_float] + [i32] * 3 + [ptr])
+            [ptr] * 16 + [i32] * 12 + [ctypes.c_float] + [i32] * 3 + [ptr])
         lib.chunk_attn_launch.restype = i32
         lib.chunk_attn_combine_launch.argtypes = [ptr] * 2 + [i32] * 7 + [ptr]
         lib.chunk_attn_combine_launch.restype = i32
@@ -513,18 +561,17 @@ def plan(B: int, Hkv: int, G: int, C: int, D: int, b: int, nb: int,
     H-level program). ``workspace`` None takes the workspace program only
     where the shared-memory layout does not fit a block; ``ws_bytes`` is
     then its global workspace (0 otherwise). Raises where no built program
-    fits: the workspace program is built for the two-level program of
-    WORKSPACE_SHAPES."""
+    fits: the workspace program is built for WORKSPACE_SHAPES (both
+    programs)."""
     check_shape(D, b)
     c_tile = tile_width(mode, C, G, D)
     tiles = -(-C // c_tile)
     if workspace is None:
         workspace = smem_bytes(G, c_tile, D, b, nb, cache_dtype) > _MAX_SMEM
-    if workspace and (upper or (D, b) not in WORKSPACE_SHAPES):
+    if workspace and (D, b) not in WORKSPACE_SHAPES:
         raise ValueError(
-            f"chunk_attn's workspace program is built for the two-level "
-            f"program at {list(WORKSPACE_SHAPES)}, not ({D}, {b}) "
-            f"{'H-level' if upper else 'two-level'} (nb={nb})")
+            f"chunk_attn's workspace program is built at "
+            f"{list(WORKSPACE_SHAPES)}, not ({D}, {b}) (nb={nb})")
     smem = smem_bytes(G, c_tile, D, b, nb, cache_dtype, workspace)
     if smem > _MAX_SMEM:
         raise ValueError(
@@ -593,6 +640,10 @@ def _launch(pre, k_cache, v_cache, q_pos, *, m, k_scale=None, v_scale=None,
         _check(upper.k_mean, "upper k_mean", (B, Hkv, nu, D), f32, dev)
         _check(upper.v_mean, "upper v_mean", (B, Hkv, nu, D), f32, dev)
         _check(upper.counts, "upper counts", (B, nu), f32, dev)
+    gsz = pre.group if include_bg else 1
+    if gsz < 1 or nb % gsz:
+        raise ValueError(f"draft group of {gsz} pages does not divide "
+                         f"nb={nb}")
     geo = launch_geometry(pre, k_cache.dtype, mode=mode, nsplit=nsplit,
                           sms=sm_count(dev.index if dev.index is not None
                                        else torch.cuda.current_device()),
@@ -622,7 +673,8 @@ def _launch(pre, k_cache, v_cache, q_pos, *, m, k_scale=None, v_scale=None,
         upper.v_mean.data_ptr() if nu else null,
         upper.counts.data_ptr() if nu else null,
         out.data_ptr(), part.data_ptr() if ns > 1 else null,
-        ws.data_ptr() if ws is not None else null, B, Hkv, G, C, D, nb, b, m, c_tile, nu, ns, float(pre.scale),
+        ws.data_ptr() if ws is not None else null, B, Hkv, G, C, D, nb, b,
+        m, c_tile, nu, gsz, ns, float(pre.scale),
         _CACHE_DTYPES[k_cache.dtype], int(include_bg), smem, stream),
         "chunk_attn kernel launch")
     if nu:

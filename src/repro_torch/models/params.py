@@ -190,16 +190,18 @@ def _init_one(spec: TensorSpec, gen: torch.Generator, device) -> torch.Tensor:
     shape, dtype, init = spec.shape, spec.dtype, spec.init
     if init not in ("normal", "embed"):
         return materialize(spec, device)
+    # drawn in fp32 and scaled in place (one fp32 transient a leaf: kimi-k2's
+    # 384 x 7168 x 2048 expert leaf is 22.5 GB of it)
     x = torch.empty(shape, dtype=torch.float32, device=device)
     if init == "embed":
         std = spec.scale if spec.scale is not None else 0.02
-        return (x.normal_(generator=gen) * std).to(dtype)
+        return x.normal_(generator=gen).mul_(std).to(dtype)
     # truncated-normal init at std ``scale``, else fan-in (fan-in = the
     # second-to-last axis, as in the reference's init_one)
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = spec.scale if spec.scale is not None else 1.0 / math.sqrt(fan_in)
     torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (x * std).to(dtype)
+    return x.mul_(std).to(dtype)
 
 
 def _map(tree, fn):

@@ -39,8 +39,8 @@ RG-LRU state over the slots only), so attention and the recurrences run on
 the rank's block. Each model call takes the rank's slots (``kv.rows``)
 and its logits, over the whole vocab, are gathered over every slot
 (``kv.whole``), so sampling and the scheduler run alike on every rank and
-every rank returns the same streams. The speculative engine
-(``draft_level=1``) rides through unchanged.
+every rank returns the same streams. The speculative engine (every
+``draft_level``) rides through unchanged.
 """
 from __future__ import annotations
 
@@ -88,8 +88,10 @@ class EngineConfig:
     spec_k: speculative draft length (0 = plain decode); needs an MRA
       attention kind and the ring-paged cache (a recurrent state raises),
       and ``spec_k + 1 <= max_len``.
-    draft_level: background resolution of the drafts; only 1 (per-page
-      means) is ported — any other value raises.
+    draft_level: background resolution of the drafts: 1 reads every
+      page's mean; > 1 folds groups of 2^(draft_level-1) adjacent pages
+      that are all background for a row through their mean (a dispatch
+      raises where the cache's page count is not a multiple of that).
     mesh: a ``launch.mesh.Mesh`` for DP x TP serving (None: one device);
       ``params`` may be whole or the rank's blocks.
     telemetry: request-lifecycle tracing, latency histograms, occupancy
@@ -126,10 +128,9 @@ class Engine:
         if config.kernel_mode not in KERNEL_MODES:
             raise ValueError(f"EngineConfig.kernel_mode must be one of "
                              f"{KERNEL_MODES}, got {config.kernel_mode!r}")
-        if config.draft_level != 1:
-            raise NotImplementedError(
-                f"EngineConfig.draft_level={config.draft_level}: only "
-                "draft_level=1 is ported (ROADMAP.md)")
+        if config.draft_level < 1:
+            raise ValueError(f"EngineConfig.draft_level must be >= 1, got "
+                             f"{config.draft_level}")
         self.model = get_model(cfg)  # raises for a family not ported
         self.device = resolve_device(device)
         tok = params["embed"]["tok"]
@@ -158,7 +159,7 @@ class Engine:
             if self.spec_k + 1 > self.max_len:
                 raise ValueError(f"spec_k {self.spec_k} + 1 exceeds the cache "
                                  f"window {self.max_len}")
-            self._spec = SpecDecoder(cfg, self.spec_k)
+            self._spec = SpecDecoder(cfg, self.spec_k, config.draft_level)
             if not self.kv.supports_spec:
                 raise NotImplementedError(
                     "speculative decoding needs the ring-paged MRA cache; "

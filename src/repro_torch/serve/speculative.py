@@ -23,7 +23,8 @@ is a free draft model. Per round, for every slot of the decode wave:
 
 On a card every draft and verify dispatch runs the CUDA chunk kernel in
 every layer: drafts at C = 1 with the budget m = 1 (split decode and its
-combine), verifies at C = K + 1. Slots outside the round ride along
+combine; at ``draft_level > 1`` with the grouped far field), verifies at
+C = K + 1. Slots outside the round ride along
 untouched (``active`` / ``num_valid`` masking).
 """
 from __future__ import annotations
@@ -42,17 +43,17 @@ __all__ = ["SpecDecoder", "draft_config"]
 def draft_config(cfg: ModelConfig, draft_level: int = 1) -> ModelConfig:
     """The draft model IS the target model under coarse-only attention.
 
-    ``draft_level`` > 1 (groups of 2^(draft_level-1) pages folded through
-    their merged mean) runs only on the reference's jnp route; the port has
-    no such fold in its kernel yet (ROADMAP.md) and raises.
+    ``draft_level`` > 1 coarsens the draft's background one more rung
+    (DESIGN.md §14): a group of 2^(draft_level-1) adjacent pages that are
+    all background for a row folds through its merged mean. The fold runs
+    in the CUDA chunk kernel on a card (the reference runs it on its jnp
+    route only) and in its plain twin on the CPU; verify dispatches keep
+    the target config.
     """
-    if draft_level != 1:
-        raise NotImplementedError(
-            f"draft_level={draft_level}: the grouped far-field draft is not "
-            "ported (ROADMAP.md: a fold in the CUDA chunk kernel, or a later "
-            "plain route); only draft_level=1 serves")
-    return cfg.replace(attention=cfg.attention.replace(coarse_only=True,
-                                                       draft_level=1))
+    if draft_level < 1:
+        raise ValueError(f"draft_level must be >= 1, got {draft_level}")
+    return cfg.replace(attention=cfg.attention.replace(
+        coarse_only=True, draft_level=draft_level))
 
 
 class SpecDecoder:

@@ -409,6 +409,24 @@ def test_head_dim_80_plan(kernel, dtype, smem, blocks):
     assert bsa.launch_geometry(kernel, dtype, 80, 128, 32 * 32)["grid"] == 2048
 
 
+@pytest.mark.parametrize("kernel,dtype,smem,blocks", [
+    ("fwd", torch.bfloat16, 61952, 3), ("dq", torch.bfloat16, 108032, 2),
+    ("dkv", torch.bfloat16, 98304, 2), ("fwd", torch.float32, 133376, 1),
+    ("dq", torch.float32, 195840, 1), ("dkv", torch.float32, 196096, 1)])
+def test_head_dim_112_plan(kernel, dtype, smem, blocks):
+    """kimi-k2's (112, 128): one warp a 16-row slab owns all 112 columns
+    (col_split 1, as at D <= 128); a bf16 plane row of fourteen 16-byte
+    chunks is padded to fifteen (240 bytes), so every bf16 tile fits two
+    blocks an SM by shared memory, as (128, 128)'s do."""
+    assert bsa.plane_row_bytes(112) == 240
+    assert bsa.column_split(112) == 1
+    assert bsa.smem_bytes(kernel, dtype, 112, 128) == smem
+    assert bsa.planned_blocks_per_sm(kernel, dtype, 112, 128) == blocks
+    assert bsa.planned_blocks_per_sm(kernel, dtype, 112, 128) >= (
+        bsa.planned_blocks_per_sm(kernel, dtype, 128, 128))
+    assert bsa.launch_geometry(kernel, dtype, 112, 128, 32 * 32)["grid"] == 2048
+
+
 @pytest.mark.parametrize("kernel,dtype,rows,stage,smem", [
     ("fwd", torch.bfloat16, 64, 64, 164352),
     ("dq", torch.bfloat16, 64, 32, 196864),
@@ -437,7 +455,7 @@ def test_head_dim_256_plan(kernel, dtype, rows, stage, smem):
 
 
 @pytest.mark.parametrize("d,b", [(32, 64), (128, 64), (16, 128), (130, 128),
-                                 (80, 64), (112, 128), (256, 64)])
+                                 (80, 64), (96, 128), (256, 64)])
 def test_unbuilt_shapes_are_refused(d, b):
     with pytest.raises(ValueError, match="is not built"):
         bsa.check_shape(d, b)

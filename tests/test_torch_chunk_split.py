@@ -247,22 +247,24 @@ def test_tile_width_keeps_32_rows_and_refuses_unbuilt_shapes():
 
 
 def test_unbuilt_head_dims_are_refused_by_name():
-    """kimi-k2's (112, 128) is built for neither kernel; granite's (64, 128)
-    for both (the block-sparse backward since MoE training). Each refusal
-    is a ValueError naming the shape."""
+    """(96, 128), a head dim no served model has, is built for neither
+    kernel; granite's (64, 128) and kimi-k2's (112, 128) for both. Each
+    refusal is a ValueError naming the shape."""
     from repro_torch.kernels import block_sparse_attn as bsa
 
-    with pytest.raises(ValueError, match=r"\(112, 128\)"):
-        chunk_attn.check_shape(112, 128)
+    with pytest.raises(ValueError, match=r"\(96, 128\)"):
+        chunk_attn.check_shape(96, 128)
     chunk_attn.check_shape(chunk_attn.padded_dim(56), 128)
-    with pytest.raises(ValueError, match=r"\(112, 128\) is not built"):
-        bsa.check_shape(112, 128)
+    chunk_attn.check_shape(112, 128)
+    with pytest.raises(ValueError, match=r"\(96, 128\) is not built"):
+        bsa.check_shape(96, 128)
     bsa.check_shape(64, 128)
+    bsa.check_shape(112, 128)
     for kernel in ("fwd", "dq", "dkv"):
         assert bsa.kernel_plan(kernel, torch.bfloat16, 64, 128)[
             "sub_tiles"] == 2
     with pytest.raises(ValueError, match="is not built"):
-        bsa.kernel_plan("dq", torch.bfloat16, 112, 128)
+        bsa.kernel_plan("dq", torch.bfloat16, 96, 128)
 
 
 @pytest.mark.parametrize("D,b", [(56, 128), (12, 16)])

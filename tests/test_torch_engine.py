@@ -269,7 +269,8 @@ class _OneRank:
 @pytest.mark.parametrize("field,value", [("mesh", _OneRank()),
                                          ("draft_level", 2)])
 def test_unported_options_raise(cfgs, params, field, value):
-    """draft_level > 1 raises. A mesh serves every family now: the
+    """draft_level 2 builds (the grouped far-field draft is ported) and a
+    draft_level below 1 raises. A mesh serves every family now: the
     recurrent families' state caches too (tests/test_torch_dist_recurrent.py),
     so rwkv6 builds on a one-rank mesh, its tree whole and placed by the
     rules, and raises only for speculation, which its state cache lacks."""
@@ -286,8 +287,11 @@ def test_unported_options_raise(cfgs, params, field, value):
         with pytest.raises(NotImplementedError, match="speculative"):
             Engine(cfg, rp, ECFG.replace(mesh=value, spec_k=2), device="cpu")
         return
-    with pytest.raises(NotImplementedError, match=field):
-        Engine(tcfg, tp, ECFG.replace(**{field: value}), device="cpu")
+    eng = Engine(tcfg, tp, ECFG.replace(spec_k=2, **{field: value}),
+                 device="cpu")
+    assert eng._spec.dcfg.attention.draft_level == value
+    with pytest.raises(ValueError, match=field):
+        Engine(tcfg, tp, ECFG.replace(**{field: 0}), device="cpu")
     with pytest.raises(ValueError, match="kernel_mode"):
         Engine(tcfg, tp, ECFG.replace(kernel_mode="fast"), device="cpu")
 

@@ -74,7 +74,8 @@ def test_train_lm_small_preset_trains_both_kinds():
 
 @pytest.mark.parametrize("args", [
     [], ["--temperature", "0.8", "--seed", "7"], ["--spec-k", "2"],
-    ["--arch", "rwkv6-7b"]], ids=["greedy", "sampled", "spec", "rwkv6"])
+    ["--arch", "rwkv6-7b"], ["--mesh", "2x2"]],
+    ids=["greedy", "sampled", "spec", "rwkv6", "mesh2x2"])
 def test_serve_decode_serves_four_requests(args):
     out = serve_decode.main(["--device", "cpu", "--new-tokens", "4", *args])
     streams = out["streams"]
@@ -83,6 +84,9 @@ def test_serve_decode_serves_four_requests(args):
         assert all(len(t) == 4 for t in by_len.values())
     if "mra2" in streams and not args:
         assert out["identical"] == 4  # the reference's smoke run agrees too
+    if "--mesh" in args:  # four gloo ranks serve the one-device streams
+        one = serve_decode.main(["--device", "cpu", "--new-tokens", "4"])
+        assert streams == one["streams"]
 
 
 def test_examples_run_as_modules():

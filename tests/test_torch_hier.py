@@ -322,11 +322,12 @@ def _upper(seed, B, Hkv, D, pattern):
     return km, vm, cnt
 
 
-def _hier_both(case: Case, C, pattern, cache_dtype):
+def _hier_both(case: Case, C, pattern, cache_dtype, draft_level=1):
+    """(port, reference, inputs, port config) of one chunk call with an
+    H-level view of ``pattern`` (None: H = 2, no view) at ``draft_level``."""
     q, k, v, lengths, q_pos, pb, ks, vs = make_case_inputs(case, C=C)
     if cache_dtype == "bf16":  # the same bf16 values in both frameworks
         k, v = k.astype(jnp.bfloat16), v.astype(jnp.bfloat16)
-    km, vm, cnt = _upper(case.seed + 1, case.B, case.Hkv, case.D, pattern)
     if ks is not None:
         ksum, vsum = _dequant_pyramid(case, (q, k, v, lengths, q_pos, pb, ks, vs))
     else:
@@ -337,12 +338,18 @@ def _hier_both(case: Case, C, pattern, cache_dtype):
         ksum, vsum = (np.asarray(x.astype(jnp.float32)) * mask for x in (k, v))
         ksum, vsum = (x.reshape(case.B, case.Hkv, nb, case.b, case.D).sum(3)
                       for x in (ksum, vsum))
-    jpyr = jmd.PyramidState(jnp.asarray(ksum), jnp.asarray(vsum), jh.HierUpper(
-        jnp.asarray(km), jnp.asarray(vm), jnp.asarray(cnt)))
-    tpyr = tmd.PyramidState(T(ksum), T(vsum), th.HierUpper(T(km), T(vm), T(cnt)))
+    jup = tup = None
+    if pattern is not None:
+        km, vm, cnt = _upper(case.seed + 1, case.B, case.Hkv, case.D, pattern)
+        jup = jh.HierUpper(jnp.asarray(km), jnp.asarray(vm), jnp.asarray(cnt))
+        tup = th.HierUpper(T(km), T(vm), T(cnt))
+    jpyr = jmd.PyramidState(jnp.asarray(ksum), jnp.asarray(vsum), jup)
+    tpyr = tmd.PyramidState(T(ksum), T(vsum), tup)
     m = case.m
-    jcfg = JMraConfig(block_size=case.b, causal=True, variant=case.variant)
-    tcfg = MraConfig(block_size=case.b, variant=case.variant)
+    jcfg = JMraConfig(block_size=case.b, causal=True, variant=case.variant,
+                      draft_level=draft_level)
+    tcfg = MraConfig(block_size=case.b, variant=case.variant,
+                     draft_level=draft_level)
     ref = jmd.mra2_chunk_attention(
         q, k, v, lengths, q_pos, jcfg, decode_blocks=m, pyramid=jpyr,
         page_blocks=pb, k_scale=ks, v_scale=vs)
@@ -379,6 +386,31 @@ def test_chunk_attention_with_upper_matches_jax(C, cache_dtype, variant,
                                    err_msg=layout)
         if layout == "ragged" and variant == "full" and pattern != "all_dead":
             assert np.abs(got[0]).min() > 0.0  # empty window, live entries
+
+
+@pytest.mark.parametrize("H", [2, 3])
+@pytest.mark.parametrize("cache_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("draft_level", [2, 3])
+def test_draft_fold_matches_jax(draft_level, cache_dtype, H):
+    """The speculative draft's grouped far field (draft_level > 1: a group
+    of 2^(draft_level-1) adjacent pages that are all background for a row
+    enters through its count-weighted mean, a mixed group page by page) in
+    the port's plain twin == the reference's jnp route, at the drafts'
+    budget m = 1 and at m = 3, on the ring and ragged layouts, with (H = 3)
+    and without (H = 2) an H-level view; and the fold changes the result."""
+    moved = {}
+    for i, (layout, m) in enumerate((("paged", 1), ("ragged", 1),
+                                     ("paged", 3))):
+        case = Case(quant=cache_dtype == "int8", group=2, S=128, m=m,
+                    seed=60 + 4 * i + draft_level, **{layout: True})
+        pattern = "some_dead" if H == 3 else None
+        got, ref, _, _ = _hier_both(case, 1, pattern, cache_dtype,
+                                    draft_level)
+        np.testing.assert_allclose(got, ref, atol=ATOL, rtol=RTOL,
+                                   err_msg=f"{layout} m={m}")
+        base, _, _, _ = _hier_both(case, 1, pattern, cache_dtype)
+        moved[layout, m] = float(np.abs(got - base).max())
+    assert moved["paged", 1] > 1e-4 and moved["paged", 3] > 1e-4, moved
 
 
 def test_upper_fold_is_ignored_by_mra2_s_and_dead_entries():

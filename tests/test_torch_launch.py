@@ -264,14 +264,14 @@ def test_meta_route_records_each_call_and_the_unbuilt_shapes():
     dq, dk, dv = bsa._backward(q, k, k, None, mt, None, idx, idx, idx, None,
                                out, rs, 0.1, 128)
     assert tuple(dk.shape) == (2, 512, 128) and dq.dtype == torch.float32
-    q112 = torch.empty((4, 512, 112), device=dev)
-    bsa._forward(q112, q112[:2], q112[:2], torch.empty((4, 4), device=dev),
+    q96 = torch.empty((4, 512, 96), device=dev)
+    bsa._forward(q96, q96[:2], q96[:2], torch.empty((4, 4), device=dev),
                  idx, idx, idx, None, 0.1, 128)
     snap = cost.LEDGER.snapshot()
     assert {k: v["calls"] for k, v in snap["kernels"].items()} == {
         "bsa_fwd": 1, "bsa_bwd_dq": 1, "bsa_bwd_dkv": 1}
     assert snap["kernels"]["bsa_fwd"]["flops"] == 2 * 2 * 4 * 16 * 128 ** 3
-    assert snap["kernels_unbuilt"] == ["bsa_fwd (112, 128)"]
+    assert snap["kernels_unbuilt"] == ["bsa_fwd (96, 128)"]
     # at long_500k's 4096 pages qwen2-7b's G = 7 decode tile takes the
     # workspace program, qwen3-1.7b's G = 2 one still fits shared memory
     for arch, ws in (("qwen2-7b", True), ("qwen3-1.7b", False)):

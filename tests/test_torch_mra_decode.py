@@ -367,9 +367,14 @@ def test_wrapper_rejects_upper_levels_and_bad_arguments():
     with pytest.raises(ValueError, match="kernel_mode"):
         chunk_attn.chunk_attention_kernel(pre, T(k), T(v), T(q_pos), m=2,
                                           mode="warp")
-    with pytest.raises(NotImplementedError, match="draft_level"):
+    # draft_level > 1 serves; its page groups must divide the cache's pages
+    nb = k.shape[2] // tcfg.block_size
+    tmd.mra2_chunk_attention(T(q), T(k), T(v), T(lengths), T(q_pos),
+                             dataclasses.replace(tcfg, draft_level=2))
+    bad = nb.bit_length() + 1  # groups of 2^bit_length(nb) > nb pages
+    with pytest.raises(ValueError, match="draft_level"):
         tmd.mra2_chunk_attention(T(q), T(k), T(v), T(lengths), T(q_pos),
-                                 dataclasses.replace(tcfg, draft_level=2))
+                                 dataclasses.replace(tcfg, draft_level=bad))
 
 
 def test_bad_shapes_raise_value_errors():

@@ -315,23 +315,39 @@ def test_sampled_spec_batched_equals_solo_and_is_deterministic(cfgs, params):
         assert solo.spec_accepted == by[0][len(req.prompt)].spec_accepted
 
 
-def test_h3_speculative_matches_plain_and_the_jax_engine(cfgs, params):
+H3_MIX = [(np.arange(1, 201) % 512, 40), (np.arange(3, 40), 24),
+          (np.arange(5, 150), 30)]
+H3_ECFG = EngineConfig(slots=2, max_len=64, chunk=32)
+
+
+@pytest.fixture(scope="module")
+def h3(cfgs, params):
+    """(reference config, port config, port plain-decoding streams) at
+    levels=3, shared by the draft levels."""
+    jcfg, tcfg = (c.replace(attention=c.attention.replace(levels=3))
+                  for c in cfgs)
+    plain = _run(Engine, Request, Engine(tcfg, params[1], H3_ECFG,
+                                         device="cpu"), H3_MIX)
+    return jcfg, tcfg, plain
+
+
+@pytest.mark.parametrize("draft_level", [1, 2])
+def test_h3_speculative_matches_plain_and_the_jax_engine(params, h3,
+                                                         draft_level):
     """Greedy speculative serving at levels=3 — prompts far past the
     64-token window, generation across block boundaries, so rounds start on
     a boundary and the trim rewind replays a collapse — emits plain
-    decoding's tokens and the reference engine's, with its counters."""
-    jcfg, tcfg = (c.replace(attention=c.attention.replace(levels=3))
-                  for c in cfgs)
+    decoding's tokens and the reference engine's, with its counters; at
+    draft_level 2 the drafts fold whole-background page pairs through their
+    means (the reference's jnp route, the port's plain twin)."""
+    jcfg, tcfg, plain = h3
     jp, tp = params
-    mix = [(np.arange(1, 201) % 512, 40), (np.arange(3, 40), 24),
-           (np.arange(5, 150), 30)]
-    ecfg = EngineConfig(slots=2, max_len=64, chunk=32)
-    plain = _run(Engine, Request, Engine(tcfg, tp, ecfg, device="cpu"), mix)
     jeng = JEngine(jcfg, jp, JEngineConfig(slots=2, max_len=64, chunk=32,
-                                           spec_k=3))
-    ref = _run(JEngine, JRequest, jeng, mix)
-    eng = Engine(tcfg, tp, ecfg.replace(spec_k=3), device="cpu")
-    got = _run(Engine, Request, eng, mix)
+                                           spec_k=3, draft_level=draft_level))
+    ref = _run(JEngine, JRequest, jeng, H3_MIX)
+    eng = Engine(tcfg, tp, H3_ECFG.replace(spec_k=3, draft_level=draft_level),
+                 device="cpu")
+    got = _run(Engine, Request, eng, H3_MIX)
     for plen in ref:
         np.testing.assert_array_equal(got[plen], plain[plen])
         np.testing.assert_array_equal(got[plen], ref[plen])
@@ -374,8 +390,16 @@ def test_unservable_speculation_raises(cfgs, params):
     dense = tcfg.replace(attention=tcfg.attention.replace(kind="full"))
     with pytest.raises(NotImplementedError, match="coarse"):
         Engine(dense, tp, ECFG.replace(spec_k=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="draft_level"):
-        Engine(tcfg, tp, ECFG.replace(spec_k=2, draft_level=2), device="cpu")
+    # draft_level 2 builds; a group size that does not divide the cache's
+    # pages (4 pages of 16 tokens, groups of 8 at draft_level 4) raises at
+    # the first draft dispatch, as in the reference
+    Engine(tcfg, tp, ECFG.replace(spec_k=2, draft_level=2), device="cpu")
+    with pytest.raises(ValueError, match="draft_level"):
+        Engine(tcfg, tp, ECFG.replace(spec_k=2, draft_level=0), device="cpu")
+    bad = Engine(tcfg, tp, ECFG.replace(spec_k=2, draft_level=4),
+                 device="cpu")
+    with pytest.raises(ValueError, match="draft_level=4"):
+        bad.run([Request(prompt=np.arange(1, 9), max_new_tokens=4)])
     with pytest.raises(ValueError, match="spec_k"):
         Engine(tcfg, tp, ECFG.replace(spec_k=64), device="cpu")
     # the non-paged cache has no snapshot to take
