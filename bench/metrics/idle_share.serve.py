@@ -1,0 +1,6 @@
+"""Share of the traced serving window with no kernel on the device."""
+from mrabench import readers
+
+
+def read(run):
+    return readers.idle_share(run)
